@@ -2,27 +2,38 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain PyTorch version on the card, checks a whole
-trace on the card against the same trace on the CPU under shared variates,
-then drives the main path -- the Cornell box at 512x512, 4 wavelengths,
-trace depth 3, 64 samples through ``RenderSession.run`` -- and checks that
-it went through the kernels and made a healthy image. Run from the
-repository root:
+each kernel against its plain PyTorch version on the card, checks whole
+traces on the card against the same traces on the CPU under shared
+variates, then drives two paths through the entry points a user calls and
+checks that each went through its kernels and made a healthy image:
 
-    python3 chip_smoke.py              # one card, about a minute
-    python3 chip_smoke.py --profile    # also print a torch.profiler table
+- the main path: the Cornell box at 512x512, 4 wavelengths, trace depth 3,
+  64 samples through ``RenderSession.run`` (the dense sweep K1 and the
+  attribute fetch K2);
+- the large-scene path: the 51,778-triangle procedural terrain of
+  ``bench_suite.terrain_scene`` at 512x512, depth 3, 16 samples through a
+  ``RenderSession`` whose ``"auto"`` backend resolves to ``"hier"`` (the
+  BVH walk K3, the fetch K2 and the bounce-ray reorder), then 4 samples
+  with ``backend="cluster"`` (the cluster-culled sweep K4).
+
+Run from the repository root:
+
+    python3 chip_smoke.py              # one card, about two minutes
+    python3 chip_smoke.py --profile    # also print torch.profiler tables
 
 Every check raises on failure, and the script exits non-zero without
 printing its result line. It refuses to run without a CUDA device and
 without the port's package beside it. Its last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launches on the main path, its error against the plain version
-and both times.
+with its launches on its path, its error against the plain version and
+both times.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -40,6 +51,11 @@ SPP = 64               # ... 64 samples in one render_samples call
 TRACE_RES = 64         # shared-variate trace, CUDA vs CPU
 AGREE_GATE_PCT = 99.8  # hit agreement gate (bench_suite.AGREE_GATE_PCT)
 TRACE_RTOL, TRACE_ATOL = 1e-4, 1e-6
+LARGE_SPP = 16         # large-scene path: 16 samples in one call ...
+CLUSTER_SPP = 4        # ... then 4 through the cluster backend
+# make_terrain arguments of the repo's terrain assets (make_assets.py)
+TERRAINS = {"10k": dict(grid=64, n_rocks=8, rock_sub=8),
+            "52k": dict(grid=128, n_rocks=36, rock_sub=12)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -75,14 +91,23 @@ def tiny_scene(pt, res: int, depth: int = DEPTH):
 
 
 def random_soup(torch, dev, n_tris: int, n_rays: int, seed: int):
-    """Seeded triangle soup in [-1, 1]^3 and rays aimed at it from a shell
-    around it; every 7th ray is parked (origin 1e30, rd = 0)."""
+    """Seeded triangle soup in [-1, 1]^3, reordered by the port's SAH BVH,
+    and rays aimed at it from a shell around it; every 7th ray is parked
+    (origin 1e30, rd = 0). Returns (planes, tri16, BVH node arrays,
+    cluster boxes) on ``dev``."""
+    from pathtracing_spectrum_tpu_torch.models.geometry import empty_soa
+    from pathtracing_spectrum_tpu_torch.ops import bvh
     from pathtracing_spectrum_tpu_torch.ops.intersect import (
         pack_tri16, precompute_intersect_tables)
+    from pathtracing_spectrum_tpu_torch.scene import build_cluster_aabbs
     rng = np.random.default_rng(seed)
     v1 = rng.uniform(-1, 1, (n_tris, 3))
     e1 = rng.normal(0, 0.3, (n_tris, 3))
     e2 = rng.normal(0, 0.3, (n_tris, 3))
+    order = bvh.build_bvh(dataclasses.replace(
+        empty_soa(), v1=v1.astype(np.float32), e1=e1.astype(np.float32),
+        e2=e2.astype(np.float32)))
+    v1, e1, e2 = v1[order.tri_order], e1[order.tri_order], e2[order.tri_order]
     fn = np.cross(e1, e2)
     fn /= np.linalg.norm(fn, axis=1, keepdims=True)
     k1, k2, k3, c = precompute_intersect_tables(v1, e1, e2, fn)
@@ -96,38 +121,104 @@ def random_soup(torch, dev, n_tris: int, n_rays: int, seed: int):
               for a in (ro, rd) for k in range(3)]
     tri16 = pack_tri16(*(torch.tensor(a, dtype=torch.float32, device=dev)
                          for a in (fn, k1, k2, k3, c)))
-    return planes, tri16
+    v2, v3 = v1 + e1, v1 + e2
+    caabb = build_cluster_aabbs(
+        np.minimum(np.minimum(v1, v2), v3).astype(np.float32),
+        np.maximum(np.maximum(v1, v2), v3).astype(np.float32))
+    nodes = [torch.from_numpy(a).to(dev) for a in (
+        order.node_min, order.node_max, order.node_skip, order.node_first,
+        order.node_count)]
+    return planes, tri16, nodes, torch.from_numpy(caabb).to(dev)
 
 
-def time_pair(torch, kernel, plain, iters: int = 50):
+def make_terrain(which: str) -> str:
+    """Write ``assets/terrain_<which>.obj`` (git-ignored) with
+    ``assets/make_assets.py::make_terrain``, imported by path: its
+    ``__main__`` rewrites the checked-in assets and is never run."""
+    spec = importlib.util.spec_from_file_location(
+        "make_assets", os.path.join(HERE, "assets", "make_assets.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    path = os.path.join(HERE, "assets", f"terrain_{which}.obj")
+    mod.make_terrain(path, **TERRAINS[which])
+    return path
+
+
+def terrain_scene(pt, path: str, res: int, depth: int = DEPTH):
+    """``bench_suite.terrain_scene`` with the port's Scene: a diffuse
+    ground, glossy rocks (roughness 0.3), an emitter panel at 450 C."""
+    sc = pt.Scene()
+    sc.wavelengths = [500.0, 1000.0, 1500.0, 2000.0]
+    sc.spectrum_materials = [
+        pt.SpectrumMaterial("ground", [0.7, 0.75, 0.8, 0.7]),
+        pt.SpectrumMaterial("rock", [0.5, 0.55, 0.5, 0.45]),
+        pt.SpectrumMaterial("emitter", [1.0] * 4),
+    ]
+    sc.trace_depth = depth
+    sc.resolution = (res, res)
+    obj = sc.load_object(path)
+    mats = {
+        "terrain": pt.Material(type=pt.MaterialType.DIFFUSE,
+                               spectrum_mat_id=0, temperature=15.0),
+        "rocks": pt.Material(type=pt.MaterialType.GLOSSY, spectrum_mat_id=1,
+                             temperature=15.0, roughness=0.3),
+        "light": pt.Material(type=pt.MaterialType.DIFFUSE, spectrum_mat_id=2,
+                             temperature=450.0),
+    }
+    for i, el in enumerate(obj.elements):
+        sc.set_material(0, i, mats[el.name])
+    sc.set_camera([0.0, 4.0, -10.0], [0.0, 0.5, 0.0])
+    sc.camera_fovy = 55.0
+    return sc
+
+
+def agreement(got, want):
+    """(hit/idx agreement %, max |d| of t, s2, s3 where they agree, rays
+    with a hit) of two (hit, t, idx, s2, s3) results."""
+    agree = (got[2] == want[2]) & (got[0] == want[0])
+    pct = agree.float().mean().item() * 100.0
+    err = max((got[j] - want[j]).abs()[agree].max().item()
+              for j in (1, 3, 4))
+    return pct, err, int(want[0].sum())
+
+
+def time_pair(torch, kernel, plain, iters: int = 50, plain_iters: int = 0,
+              plain_warmup: int = 3):
     """Mean device ms per call of ``kernel`` and ``plain``, measured in
-    turns (plain, kernel, kernel, plain) with CUDA events after a warmup.
+    turns (plain, kernel, kernel, plain) with CUDA events after a warmup;
+    ``plain_iters``/``plain_warmup`` shorten the plain version's loop
+    (0: as the kernel's).
 
     A spin kernel queued first keeps the card busy while the host issues
     the timed calls, so the events bracket back-to-back device work: a
     wrapper's Python overhead (tens of µs) would otherwise exceed the
-    kernel's own time and be measured in its place."""
-    def one(fn):
-        for _ in range(3):
+    kernel's own time and be measured in its place. A plain version that
+    waits for the device inside (the hierarchical ones do) ends the spin
+    early; its time then includes its own host waits."""
+    def one(fn, n, warmup):
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(100_000_000)     # ~50 ms of spinning at ~2 GHz
         start.record()
-        for _ in range(iters):
+        for _ in range(n):
             fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / iters
-    p1, k1, k2, p2 = one(plain), one(kernel), one(kernel), one(plain)
+        return start.elapsed_time(end) / n
+    pn = plain_iters or iters
+    p1 = one(plain, pn, plain_warmup)
+    k1, k2 = one(kernel, iters, 3), one(kernel, iters, 3)
+    p2 = one(plain, pn, plain_warmup)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile 4 main-path samples with torch.profiler")
+                    help="profile 4 samples of each path with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -143,9 +234,30 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     import pathtracing_spectrum_tpu_torch as pt
-    from pathtracing_spectrum_tpu_torch import _build, engine
-    from pathtracing_spectrum_tpu_torch.ops import fetch_cuda, intersect_cuda
+    from pathtracing_spectrum_tpu_torch import _build, engine, reorder
+    from pathtracing_spectrum_tpu_torch.models.camera import tile_order
+    from pathtracing_spectrum_tpu_torch.ops import (
+        fetch_cuda, intersect_cluster_cuda, intersect_cuda,
+        intersect_hier_cuda)
     from pathtracing_spectrum_tpu_torch.ops.intersect import pack_tri16
+    k3_fn, k4_fn = (intersect_hier_cuda.intersect_bvh,
+                    intersect_cluster_cuda.intersect_cluster)
+
+    def counts():
+        return {"intersect_dense": intersect_cuda.intersect_dense.launches,
+                "fetch_rows": fetch_cuda.fetch_rows.launches,
+                "intersect_bvh": k3_fn.launches,
+                "intersect_cluster": k4_fn.launches,
+                "sorts": reorder.permutation.calls}
+
+    def zero_counts():
+        for fn in (intersect_cuda.intersect_dense, fetch_cuda.fetch_rows,
+                   k3_fn, k4_fn):
+            fn.launches = 0
+        reorder.permutation.calls = 0
+
+    def phase_done(phase, t_start):
+        say(phase, phase_seconds=f"{time.perf_counter() - t_start:.2f}")
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -166,11 +278,14 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     lib = _build.load()
+    host = _build.load_host()
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         nvcc_seconds=f"{_build.build_seconds():.2f}",
-        library=os.path.relpath(lib._name, HERE))
+        library=os.path.relpath(lib._name, HERE),
+        host_library=os.path.relpath(host._name, HERE))
 
     # ---- 3. K1 against its plain version ----------------------------------
+    t_phase = time.perf_counter()
     sc = tiny_scene(pt, RES)
     scene = sc.compile(dev)
     ro, rd = pt.camera_rays(sc.camera(), RES, RES, device=dev)
@@ -179,8 +294,8 @@ def main() -> int:
     tri16 = pack_tri16(scene.tri_face_n, scene.tri_k1, scene.tri_k2,
                        scene.tri_k3, scene.tri_consts)
     k1_err = 0.0
-    cases = {"cornell-primary": (prim, tri16),
-             "soup-2000": random_soup(torch, dev, 2000, 65536, seed=3)}
+    soup = random_soup(torch, dev, 2000, 65536, seed=3)
+    cases = {"cornell-primary": (prim, tri16), "soup-2000": soup[:2]}
     for name, (planes, tri) in cases.items():
         want = intersect_cuda.intersect_dense_ref(*planes, tri)
         got = intersect_cuda.intersect_dense(*planes, tri)
@@ -206,8 +321,10 @@ def main() -> int:
         lambda: intersect_cuda.intersect_dense_ref(*prim, tri16))
     say("K1", shape=f"N={prim[0].shape[0]},T={tri16.shape[0]}",
         kernel_ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}", card=repr(card))
+    phase_done("K1", t_phase)
 
     # ---- 4. K2 against its plain version ----------------------------------
+    t_phase = time.perf_counter()
     shade_sub = engine._prepare(scene, "auto").shade_sub
     t_count = shade_sub.shape[0]
     g = torch.Generator(device=dev)
@@ -238,8 +355,10 @@ def main() -> int:
     say("K2", shape=f"N={main_idx.shape[0]},T={t_count},F={shade_sub.shape[1]}",
         kernel_ms=f"{k2_ms:.4f}", plain_ms=f"{k2_plain_ms:.4f}",
         card=repr(card))
+    phase_done("K2", t_phase)
 
     # ---- 5. shared variates: the trace on the card vs on the CPU ----------
+    t_phase = time.perf_counter()
     sc64 = tiny_scene(pt, TRACE_RES)
     ro64, rd64 = pt.camera_rays(sc64.camera(), TRACE_RES, TRACE_RES)
     n64 = ro64.shape[0]
@@ -283,20 +402,21 @@ def main() -> int:
     check(close, "CUDA and CPU traces differ beyond tolerance")
     check(n_diff <= n64 * (100.0 - AGREE_GATE_PCT) / 100.0,
           f"{n_diff} pixels hit other triangles on the card")
+    phase_done("trace", t_phase)
 
     # ---- 6. main path: RenderSession on the card --------------------------
+    t_phase = time.perf_counter()
     warm = pt.RenderSession(sc, dev, seed=1)
     warm.run(2, batch=2)
     torch.cuda.synchronize()
     sess = pt.RenderSession(sc, dev, seed=0)
     sess.start()
     torch.cuda.synchronize()
-    intersect_cuda.intersect_dense.launches = 0
-    fetch_cuda.fetch_rows.launches = 0
+    zero_counts()
     img = sess.run(SPP, batch=SPP)
     torch.cuda.synchronize()
-    launches = {"intersect_dense": intersect_cuda.intersect_dense.launches,
-                "fetch_rows": fetch_cuda.fetch_rows.launches}
+    main_counts = counts()
+    launches = {k: main_counts[k] for k in ("intersect_dense", "fetch_rows")}
     st = sess.stats()
     want_launches = 1 + SPP * (2 * DEPTH - 1)
     h = img.shape[0]
@@ -309,6 +429,9 @@ def main() -> int:
     for name, n in launches.items():
         check(n == want_launches, f"{name} launched {n} times on the main "
               f"path, expected {want_launches}")
+    check(st["backend"] == "dense", f"main path resolved {st['backend']}")
+    check(main_counts["intersect_bvh"] == main_counts["intersect_cluster"]
+          == main_counts["sorts"] == 0, f"main path counts {main_counts}")
     check(isinstance(st["rays_traced"], int)
           and st["rays_traced"] >= SPP * RES * RES, "rays_traced")
     check(img.shape == (RES, RES, 4), f"image shape {img.shape}")
@@ -332,9 +455,268 @@ def main() -> int:
         ms_per_sample.append(ms / SPP)
     say("main", mrays_per_s=mrays, ms_per_sample=ms_per_sample,
         session_mrays_per_s=st["mrays_per_s"], card=repr(card))
-
     if args.profile:
-        profile(torch, sess, min(ms_per_sample))
+        profile(torch, sess, min(ms_per_sample), "main")
+    phase_done("main", t_phase)
+
+    # ---- 7. terrain: the large-scene configuration -------------------------
+    t_phase = time.perf_counter()
+    path52 = make_terrain("52k")
+    path10 = make_terrain("10k")
+    sc52 = terrain_scene(pt, path52, RES)
+    t0 = time.perf_counter()
+    scene52 = sc52.compile(dev)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    nodes52 = (scene52.bvh_node_min, scene52.bvh_node_max,
+               scene52.bvh_node_skip, scene52.bvh_node_first,
+               scene52.bvh_node_count)
+    tri52 = pack_tri16(scene52.tri_face_n, scene52.tri_k1, scene52.tri_k2,
+                       scene52.tri_k3, scene52.tri_consts)
+    say("terrain", triangles=scene52.n_triangles,
+        bvh_nodes=scene52.bvh_node_min.shape[0],
+        clusters=scene52.cluster_aabbs.shape[0],
+        compile_seconds=f"{compile_s:.2f}")
+    check(scene52.n_triangles == 51778, "terrain_52k triangle count")
+    ro52, rd52 = pt.camera_rays(sc52.camera(), RES, RES, device=dev)
+    prim52 = [ro52[:, k].contiguous() for k in range(3)] + \
+        [rd52[:, k].contiguous() for k in range(3)]
+    # the rays of bounce iteration 2 of a terrain trace, as K3 gets them
+    bounce2 = []
+    real_k3 = intersect_hier_cuda.intersect_bvh
+
+    def recording_k3(*a):
+        if len(bounce2) == 2:
+            bounce2.append([p.clone() for p in a[:6]])
+        else:
+            bounce2.append(None)
+        return real_k3(*a)
+
+    recording_k3.launches = 0   # the wrapper counts on its module's name
+    intersect_hier_cuda.intersect_bvh = recording_k3
+    try:
+        engine.trace_radiance(scene52, ro52, rd52,
+                              engine.sample_generator(7, 0, dev), DEPTH)
+        torch.cuda.synchronize()
+    finally:
+        intersect_hier_cuda.intersect_bvh = real_k3
+    bounce_rays = bounce2[2]
+    check(bounce_rays is not None, "no bounce-2 rays recorded")
+    phase_done("terrain", t_phase)
+
+    # ---- 8. K3 and K4 against their plain versions -------------------------
+    hier_cases = {
+        "terrain-primary": (prim52, tri52, nodes52, scene52.cluster_aabbs),
+        "soup-2000": soup,
+        "terrain-bounce2": (bounce_rays, tri52, nodes52,
+                            scene52.cluster_aabbs)}
+    dense52 = intersect_cuda.intersect_dense(*prim52, tri52)
+    hier_err, hier_ms = {}, {}
+    for label, name, kernel, plain, extra in (
+            ("K3", "intersect_bvh", k3_fn,
+             intersect_hier_cuda.intersect_bvh_ref, lambda c: c[2]),
+            ("K4", "intersect_cluster", k4_fn,
+             intersect_cluster_cuda.intersect_cluster_ref,
+             lambda c: [c[3]])):
+        t_phase = time.perf_counter()
+        hier_err[name] = 0.0
+        for case, c in hier_cases.items():
+            planes, table = c[0], c[1]
+            want = plain(*planes, table, *extra(c))
+            got = kernel(*planes, table, *extra(c))
+            torch.cuda.synchronize()
+            pct, err, hits = agreement(got, want)
+            hier_err[name] = max(hier_err[name], err)
+            fields = {}
+            if case == "terrain-primary":
+                pct_dense, _, _ = agreement(got, dense52)
+                fields["idx_agree_vs_K1_pct"] = f"{pct_dense:.4f}"
+                check(pct_dense >= AGREE_GATE_PCT,
+                      f"{label} vs K1 agreement {pct_dense:.4f}% on {case}")
+            if case == "soup-2000":
+                check(not got[0][::7].any().item(),
+                      f"{label}: a parked ray hit on {case}")
+            say(label, case=case, rays=planes[0].shape[0],
+                tris=table.shape[0], hits=hits, idx_agree_pct=f"{pct:.4f}",
+                max_abs_err=err, gate=f">={AGREE_GATE_PCT}%", **fields)
+            check(pct >= AGREE_GATE_PCT,
+                  f"{label} idx agreement {pct:.4f}% on {case}")
+            check(hits > 0, f"{label} case {case} hits nothing")
+        hier_ms[name] = time_pair(
+            torch, lambda: kernel(*prim52, tri52, *extra(
+                hier_cases["terrain-primary"])),
+            lambda: plain(*prim52, tri52, *extra(
+                hier_cases["terrain-primary"])),
+            plain_iters=2, plain_warmup=1)
+        say(label, shape=f"N={prim52[0].shape[0]},T={tri52.shape[0]}",
+            kernel_ms=f"{hier_ms[name][0]:.4f}",
+            plain_ms=f"{hier_ms[name][1]:.4f}", card=repr(card))
+        phase_done(label, t_phase)
+
+    # K2 on the terrain's table (51,778 rows, read through the cache)
+    t_phase = time.perf_counter()
+    shade52 = engine._prepare(scene52, "auto").shade_sub
+    idx52 = torch.cat([dense52[2], edge])
+    same = torch.equal(fetch_cuda.fetch_rows(idx52, shade52).view(torch.int32),
+                       fetch_cuda.fetch_rows_ref(idx52, shade52)
+                       .view(torch.int32))
+    k2_52_ms, k2_52_plain_ms = time_pair(
+        torch, lambda: fetch_cuda.fetch_rows(dense52[2], shade52),
+        lambda: fetch_cuda.fetch_rows_ref(dense52[2], shade52))
+    say("K2", case="terrain-primary",
+        table=f"{shade52.shape[0]}x{shade52.shape[1]}", bitwise_equal=same,
+        kernel_ms=f"{k2_52_ms:.4f}", plain_ms=f"{k2_52_plain_ms:.4f}",
+        card=repr(card))
+    check(same, "K2 differs on the terrain table")
+    phase_done("K2-terrain", t_phase)
+
+    # ---- 9. shared variates: terrain traces through K3 and K4 -------------
+    t_phase = time.perf_counter()
+    sc10 = terrain_scene(pt, path10, TRACE_RES)
+    ro10, rd10 = pt.camera_rays(sc10.camera(), TRACE_RES, TRACE_RES)
+    n10 = ro10.shape[0]
+    rand10 = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 1, (2 * DEPTH, 4, n10)).astype(np.float32))
+    scene10_cpu, scene10_dev = sc10.compile("cpu"), sc10.compile(dev)
+    for backend in ("hier", "cluster"):
+        fetched = {}
+        real_fetch = fetch_cuda.fetch_rows
+
+        def recording_fetch(idx, table):
+            fetched.setdefault(idx.device.type, []).append(idx.cpu())
+            return real_fetch(idx, table)
+
+        recording_fetch.launches = 0
+        fetch_cuda.fetch_rows = recording_fetch
+        sorts0 = reorder.permutation.calls
+        try:
+            on_cpu = engine.trace_radiance(scene10_cpu, ro10, rd10, None,
+                                           DEPTH, backend=backend,
+                                           rand_override=rand10)
+            sorts_cpu = reorder.permutation.calls - sorts0
+            on_dev = engine.trace_radiance(scene10_dev, ro10.to(dev),
+                                           rd10.to(dev), None, DEPTH,
+                                           backend=backend,
+                                           rand_override=rand10.to(dev))
+            torch.cuda.synchronize()
+        finally:
+            fetch_cuda.fetch_rows = real_fetch
+        sorts_dev = reorder.permutation.calls - sorts0 - sorts_cpu
+        # fetch_rows gets each bounce's winners in ray order, sorted or not
+        differs = torch.zeros(n10, dtype=torch.bool)
+        for ic, idd in zip(fetched["cpu"], fetched["cuda"]):
+            differs |= ic != idd
+        a, b = on_dev.radiance.cpu()[~differs], on_cpu.radiance[~differs]
+        close = torch.allclose(a, b, rtol=TRACE_RTOL, atol=TRACE_ATOL)
+        n_diff = int(differs.sum())
+        say("trace", scene="terrain-10k", backend=backend, pixels=n10,
+            tris=scene10_dev.n_triangles, depth=DEPTH,
+            bounces=len(fetched["cuda"]), sorts_on_card=sorts_dev,
+            pixels_with_other_hits=n_diff,
+            max_abs_diff_elsewhere=(a - b).abs().max().item(),
+            rays_cuda=int(on_dev.rays_traced),
+            rays_cpu=int(on_cpu.rays_traced),
+            tolerance=f"rtol={TRACE_RTOL},atol={TRACE_ATOL}")
+        check(len(fetched["cuda"]) == len(fetched["cpu"]) == 2 * DEPTH,
+              "the terrain trace did not fetch once per bounce")
+        check(sorts_cpu == 0 and sorts_dev == 2 * DEPTH - 2,
+              f"reorder ran {sorts_cpu} times on the CPU and {sorts_dev} "
+              "on the card")
+        check(close, f"{backend}: CUDA and CPU terrain traces differ beyond "
+              "tolerance")
+        check(n_diff <= n10 * (100.0 - AGREE_GATE_PCT) / 100.0,
+              f"{backend}: {n_diff} pixels hit other triangles on the card")
+    phase_done("trace-terrain", t_phase)
+
+    # ---- 10. large-scene path: RenderSession on the terrain ---------------
+    t_phase = time.perf_counter()
+    warm = pt.RenderSession(sc52, dev, seed=1)
+    warm.run(2, batch=2)
+    torch.cuda.synchronize()
+    sess52 = pt.RenderSession(sc52, dev, seed=0)
+    sess52.start()
+    torch.cuda.synchronize()
+    zero_counts()
+    img52 = sess52.run(LARGE_SPP, batch=LARGE_SPP)
+    torch.cuda.synchronize()
+    large_counts = counts()
+    st52 = sess52.stats()
+    want52 = 1 + LARGE_SPP * (2 * DEPTH - 1)
+    say("large", res=f"{RES}x{RES}", tris=scene52.n_triangles,
+        backend=st52["backend"], spp=LARGE_SPP, expected=want52,
+        launches_K1=large_counts["intersect_dense"],
+        launches_K2=large_counts["fetch_rows"],
+        launches_K3=large_counts["intersect_bvh"],
+        launches_K4=large_counts["intersect_cluster"],
+        sorts=large_counts["sorts"], rays_traced=st52["rays_traced"],
+        mean=float(img52.mean()))
+    check(st52["backend"] == "hier", f"terrain resolved {st52['backend']}")
+    check(large_counts["intersect_bvh"] == want52
+          and large_counts["fetch_rows"] == want52,
+          f"large-scene launches {large_counts}, expected {want52}")
+    check(large_counts["intersect_dense"] == 0
+          and large_counts["intersect_cluster"] == 0,
+          f"large-scene path left K3: {large_counts}")
+    check(large_counts["sorts"] == LARGE_SPP * (2 * DEPTH - 1),
+          f"reorder ran {large_counts['sorts']} times, expected every "
+          "looped iteration")
+    check(img52.shape == (RES, RES, 4), f"image shape {img52.shape}")
+    check(bool(np.isfinite(img52).all()), "terrain image non-finite")
+    check(bool((img52 >= 0).all()), "terrain image negative")
+    check(img52.mean() > 0, "terrain image is black")
+
+    # Mrays/s with the reorder on ("auto") and off, in turns, through
+    # render_samples on the session's rays, timed with CUDA events
+    perm, _ = tile_order(RES, RES)
+    perm_t = torch.from_numpy(perm.astype(np.int64)).to(dev)
+    ro_t, rd_t = ro52[perm_t], rd52[perm_t]
+    rates = {"auto": [], False: []}
+    for mode in ("auto", False, False, "auto"):
+        total = torch.zeros((RES * RES, 4), device=dev)
+        engine.render_samples(scene52, ro_t, rd_t, total, 0, 3, 0, n_steps=1,
+                              max_depth=DEPTH, reorder=mode)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        _, _, _, rays = engine.render_samples(
+            scene52, ro_t, rd_t, total, 0, 3, 100, n_steps=LARGE_SPP,
+            max_depth=DEPTH, reorder=mode)
+        e1.record()
+        e1.synchronize()
+        ms = e0.elapsed_time(e1)
+        rates[mode].append((int(rays) / ms / 1e3, ms / LARGE_SPP))
+    for mode, vals in rates.items():
+        say("large", reorder=mode, mrays_per_s=[v[0] for v in vals],
+            ms_per_sample=[v[1] for v in vals], card=repr(card))
+    if args.profile:
+        profile(torch, sess52, min(v[1] for v in rates["auto"]), "large")
+
+    # the second entry point: backend="cluster" on the same scene
+    sess_c = pt.RenderSession(sc52, dev, seed=0, backend="cluster")
+    sess_c.start()
+    torch.cuda.synchronize()
+    zero_counts()
+    img_c = sess_c.run(CLUSTER_SPP, batch=CLUSTER_SPP)
+    torch.cuda.synchronize()
+    cluster_counts = counts()
+    st_c = sess_c.stats()
+    want_c = 1 + CLUSTER_SPP * (2 * DEPTH - 1)
+    say("cluster", backend=st_c["backend"], spp=CLUSTER_SPP,
+        expected=want_c, launches_K4=cluster_counts["intersect_cluster"],
+        launches_K2=cluster_counts["fetch_rows"],
+        launches_K3=cluster_counts["intersect_bvh"],
+        sorts=cluster_counts["sorts"], mrays_per_s=st_c["mrays_per_s"],
+        mean=float(img_c.mean()), card=repr(card))
+    check(st_c["backend"] == "cluster", "cluster session backend")
+    check(cluster_counts["intersect_cluster"] == want_c
+          and cluster_counts["fetch_rows"] == want_c
+          and cluster_counts["intersect_bvh"] == 0
+          and cluster_counts["intersect_dense"] == 0,
+          f"cluster launches {cluster_counts}, expected {want_c}")
+    check(bool(np.isfinite(img_c).all()) and bool((img_c >= 0).all())
+          and img_c.mean() > 0, "cluster image unhealthy")
+    phase_done("large", t_phase)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib")
                   for m in sys.modules), "jax was imported")
@@ -350,6 +732,22 @@ def main() -> int:
          "replaces": "pathtracing_spectrum_tpu/ops/fetch_pallas.py:32",
          "launches": launches["fetch_rows"], "max_abs_err": 0.0,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "intersect_bvh", "route": "cuda",
+         "source": src + "intersect_bvh.cu",
+         "replaces": ("pathtracing_spectrum_tpu/ops/intersect_shortlist.py"
+                      ":549, pathtracing_spectrum_tpu/ops/"
+                      "intersect_worklist.py:101"),
+         "launches": large_counts["intersect_bvh"],
+         "max_abs_err": hier_err["intersect_bvh"],
+         "ms": hier_ms["intersect_bvh"][0],
+         "plain_ms": hier_ms["intersect_bvh"][1]},
+        {"name": "intersect_cluster", "route": "cuda",
+         "source": src + "intersect_cluster.cu",
+         "replaces": "pathtracing_spectrum_tpu/ops/intersect_pallas.py:234",
+         "launches": cluster_counts["intersect_cluster"],
+         "max_abs_err": hier_err["intersect_cluster"],
+         "ms": hier_ms["intersect_cluster"][0],
+         "plain_ms": hier_ms["intersect_cluster"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -358,7 +756,7 @@ def main() -> int:
     return 0
 
 
-def profile(torch, sess, ms_per_sample: float) -> None:
+def profile(torch, sess, ms_per_sample: float, path: str) -> None:
     """Kernel time by name over 4 more samples of the session. The device's
     busy share is that kernel time per sample over ``ms_per_sample``, the
     unprofiled time of a sample (the profiler's own overhead stretches the
@@ -375,12 +773,13 @@ def profile(torch, sess, ms_per_sample: float) -> None:
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     launches = sum(e.count for e in kernels) / n
-    say("profile", samples=n, kernel_ms_per_sample=busy_ms,
-        launches_per_bounce=launches / (2 * DEPTH),
+    say("profile", path=path, samples=n, kernel_ms_per_sample=busy_ms,
+        launches_per_bounce=launches / (2 * sess.scene.trace_depth),
         device_busy_pct=100.0 * busy_ms / ms_per_sample)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         name = e.key.replace("void ", "").replace("at::native::", "")
-        say("profile", kernel=repr(name[:90]), calls_per_sample=e.count / n,
+        say("profile", path=path, kernel=repr(name[:90]),
+            calls_per_sample=e.count / n,
             ms_per_sample=e.self_device_time_total / 1e3 / n)
 
 

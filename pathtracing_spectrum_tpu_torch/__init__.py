@@ -9,18 +9,22 @@ shading-table packing, intersection precompute) is therefore carried here
 as a jax-free copy, and the CPU tests hold it equal to the JAX package,
 array for array.
 
-This slice covers the main path: the dense closest-hit sweep and the
-attribute fetch (hand-written CUDA kernels under ``csrc/``), the dense
-non-hero bounce loop, ``render_samples`` with the primary-hit hoist, and a
-synchronous ``RenderSession``. Everything else raises
-``NotImplementedError`` with a pointer to its ROADMAP item.
+The port covers the main path and the large-scene path: BVH-ordered
+scene compilation (the binned-SAH builder, host C++), the closest-hit
+kernels K1 (dense sweep), K3 (BVH walk, the ``hier`` backend) and K4
+(cluster-culled sweep), the attribute fetch K2 (hand-written CUDA kernels
+under ``csrc/``), the non-hero bounce loop with the bounce-ray reorder,
+``render_samples`` with the primary-hit hoist, and a synchronous
+``RenderSession``. Everything else raises ``NotImplementedError`` with a
+pointer to its ROADMAP item.
 """
 
 from .constants import BIG, EPS, __version__
 from .models.materials import Material, MaterialType, SpectrumMaterial
 from .models.camera import Camera, camera_rays
 from .scene import Scene, SceneData, scene_data_from_numpy
-from .engine import render_sample, render_samples, trace_radiance
+from .engine import (make_intersector, render_sample, render_samples,
+                     resolve_backend, trace_radiance)
 from .render import RenderSession
 
 __all__ = [
@@ -28,6 +32,7 @@ __all__ = [
     "Material", "MaterialType", "SpectrumMaterial",
     "Camera", "camera_rays",
     "Scene", "SceneData", "scene_data_from_numpy",
-    "render_sample", "render_samples", "trace_radiance",
+    "make_intersector", "render_sample", "render_samples",
+    "resolve_backend", "trace_radiance",
     "RenderSession",
 ]

@@ -1,12 +1,19 @@
-"""Build the CUDA kernels under ``csrc/`` with nvcc and bind them with ctypes.
+"""Build the port's native code at first use and bind it with ctypes.
 
-The shared library is built at first use, on the machine with the card,
-into ``build/`` next to this file (``.gitignore`` lists it). Its file name
-carries a hash of the sources and the flags, so a changed source is always
-rebuilt and a stale library is never loaded. Nothing here runs at import:
-the CPU tests import every module on machines without nvcc.
+Two shared libraries, each built into ``build/`` next to this file
+(``.gitignore`` lists it) on the machine that uses it:
 
-Each C entry point takes device pointers and the stream as ``void*``,
+- the CUDA kernels under ``csrc/*.cu`` (with the shared header
+  ``csrc/tri_hit.cuh``), by nvcc, one object per source compiled in
+  parallel, then linked; only the machine with the card builds it;
+- the host BVH builder ``csrc/bvh_build.cpp``, by the host C++ compiler,
+  on any machine that compiles a BVH-ordered scene (the CPU tests too).
+
+Each file name carries a hash of its sources and flags, so a changed source
+is always rebuilt and a stale library is never loaded. Nothing here runs at
+import: the CPU tests import every module on machines without nvcc.
+
+Each CUDA entry point takes device pointers and the stream as ``void*``,
 launches on that stream, and returns ``cudaGetLastError()``; the wrappers
 raise when it is not 0.
 """
@@ -22,25 +29,42 @@ import time
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "intersect_dense.cu",
-           _HERE / "csrc" / "fetch_rows.cu")
+_CSRC = _HERE / "csrc"
+SOURCES = (_CSRC / "intersect_dense.cu", _CSRC / "fetch_rows.cu",
+           _CSRC / "intersect_bvh.cu", _CSRC / "intersect_cluster.cu")
+HEADERS = (_CSRC / "tri_hit.cuh",)
+HOST_SOURCES = (_CSRC / "bvh_build.cpp",)
 BUILD_DIR = _HERE / "build"
 
 # sm_90a (Hopper); --fmad=false keeps every multiply and add separately
 # rounded, as the plain torch versions compute them.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
+# the flags the JAX package builds its native builder with
+# (pathtracing_spectrum_tpu/native/__init__.py), so that both compile the
+# same SAH arithmetic and build the same tree
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-march=native")
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: device pointers, sizes, stream; each returns cudaError_t.
 _SIGNATURES = {
     "pts_intersect_dense": [_V] * 6 + [_V, _I, _I] + [_V] * 5 + [_V],
     "pts_fetch_rows": [_V, _V, _I, _I, _I, _V, _V],
+    "pts_intersect_bvh": [_V] * 6 + [_V] * 6 + [_I, _I] + [_V] * 5 + [_V],
+    "pts_intersect_cluster": [_V] * 6 + [_V, _V, _I, _I] + [_V] * 5 + [_V],
+}
+_I32, _I64 = ctypes.c_int32, ctypes.c_int64
+_HOST_SIGNATURES = {
+    "pts_bvh_build": ([_V, _V, _I64, _I32], _V),
+    "pts_bvh_node_count": ([_V], _I32),
+    "pts_bvh_export": ([_V] * 7, None),
+    "pts_bvh_free": ([_V], None),
 }
 
 
 class _Library:
     lib = None
+    host = None
     build_seconds = 0.0
 
 
@@ -53,12 +77,75 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+def host_compiler() -> str:
+    for name in (os.environ.get("CXX", ""), "c++", "g++"):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (set CXX or put c++ on PATH); "
+                       "the BVH builder is built at first use")
+
+
+def _hashed(stem: str, flags, files) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libpts_torch_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def library_path() -> Path:
+    return _hashed("libpts_torch_kernels", NVCC_FLAGS, SOURCES + HEADERS)
+
+
+def host_library_path() -> Path:
+    return _hashed("libpts_torch_host", HOST_FLAGS, HOST_SOURCES)
+
+
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0 and failed is None:
+            failed = (cmd, p.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"build failed ({rc}):\n{' '.join(cmd)}\n{out}")
+
+
+def _build(path: Path, make) -> None:
+    """Build ``path`` through a temporary name (``make(tmp_stem)`` runs the
+    compilers) and move it in place atomically: a concurrent loader sees
+    all or none."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stem = path.with_suffix(f".{os.getpid()}")
+    tmp = make(stem)
+    os.replace(tmp, path)
+
+
+def _make_kernels(stem: Path) -> Path:
+    nvcc = nvcc_path()
+    objs = [Path(f"{stem}.{src.stem}.o") for src in SOURCES]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+              for o, s in zip(objs, SOURCES)])
+    tmp = Path(f"{stem}.tmp")
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]])
+    for o in objs:
+        o.unlink()
+    return tmp
+
+
+def _make_host(stem: Path) -> Path:
+    tmp = Path(f"{stem}.tmp")
+    _run_all([[host_compiler(), *HOST_FLAGS, "-o", str(tmp),
+               *(str(s) for s in HOST_SOURCES)]])
+    return tmp
 
 
 def load() -> ctypes.CDLL:
@@ -67,16 +154,8 @@ def load() -> ctypes.CDLL:
         return _Library.lib
     path = library_path()
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
+        _build(path, _make_kernels)
         _Library.build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
@@ -87,8 +166,26 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def load_host() -> ctypes.CDLL:
+    """Build (when the hashed library is missing) and load the host BVH
+    builder. Raises when it cannot be built: there is no fallback."""
+    if _Library.host is not None:
+        return _Library.host
+    path = host_library_path()
+    if not path.exists():
+        _build(path, _make_host)
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in _HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _Library.host = lib
+    return lib
+
+
 def build_seconds() -> float:
-    """nvcc wall time of this process's build (0.0 if it found one)."""
+    """nvcc wall time of this process's kernel build (0.0 if it found
+    one)."""
     return _Library.build_seconds
 
 

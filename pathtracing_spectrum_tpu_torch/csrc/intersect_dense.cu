@@ -20,28 +20,23 @@
 // and loops over the triangles in ascending index with a strict `<`, which
 // gives the lowest-index tie rule by construction. The table is staged
 // through shared memory in tiles of TILE rows; every thread of a warp reads
-// the same row at the same time, a broadcast. Every expression is written
-// in the operation order of the plain torch version (ops/intersect.py)
-// with round-to-nearest intrinsics (__fmul_rn/__fadd_rn/__fsub_rn
-// /__fdiv_rn), and the file is built with --fmad=false: no multiply-add
-// contraction, so the kernel agrees with the plain version bit for bit.
-// Contraction is the known way grazing-edge validity flips; turning it on
-// is a later performance change, made against the agreement gate.
+// the same row at the same time, a broadcast. The per-triangle test is the
+// shared predicate of tri_hit.cuh (also used by K3 and K4), written in the
+// operation order of the plain torch version (ops/intersect.py) with
+// round-to-nearest intrinsics, and the file is built with --fmad=false: no
+// multiply-add contraction, so the kernel agrees with the plain version bit
+// for bit. Contraction is the known way grazing-edge validity flips;
+// turning it on is a later performance change, made against the agreement
+// gate.
 
 #include <cuda_runtime.h>
 
+#include "tri_hit.cuh"
+
 namespace {
 
-constexpr float kBig = 3.0e38f;
 constexpr int kThreads = 256;
 constexpr int kTile = 256;   // triangle rows per shared-memory tile (16 KB)
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      float bx, float by, float bz) {
-  // (ax*bx + ay*by) + az*bz, each step rounded
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
-                   __fmul_rn(az, bz));
-}
 
 __global__ void __launch_bounds__(kThreads)
 intersect_dense_kernel(const float* __restrict__ rox,
@@ -57,12 +52,9 @@ intersect_dense_kernel(const float* __restrict__ rox,
   __shared__ float s_tri[kTile * 16];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = i < n;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  if (active) {
-    ox = rox[i]; oy = roy[i]; oz = roz[i];
-    dx = rdx[i]; dy = rdy[i]; dz = rdz[i];
-  }
-  float best_t = kBig, best_s2 = 0.f, best_s3 = 0.f;
+  pts::Ray ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (active) ray = {rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i]};
+  float best_t = pts::kBig, best_s2 = 0.f, best_s3 = 0.f;
   int best_i = 0;
 
   for (int base = 0; base < t_count; base += kTile) {
@@ -72,30 +64,12 @@ intersect_dense_kernel(const float* __restrict__ rox,
       s_tri[k] = tri[static_cast<size_t>(base) * 16 + k];
     __syncthreads();
     if (!active) continue;
-    for (int j = 0; j < rows; ++j) {
-      const float* r = s_tri + j * 16;
-      const float denom = dot3(dx, dy, dz, r[0], r[1], r[2]);
-      const float ro_n = dot3(ox, oy, oz, r[0], r[1], r[2]);
-      const float safe = denom == 0.f ? 1.f : denom;
-      const float t = __fdiv_rn(__fsub_rn(r[12], ro_n), safe);
-      const float px = __fadd_rn(ox, __fmul_rn(t, dx));
-      const float py = __fadd_rn(oy, __fmul_rn(t, dy));
-      const float pz = __fadd_rn(oz, __fmul_rn(t, dz));
-      const float s1 = __fsub_rn(dot3(px, py, pz, r[3], r[4], r[5]), r[13]);
-      const float s2 = __fsub_rn(dot3(px, py, pz, r[6], r[7], r[8]), r[14]);
-      const float s3 = __fsub_rn(dot3(px, py, pz, r[9], r[10], r[11]), r[15]);
-      const bool valid = denom != 0.f && t >= 0.f && s1 >= 0.f &&
-                         s2 >= 0.f && s3 >= 0.f;
-      if (valid && t < best_t) {
-        best_t = t;
-        best_i = base + j;
-        best_s2 = s2;
-        best_s3 = s3;
-      }
-    }
+    for (int j = 0; j < rows; ++j)
+      pts::tri_update(ray, s_tri + j * 16, base + j, best_t, best_i, best_s2,
+                      best_s3);
   }
   if (active) {
-    hit_out[i] = best_t < kBig;
+    hit_out[i] = best_t < pts::kBig;
     t_out[i] = best_t;
     idx_out[i] = best_i;
     s2_out[i] = best_s2;

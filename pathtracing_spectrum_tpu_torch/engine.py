@@ -1,7 +1,7 @@
-"""Wavefront spectral path-tracing engine (torch), main-path slice.
+"""Wavefront spectral path-tracing engine (torch).
 
-Port of ``pathtracing_spectrum_tpu/engine.py`` for the dense, non-hero case
-with no textures, no temperature grids and no bounce-ray reorder. The
+Port of ``pathtracing_spectrum_tpu/engine.py`` for the non-hero case with
+no textures and no temperature grids, on every intersection backend. The
 reference's recursive ``Trace`` (pathtracer.cpp:424-541) unrolls into a
 bounce loop over [N] ray planes and [nw, N] spectra::
 
@@ -15,10 +15,22 @@ returning the *baked* emissivity; smooth normals, backface flip, the
 ``p += n * EPS`` offset and the ``2 * EPS`` step back on refraction; dead
 rays parked at origin 1e30 with rd = 0.
 
-Per iteration the two kernels run: ``ops/intersect_cuda.intersect_dense``
-(closest hit, with the winner's s2/s3) and ``ops/fetch_cuda.fetch_rows``
-(the [F', N] attribute planes). Barycentrics come from s2/s3, as on the
-JAX package's CPU ``dense`` route, so no geometry rows are fetched.
+Per iteration two kernels run: a closest hit (with the winner's s2/s3)
+and ``ops/fetch_cuda.fetch_rows`` (the [F', N] attribute planes).
+Barycentrics come from s2/s3, as on the JAX package's ``dense`` and
+``hier`` routes, so no geometry rows are fetched. :func:`make_intersector`
+maps the backend names to the closest-hit kernels:
+
+- ``"dense"``, ``"dense_pallas"``: K1, ``ops/intersect_cuda.intersect_dense``;
+- ``"hier"``, ``"shortlist"``, ``"worklist"``, ``"bvh"``: K3,
+  ``ops/intersect_hier_cuda.intersect_bvh`` through the scene's flat BVH;
+- ``"cluster"``: K4, ``ops/intersect_cluster_cuda.intersect_cluster``.
+
+On CPU tensors each runs its plain version. ``"auto"`` resolves by device
+and size as the JAX package does on a TPU and on the CPU
+(:func:`resolve_backend`). The bounce-ray reorder (``reorder.py``) sorts
+the six ray planes before the intersection and unsorts its results, from
+the first sorted iteration of ``reorder.reorder_from_policy`` on.
 
 Randomness: ``rand_override`` ([2*max_depth, 4, N]) is honoured exactly;
 otherwise each iteration draws ``torch.rand((4, N))`` from the sample's
@@ -26,27 +38,39 @@ otherwise each iteration draws ``torch.rand((4, N))`` from the sample's
 index) alone). The streams are not JAX's threefry (ROADMAP Queue 1 item 4).
 
 Not in this slice, each raising ``NotImplementedError``: dispersion/hero
-modes, textures and temperature grids (ROADMAP Queue 1 item 6), backends
-other than "auto"/"dense", bounce-ray reorder and ``chunks > 1`` (item 7),
-camera jitter (item 8). Left out for good (item 10): the TPU tuning knobs,
-``reorder_period``/``reorder_freeze``, the one-hot fetch route.
+modes, textures and temperature grids (ROADMAP Queue 1 item 6), camera
+jitter and ``chunks > 1`` (item 8). Left out for good (item 10): the TPU
+tuning knobs (``sweep_policy``, the shortlist/worklist split by SMEM
+budget), ``reorder_period``/``reorder_freeze``, the material-keyed sort,
+the one-hot fetch route.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .constants import EPS
-from .ops import fetch_cuda, intersect_cuda, sampling
+from . import reorder as reorder_mod
+from .constants import BIG, EPS
+from .ops import (fetch_cuda, intersect_cluster_cuda, intersect_cuda,
+                  intersect_hier_cuda, sampling)
 from .ops.intersect import pack_tri16
 from .ops.shade_pack import layout as shade_layout
 from .scene import SceneData
 
-# "auto" backend: dense sweep up to this triangle count (the JAX package's
-# engine.DENSE_AUTO_MAX_TRIS); above it the large-scene path is not ported.
+# "auto" backend on CUDA: the dense sweep up to this triangle count, the
+# hierarchical kernel above (the JAX package's engine.DENSE_AUTO_MAX_TRIS,
+# its TPU threshold).
 DENSE_AUTO_MAX_TRIS = 512
+# "auto" on the CPU: the dense sweep up to this count, the BVH walk above
+# (the JAX package's CPU threshold, engine.py:189-190).
+DENSE_AUTO_MAX_TRIS_CPU = 8192
+
+# backend name -> closest-hit route
+_ROUTES = {"dense": "dense", "dense_pallas": "dense",
+           "hier": "bvh", "shortlist": "bvh", "worklist": "bvh",
+           "bvh": "bvh", "cluster": "cluster"}
 
 # Shading-table columns the dense non-hero bounce reads, in fetch order.
 # At nw = 4 that is F' = 23 + 2*nw = 31 columns.
@@ -60,17 +84,48 @@ class TraceResult(NamedTuple):
     rays_traced: torch.Tensor  # [] int64 — rays cast (live rays per iteration)
 
 
-def resolve_backend(backend: str, n_tris: int) -> str:
-    """Map "auto"/"dense" to the dense sweep; raise for the rest."""
-    if backend not in ("auto", "dense"):
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported (ROADMAP Queue 1 item 7 / "
-            f"Queue 2 K3a, K3b, K4)")
-    if backend == "auto" and n_tris > DENSE_AUTO_MAX_TRIS:
-        raise NotImplementedError(
-            f"{n_tris} triangles: the large-scene path is not ported "
-            f"(ROADMAP Queue 1 item 7); pass backend='dense' to sweep them all")
-    return "dense"
+def resolve_backend(backend: str, n_tris: int,
+                    device: "torch.device | str" = "cpu") -> str:
+    """Resolve ``"auto"`` for a scene of ``n_tris`` triangles on
+    ``device``, as the JAX package does on a TPU (the CUDA thresholds) and
+    on the CPU: ``"dense"`` up to 512 triangles and ``"hier"`` above on
+    CUDA, ``"dense"`` up to 8,192 and ``"bvh"`` above on the CPU. Other
+    names pass through; an unknown one raises ``ValueError``."""
+    if backend == "auto":
+        if torch.device(device).type == "cuda":
+            return "dense" if n_tris <= DENSE_AUTO_MAX_TRIS else "hier"
+        return "dense" if n_tris <= DENSE_AUTO_MAX_TRIS_CPU else "bvh"
+    if backend not in _ROUTES:
+        raise ValueError(f"unknown backend {backend!r}; expected 'auto' or "
+                         f"one of {sorted(_ROUTES)}")
+    return backend
+
+
+def make_intersector(scene: SceneData, backend: str
+                     ) -> "tuple[Callable, str]":
+    """Resolve the backend and return (``intersect(ox..dz) -> (hit, t,
+    idx, s2, s3)`` over [N] planes, the resolved name). The closure holds
+    the packed [T, 16] table and the kernel's scene arrays; it serves the
+    bounce loop and the primary-hit hoist alike."""
+    backend = resolve_backend(backend, scene.n_triangles,
+                              scene.tri_shade.device)
+    tri16 = pack_tri16(scene.tri_face_n, scene.tri_k1, scene.tri_k2,
+                       scene.tri_k3, scene.tri_consts)
+    route = _ROUTES[backend]
+    if route == "dense":
+        def intersect(*planes):
+            return intersect_cuda.intersect_dense(*planes, tri16)
+    elif route == "bvh":
+        nodes = (scene.bvh_node_min, scene.bvh_node_max, scene.bvh_node_skip,
+                 scene.bvh_node_first, scene.bvh_node_count)
+
+        def intersect(*planes):
+            return intersect_hier_cuda.intersect_bvh(*planes, tri16, *nodes)
+    else:
+        def intersect(*planes):
+            return intersect_cluster_cuda.intersect_cluster(
+                *planes, tri16, scene.cluster_aabbs)
+    return intersect, backend
 
 
 def _column_subset(nw: int):
@@ -93,34 +148,58 @@ def _check_slice(scene: SceneData, dispersion, reorder) -> None:
         raise NotImplementedError(
             "textures and temperature grids are not ported "
             "(ROADMAP Queue 1 item 6)")
-    if reorder not in ("auto", False):
-        raise NotImplementedError(
-            "bounce-ray reorder is not ported (ROADMAP Queue 1 item 7)")
+    if reorder not in ("auto", True, False):
+        raise ValueError(f"reorder={reorder!r}: expected 'auto', True or "
+                         "False")
 
 
 class _Prepared(NamedTuple):
-    tri16: torch.Tensor      # [T, 16] packed intersection table
+    intersect: Callable      # (ox..dz) -> (hit, t, idx, s2, s3)
+    backend: str             # the resolved backend
     shade_sub: torch.Tensor  # [T, F'] fetched column subset
     sub: dict                # name -> row slice of the [F', N] attributes
+    frame: Optional[tuple]   # (smin, inv_ext) of the reorder key, or None
 
 
-def _prepare(scene: SceneData, backend: str) -> _Prepared:
-    resolve_backend(backend, scene.n_triangles)
-    tri16 = pack_tri16(scene.tri_face_n, scene.tri_k1, scene.tri_k2,
-                       scene.tri_k3, scene.tri_consts)
+def _prepare(scene: SceneData, backend: str, reorder="auto") -> _Prepared:
+    """Resolve the backend, pack the tables, and decide the reorder: on
+    with ``True``, off with ``False``; with ``"auto"``, on for the K3/K4
+    routes on CUDA at ``reorder.REORDER_AUTO_MIN_TRIS`` triangles or more
+    (the JAX package turns it on for its TPU kernels the same way)."""
+    intersect, backend = make_intersector(scene, backend)
     sub, cols = _column_subset(scene.n_waves)
-    idx = torch.tensor(cols, dtype=torch.long, device=scene.tri_shade.device)
+    dev = scene.tri_shade.device
+    idx = torch.tensor(cols, dtype=torch.long, device=dev)
     shade_sub = scene.tri_shade.index_select(1, idx).contiguous()
-    return _Prepared(tri16, shade_sub, sub)
+    do_reorder = (reorder is True
+                  or (reorder == "auto" and dev.type == "cuda"
+                      and _ROUTES[backend] != "dense"
+                      and scene.n_triangles
+                      >= reorder_mod.REORDER_AUTO_MIN_TRIS))
+    frame = (reorder_mod.scene_bounds(scene.cluster_aabbs) if do_reorder
+             else None)
+    return _Prepared(intersect, backend, shade_sub, sub, frame)
 
 
 def _primary(prep: _Prepared, ro: torch.Tensor, rd: torch.Tensor):
     """(hit, t, idx, s2, s3, attrs_t) of the primary rays: sample-invariant
     without jitter, so render_samples computes it once per call."""
-    hit0 = intersect_cuda.intersect_dense(
-        *(ro[:, k].contiguous() for k in range(3)),
-        *(rd[:, k].contiguous() for k in range(3)), prep.tri16)
+    hit0 = prep.intersect(*(ro[:, k].contiguous() for k in range(3)),
+                          *(rd[:, k].contiguous() for k in range(3)))
     return hit0 + (fetch_cuda.fetch_rows(hit0[2], prep.shade_sub),)
+
+
+def _sorted_intersect(prep: _Prepared, planes, alive):
+    """The intersection with the bounce-ray reorder around it: sort the six
+    ray planes by ``reorder.sort_key``, intersect, unsort (t, s2, s3, idx)
+    and derive ``hit = t < BIG``, as every kernel does (engine.py:610-644
+    of the JAX package). Any permutation gives the same result."""
+    smin, inv_ext = prep.frame
+    key = reorder_mod.sort_key(*planes, alive, smin, inv_ext)
+    perm, inv = reorder_mod.permutation(key)
+    _, t, idx, s2, s3 = prep.intersect(*(p[perm] for p in planes))
+    t = t[inv]
+    return t < BIG, t, idx[inv], s2[inv], s3[inv]
 
 
 def sample_generator(seed: int, counter: int,
@@ -150,16 +229,20 @@ def trace_radiance(scene: SceneData, ro: torch.Tensor, rd: torch.Tensor,
         ``rand_override``).
       max_depth: the reference's trace depth; the loop runs
         ``2*max_depth`` hit iterations (pathtracer.cpp:455).
-      backend: "auto" or "dense".
+      backend: "auto" or a backend name (see :func:`resolve_backend`).
       rand_override: optional [2*max_depth, 4, N] U[0,1) variates, used
         exactly (tests: shared variates with the JAX engine / the oracle).
+      reorder: "auto", True or False: sort the bounce rays around the
+        intersection (see :func:`_prepare`); result-exact either way.
       primary0: optional (hit, t, idx, s2, s3, attrs_t) for THIS (ro, rd),
         the hoisted primary intersection and fetch (see render_samples).
 
     Returns TraceResult(radiance [N, nw], rays_traced 0-d int64 tensor).
     """
     _check_slice(scene, dispersion, reorder)
-    prep = _prep if _prep is not None else _prepare(scene, backend)
+    prep = _prep if _prep is not None else _prepare(scene, backend, reorder)
+    first_sorted = reorder_mod.reorder_from_policy(scene.n_triangles,
+                                                   max_depth)
     n = ro.shape[0]
     nw = scene.n_waves
     dev = ro.device
@@ -182,11 +265,14 @@ def trace_radiance(scene: SceneData, ro: torch.Tensor, rd: torch.Tensor,
          throughput_t, radiance_t, inside, alive, rays_traced) = state
         rays_traced = rays_traced + alive.sum()
 
+        planes = (rox, roy, roz, rdx, rdy, rdz)
         if hit0 is not None:
             hit, t, idx, s2, s3, attrs_t = hit0
         else:
-            hit, t, idx, s2, s3 = intersect_cuda.intersect_dense(
-                rox, roy, roz, rdx, rdy, rdz, prep.tri16)
+            if prep.frame is not None and h >= first_sorted:
+                hit, t, idx, s2, s3 = _sorted_intersect(prep, planes, alive)
+            else:
+                hit, t, idx, s2, s3 = prep.intersect(*planes)
             attrs_t = fetch_cuda.fetch_rows(idx, prep.shade_sub)
         hit = hit & alive
 
@@ -317,9 +403,9 @@ def render_samples(scene: SceneData, ro, rd, total, samples: int, seed: int,
     if chunks != 1:
         raise NotImplementedError(
             "chunks > 1 (bounded-width wavefront) is not ported "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP Queue 1 item 8)")
     _check_slice(scene, dispersion, reorder)
-    prep = _prepare(scene, backend)
+    prep = _prepare(scene, backend, reorder)
     primary0 = _primary(prep, ro, rd)
     rays = torch.zeros((), dtype=torch.int64, device=ro.device)
     for i in range(n_steps):

@@ -5,7 +5,8 @@ compiles the scene and the primary rays onto the session's device (in
 32x32 tile order, as the JAX session does), ``step(n)`` renders ``n``
 samples through one ``engine.render_samples`` call, ``run`` steps until a
 target sample count and pauses, ``result`` un-permutes the running mean to
-[H, W, nw], ``stats`` reports samples, time and Mrays/s.
+[H, W, nw], ``stats`` reports samples, time, Mrays/s and the backend that
+``"auto"`` resolved to (``resolved_backend``).
 
 Not in this slice (ROADMAP Queue 1 item 8): async rendering, stop/restart,
 checkpoints, sharding, jitter.
@@ -20,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .engine import render_samples
+from .engine import render_samples, resolve_backend
 from .models.camera import camera_rays, tile_order
 from .scene import Scene, SceneData
 
@@ -37,10 +38,11 @@ class RenderSession:
     """Owns the progressive accumulator for one scene + camera."""
 
     def __init__(self, scene: Scene, device: "torch.device | str" = "cpu",
-                 seed: int = 0):
+                 seed: int = 0, backend: str = "auto"):
         self.scene = scene
         self.device = torch.device(device)
         self.seed = int(seed)
+        self.backend = backend   # handed to the engine; "auto" resolves there
         self.status = RenderStatus.IDLE
         self._synced_version = -1
         self._scene_data: Optional[SceneData] = None
@@ -56,6 +58,13 @@ class RenderSession:
     @property
     def resolution(self):
         return self.scene.resolution
+
+    def resolved_backend(self) -> str:
+        """The backend the engine runs for the synced scene on this
+        session's device (the JAX session's ``resolved_backend``)."""
+        n_tris = (self._scene_data.n_triangles
+                  if self._scene_data is not None else 0)
+        return resolve_backend(self.backend, n_tris, self.device)
 
     def _sync(self) -> None:
         self._synced_version = self.scene.version
@@ -94,7 +103,7 @@ class RenderSession:
         self._total, self.samples, self._out, rays = render_samples(
             self._scene_data, self._ro, self._rd, self._total, self.samples,
             self.seed, self._sample_counter, n_steps=n_samples,
-            max_depth=self.scene.trace_depth)
+            max_depth=self.scene.trace_depth, backend=self.backend)
         self._sample_counter += n_samples
         self.rays_traced += int(rays)   # waits for the device
         self.elapsed += time.perf_counter() - t0
@@ -132,6 +141,6 @@ class RenderSession:
                             if self.elapsed > 0 else 0.0),
             "triangles": (self._scene_data.n_triangles
                           if self._scene_data is not None else 0),
-            "backend": "dense",
+            "backend": self.resolved_backend(),
             "device": str(self.device),
         }

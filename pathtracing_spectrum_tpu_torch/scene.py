@@ -3,15 +3,18 @@
 Port of ``pathtracing_spectrum_tpu/scene.py`` for the main path: waves,
 spectrum materials, ``load_object``, ``set_material``, ``set_camera``, sky,
 resolution and trace depth. :meth:`Scene.compile` builds, in numpy, the
-same arrays as the JAX ``Scene.compile(build_bvh=False)`` — the tests hold
-them equal field by field — and then moves them to the device in one pass.
+same arrays as the JAX ``Scene.compile`` — BVH-ordered by default, in file
+order with ``build_bvh=False``; the tests hold them equal field by field —
+and then moves them to the device in one pass. The BVH is the binned-SAH
+tree of ``ops/bvh.py::build_bvh``; the triangles are gathered into its
+order before the intersection tables, the cluster boxes and the shading
+table are built from them.
 
-Not in this slice (ROADMAP Queue 1): BVH ordering (item 7), normal and
-roughness textures and temperature grids (item 6). Their tables stay empty
-with the JAX package's shapes, and a scene that binds a texture or a
-temperature grid raises ``NotImplementedError`` instead of rendering
-without it. :func:`scene_data_from_numpy` carries any JAX ``SceneData``
-across, BVH-ordered ones included (the dense path is order-independent).
+Not in this slice (ROADMAP Queue 1 item 6): normal and roughness textures
+and temperature grids. Their tables stay empty with the JAX package's
+shapes, and a scene that binds a texture or a temperature grid raises
+``NotImplementedError`` instead of rendering without it.
+:func:`scene_data_from_numpy` carries any JAX ``SceneData`` across.
 """
 
 from __future__ import annotations
@@ -27,13 +30,12 @@ from .models.camera import Camera
 from .models.geometry import TriangleSoA, build_triangle_soa, empty_soa
 from .models.materials import Material, SpectrumMaterial
 from .ops import planck
+from .ops.bvh import build_bvh as build_flat_bvh
+from .ops.bvh import triangle_bounds
 from .ops.intersect import precompute_intersect_tables
+from .ops.intersect_cluster_cuda import CLUSTER
 from .ops.shade_pack import pack_shade_table
 from .utils import obj_loader
-
-# triangles per cluster AABB (the JAX package's intersect_pallas.CLUSTER)
-CLUSTER = 128
-
 
 class SceneData(NamedTuple):
     """Device-resident compiled scene: the JAX ``SceneData`` fields, as
@@ -196,9 +198,13 @@ class Scene:
         el.material.normal_tex_file = keep_normal_tex
         self.version += 1
 
-    def compile(self, device: "torch.device | str" = "cpu") -> SceneData:
+    def compile(self, device: "torch.device | str" = "cpu",
+                build_bvh: bool = True, leaf_size: int = 4) -> SceneData:
         """Bake the scene into tensors on ``device`` (numpy first, then one
-        transfer pass). Equals the JAX ``Scene.compile(build_bvh=False)``."""
+        transfer pass). Equals the JAX ``Scene.compile(build_bvh,
+        leaf_size)``: with ``build_bvh`` the triangles are in SAH-BVH order
+        and the ``bvh_node_*`` fields hold the tree; without it they are
+        in file order under a one-node passthrough BVH."""
         nw = len(self.wavelengths)
         wavenumbers = np.asarray(self.wavelengths, np.float32)
 
@@ -248,7 +254,7 @@ class Scene:
         grids = np.zeros((0, 1, 1), np.float32)
         no_sizes = np.zeros((0, 2), np.int32)
 
-        # ---- triangles (dense path: file order, no BVH) ----
+        # ---- triangles ----
         parts: List[TriangleSoA] = []
         for obj, ids in zip(self.objects, mat_ids_per_obj):
             try:
@@ -257,7 +263,21 @@ class Scene:
                 continue  # fail-soft like the reference's parsers
             parts.append(build_triangle_soa(mesh, obj.model_matrix(), ids))
         soa = TriangleSoA.concatenate(parts) if parts else empty_soa()
-        node_count = np.array([soa.count], np.int32)
+
+        # ---- BVH: reorder the triangles into leaf ranges ----
+        if build_bvh and soa.count > 0:
+            flat = build_flat_bvh(soa, leaf_size=leaf_size)
+            soa = soa.gather(flat.tri_order)
+            bvh = dict(bvh_node_min=flat.node_min, bvh_node_max=flat.node_max,
+                       bvh_node_skip=flat.node_skip,
+                       bvh_node_first=flat.node_first,
+                       bvh_node_count=flat.node_count)
+        else:   # one passthrough node: a +-inf box, a leaf of every row
+            bvh = dict(bvh_node_min=np.full((1, 3), -np.inf, np.float32),
+                       bvh_node_max=np.full((1, 3), np.inf, np.float32),
+                       bvh_node_skip=np.array([1], np.int32),
+                       bvh_node_first=np.array([0], np.int32),
+                       bvh_node_count=np.array([soa.count], np.int32))
         if soa.count == 0:  # keep shapes non-empty
             soa = _degenerate_tri_soa()
 
@@ -286,12 +306,7 @@ class Scene:
             for mt in mats]).astype(np.float32) if nw else np.zeros(
                 (m, 0), np.float32)
 
-        v1d = soa.v1.astype(np.float64)
-        v2d = v1d + soa.e1
-        v3d = v1d + soa.e2
-        cl_aabbs = build_cluster_aabbs(
-            np.minimum(np.minimum(v1d, v2d), v3d).astype(np.float32),
-            np.maximum(np.maximum(v1d, v2d), v3d).astype(np.float32))
+        cl_aabbs = build_cluster_aabbs(*triangle_bounds(soa))
 
         tri_shade = pack_shade_table(soa, mat_type, mat_rr, mat_rough,
                                      no_tex, no_tex, no_tex, emis, refl,
@@ -316,14 +331,7 @@ class Scene:
             normal_tex_any=np.zeros((0,), np.float32),
             roughness_tex_any=np.zeros((0,), np.float32),
             temp_grids=grids, temp_grid_sizes=no_sizes,
-            wavenumbers=wavenumbers, sky=sky.astype(np.float32),
-            # single-node passthrough (no BVH on the dense path)
-            bvh_node_min=np.full((1, 3), -np.inf, np.float32),
-            bvh_node_max=np.full((1, 3), np.inf, np.float32),
-            bvh_node_skip=np.array([1], np.int32),
-            bvh_node_first=np.array([0], np.int32),
-            bvh_node_count=node_count,
-        )
+            wavenumbers=wavenumbers, sky=sky.astype(np.float32), **bvh)
         return scene_data_from_numpy(arrays, device)
 
 

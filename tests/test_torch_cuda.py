@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+K1 (dense sweep), K2 (attribute fetch), K3 (BVH walk) and K4
+(cluster-culled sweep), the wrappers' refusals, whole traces against the
+CPU, and sessions counted through their kernels.
 
 Every test here needs a CUDA device and skips without one. The module
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -7,6 +10,8 @@ installed; ``tests/conftest.py`` imports jax, so run it there with
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+import importlib.util
 import os
 
 import pytest
@@ -16,11 +21,15 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 import pathtracing_spectrum_tpu_torch as pt  # noqa: E402
-from pathtracing_spectrum_tpu_torch import engine  # noqa: E402
-from pathtracing_spectrum_tpu_torch.ops import fetch_cuda  # noqa: E402
+from pathtracing_spectrum_tpu_torch import engine, reorder  # noqa: E402
+from pathtracing_spectrum_tpu_torch.models.geometry import empty_soa  # noqa: E402,E501
+from pathtracing_spectrum_tpu_torch.ops import bvh, fetch_cuda  # noqa: E402
+from pathtracing_spectrum_tpu_torch.ops import intersect_cluster_cuda  # noqa: E402,E501
 from pathtracing_spectrum_tpu_torch.ops import intersect_cuda  # noqa: E402
+from pathtracing_spectrum_tpu_torch.ops import intersect_hier_cuda  # noqa: E402,E501
 from pathtracing_spectrum_tpu_torch.ops.intersect import (  # noqa: E402
     pack_tri16, precompute_intersect_tables)
+from pathtracing_spectrum_tpu_torch.scene import build_cluster_aabbs  # noqa: E402,E501
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
@@ -192,3 +201,201 @@ def test_session_goes_through_both_kernels(dev):
     assert fetch_cuda.fetch_rows.launches - k2 == want
     assert np.isfinite(img).all() and (img >= 0).all()
     assert img[:8].mean() > img[-8:].mean() > 0
+
+
+# ---- K3 and K4 -------------------------------------------------------------
+
+def bvh_soup(v1, e1, e2, leaf_size=4):
+    """A soup reordered by the port's SAH BVH: (tri16, BVH node arrays,
+    cluster boxes), CPU tensors."""
+    v1, e1, e2 = (np.asarray(a, np.float32) for a in (v1, e1, e2))
+    flat = bvh.build_bvh(dataclasses.replace(empty_soa(), v1=v1, e1=e1,
+                                             e2=e2), leaf_size=leaf_size)
+    o = flat.tri_order
+    v1, e1, e2 = v1[o], e1[o], e2[o]
+    fn = np.cross(e1, e2)
+    fn = (fn / np.maximum(np.linalg.norm(fn, axis=1, keepdims=True),
+                          1e-20)).astype(np.float32)
+    tri16 = pack_tri16(*(torch.from_numpy(a) for a in
+                         (fn,) + precompute_intersect_tables(v1, e1, e2, fn)))
+    v2, v3 = v1 + e1, v1 + e2
+    caabb = torch.from_numpy(build_cluster_aabbs(
+        np.minimum(np.minimum(v1, v2), v3),
+        np.maximum(np.maximum(v1, v2), v3)))
+    nodes = tuple(torch.from_numpy(a) for a in (
+        flat.node_min, flat.node_max, flat.node_skip, flat.node_first,
+        flat.node_count))
+    return tri16, nodes, caabb
+
+
+def random_bvh_soup(n_tris, n_rays, seed):
+    """The K1 soup (every 7th ray parked), BVH-ordered."""
+    rng = np.random.default_rng(seed)
+    v1 = rng.uniform(-1, 1, (n_tris, 3))
+    e1 = rng.normal(0, 0.3, (n_tris, 3))
+    e2 = rng.normal(0, 0.3, (n_tris, 3))
+    planes, _ = soup(1, n_rays, seed + 1)
+    return (planes,) + bvh_soup(v1, e1, e2)
+
+
+def k3_k4_and_plain(planes, tri16, nodes, caabb, dev):
+    """(K3, K4, plain) results on ``dev``; each wrapper launched once."""
+    planes = [p.to(dev) for p in planes]
+    tri16, caabb = tri16.to(dev), caabb.to(dev)
+    nodes = [a.to(dev) for a in nodes]
+    k3, k4 = (intersect_hier_cuda.intersect_bvh.launches,
+              intersect_cluster_cuda.intersect_cluster.launches)
+    got3 = intersect_hier_cuda.intersect_bvh(*planes, tri16, *nodes)
+    got4 = intersect_cluster_cuda.intersect_cluster(*planes, tri16, caabb)
+    torch.cuda.synchronize()
+    assert intersect_hier_cuda.intersect_bvh.launches == k3 + 1
+    assert intersect_cluster_cuda.intersect_cluster.launches == k4 + 1
+    want3 = intersect_hier_cuda.intersect_bvh_ref(*planes, tri16, *nodes)
+    want4 = intersect_cluster_cuda.intersect_cluster_ref(*planes, tri16,
+                                                         caabb)
+    dense = intersect_cuda.intersect_dense_ref(*planes, tri16)
+    return (got3, want3), (got4, want4), dense
+
+
+@pytest.mark.parametrize("n_tris", [300, 2000, 6000])
+def test_k3_k4_match_plain_on_soup(dev, n_tris):
+    (g3, w3), (g4, w4), dense = k3_k4_and_plain(
+        *random_bvh_soup(n_tris, 65536, n_tris), dev)
+    assert dense[0].sum().item() > 1000
+    for got, want in ((g3, w3), (g4, w4)):
+        agree = (got[2] == want[2]) & (got[0] == want[0])
+        assert agree.float().mean().item() >= AGREE_GATE
+        assert not got[0][::7].any()                 # parked rays miss
+        # the same predicate, selection and box arithmetic, --fmad=false:
+        # expected bit for bit, as K1 is; the gate above is the bar
+        both = agree & want[0]
+        torch.testing.assert_close(got[1][both], want[1][both], rtol=3e-7,
+                                   atol=0)
+        # against the exhaustive dense sweep too
+        agree_dense = (got[2] == dense[2]) & (got[0] == dense[0])
+        assert agree_dense.float().mean().item() >= AGREE_GATE
+
+
+def test_k3_k4_tie_goes_to_lowest_index(dev):
+    """The tied pair lands in two leaves (leaf size 1) and two clusters
+    (rows far apart in a 300-row table): the lower row wins."""
+    v1 = np.zeros((300, 3))
+    v1[:, 0] = np.arange(1, 301) * 3.0
+    v1[7, 0] = v1[260, 0] = 0.0
+    e1 = np.tile([1.0, 0.0, 0.0], (300, 1))
+    e2 = np.tile([0.0, 1.0, 0.0], (300, 1))
+    tri16, nodes, caabb = bvh_soup(v1, e1, e2, leaf_size=1)
+    planes = [torch.tensor([v], dtype=torch.float32)
+              for v in (0.1, 0.1, -1.0, 0.0, 0.0, 1.0)]
+    (g3, w3), (g4, w4), dense = k3_k4_and_plain(planes, tri16, nodes, caabb,
+                                                dev)
+    assert dense[0].item()
+    assert g3[2].item() == w3[2].item() == dense[2].item()
+    assert g4[2].item() == w4[2].item() == dense[2].item()
+
+
+def test_k3_k4_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    planes = [torch.zeros(8, device=dev) for _ in range(6)]
+    tri16 = torch.zeros((300, 16), device=dev)
+    nodes = [torch.zeros((3, 3), device=dev), torch.zeros((3, 3), device=dev),
+             *(torch.zeros(3, dtype=torch.int32, device=dev)
+               for _ in range(3))]
+    caabb = torch.zeros((3, 8), device=dev)
+    bad_nodes = [
+        [nodes[0].double()] + nodes[1:],                  # type
+        nodes[:2] + [nodes[2][:2]] + nodes[3:],           # shape
+        [nodes[0].t().contiguous().t()] + nodes[1:],      # contiguity
+        [nodes[0].cpu()] + nodes[1:],                     # device
+    ]
+    for nd in bad_nodes:
+        with pytest.raises(ValueError):
+            intersect_hier_cuda.intersect_bvh(*planes, tri16, *nd)
+    misaligned = torch.zeros(300 * 16 + 1, device=dev)[1:].view(300, 16)
+    for bad in (tri16[:, :15], misaligned):               # shape, alignment
+        with pytest.raises(ValueError):
+            intersect_hier_cuda.intersect_bvh(*planes, bad, *nodes)
+        with pytest.raises(ValueError):
+            intersect_cluster_cuda.intersect_cluster(*planes, bad, caabb)
+    for bad in (caabb[:2], caabb.double(), caabb.cpu()):
+        with pytest.raises(ValueError):
+            intersect_cluster_cuda.intersect_cluster(*planes, tri16, bad)
+    strided = torch.zeros(16, device=dev)[::2]
+    with pytest.raises(ValueError):
+        intersect_cluster_cuda.intersect_cluster(*planes[:5], strided, tri16,
+                                                 caabb)
+
+
+def make_terrain_10k(directory):
+    """``terrain_10k.obj`` by ``assets/make_assets.py::make_terrain``,
+    imported by path (its ``__main__`` rewrites the checked-in assets)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_assets", os.path.join(ASSETS, "make_assets.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    path = os.path.join(str(directory), "terrain_10k.obj")
+    mod.make_terrain(path, grid=64, n_rocks=8, rock_sub=8)
+    return path
+
+
+def terrain(path, res, depth=3):
+    """``bench_suite.terrain_scene`` with the port's Scene."""
+    sc = pt.Scene()
+    sc.wavelengths = [500.0, 1000.0, 1500.0, 2000.0]
+    sc.spectrum_materials = [
+        pt.SpectrumMaterial("ground", [0.7, 0.75, 0.8, 0.7]),
+        pt.SpectrumMaterial("rock", [0.5, 0.55, 0.5, 0.45]),
+        pt.SpectrumMaterial("emitter", [1.0] * 4)]
+    sc.trace_depth = depth
+    sc.resolution = (res, res)
+    obj = sc.load_object(path)
+    mats = {"terrain": pt.Material(type=pt.MaterialType.DIFFUSE,
+                                   spectrum_mat_id=0, temperature=15.0),
+            "rocks": pt.Material(type=pt.MaterialType.GLOSSY,
+                                 spectrum_mat_id=1, temperature=15.0,
+                                 roughness=0.3),
+            "light": pt.Material(type=pt.MaterialType.DIFFUSE,
+                                 spectrum_mat_id=2, temperature=450.0)}
+    for i, el in enumerate(obj.elements):
+        sc.set_material(0, i, mats[el.name])
+    sc.set_camera([0.0, 4.0, -10.0], [0.0, 0.5, 0.0])
+    sc.camera_fovy = 55.0
+    return sc
+
+
+@pytest.mark.parametrize("backend", ["hier", "cluster"])
+def test_terrain_trace_on_card_matches_cpu(dev, backend, tmp_path):
+    depth = 3
+    sc = terrain(make_terrain_10k(tmp_path), 32, depth)
+    ro, rd = pt.camera_rays(sc.camera(), 32, 32)
+    rand = torch.from_numpy(np.random.default_rng(12).uniform(
+        0, 1, (2 * depth, 4, ro.shape[0])).astype(np.float32))
+    cpu = engine.trace_radiance(sc.compile("cpu"), ro, rd, None, depth,
+                                backend=backend, rand_override=rand)
+    on_dev = engine.trace_radiance(sc.compile(dev), ro.to(dev), rd.to(dev),
+                                   None, depth, backend=backend,
+                                   rand_override=rand.to(dev))
+    torch.cuda.synchronize()
+    assert int(on_dev.rays_traced) == int(cpu.rays_traced)
+    torch.testing.assert_close(on_dev.radiance.cpu(), cpu.radiance,
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_terrain_session_goes_through_k3(dev, tmp_path):
+    spp, depth = 4, 3
+    sess = pt.RenderSession(terrain(make_terrain_10k(tmp_path), 64, depth),
+                            dev, seed=0)
+    sess.start()
+    counts = (intersect_hier_cuda.intersect_bvh.launches,
+              intersect_cuda.intersect_dense.launches,
+              fetch_cuda.fetch_rows.launches, reorder.permutation.calls)
+    img = sess.run(spp, batch=spp)
+    k3, k1, k2, sorts = (
+        intersect_hier_cuda.intersect_bvh.launches - counts[0],
+        intersect_cuda.intersect_dense.launches - counts[1],
+        fetch_cuda.fetch_rows.launches - counts[2],
+        reorder.permutation.calls - counts[3])
+    want = 1 + spp * (2 * depth - 1)   # hoisted primary + looped bounces
+    assert sess.stats()["backend"] == "hier"
+    assert (k3, k1, k2) == (want, 0, want)
+    assert sorts == spp * (2 * depth - 2)   # 9,986 tris: from iteration 2
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0

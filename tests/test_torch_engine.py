@@ -72,7 +72,7 @@ def test_trace_matches_jax(name):
         jsc.compile(build_bvh=False), jnp.asarray(ro), jnp.asarray(rd),
         jax.random.key(0), depth, backend="dense",
         rand_override=jnp.asarray(rand))
-    got = port_trace(sc.compile("cpu"), ro, rd, depth, rand)
+    got = port_trace(sc.compile("cpu", build_bvh=False), ro, rd, depth, rand)
     assert got.radiance.shape == (ro.shape[0], 4)
     assert int(got.rays_traced) == int(want.rays_traced)
     # the same operations in the same order; XLA:CPU and torch differ only
@@ -157,10 +157,7 @@ def test_session_batches_are_exact_and_image_is_healthy():
 @pytest.mark.parametrize("kw,item", [
     (dict(dispersion=True), "item 6"),
     (dict(dispersion="hero"), "item 6"),
-    (dict(backend="bvh"), "item 7"),
-    (dict(backend="dense_pallas"), "item 7"),
-    (dict(reorder=True), "item 7"),
-    (dict(chunks=2), "item 7"),
+    (dict(chunks=2), "item 8"),
     (dict(jitter_cam=object()), "item 8"),
 ])
 def test_outside_the_slice_raises(kw, item):
@@ -170,3 +167,64 @@ def test_outside_the_slice_raises(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         engine.render_samples(scene, ro, rd, torch.zeros((16, 4)), 0, 0, 0,
                               n_steps=1, max_depth=2, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(backend="bvh"),
+                                dict(backend="dense_pallas"),
+                                dict(reorder=True)])
+def test_large_scene_options_render_as_the_default(kw):
+    """The backends and the reorder this slice added: each renders the
+    Cornell box exactly as the default route does."""
+    sc = tiny_scene(pt, res=(8, 8), depth=3)
+    scene = sc.compile("cpu")
+    ro, rd = pt.camera_rays(sc.camera(), 8, 8)
+    want = engine.render_samples(scene, ro, rd, torch.zeros((64, 4)), 0, 5,
+                                 0, n_steps=2, max_depth=3)
+    got = engine.render_samples(scene, ro, rd, torch.zeros((64, 4)), 0, 5, 0,
+                                n_steps=2, max_depth=3, **kw)
+    assert torch.equal(got[0], want[0])
+    assert int(got[3]) == int(want[3])
+
+
+def test_auto_renders_a_2k_scene_dense_on_the_cpu():
+    """Between 513 and 8,192 triangles "auto" is the dense sweep on the
+    CPU, as in the JAX package (sphere in the Cornell box, 2,244
+    triangles), and the trace matches the JAX one."""
+    from test_torch_bvh import jax_sphere_in_cornell
+    from test_torch_scene import to_port_scene
+    jsc = jax_sphere_in_cornell()
+    scene = to_port_scene(jsc).compile("cpu")
+    assert scene.n_triangles == 2244
+    assert engine._prepare(scene, "auto", "auto").backend == "dense"
+    ro, rd = (np.array(a) for a in jax_camera_rays(jsc.camera(), 16, 16))
+    rand = np.random.default_rng(4).uniform(
+        0, 1, (6, 4, ro.shape[0])).astype(np.float32)
+    want = jengine.trace_radiance(
+        jsc.compile(), jnp.asarray(ro), jnp.asarray(rd), jax.random.key(0),
+        3, rand_override=jnp.asarray(rand))
+    got = port_trace(scene, ro, rd, 3, rand)
+    assert int(got.rays_traced) == int(want.rays_traced)
+    np.testing.assert_allclose(got.radiance.numpy(),
+                               np.asarray(want.radiance),
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("which,backend", [("cornell", "dense"),
+                                           ("terrain-10k", "bvh")])
+def test_session_reports_the_resolved_backend(which, backend, tmp_path):
+    """``stats()["backend"]`` is what ``"auto"`` resolved to, as the JAX
+    session's ``resolved_backend()`` reports it on the same device."""
+    from pathtracing_spectrum_tpu.render import RenderSession as JaxSession
+    from test_torch_bvh import jax_terrain_scene, make_terrain_obj
+    from test_torch_scene import to_port_scene
+    if which == "cornell":
+        jsc = cornell_scene(sky=True, res=(4, 4))
+    else:
+        jsc = jax_terrain_scene(make_terrain_obj(tmp_path), res=(4, 4))
+    jsess = JaxSession(jsc)
+    jsess._sync()                       # compile, as its start() does
+    sess = pt.RenderSession(to_port_scene(jsc), "cpu", seed=1)
+    img = sess.run(1)
+    assert np.isfinite(img).all() and (img >= 0).all()
+    assert sess.stats()["backend"] == jsess.resolved_backend() == backend
+    assert sess.resolved_backend() == backend

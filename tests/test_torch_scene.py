@@ -47,8 +47,8 @@ def port_cornell(**kw):
 
 
 def to_port_scene(jsc):
-    """A one-object JAX ``Scene`` rebuilt with the port's Scene (the same
-    authoring calls, the port's materials)."""
+    """A JAX ``Scene`` rebuilt with the port's Scene (the same authoring
+    calls, object transforms included, the port's materials)."""
     sc = pt.Scene()
     sc.wavelengths = list(jsc.wavelengths)
     sc.spectrum_materials = [pt.SpectrumMaterial(m.name, list(m.emissivity))
@@ -57,14 +57,19 @@ def to_port_scene(jsc):
     sc.resolution = jsc.resolution
     sc.sky_material_id = jsc.sky_material_id
     sc.sky_temperature = jsc.sky_temperature
-    obj = sc.load_object(jsc.objects[0].filename)
-    for i, el in enumerate(jsc.objects[0].elements):
-        m = el.material
-        assert obj.elements[i].name == el.name
-        sc.set_material(0, i, pt.Material(
-            type=pt.MaterialType(int(m.type)), base_color=m.base_color,
-            roughness=m.roughness, ior=m.ior, dispersion_b=m.dispersion_b,
-            temperature=m.temperature, spectrum_mat_id=m.spectrum_mat_id))
+    for k, jobj in enumerate(jsc.objects):
+        obj = sc.load_object(jobj.filename)
+        obj.location = jobj.location.copy()
+        obj.rotation = jobj.rotation.copy()
+        obj.scale = jobj.scale.copy()
+        for i, el in enumerate(jobj.elements):
+            m = el.material
+            assert obj.elements[i].name == el.name
+            sc.set_material(k, i, pt.Material(
+                type=pt.MaterialType(int(m.type)), base_color=m.base_color,
+                roughness=m.roughness, ior=m.ior,
+                dispersion_b=m.dispersion_b, temperature=m.temperature,
+                spectrum_mat_id=m.spectrum_mat_id))
     sc.set_camera(jsc.camera_position, jsc.camera_rotation)
     sc.camera_fovy = jsc.camera_fovy
     sc.camera_focal = jsc.camera_focal
@@ -83,7 +88,7 @@ def assert_fields_equal(jax_data, port_data):
 def test_compile_equals_jax_tiny_scene():
     import pathtracing_spectrum_tpu as jp
     want = tiny_scene(jp).compile(build_bvh=False)
-    got = tiny_scene(pt).compile("cpu")
+    got = tiny_scene(pt).compile("cpu", build_bvh=False)
     assert got.n_triangles == 36
     assert_fields_equal(want, got)
 
@@ -95,7 +100,8 @@ def test_compile_equals_jax_tiny_scene():
 ])
 def test_compile_equals_jax_cornell(blocks):
     jsc, sc = port_cornell(sky=True, block_types=blocks)
-    assert_fields_equal(jsc.compile(build_bvh=False), sc.compile("cpu"))
+    assert_fields_equal(jsc.compile(build_bvh=False),
+                        sc.compile("cpu", build_bvh=False))
 
 
 def test_camera_matches_jax():
