@@ -2,23 +2,32 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain PyTorch version on the card, checks whole
-traces on the card against the same traces on the CPU under shared
-variates, then drives two paths through the entry points a user calls and
-checks that each went through its kernels and made a healthy image:
+each kernel against its plain PyTorch version on the card, checks the
+threefry draw against ``jax.random`` golden values, checks whole traces on
+the card against the same traces on the CPU (under shared variates, and
+under one key for the spectral modes, textures and grids), then drives
+the paths through the entry points a user calls and checks that each went
+through its kernels and made a healthy image:
 
 - the main path: the Cornell box at 512x512, 4 wavelengths, trace depth 3,
-  64 samples through ``RenderSession.run`` (the dense sweep K1 and the
-  attribute fetch K2);
+  64 samples through ``RenderSession.run`` (the dense sweep K1, the
+  attribute fetch K2 and the threefry draw);
 - the large-scene path: the 51,778-triangle procedural terrain of
   ``bench_suite.terrain_scene`` at 512x512, depth 3, 16 samples through a
   ``RenderSession`` whose ``"auto"`` backend resolves to ``"hier"`` (the
   BVH walk K3, the fetch K2 and the bounce-ray reorder), then 4 samples
-  with ``backend="cluster"`` (the cluster-culled sweep K4).
+  with ``backend="cluster"`` (the cluster-culled sweep K4);
+- the spectral path: the dispersion prism of ``bench_suite.prism_scene``
+  at 512x512, depth 5, 32 samples with ``dispersion=True`` (K1, K2 with
+  the flat hero table, threefry), then the Cornell box at nw = 256,
+  8 samples with the hero estimator and without;
+- the textured path: ``bench_suite.textured_sphere_scene`` (2,244
+  triangles, a checker roughness map) at 1920x1080, 16 samples through
+  ``"hier"`` (K3, K2, threefry).
 
 Run from the repository root:
 
-    python3 chip_smoke.py              # one card, about two minutes
+    python3 chip_smoke.py              # one card, about three minutes
     python3 chip_smoke.py --profile    # also print torch.profiler tables
 
 Every check raises on failure, and the script exits non-zero without
@@ -38,6 +47,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,9 +63,27 @@ AGREE_GATE_PCT = 99.8  # hit agreement gate (bench_suite.AGREE_GATE_PCT)
 TRACE_RTOL, TRACE_ATOL = 1e-4, 1e-6
 LARGE_SPP = 16         # large-scene path: 16 samples in one call ...
 CLUSTER_SPP = 4        # ... then 4 through the cluster backend
+PRISM_DEPTH, PRISM_SPP = 5, 32     # spectral path (bench_suite config 2)
+NW_BIG, NW_SPP = 256, 8            # Cornell at nw = 256 (config 7)
+TEX_RES, TEX_SPP = (1920, 1080), 16  # textured path (config 3)
 # make_terrain arguments of the repo's terrain assets (make_assets.py)
 TERRAINS = {"10k": dict(grid=64, n_rocks=8, rock_sub=8),
             "52k": dict(grid=128, n_rocks=36, rock_sub=12)}
+# jax.random (JAX 0.9.0, threefry, partitionable) values for key 5, which
+# tests/test_torch_rng.py asserts against jax on the CPU: three folds, the
+# first uniforms of each row of the per-bounce [4, 262144] draw under
+# fold_in(key, 0), and of the hero draw under fold_in(key, 0x0D15), as
+# float32 bit patterns
+RNG_GOLDEN = {
+    "seed": 5,
+    "fold_in": {0: (0xA264258C, 0xD500890A), 3: (0xAF35D4C3, 0xB7629606),
+                0x0D15: (0x5553E587, 0x01A567D2)},
+    "uniform_fold": 0,
+    "uniform_shape": (4, 262144),
+    "uniform_bits": ((0x3F29396C, 0x3F600080), (0x3EF465A0, 0x3F6E71D8),
+                     (0x3F4E0740, 0x3E623F70), (0x3E88FFA0, 0x3EEDAF84)),
+    "hero_bits": (0x3EC95A18, 0x3F678F16, 0x3EFD97F4, 0x3F6C5150),
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -172,6 +200,93 @@ def terrain_scene(pt, path: str, res: int, depth: int = DEPTH):
     return sc
 
 
+def prism_scene(pt, res: int, depth: int = PRISM_DEPTH):
+    """``bench_suite.prism_scene`` with the port's Scene: a Cauchy glass
+    prism (ior 1.45, B 0.2) over a floor, a back wall and a 600 C
+    emitter."""
+    sc = pt.Scene()
+    sc.wavelengths = [500.0, 1000.0, 1500.0, 2000.0]
+    sc.spectrum_materials = [pt.SpectrumMaterial("glass", [0.0] * 4),
+                             pt.SpectrumMaterial("surface", [0.9] * 4),
+                             pt.SpectrumMaterial("emitter", [1.0] * 4)]
+    sc.trace_depth = depth
+    sc.resolution = (res, res)
+    obj = sc.load_object(os.path.join(HERE, "assets", "prism.obj"))
+    mats = {"floor": pt.Material(spectrum_mat_id=1, temperature=20.0),
+            "back": pt.Material(spectrum_mat_id=1, temperature=20.0),
+            "emitter": pt.Material(spectrum_mat_id=2, temperature=600.0),
+            "prism": pt.Material(type=pt.MaterialType.GLASS,
+                                 spectrum_mat_id=0, temperature=500.0,
+                                 ior=1.45, dispersion_b=0.2)}
+    for i, el in enumerate(obj.elements):
+        sc.set_material(0, i, mats[el.name])
+    sc.set_camera([0.0, 0.5, -4.0], [0.0, 0.0, 0.0])
+    sc.camera_fovy = 60.0
+    return sc
+
+
+def cornell_nw_scene(pt, res: int, nw: int, depth: int = DEPTH):
+    """``bench_suite.cornell_scene_nw``: the Cornell box over an nw-point
+    wavenumber grid from 500 to 2000 1/cm."""
+    waves = np.linspace(500.0, 2000.0, nw)
+    white = np.interp(waves, [500.0, 1000.0, 1500.0, 2000.0],
+                      [0.8, 0.7, 0.75, 0.8])
+    sc = pt.Scene()
+    sc.wavelengths = [float(v) for v in waves]
+    sc.spectrum_materials = [
+        pt.SpectrumMaterial("white", [float(v) for v in white]),
+        pt.SpectrumMaterial("emitter", [1.0] * nw)]
+    sc.trace_depth = depth
+    sc.resolution = (res, res)
+    obj = sc.load_object(os.path.join(HERE, "assets", "cornell_box.obj"))
+    for i, el in enumerate(obj.elements):
+        hot = el.name == "light"
+        sc.set_material(0, i, pt.Material(temperature=500.0 if hot else 20.0,
+                                          spectrum_mat_id=1 if hot else 0,
+                                          roughness=0.2))
+    sc.set_camera([0.0, 0.0, -2.0], [0.0, 0.0, 0.0])
+    sc.camera_fovy = 50.0
+    return sc
+
+
+def textured_sphere_scene(pt, res, grid_path: str = ""):
+    """``bench_suite.textured_sphere_scene``: a glossy UV sphere with the
+    checker roughness map inside the Cornell box (2,244 triangles); with
+    ``grid_path`` the box's back wall also carries that temperature
+    grid."""
+    assets = os.path.join(HERE, "assets")
+    sc = pt.Scene()
+    sc.wavelengths = [500.0, 1000.0, 1500.0, 2000.0]
+    sc.spectrum_materials = [
+        pt.SpectrumMaterial("body", [0.7, 0.75, 0.8, 0.7]),
+        pt.SpectrumMaterial("emitter", [1.0] * 4)]
+    sc.trace_depth = DEPTH
+    sc.resolution = res
+    obj = sc.load_object(os.path.join(assets, "sphere.obj"))
+    sc.set_material(0, 0, pt.Material(
+        type=pt.MaterialType.GLOSSY, spectrum_mat_id=0, temperature=80.0,
+        roughness=0.4,
+        roughness_tex_file=os.path.join(assets, "checker.png")))
+    obj.set_location([0.0, 0.0, 3.0])
+    box = sc.load_object(os.path.join(assets, "cornell_box.obj"))
+    for i, el in enumerate(box.elements):
+        hot = el.name == "light"
+        sc.set_material(1, i, pt.Material(temperature=400.0 if hot else 15.0,
+                                          spectrum_mat_id=1 if hot else 0))
+        if grid_path and el.name == "back":
+            sc.set_temperature_data(1, i, grid_path)
+    sc.set_camera([0.0, 0.0, -1.0], [0.0, 0.0, 0.0])
+    sc.camera_fovy = 55.0
+    return sc
+
+
+def healthy(img, what: str) -> None:
+    check(bool(np.isfinite(img).all()), f"{what}: image has non-finite "
+          "values")
+    check(bool((img >= 0).all()), f"{what}: image has negative values")
+    check(img.mean() > 0, f"{what}: image is black")
+
+
 def agreement(got, want):
     """(hit/idx agreement %, max |d| of t, s2, s3 where they agree, rays
     with a hit) of two (hit, t, idx, s2, s3) results."""
@@ -238,7 +353,7 @@ def main() -> int:
     from pathtracing_spectrum_tpu_torch.models.camera import tile_order
     from pathtracing_spectrum_tpu_torch.ops import (
         fetch_cuda, intersect_cluster_cuda, intersect_cuda,
-        intersect_hier_cuda)
+        intersect_hier_cuda, rng, rng_cuda)
     from pathtracing_spectrum_tpu_torch.ops.intersect import pack_tri16
     k3_fn, k4_fn = (intersect_hier_cuda.intersect_bvh,
                     intersect_cluster_cuda.intersect_cluster)
@@ -248,11 +363,12 @@ def main() -> int:
                 "fetch_rows": fetch_cuda.fetch_rows.launches,
                 "intersect_bvh": k3_fn.launches,
                 "intersect_cluster": k4_fn.launches,
+                "threefry_uniform": rng_cuda.uniform.launches,
                 "sorts": reorder.permutation.calls}
 
     def zero_counts():
         for fn in (intersect_cuda.intersect_dense, fetch_cuda.fetch_rows,
-                   k3_fn, k4_fn):
+                   k3_fn, k4_fn, rng_cuda.uniform):
             fn.launches = 0
         reorder.permutation.calls = 0
 
@@ -283,6 +399,42 @@ def main() -> int:
         nvcc_seconds=f"{_build.build_seconds():.2f}",
         library=os.path.relpath(lib._name, HERE),
         host_library=os.path.relpath(host._name, HERE))
+
+    # ---- 2b. threefry against its plain version and jax.random ----------
+    t_phase = time.perf_counter()
+    g = RNG_GOLDEN
+    gkey = rng.key(g["seed"])
+    for data, words in g["fold_in"].items():
+        check(tuple(rng.fold_in(gkey, data)) == tuple(words),
+              f"fold_in(key({g['seed']}), {data}) is not jax.random's")
+    rng_key = rng.fold_in(gkey, g["uniform_fold"])
+    n_main = g["uniform_shape"][1]
+    rng_err = 0.0
+    for shape, k, golden in (
+            (g["uniform_shape"], rng_key, g["uniform_bits"]),
+            ((n_main,), rng.fold_in(gkey, engine.HERO_FOLD),
+             (g["hero_bits"],))):
+        got = rng_cuda.uniform(k, shape, dev)
+        want = rng.uniform_ref(k, shape, dev)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = (got - want).abs().max().item()
+        rng_err = max(rng_err, err)
+        bits = got.view(torch.int32).reshape(-1, shape[-1]).cpu().numpy()
+        jax_same = all(tuple(int(b) & 0xFFFFFFFF for b in bits[r, :len(row)])
+                       == tuple(row) for r, row in enumerate(golden))
+        say("rng", shape=list(shape), bitwise_equal=same,
+            jax_golden_equal=jax_same, max_abs_err=err,
+            mean=got.mean().item(), gate="bitwise")
+        check(same and jax_same, f"threefry differs at shape {shape}")
+    rng_ms = {}
+    for shape in (g["uniform_shape"], (n_main,)):
+        rng_ms[shape] = time_pair(
+            torch, lambda: rng_cuda.uniform(rng_key, shape, dev),
+            lambda: rng.uniform_ref(rng_key, shape, dev))
+        say("rng", shape=list(shape), kernel_ms=f"{rng_ms[shape][0]:.4f}",
+            plain_ms=f"{rng_ms[shape][1]:.4f}", card=repr(card))
+    phase_done("rng", t_phase)
 
     # ---- 3. K1 against its plain version ----------------------------------
     t_phase = time.perf_counter()
@@ -336,6 +488,7 @@ def main() -> int:
     big = torch.randn((2300, 30), generator=g, device=dev)
     big_idx = torch.randint(-2, 2302, (65536,), generator=g, device=dev,
                             dtype=torch.int32)
+    k2_err = 0.0
     for name, idx, table in (
             ("cornell-primary", torch.cat([prim_hit[2], rand_idx, edge]),
              shade_sub),
@@ -344,9 +497,11 @@ def main() -> int:
         got = fetch_cuda.fetch_rows(idx, table)
         torch.cuda.synchronize()
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = (got - want).abs().max().item()
+        k2_err = max(k2_err, err)
         say("K2", case=name, rays=idx.shape[0],
             table=f"{table.shape[0]}x{table.shape[1]}", bitwise_equal=same,
-            gate="bitwise")
+            max_abs_err=err, gate="bitwise")
         check(same and got.shape == want.shape, f"K2 differs on {name}")
     main_idx = prim_hit[2]
     k2_ms, k2_plain_ms = time_pair(
@@ -419,16 +574,22 @@ def main() -> int:
     launches = {k: main_counts[k] for k in ("intersect_dense", "fetch_rows")}
     st = sess.stats()
     want_launches = 1 + SPP * (2 * DEPTH - 1)
+    want_draws = SPP * 2 * DEPTH     # one [4, N] draw per bounce iteration
     h = img.shape[0]
     top, bottom = img[: h // 8].mean(), img[-(h // 8):].mean()
     say("main", res=f"{RES}x{RES}", nw=img.shape[2], depth=DEPTH, spp=SPP,
         launches_K1=launches["intersect_dense"],
         launches_K2=launches["fetch_rows"], expected=want_launches,
+        launches_threefry=main_counts["threefry_uniform"],
+        expected_threefry=want_draws,
         rays_traced=st["rays_traced"], mean=float(img.mean()),
         top_band=float(top), bottom_band=float(bottom))
     for name, n in launches.items():
         check(n == want_launches, f"{name} launched {n} times on the main "
               f"path, expected {want_launches}")
+    check(main_counts["threefry_uniform"] == want_draws,
+          f"threefry launched {main_counts['threefry_uniform']} times on "
+          f"the main path, expected {want_draws}")
     check(st["backend"] == "dense", f"main path resolved {st['backend']}")
     check(main_counts["intersect_bvh"] == main_counts["intersect_cluster"]
           == main_counts["sorts"] == 0, f"main path counts {main_counts}")
@@ -495,8 +656,7 @@ def main() -> int:
     recording_k3.launches = 0   # the wrapper counts on its module's name
     intersect_hier_cuda.intersect_bvh = recording_k3
     try:
-        engine.trace_radiance(scene52, ro52, rd52,
-                              engine.sample_generator(7, 0, dev), DEPTH)
+        engine.trace_radiance(scene52, ro52, rd52, rng.key(7), DEPTH)
         torch.cuda.synchronize()
     finally:
         intersect_hier_cuda.intersect_bvh = real_k3
@@ -657,6 +817,8 @@ def main() -> int:
     check(large_counts["intersect_dense"] == 0
           and large_counts["intersect_cluster"] == 0,
           f"large-scene path left K3: {large_counts}")
+    check(large_counts["threefry_uniform"] == LARGE_SPP * 2 * DEPTH,
+          f"threefry launched {large_counts['threefry_uniform']} times")
     check(large_counts["sorts"] == LARGE_SPP * (2 * DEPTH - 1),
           f"reorder ran {large_counts['sorts']} times, expected every "
           "looped iteration")
@@ -673,15 +835,15 @@ def main() -> int:
     rates = {"auto": [], False: []}
     for mode in ("auto", False, False, "auto"):
         total = torch.zeros((RES * RES, 4), device=dev)
-        engine.render_samples(scene52, ro_t, rd_t, total, 0, 3, 0, n_steps=1,
-                              max_depth=DEPTH, reorder=mode)
+        engine.render_samples(scene52, ro_t, rd_t, total, 0, rng.key(3), 0,
+                              n_steps=1, max_depth=DEPTH, reorder=mode)
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         _, _, _, rays = engine.render_samples(
-            scene52, ro_t, rd_t, total, 0, 3, 100, n_steps=LARGE_SPP,
-            max_depth=DEPTH, reorder=mode)
+            scene52, ro_t, rd_t, total, 0, rng.key(3), 100,
+            n_steps=LARGE_SPP, max_depth=DEPTH, reorder=mode)
         e1.record()
         e1.synchronize()
         ms = e0.elapsed_time(e1)
@@ -718,6 +880,208 @@ def main() -> int:
           and img_c.mean() > 0, "cluster image unhealthy")
     phase_done("large", t_phase)
 
+    def rate(sess, n):
+        """(Mrays/s, ms per sample, counts) of one more ``step(n)`` of the
+        session, timed with CUDA events."""
+        torch.cuda.synchronize()
+        zero_counts()
+        rays0 = sess.rays_traced
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        sess.step(n, readback=False)
+        e1.record()
+        e1.synchronize()
+        ms = e0.elapsed_time(e1)
+        return (sess.rays_traced - rays0) / ms / 1e3, ms / n, counts()
+
+    def want_counts(n, depth, hero=False, route="intersect_dense",
+                    sorts=0):
+        """Launches of one render_samples call of n samples: the hoisted
+        primary plus the looped iterations on the closest-hit kernel and
+        K2 (plus one hero-table read per iteration), one threefry draw
+        per iteration (plus the hero channel's per sample)."""
+        looped = n * (2 * depth - 1)
+        want = {"intersect_dense": 0, "intersect_bvh": 0,
+                "intersect_cluster": 0, "sorts": sorts,
+                "fetch_rows": 1 + looped + (n * 2 * depth if hero else 0),
+                "threefry_uniform": n * (2 * depth + (1 if hero else 0))}
+        want[route] = 1 + looped
+        return want
+
+    # ---- 11. spectral path: the dispersion prism, then nw = 256 ----------
+    t_phase = time.perf_counter()
+    scp = prism_scene(pt, RES)
+    warm = pt.RenderSession(scp, dev, seed=1, dispersion=True)
+    warm.run(2, batch=2)
+    torch.cuda.synchronize()
+    sess_p = pt.RenderSession(scp, dev, seed=0, dispersion=True)
+    sess_p.start()
+    torch.cuda.synchronize()
+    zero_counts()
+    img_p = sess_p.run(PRISM_SPP, batch=PRISM_SPP)
+    torch.cuda.synchronize()
+    prism_counts = counts()
+    st_p = sess_p.stats()
+    want_p = want_counts(PRISM_SPP, PRISM_DEPTH, hero=True)
+    say("spectral", scene="prism", res=f"{RES}x{RES}", dispersion=True,
+        depth=PRISM_DEPTH, spp=PRISM_SPP, tris=st_p["triangles"],
+        backend=st_p["backend"], launches=json.dumps(prism_counts),
+        expected=json.dumps(want_p), rays_traced=st_p["rays_traced"],
+        mean=float(img_p.mean()))
+    check(st_p["backend"] == "dense", f"prism resolved {st_p['backend']}")
+    check(prism_counts == want_p, f"prism launches {prism_counts}, "
+          f"expected {want_p}")
+    check(img_p.shape == (RES, RES, 4), f"prism image shape {img_p.shape}")
+    healthy(img_p, "prism")
+    mr, ms, _ = rate(sess_p, PRISM_SPP)
+    say("spectral", scene="prism", mrays_per_s=mr, ms_per_sample=ms,
+        card=repr(card))
+    if args.profile:
+        profile(torch, sess_p, ms, "spectral")
+    # K2 on the flat hero table, misses and out-of-range rows included
+    prep_p = engine._prepare(sess_p._scene_data, "auto", dispersion=True)
+    ro_p, rd_p = pt.camera_rays(scp.camera(), RES, RES, device=dev)
+    prim_p = prep_p.intersect(*(ro_p[:, k].contiguous() for k in range(3)),
+                              *(rd_p[:, k].contiguous() for k in range(3)))
+    hero = torch.randint(0, 4, prim_p[2].shape, generator=g, device=dev,
+                         dtype=torch.int32)
+    flat = torch.cat([torch.where(prim_p[0], prim_p[2], -1) * 4 + hero,
+                      edge])
+    got = fetch_cuda.fetch_rows(flat, prep_p.hero_table)
+    want = fetch_cuda.fetch_rows_ref(flat, prep_p.hero_table)
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    err = (got - want).abs().max().item()
+    k2_err = max(k2_err, err)
+    say("K2", case="prism-hero-table",
+        table="x".join(map(str, prep_p.hero_table.shape)),
+        negative_rows=int((flat < 0).sum()), bitwise_equal=same,
+        max_abs_err=err, gate="bitwise")
+    check(same, "K2 differs on the hero table")
+
+    sc256 = cornell_nw_scene(pt, RES, NW_BIG)
+    for mode in ("hero", False):
+        s256 = pt.RenderSession(sc256, dev, seed=0, dispersion=mode)
+        s256.run(1, batch=1)
+        mr, ms, c256 = rate(s256, NW_SPP)
+        want256 = want_counts(NW_SPP, DEPTH, hero=bool(mode))
+        img256 = s256.result()
+        say("spectral", scene=f"cornell-nw{NW_BIG}", res=f"{RES}x{RES}",
+            dispersion=repr(mode), spp=NW_SPP, mrays_per_s=mr,
+            ms_per_sample=ms, launches=json.dumps(c256),
+            mean=float(img256.mean()), card=repr(card))
+        check(c256 == want256, f"nw={NW_BIG} {mode!r} launches {c256}, "
+              f"expected {want256}")
+        check(img256.shape == (RES, RES, NW_BIG), "nw=256 image shape")
+        healthy(img256, f"nw={NW_BIG} {mode!r}")
+        del s256, img256
+    phase_done("spectral", t_phase)
+
+    # ---- 12. textured path: the checker-roughness sphere at 1080p --------
+    t_phase = time.perf_counter()
+    sct = textured_sphere_scene(pt, TEX_RES)
+    data_t = sct.compile(dev)
+    say("textured", tris=data_t.n_triangles,
+        texture_table=list(data_t.textures.shape),
+        roughness_tex_any=list(data_t.roughness_tex_any.shape),
+        normal_tex_any=list(data_t.normal_tex_any.shape))
+    check(tuple(data_t.textures.shape) == (1, 128, 128, 4),
+          f"texture table {tuple(data_t.textures.shape)}: the checker map "
+          "was not decoded")
+    check(data_t.roughness_tex_any.shape[0] == 1, "no roughness map bound")
+    warm = pt.RenderSession(sct, dev, seed=1)
+    warm.run(1, batch=1)
+    torch.cuda.synchronize()
+    sess_t = pt.RenderSession(sct, dev, seed=0)
+    sess_t.start()
+    torch.cuda.synchronize()
+    zero_counts()
+    img_t = sess_t.run(TEX_SPP, batch=TEX_SPP)
+    torch.cuda.synchronize()
+    tex_counts = counts()
+    st_t = sess_t.stats()
+    # 2,244 triangles: reorder on ("auto", K3 on CUDA), from the last
+    # iteration (reorder_from_policy below 4,096 triangles)
+    want_t = want_counts(TEX_SPP, DEPTH, route="intersect_bvh",
+                         sorts=TEX_SPP)
+    say("textured", res=f"{TEX_RES[0]}x{TEX_RES[1]}", spp=TEX_SPP,
+        backend=st_t["backend"], launches=json.dumps(tex_counts),
+        expected=json.dumps(want_t), rays_traced=st_t["rays_traced"],
+        mean=float(img_t.mean()))
+    check(st_t["backend"] == "hier", f"textured resolved {st_t['backend']}")
+    check(tex_counts == want_t, f"textured launches {tex_counts}, expected "
+          f"{want_t}")
+    check(img_t.shape == (TEX_RES[1], TEX_RES[0], 4),
+          f"textured image shape {img_t.shape}")
+    healthy(img_t, "textured")
+    mr, ms, _ = rate(sess_t, TEX_SPP)
+    say("textured", mrays_per_s=mr, ms_per_sample=ms, card=repr(card))
+    if args.profile:
+        profile(torch, sess_t, ms, "textured")
+    phase_done("textured", t_phase)
+
+    # ---- 13. one key: spectral and textured traces, card vs CPU ----------
+    t_phase = time.perf_counter()
+
+    def same_key_trace(name, sc_k, depth, **kw):
+        ro_k, rd_k = pt.camera_rays(sc_k.camera(), TRACE_RES, TRACE_RES)
+        n_k = ro_k.shape[0]
+        scene_cpu, scene_dev = sc_k.compile("cpu"), sc_k.compile(dev)
+        key = rng.fold_in(rng.key(13), 1)
+        fetched = {}
+        real_fetch = fetch_cuda.fetch_rows
+
+        def recording_fetch(idx, table):
+            if table.shape[0] == scene_cpu.n_triangles:   # not the hero table
+                fetched.setdefault(idx.device.type, []).append(idx.cpu())
+            return real_fetch(idx, table)
+
+        recording_fetch.launches = 0
+        fetch_cuda.fetch_rows = recording_fetch
+        try:
+            on_cpu = engine.trace_radiance(scene_cpu, ro_k, rd_k, key,
+                                           depth, **kw)
+            on_dev = engine.trace_radiance(scene_dev, ro_k.to(dev),
+                                           rd_k.to(dev), key, depth, **kw)
+            torch.cuda.synchronize()
+        finally:
+            fetch_cuda.fetch_rows = real_fetch
+        differs = torch.zeros(n_k, dtype=torch.bool)
+        for ic, idd in zip(fetched["cpu"], fetched["cuda"]):
+            differs |= ic != idd
+        a, b = on_dev.radiance.cpu()[~differs], on_cpu.radiance[~differs]
+        close = torch.allclose(a, b, rtol=TRACE_RTOL, atol=TRACE_ATOL)
+        n_diff = int(differs.sum())
+        say("trace", scene=name, key="fold_in(key(13), 1)", pixels=n_k,
+            depth=depth, tris=scene_dev.n_triangles,
+            options=json.dumps({k: repr(v) for k, v in kw.items()}),
+            pixels_with_other_hits=n_diff,
+            max_abs_diff_elsewhere=(a - b).abs().max().item(),
+            max_abs=b.abs().max().item(),
+            rays_cuda=int(on_dev.rays_traced),
+            rays_cpu=int(on_cpu.rays_traced),
+            tolerance=f"rtol={TRACE_RTOL},atol={TRACE_ATOL}")
+        check(len(fetched["cuda"]) == len(fetched["cpu"]) == 2 * depth,
+              f"{name}: the trace did not fetch once per bounce")
+        check(close, f"{name}: CUDA and CPU traces differ beyond tolerance")
+        check(n_diff <= n_k * (100.0 - AGREE_GATE_PCT) / 100.0,
+              f"{name}: {n_diff} pixels hit other triangles on the card")
+        check(b.abs().max().item() > 0, f"{name}: the trace is black")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        grid = os.path.join(tmp, "back_wall.txt")
+        with open(grid, "w") as f:
+            f.write("\n".join(" ".join(str(100 + 40 * ((x + y) % 5))
+                                       for x in range(9))
+                              for y in range(7)) + "\n")
+        same_key_trace("prism", prism_scene(pt, TRACE_RES), PRISM_DEPTH,
+                       dispersion=True)
+        same_key_trace("cornell-nw4", cornell_nw_scene(pt, TRACE_RES, 4),
+                       DEPTH, dispersion="hero")
+        same_key_trace("textured-grid", textured_sphere_scene(
+            pt, (TRACE_RES, TRACE_RES), grid), DEPTH, backend="hier")
+    phase_done("trace-one-key", t_phase)
+
     check(not any(m.split(".")[0] in ("jax", "jaxlib")
                   for m in sys.modules), "jax was imported")
     src = "pathtracing_spectrum_tpu_torch/csrc/"
@@ -730,7 +1094,7 @@ def main() -> int:
         {"name": "fetch_rows", "route": "cuda",
          "source": src + "fetch_rows.cu",
          "replaces": "pathtracing_spectrum_tpu/ops/fetch_pallas.py:32",
-         "launches": launches["fetch_rows"], "max_abs_err": 0.0,
+         "launches": launches["fetch_rows"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
         {"name": "intersect_bvh", "route": "cuda",
          "source": src + "intersect_bvh.cu",
@@ -748,6 +1112,12 @@ def main() -> int:
          "max_abs_err": hier_err["intersect_cluster"],
          "ms": hier_ms["intersect_cluster"][0],
          "plain_ms": hier_ms["intersect_cluster"][1]},
+        {"name": "threefry_uniform", "route": "cuda",
+         "source": src + "threefry.cu",
+         "replaces": "jax.random threefry2x32 (XLA, no Pallas kernel)",
+         "launches": main_counts["threefry_uniform"], "max_abs_err": rng_err,
+         "ms": rng_ms[RNG_GOLDEN["uniform_shape"]][0],
+         "plain_ms": rng_ms[RNG_GOLDEN["uniform_shape"]][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,20 +9,24 @@ shading-table packing, intersection precompute) is therefore carried here
 as a jax-free copy, and the CPU tests hold it equal to the JAX package,
 array for array.
 
-The port covers the main path and the large-scene path: BVH-ordered
-scene compilation (the binned-SAH builder, host C++), the closest-hit
-kernels K1 (dense sweep), K3 (BVH walk, the ``hier`` backend) and K4
-(cluster-culled sweep), the attribute fetch K2 (hand-written CUDA kernels
-under ``csrc/``), the non-hero bounce loop with the bounce-ray reorder,
-``render_samples`` with the primary-hit hoist, and a synchronous
-``RenderSession``. Everything else raises ``NotImplementedError`` with a
-pointer to its ROADMAP item.
+The port covers the main path, the large-scene path and the spectral
+path: BVH-ordered scene compilation (the binned-SAH builder, host C++)
+with normal and roughness maps (PNG, decoded without PIL) and temperature
+grids, the closest-hit kernels K1 (dense sweep), K3 (BVH walk, the
+``hier`` backend) and K4 (cluster-culled sweep), the attribute fetch K2
+and the threefry draw of ``jax.random`` (hand-written CUDA kernels under
+``csrc/``), the bounce loop in every spectral mode (dense, hero, Cauchy
+dispersion) with the bounce-ray reorder, ``render_samples`` under JAX's
+key schedule (``ops/rng.py``; ``rng.key(seed)`` makes a key) with the
+primary-hit hoist, and a synchronous ``RenderSession``. Everything else
+raises ``NotImplementedError`` with a pointer to its ROADMAP item.
 """
 
 from .constants import BIG, EPS, __version__
 from .models.materials import Material, MaterialType, SpectrumMaterial
 from .models.camera import Camera, camera_rays
 from .scene import Scene, SceneData, scene_data_from_numpy
+from .ops import rng
 from .engine import (make_intersector, render_sample, render_samples,
                      resolve_backend, trace_radiance)
 from .render import RenderSession
@@ -34,5 +38,5 @@ __all__ = [
     "Scene", "SceneData", "scene_data_from_numpy",
     "make_intersector", "render_sample", "render_samples",
     "resolve_backend", "trace_radiance",
-    "RenderSession",
+    "RenderSession", "rng",
 ]

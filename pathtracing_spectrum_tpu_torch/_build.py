@@ -31,7 +31,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 SOURCES = (_CSRC / "intersect_dense.cu", _CSRC / "fetch_rows.cu",
-           _CSRC / "intersect_bvh.cu", _CSRC / "intersect_cluster.cu")
+           _CSRC / "intersect_bvh.cu", _CSRC / "intersect_cluster.cu",
+           _CSRC / "threefry.cu")
 HEADERS = (_CSRC / "tri_hit.cuh",)
 HOST_SOURCES = (_CSRC / "bvh_build.cpp",)
 BUILD_DIR = _HERE / "build"
@@ -46,14 +47,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-march=native")
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
+_I32, _I64, _U32 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint32
 # C signatures: device pointers, sizes, stream; each returns cudaError_t.
 _SIGNATURES = {
     "pts_intersect_dense": [_V] * 6 + [_V, _I, _I] + [_V] * 5 + [_V],
     "pts_fetch_rows": [_V, _V, _I, _I, _I, _V, _V],
     "pts_intersect_bvh": [_V] * 6 + [_V] * 6 + [_I, _I] + [_V] * 5 + [_V],
     "pts_intersect_cluster": [_V] * 6 + [_V, _V, _I, _I] + [_V] * 5 + [_V],
+    "pts_threefry_uniform": [_U32, _U32, _I64, _V, _V],
 }
-_I32, _I64 = ctypes.c_int32, ctypes.c_int64
 _HOST_SIGNATURES = {
     "pts_bvh_build": ([_V, _V, _I64, _I32], _V),
     "pts_bvh_node_count": ([_V], _I32),

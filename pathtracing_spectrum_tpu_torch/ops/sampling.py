@@ -12,7 +12,10 @@ reference's quirks:
   ``w = u * roughness``; the frame's branch tests **n.x** with FLT_EPSILON
   and ``v = cross(u, r)`` is not re-normalised (pathtracer.cpp:484);
 * GLASS: Snell + Schlick with nc = 1.0, ng = 1.5 and Schlick power **2**;
-  total internal reflection reflects, refraction flips ``inside``.
+  total internal reflection reflects, refraction flips ``inside``. The
+  dispersion mode passes per-ray ratios ``eta_inside``/``eta_outside``
+  (the hero channel's Cauchy index and its inverse) in place of 1.5 and
+  1/1.5; the Schlick ``r0`` keeps 1.5, as in the JAX package.
 
 All four candidates are computed for every ray and selected by type.
 """
@@ -51,8 +54,8 @@ def _cross3(ax, ay, az, bx, by, bz):
 
 
 def sample_bounce_soa(mat_type, rdx, rdy, rdz, nx, ny, nz, roughness,
-                      inside, u_rand, theta_rand,
-                      fresnel_rand) -> BounceSampleSoA:
+                      inside, u_rand, theta_rand, fresnel_rand,
+                      eta_inside=None, eta_outside=None) -> BounceSampleSoA:
     """Bounce direction for every ray.
 
     Args:
@@ -62,6 +65,8 @@ def sample_bounce_soa(mat_type, rdx, rdy, rdz, nx, ny, nz, roughness,
       roughness: [N] glossy cone scale.
       inside: [N] bool glass state.
       u_rand, theta_rand, fresnel_rand: [N] U[0,1) variates.
+      eta_inside, eta_outside: optional [N] refraction ratios for a ray
+        inside and outside the glass (defaults ng/nc = 1.5 and nc/ng).
     """
     ndot = rdx * nx + rdy * ny + rdz * nz
     rx = rdx - 2.0 * ndot * nx
@@ -100,7 +105,9 @@ def sample_bounce_soa(mat_type, rdx, rdy, rdz, nx, ny, nz, roughness,
 
     # --- GLASS ------------------------------------------------------------
     nc, ng = 1.0, 1.5
-    eta = torch.where(inside, ng / nc, nc / ng)
+    eta = torch.where(inside,
+                      ng / nc if eta_inside is None else eta_inside,
+                      nc / ng if eta_outside is None else eta_outside)
     r0 = ((nc - ng) / (nc + ng)) ** 2
     c = torch.abs(ndot)
     k = 1.0 - eta * eta * (1.0 - c * c)

@@ -6,7 +6,11 @@ compiles the scene and the primary rays onto the session's device (in
 samples through one ``engine.render_samples`` call, ``run`` steps until a
 target sample count and pauses, ``result`` un-permutes the running mean to
 [H, W, nw], ``stats`` reports samples, time, Mrays/s and the backend that
-``"auto"`` resolved to (``resolved_backend``).
+``"auto"`` resolved to (``resolved_backend``). The session's key is
+``jax.random.key(seed)`` of the JAX session (``ops/rng.py``) and sample
+``i`` traces under ``fold_in(key, i)``, so a port session and a JAX
+session with one seed draw the same variates; ``dispersion`` selects the
+spectral estimator as in the JAX session.
 
 Not in this slice (ROADMAP Queue 1 item 8): async rendering, stop/restart,
 checkpoints, sharding, jitter.
@@ -23,6 +27,7 @@ import torch
 
 from .engine import render_samples, resolve_backend
 from .models.camera import camera_rays, tile_order
+from .ops import rng
 from .scene import Scene, SceneData
 
 MAX_TARGET_SPP = 65535  # reference GUI clamp (main.cpp:1662-1669)
@@ -38,11 +43,13 @@ class RenderSession:
     """Owns the progressive accumulator for one scene + camera."""
 
     def __init__(self, scene: Scene, device: "torch.device | str" = "cpu",
-                 seed: int = 0, backend: str = "auto"):
+                 seed: int = 0, backend: str = "auto", dispersion=False):
         self.scene = scene
         self.device = torch.device(device)
         self.seed = int(seed)
         self.backend = backend   # handed to the engine; "auto" resolves there
+        self.dispersion = dispersion
+        self._key = rng.key(self.seed)
         self.status = RenderStatus.IDLE
         self._synced_version = -1
         self._scene_data: Optional[SceneData] = None
@@ -102,8 +109,9 @@ class RenderSession:
         t0 = time.perf_counter()
         self._total, self.samples, self._out, rays = render_samples(
             self._scene_data, self._ro, self._rd, self._total, self.samples,
-            self.seed, self._sample_counter, n_steps=n_samples,
-            max_depth=self.scene.trace_depth, backend=self.backend)
+            self._key, self._sample_counter, n_steps=n_samples,
+            max_depth=self.scene.trace_depth, backend=self.backend,
+            dispersion=self.dispersion)
         self._sample_counter += n_samples
         self.rays_traced += int(rays)   # waits for the device
         self.elapsed += time.perf_counter() - t0

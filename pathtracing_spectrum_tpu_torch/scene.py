@@ -1,19 +1,19 @@
 """Host-side scene graph (subset) and its compilation to torch tensors.
 
-Port of ``pathtracing_spectrum_tpu/scene.py`` for the main path: waves,
-spectrum materials, ``load_object``, ``set_material``, ``set_camera``, sky,
-resolution and trace depth. :meth:`Scene.compile` builds, in numpy, the
-same arrays as the JAX ``Scene.compile`` — BVH-ordered by default, in file
-order with ``build_bvh=False``; the tests hold them equal field by field —
-and then moves them to the device in one pass. The BVH is the binned-SAH
-tree of ``ops/bvh.py::build_bvh``; the triangles are gathered into its
-order before the intersection tables, the cluster boxes and the shading
-table are built from them.
+Port of ``pathtracing_spectrum_tpu/scene.py`` for rendering: waves,
+spectrum materials, ``load_object``, object transforms, ``set_material``,
+the texture and temperature-grid setters, ``set_camera``, sky, resolution
+and trace depth. :meth:`Scene.compile` builds, in numpy, the same arrays
+as the JAX ``Scene.compile`` — BVH-ordered by default, in file order with
+``build_bvh=False``; the tests hold them equal field by field — and then
+moves them to the device in one pass. The BVH is the binned-SAH tree of
+``ops/bvh.py::build_bvh``; the triangles are gathered into its order before
+the intersection tables, the cluster boxes and the shading table are built
+from them.
 
-Not in this slice (ROADMAP Queue 1 item 6): normal and roughness textures
-and temperature grids. Their tables stay empty with the JAX package's
-shapes, and a scene that binds a texture or a temperature grid raises
-``NotImplementedError`` instead of rendering without it.
+Textures are decoded by ``utils/image.py`` (PNG only, no PIL: another
+format raises ``NotImplementedError``; a missing file binds nothing, as in
+the reference) and temperature grids by ``utils/tempdata.py``.
 :func:`scene_data_from_numpy` carries any JAX ``SceneData`` across.
 """
 
@@ -35,7 +35,10 @@ from .ops.bvh import triangle_bounds
 from .ops.intersect import precompute_intersect_tables
 from .ops.intersect_cluster_cuda import CLUSTER
 from .ops.shade_pack import pack_shade_table
-from .utils import obj_loader
+from .ops.texturing import build_texture_table
+from .utils import image as image_util
+from .utils import obj_loader, tempdata
+
 
 class SceneData(NamedTuple):
     """Device-resident compiled scene: the JAX ``SceneData`` fields, as
@@ -121,12 +124,39 @@ class SceneObject:
     name: str
     filename: str
     elements: List[SceneElement] = dataclasses.field(default_factory=list)
+    is_scale_locked: bool = True
     location: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(3, np.float32))
     rotation: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(3, np.float32))
     scale: np.ndarray = dataclasses.field(
         default_factory=lambda: np.ones(3, np.float32))
+
+    def set_location(self, v) -> None:
+        self.location = np.asarray(v, np.float32).copy()
+
+    def set_rotation(self, v) -> None:
+        """Angles normalised to [0, 360) (previewer.cpp:651-667)."""
+        self.rotation = np.asarray(
+            transforms.normalize_rotation(tuple(np.asarray(v, np.float64))),
+            np.float32)
+
+    def set_scale(self, v, respect_lock: bool = True) -> None:
+        """Clamped at 0.001; a uniform cascade when scale-locked, by the
+        reference's first-changed-axis rule (previewer.cpp:669-705)."""
+        x, y, z = (max(float(c), 0.001) for c in v)
+        if respect_lock and self.is_scale_locked:
+            ox, oy, oz = (float(c) for c in self.scale)
+            if ox != x:
+                y = oy + oy / ox * (x - ox)
+                z = oz + oz / ox * (x - ox)
+            elif oy != y:
+                x = ox + ox / oy * (y - oy)
+                z = oz + oz / oy * (y - oy)
+            elif oz != z:
+                x = ox + ox / oz * (z - oz)
+                y = oy + oy / oz * (z - oz)
+        self.scale = np.asarray([x, y, z], np.float32)
 
     def model_matrix(self) -> np.ndarray:
         return transforms.model_matrix(self.location, self.rotation,
@@ -198,6 +228,31 @@ class Scene:
         el.material.normal_tex_file = keep_normal_tex
         self.version += 1
 
+    # -- texture binding (pathtracer.cpp:152-198) ---------------------------
+    def _bind(self, obj_id: int, element_id: int, field: str,
+              path: str) -> None:
+        setattr(self.objects[obj_id].elements[element_id].material, field,
+                path)
+        self.version += 1
+
+    def set_normal_texture(self, obj_id: int, element_id: int,
+                           path: str) -> None:
+        self._bind(obj_id, element_id, "normal_tex_file", path)
+
+    def set_roughness_texture(self, obj_id: int, element_id: int,
+                              path: str) -> None:
+        self._bind(obj_id, element_id, "roughness_tex_file", path)
+
+    def set_temperature_texture(self, obj_id: int, element_id: int,
+                                path: str) -> None:
+        """Carried but never sampled, as in the reference."""
+        self._bind(obj_id, element_id, "temperature_tex_file", path)
+
+    def set_temperature_data(self, obj_id: int, element_id: int,
+                             path: str) -> None:
+        """ASCII temperature grid (pathtracer.cpp:192-198)."""
+        self._bind(obj_id, element_id, "temperature_data_file", path)
+
     def compile(self, device: "torch.device | str" = "cpu",
                 build_bvh: bool = True, leaf_size: int = 4) -> SceneData:
         """Bake the scene into tensors on ``device`` (numpy first, then one
@@ -220,12 +275,6 @@ class Scene:
         if not mats:
             mats = [Material()]
             mat_ids_per_obj = []
-        for mt in mats:
-            if (mt.normal_tex_file or mt.roughness_tex_file
-                    or mt.temperature_data_file):
-                raise NotImplementedError(
-                    "textures and temperature grids are not ported yet "
-                    "(ROADMAP Queue 1 item 6)")
 
         m = len(mats)
         mat_type = np.array([int(mt.type) for mt in mats], np.int32)
@@ -248,11 +297,31 @@ class Scene:
             emis[i] = planck.bake_emissivity_np(curve, t, wavenumbers)
             refl[i] = planck.bake_reflectivity_np(curve, t, wavenumbers)
 
-        # no textures / grids in this slice: empty tables, JAX shapes
-        no_tex = np.full(m, -1, np.int32)
-        textures = np.zeros((0, 1, 1, 4), np.float32)
-        grids = np.zeros((0, 1, 1), np.float32)
-        no_sizes = np.zeros((0, 2), np.int32)
+        # ---- textures & temperature grids (one table per kind) ----
+        def table_ids(paths, load):
+            images: List[np.ndarray] = []
+            index: Dict[str, int] = {}
+            ids = []
+            for path in paths:
+                if path and path not in index:
+                    img = load(path)
+                    index[path] = -1 if img is None else len(images)
+                    if img is not None:
+                        images.append(img)
+                ids.append(index[path] if path else -1)
+            return np.array(ids, np.int32), images
+
+        tex_ids, tex_images = table_ids(
+            [mt.normal_tex_file for mt in mats]
+            + [mt.roughness_tex_file for mt in mats], image_util.load_rgba)
+        mat_ntex, mat_rtex = tex_ids[:m], tex_ids[m:]
+        # the grid re-bake needs a spectrum material: the reference would
+        # index mSpectrumMaterials[-1] (pathtracer.cpp:525-527)
+        mat_grid, grid_images = table_ids(
+            [mt.temperature_data_file if mt.spectrum_mat_id >= 0 else ""
+             for mt in mats], tempdata.load_temperature_grid)
+        textures, tex_sizes = build_texture_table(tex_images, channels=4)
+        grids, grid_sizes = build_texture_table(grid_images, channels=0)
 
         # ---- triangles ----
         parts: List[TriangleSoA] = []
@@ -309,8 +378,9 @@ class Scene:
         cl_aabbs = build_cluster_aabbs(*triangle_bounds(soa))
 
         tri_shade = pack_shade_table(soa, mat_type, mat_rr, mat_rough,
-                                     no_tex, no_tex, no_tex, emis, refl,
-                                     eps_curve, ior_curve, no_sizes, no_sizes)
+                                     mat_ntex, mat_rtex, mat_grid, emis, refl,
+                                     eps_curve, ior_curve, tex_sizes,
+                                     grid_sizes)
 
         arrays = dict(
             tri_v1=soa.v1, tri_e1=soa.e1, tri_e2=soa.e2,
@@ -325,12 +395,14 @@ class Scene:
             tri_shade=tri_shade, cluster_aabbs=cl_aabbs,
             mat_type=mat_type, mat_rr_prob=mat_rr, mat_roughness=mat_rough,
             mat_emissivity=emis, mat_reflectivity=refl,
-            mat_eps_curve=eps_curve, mat_normal_tex=no_tex,
-            mat_roughness_tex=no_tex, mat_temp_grid=no_tex,
-            textures=textures, texture_sizes=no_sizes,
-            normal_tex_any=np.zeros((0,), np.float32),
-            roughness_tex_any=np.zeros((0,), np.float32),
-            temp_grids=grids, temp_grid_sizes=no_sizes,
+            mat_eps_curve=eps_curve, mat_normal_tex=mat_ntex,
+            mat_roughness_tex=mat_rtex, mat_temp_grid=mat_grid,
+            textures=textures, texture_sizes=tex_sizes,
+            normal_tex_any=np.zeros((int((mat_ntex >= 0).any()),),
+                                    np.float32),
+            roughness_tex_any=np.zeros((int((mat_rtex >= 0).any()),),
+                                       np.float32),
+            temp_grids=grids, temp_grid_sizes=grid_sizes,
             wavenumbers=wavenumbers, sky=sky.astype(np.float32), **bvh)
         return scene_data_from_numpy(arrays, device)
 

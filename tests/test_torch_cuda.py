@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-K1 (dense sweep), K2 (attribute fetch), K3 (BVH walk) and K4
-(cluster-culled sweep), the wrappers' refusals, whole traces against the
-CPU, and sessions counted through their kernels.
+K1 (dense sweep), K2 (attribute fetch), K3 (BVH walk), K4
+(cluster-culled sweep) and the threefry draw, the wrappers' refusals,
+whole traces against the CPU (shared variates, and one key for the
+spectral modes, textures and grids), and sessions counted through their
+kernels.
 
 Every test here needs a CUDA device and skips without one. The module
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -27,6 +29,7 @@ from pathtracing_spectrum_tpu_torch.ops import bvh, fetch_cuda  # noqa: E402
 from pathtracing_spectrum_tpu_torch.ops import intersect_cluster_cuda  # noqa: E402,E501
 from pathtracing_spectrum_tpu_torch.ops import intersect_cuda  # noqa: E402
 from pathtracing_spectrum_tpu_torch.ops import intersect_hier_cuda  # noqa: E402,E501
+from pathtracing_spectrum_tpu_torch.ops import rng, rng_cuda  # noqa: E402
 from pathtracing_spectrum_tpu_torch.ops.intersect import (  # noqa: E402
     pack_tri16, precompute_intersect_tables)
 from pathtracing_spectrum_tpu_torch.scene import build_cluster_aabbs  # noqa: E402,E501
@@ -398,4 +401,114 @@ def test_terrain_session_goes_through_k3(dev, tmp_path):
     assert sess.stats()["backend"] == "hier"
     assert (k3, k1, k2) == (want, 0, want)
     assert sorts == spp * (2 * depth - 2)   # 9,986 tris: from iteration 2
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0
+
+
+# ---- threefry and the spectral path ---------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 262144), (262144,), (4, 1001),
+                                   (2**16 + 3,), (1,)])
+def test_threefry_matches_plain_bitwise(dev, shape):
+    k = rng.fold_in(rng.fold_in(rng.key(5), 12345), 3)
+    before = rng_cuda.uniform.launches
+    got = rng_cuda.uniform(k, shape, dev)
+    torch.cuda.synchronize()
+    assert rng_cuda.uniform.launches == before + 1
+    want = rng.uniform_ref(k, shape, dev)
+    assert got.shape == want.shape == shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert 0.0 <= got.min().item() and got.max().item() < 1.0
+
+
+def prism(res, depth=5):
+    """``bench_suite.prism_scene`` with the port's Scene."""
+    sc = pt.Scene()
+    sc.wavelengths = [500.0, 1000.0, 1500.0, 2000.0]
+    sc.spectrum_materials = [pt.SpectrumMaterial("glass", [0.0] * 4),
+                             pt.SpectrumMaterial("surface", [0.9] * 4),
+                             pt.SpectrumMaterial("emitter", [1.0] * 4)]
+    sc.trace_depth = depth
+    sc.resolution = (res, res)
+    obj = sc.load_object(os.path.join(ASSETS, "prism.obj"))
+    mats = {"floor": pt.Material(spectrum_mat_id=1, temperature=20.0),
+            "back": pt.Material(spectrum_mat_id=1, temperature=20.0),
+            "emitter": pt.Material(spectrum_mat_id=2, temperature=600.0),
+            "prism": pt.Material(type=pt.MaterialType.GLASS,
+                                 spectrum_mat_id=0, temperature=500.0,
+                                 ior=1.45, dispersion_b=0.2)}
+    for i, el in enumerate(obj.elements):
+        sc.set_material(0, i, mats[el.name])
+    sc.set_camera([0.0, 0.5, -4.0], [0.0, 0.0, 0.0])
+    sc.camera_fovy = 60.0
+    return sc
+
+
+def textured_sphere(res, grid_path=None):
+    """``bench_suite.textured_sphere_scene`` with the port's Scene; with
+    ``grid_path`` the back wall carries that temperature grid."""
+    sc = pt.Scene()
+    sc.wavelengths = [500.0, 1000.0, 1500.0, 2000.0]
+    sc.spectrum_materials = [
+        pt.SpectrumMaterial("body", [0.7, 0.75, 0.8, 0.7]),
+        pt.SpectrumMaterial("emitter", [1.0] * 4)]
+    sc.trace_depth = 3
+    sc.resolution = (res, res)
+    obj = sc.load_object(os.path.join(ASSETS, "sphere.obj"))
+    sc.set_material(0, 0, pt.Material(
+        type=pt.MaterialType.GLOSSY, spectrum_mat_id=0, temperature=80.0,
+        roughness=0.4, roughness_tex_file=os.path.join(ASSETS,
+                                                       "checker.png")))
+    obj.set_location([0.0, 0.0, 3.0])
+    box = sc.load_object(os.path.join(ASSETS, "cornell_box.obj"))
+    for i, el in enumerate(box.elements):
+        hot = el.name == "light"
+        sc.set_material(1, i, pt.Material(temperature=400.0 if hot else 15.0,
+                                          spectrum_mat_id=1 if hot else 0))
+        if grid_path and el.name == "back":
+            sc.set_temperature_data(1, i, grid_path)
+    sc.set_camera([0.0, 0.0, -1.0], [0.0, 0.0, 0.0])
+    sc.camera_fovy = 55.0
+    return sc
+
+
+@pytest.mark.parametrize("case", ["prism-cauchy", "prism-hero",
+                                  "textured-grid"])
+def test_spectral_trace_on_card_matches_cpu_under_one_key(dev, case,
+                                                          tmp_path):
+    if case == "textured-grid":
+        grid = tmp_path / "grid.txt"
+        grid.write_text("\n".join(" ".join(str(100 + 40 * ((x + y) % 5))
+                                           for x in range(9))
+                                  for y in range(7)))
+        sc, depth, disp = textured_sphere(32, str(grid)), 3, "hero"
+    else:
+        sc, depth = prism(32), 5
+        disp = True if case == "prism-cauchy" else "hero"
+    ro, rd = pt.camera_rays(sc.camera(), 32, 32)
+    key = rng.fold_in(rng.key(9), 2)
+    cpu = engine.trace_radiance(sc.compile("cpu"), ro, rd, key, depth,
+                                backend="dense", dispersion=disp)
+    on_dev = engine.trace_radiance(sc.compile(dev), ro.to(dev), rd.to(dev),
+                                   key, depth, backend="dense",
+                                   dispersion=disp)
+    torch.cuda.synchronize()
+    assert int(on_dev.rays_traced) == int(cpu.rays_traced)
+    torch.testing.assert_close(on_dev.radiance.cpu(), cpu.radiance,
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_dispersion_session_goes_through_its_kernels(dev):
+    spp, depth = 2, 5
+    sess = pt.RenderSession(prism(64, depth), dev, seed=0, dispersion=True)
+    sess.start()
+    before = (intersect_cuda.intersect_dense.launches,
+              fetch_cuda.fetch_rows.launches, rng_cuda.uniform.launches)
+    img = sess.run(spp, batch=spp)
+    k1, k2, rn = (intersect_cuda.intersect_dense.launches - before[0],
+                  fetch_cuda.fetch_rows.launches - before[1],
+                  rng_cuda.uniform.launches - before[2])
+    looped = spp * (2 * depth - 1)
+    assert k1 == 1 + looped
+    assert k2 == 1 + looped + spp * 2 * depth     # + the hero-table reads
+    assert rn == spp * (2 * depth + 1)            # bounces + hero channel
     assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0

@@ -1,7 +1,9 @@
 """The port's bounce loop vs the JAX engine and the numpy oracle under
 shared variates (``rand_override``), on the scenes of
 ``tests/test_engine_parity.py``; the primary-hit hoist; ``render_samples``
-against repeated ``render_sample``; the session; the slice's limits."""
+against repeated ``render_sample`` under the key schedule; the session;
+what is not ported yet. Traces under one key, without shared variates,
+are in ``tests/test_torch_spectral.py``."""
 
 import pytest
 
@@ -16,6 +18,7 @@ from pathtracing_spectrum_tpu import camera_rays as jax_camera_rays  # noqa: E40
 from pathtracing_spectrum_tpu import engine as jengine  # noqa: E402
 import pathtracing_spectrum_tpu_torch as pt  # noqa: E402
 from pathtracing_spectrum_tpu_torch import engine  # noqa: E402
+from pathtracing_spectrum_tpu_torch.ops import rng  # noqa: E402
 
 import oracle  # noqa: E402
 from scene_helpers import cornell_scene  # noqa: E402
@@ -115,16 +118,16 @@ def test_render_samples_equals_render_sample_calls():
     sc = tiny_scene(pt, depth=3)
     scene = sc.compile("cpu")
     ro, rd = pt.camera_rays(sc.camera(), 16, 16)
-    k, seed, counter0 = 3, 7, 5
+    k, base, counter0 = 3, rng.key(7), 5
     total = torch.zeros((256, 4))
     rays = 0
     for i in range(k):
-        gen = engine.sample_generator(seed, counter0 + i, "cpu")
         total, samples, out, n = engine.render_sample(
-            scene, ro, rd, total, i, gen, max_depth=3)
+            scene, ro, rd, total, i, rng.fold_in(base, counter0 + i),
+            max_depth=3)
         rays += int(n)
     total_b, samples_b, out_b, rays_b = engine.render_samples(
-        scene, ro, rd, torch.zeros((256, 4)), 0, seed, counter0, n_steps=k,
+        scene, ro, rd, torch.zeros((256, 4)), 0, base, counter0, n_steps=k,
         max_depth=3)
     assert samples == samples_b == k
     assert int(rays_b) == rays > k * 256
@@ -133,11 +136,14 @@ def test_render_samples_equals_render_sample_calls():
 
 
 def test_sample_stream_depends_only_on_its_index():
-    g1 = engine.sample_generator(1, 4, "cpu")
-    g2 = engine.sample_generator(1, 4, "cpu")
-    g3 = engine.sample_generator(1, 5, "cpu")
-    a, b, c = (torch.rand(8, generator=g) for g in (g1, g2, g3))
+    """A sample's key is fold_in(session key, index): its variates depend
+    on (seed, index) alone."""
+    k1, k2, k3 = (rng.fold_in(rng.key(1), i) for i in (4, 4, 5))
+    a, b, c = (rng.uniform_ref(rng.fold_in(k, 0), (4, 8))
+               for k in (k1, k2, k3))
     assert torch.equal(a, b) and not torch.equal(a, c)
+    assert not torch.equal(a, rng.uniform_ref(
+        rng.fold_in(rng.fold_in(rng.key(2), 4), 0), (4, 8)))
 
 
 def test_session_batches_are_exact_and_image_is_healthy():
@@ -155,8 +161,6 @@ def test_session_batches_are_exact_and_image_is_healthy():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(dispersion=True), "item 6"),
-    (dict(dispersion="hero"), "item 6"),
     (dict(chunks=2), "item 8"),
     (dict(jitter_cam=object()), "item 8"),
 ])
@@ -165,8 +169,8 @@ def test_outside_the_slice_raises(kw, item):
     scene = sc.compile("cpu")
     ro, rd = pt.camera_rays(sc.camera(), 4, 4)
     with pytest.raises(NotImplementedError, match=item):
-        engine.render_samples(scene, ro, rd, torch.zeros((16, 4)), 0, 0, 0,
-                              n_steps=1, max_depth=2, **kw)
+        engine.render_samples(scene, ro, rd, torch.zeros((16, 4)), 0,
+                              rng.key(0), 0, n_steps=1, max_depth=2, **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(backend="bvh"),
@@ -178,10 +182,10 @@ def test_large_scene_options_render_as_the_default(kw):
     sc = tiny_scene(pt, res=(8, 8), depth=3)
     scene = sc.compile("cpu")
     ro, rd = pt.camera_rays(sc.camera(), 8, 8)
-    want = engine.render_samples(scene, ro, rd, torch.zeros((64, 4)), 0, 5,
-                                 0, n_steps=2, max_depth=3)
-    got = engine.render_samples(scene, ro, rd, torch.zeros((64, 4)), 0, 5, 0,
-                                n_steps=2, max_depth=3, **kw)
+    want = engine.render_samples(scene, ro, rd, torch.zeros((64, 4)), 0,
+                                 rng.key(5), 0, n_steps=2, max_depth=3)
+    got = engine.render_samples(scene, ro, rd, torch.zeros((64, 4)), 0,
+                                rng.key(5), 0, n_steps=2, max_depth=3, **kw)
     assert torch.equal(got[0], want[0])
     assert int(got[3]) == int(want[3])
 

@@ -69,7 +69,12 @@ def to_port_scene(jsc):
                 type=pt.MaterialType(int(m.type)), base_color=m.base_color,
                 roughness=m.roughness, ior=m.ior,
                 dispersion_b=m.dispersion_b, temperature=m.temperature,
-                spectrum_mat_id=m.spectrum_mat_id))
+                spectrum_mat_id=m.spectrum_mat_id,
+                roughness_tex_file=m.roughness_tex_file,
+                temperature_tex_file=m.temperature_tex_file,
+                temperature_data_file=m.temperature_data_file))
+            if m.normal_tex_file:     # set_material keeps the old binding
+                sc.set_normal_texture(k, i, m.normal_tex_file)
     sc.set_camera(jsc.camera_position, jsc.camera_rotation)
     sc.camera_fovy = jsc.camera_fovy
     sc.camera_focal = jsc.camera_focal
@@ -120,11 +125,22 @@ def test_scene_data_from_numpy_carries_bvh_ordered_scene():
     assert_fields_equal(want, got)
 
 
-def test_texture_binding_raises():
-    _, sc = port_cornell()
-    sc.objects[0].elements[0].material.roughness_tex_file = "rough.png"
-    with pytest.raises(NotImplementedError, match="item 6"):
+def test_texture_binding_raises(tmp_path):
+    """A texture the port cannot decode (not a PNG) fails the compile,
+    naming the file, instead of rendering without it; a missing file binds
+    nothing, as in the reference and the JAX package."""
+    jsc, sc = port_cornell()
+    rough = tmp_path / "rough.bmp"
+    rough.write_bytes(b"BM" + bytes(64))
+    sc.objects[0].elements[0].material.roughness_tex_file = str(rough)
+    with pytest.raises(NotImplementedError, match="rough.bmp"):
         sc.compile("cpu")
+    for scene in (jsc, sc):
+        scene.objects[0].elements[0].material.roughness_tex_file = str(
+            tmp_path / "missing.png")
+    got = sc.compile("cpu", build_bvh=False)
+    assert got.textures.shape[0] == 0
+    assert_fields_equal(jsc.compile(build_bvh=False), got)
 
 
 _NO_JAX = r"""
