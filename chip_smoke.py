@@ -34,8 +34,15 @@ Every check raises on failure, and the script exits non-zero without
 printing its result line. It refuses to run without a CUDA device and
 without the port's package beside it. Its last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-with its launches on its path, its error against the plain version and
-both times.
+with its launches on its path, its error against the plain version, its
+time and the plain version's, its bound (the larger of its bytes over the
+card's memory rate and its operations over their peak rate; for K3 and K4
+the box and triangle tests these rays need, the fewer of the skip-link
+and the near-first walk's) and what binds it, and the time of one PyTorch
+call of the same function where there is one (K2: ``index_select``).
+K1 and K3 are held to their plain versions bit for bit; K3 is timed on
+the terrain primaries, in context on the terrain's bounce-2 rays (the
+``kernels`` entry) and on the textured path's bounce-2 rays.
 """
 
 from __future__ import annotations
@@ -159,17 +166,58 @@ def random_soup(torch, dev, n_tris: int, n_rays: int, seed: int):
     return planes, tri16, nodes, torch.from_numpy(caabb).to(dev)
 
 
+def load_by_path(name: str, path: str):
+    """Import the module at ``path`` under ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def make_terrain(which: str) -> str:
     """Write ``assets/terrain_<which>.obj`` (git-ignored) with
     ``assets/make_assets.py::make_terrain``, imported by path: its
     ``__main__`` rewrites the checked-in assets and is never run."""
-    spec = importlib.util.spec_from_file_location(
-        "make_assets", os.path.join(HERE, "assets", "make_assets.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = load_by_path("make_assets",
+                       os.path.join(HERE, "assets", "make_assets.py"))
     path = os.path.join(HERE, "assets", f"terrain_{which}.obj")
     mod.make_terrain(path, **TERRAINS[which])
     return path
+
+
+def rays_of_bounce(scene, ro, rd, h: int):
+    """The six ray planes the closest-hit kernel (K1 or K3, as the scene's
+    ``"auto"`` backend resolves) gets at bounce iteration ``h`` of a trace
+    of ``scene`` under ``rng.key(7)`` (copies; sorted when the bounce-ray
+    reorder is on, as the kernel gets them)."""
+    import torch
+    from pathtracing_spectrum_tpu_torch import engine
+    from pathtracing_spectrum_tpu_torch.ops import (
+        intersect_cuda, intersect_hier_cuda, rng)
+    seen = []
+    wrappers = ((intersect_cuda, "intersect_dense"),
+                (intersect_hier_cuda, "intersect_bvh"))
+    reals = [getattr(mod, name) for mod, name in wrappers]
+
+    def recorder(real):
+        def recording(*a, **kw):
+            seen.append([p.clone() for p in a[:6]] if len(seen) == h
+                        else None)
+            return real(*a, **kw)
+        recording.launches = 0   # the wrapper counts on its module's name
+        return recording
+
+    for (mod, name), real in zip(wrappers, reals):
+        setattr(mod, name, recorder(real))
+    try:
+        engine.trace_radiance(scene, ro, rd, rng.key(7), DEPTH)
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), real in zip(wrappers, reals):
+            setattr(mod, name, real)
+    check(len(seen) > h and seen[h] is not None,
+          f"no bounce-{h} rays recorded")
+    return seen[h]
 
 
 def terrain_scene(pt, path: str, res: int, depth: int = DEPTH):
@@ -297,37 +345,76 @@ def agreement(got, want):
     return pct, err, int(want[0].sum())
 
 
-def time_pair(torch, kernel, plain, iters: int = 50, plain_iters: int = 0,
-              plain_warmup: int = 3):
-    """Mean device ms per call of ``kernel`` and ``plain``, measured in
-    turns (plain, kernel, kernel, plain) with CUDA events after a warmup;
-    ``plain_iters``/``plain_warmup`` shorten the plain version's loop
-    (0: as the kernel's).
+def time_fn(torch, fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device ms per call of ``fn``, with CUDA events around ``iters``
+    calls after a warmup.
 
     A spin kernel queued first keeps the card busy while the host issues
     the timed calls, so the events bracket back-to-back device work: a
     wrapper's Python overhead (tens of µs) would otherwise exceed the
-    kernel's own time and be measured in its place. A plain version that
-    waits for the device inside (the hierarchical ones do) ends the spin
-    early; its time then includes its own host waits."""
-    def one(fn, n, warmup):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)     # ~50 ms of spinning at ~2 GHz
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / n
+    kernel's own time and be measured in its place. A function that waits
+    for the device inside (the hierarchical plain versions do) ends the
+    spin early; its time then includes its own host waits."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)     # ~50 ms of spinning at ~2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_pair(torch, kernel, plain, iters: int = 50, plain_iters: int = 0,
+              plain_warmup: int = 3):
+    """Mean device ms per call of ``kernel`` and ``plain`` (:func:`time_fn`),
+    measured in turns (plain, kernel, kernel, plain);
+    ``plain_iters``/``plain_warmup`` shorten the plain version's loop
+    (0: as the kernel's)."""
     pn = plain_iters or iters
-    p1 = one(plain, pn, plain_warmup)
-    k1, k2 = one(kernel, iters, 3), one(kernel, iters, 3)
-    p2 = one(plain, pn, plain_warmup)
+    p1 = time_fn(torch, plain, pn, plain_warmup)
+    k1, k2 = time_fn(torch, kernel, iters), time_fn(torch, kernel, iters)
+    p2 = time_fn(torch, plain, pn, plain_warmup)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+# ---- bounds: the least time the card could take for a kernel's work ------
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA H100
+# datasheet): device memory and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# 32-bit integer adds, logic and shifts an SM issues per clock on Hopper
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, cc 9.0)
+INT32_OPS_PER_CLK_SM = 64
+# float operations of one test, counted in csrc/tri_hit.cuh: a triangle
+# test is rd.n (5), ro.n (5), c0 - ro.n (1), the division (1), p (6) and
+# s1..s3 (18); a box test is 3 axes x 2 subtractions and 2 multiplies
+# (12) and the two relax() (4)
+TRI_TEST_OPS = 36
+BOX_TEST_OPS = 16
+# integer operations of one threefry element (csrc/threefry.cu): 20 rounds
+# of add, funnel shift and xor (60), 6 key injections of 2 adds (12), ks2
+# (2 xors), the bits (xor, shift, or: 3)
+THREEFRY_INT_OPS = 77
+RAY_BYTES = 24                      # six float32 planes in ...
+HIT_BYTES = 17                      # ... hit, t, idx, s2, s3 out
+
+
+def bound(nbytes: float, ops: float = 0.0,
+          ops_per_s: float = FP32_OPS_PER_S):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def walk_ops(boxes: int, tris: int) -> int:
+    return boxes * BOX_TEST_OPS + tris * TRI_TEST_OPS
 
 
 def main() -> int:
@@ -382,13 +469,20 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60,
                          check=True)
     card = smi.stdout.strip().splitlines()[0]
+    # the card's own top SM clock and SM count price its integer issue rate
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"], capture_output=True,
+        text=True, timeout=60, check=True).stdout.split()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_ops_per_s = INT32_OPS_PER_CLK_SM * n_sms * max_sm_mhz * 1e6
     nvcc = subprocess.run([_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[-1]
     say("env", torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], device=repr(
             torch.cuda.get_device_name(0)), count=torch.cuda.device_count())
-    say("env", nvcc=repr(nvcc))
+    say("env", nvcc=repr(nvcc), sms=n_sms, max_sm_mhz=max_sm_mhz)
     print(card, flush=True)
 
     # ---- 2. build ---------------------------------------------------------
@@ -434,6 +528,11 @@ def main() -> int:
             lambda: rng.uniform_ref(rng_key, shape, dev))
         say("rng", shape=list(shape), kernel_ms=f"{rng_ms[shape][0]:.4f}",
             plain_ms=f"{rng_ms[shape][1]:.4f}", card=repr(card))
+    n_draw = int(np.prod(g["uniform_shape"]))
+    rng_bound = bound(4 * n_draw, THREEFRY_INT_OPS * n_draw, int32_ops_per_s)
+    say("rng", shape=list(g["uniform_shape"]), bound_ms=rng_bound[0],
+        bound_by=rng_bound[1], int32_ops_per_s=int32_ops_per_s,
+        share_of_bound=rng_bound[0] / rng_ms[g["uniform_shape"]][0])
     phase_done("rng", t_phase)
 
     # ---- 3. K1 against its plain version ----------------------------------
@@ -466,13 +565,20 @@ def main() -> int:
             gate=f">={AGREE_GATE_PCT}%")
         check(pct >= AGREE_GATE_PCT, f"K1 idx agreement {pct:.4f}% on {name}")
         check(want[0].any().item(), f"K1 case {name} hits nothing")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K1 is not bitwise its plain version on {name}")
         if name == "cornell-primary":
             prim_hit = got
     k1_ms, k1_plain_ms = time_pair(
         torch, lambda: intersect_cuda.intersect_dense(*prim, tri16),
         lambda: intersect_cuda.intersect_dense_ref(*prim, tri16))
-    say("K1", shape=f"N={prim[0].shape[0]},T={tri16.shape[0]}",
-        kernel_ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}", card=repr(card))
+    n_prim, t_cornell = prim[0].shape[0], tri16.shape[0]
+    k1_bound = bound(n_prim * (RAY_BYTES + HIT_BYTES) + t_cornell * 64,
+                     n_prim * t_cornell * TRI_TEST_OPS)
+    say("K1", shape=f"N={n_prim},T={t_cornell}", kernel_ms=f"{k1_ms:.4f}",
+        plain_ms=f"{k1_plain_ms:.4f}", bound_ms=k1_bound[0],
+        bound_by=k1_bound[1], share_of_bound=k1_bound[0] / k1_ms,
+        card=repr(card))
     phase_done("K1", t_phase)
 
     # ---- 4. K2 against its plain version ----------------------------------
@@ -507,15 +613,28 @@ def main() -> int:
     k2_ms, k2_plain_ms = time_pair(
         torch, lambda: fetch_cuda.fetch_rows(main_idx, shade_sub),
         lambda: fetch_cuda.fetch_rows_ref(main_idx, shade_sub))
-    say("K2", shape=f"N={main_idx.shape[0]},T={t_count},F={shade_sub.shape[1]}",
+    # the yardstick: one PyTorch call of the same function on in-range
+    # rows, the table transposed outside the timing (the port never calls
+    # it)
+    table_t = shade_sub.t().contiguous()
+    same = torch.equal(torch.index_select(table_t, 1, main_idx),
+                       fetch_cuda.fetch_rows(main_idx, shade_sub))
+    k2_lib_ms = time_fn(torch, lambda: torch.index_select(table_t, 1,
+                                                          main_idx))
+    n_f = shade_sub.shape[1]
+    k2_bound = bound(4 * main_idx.shape[0] * (1 + n_f) + 4 * t_count * n_f)
+    say("K2", shape=f"N={main_idx.shape[0]},T={t_count},F={n_f}",
         kernel_ms=f"{k2_ms:.4f}", plain_ms=f"{k2_plain_ms:.4f}",
-        card=repr(card))
+        index_select_ms=f"{k2_lib_ms:.4f}", index_select_equal=same,
+        bound_ms=k2_bound[0], bound_by=k2_bound[1],
+        share_of_bound=k2_bound[0] / k2_ms, card=repr(card))
+    check(same, "K2 differs from index_select on in-range rows")
     phase_done("K2", t_phase)
 
     # ---- 5. shared variates: the trace on the card vs on the CPU ----------
     t_phase = time.perf_counter()
     sc64 = tiny_scene(pt, TRACE_RES)
-    ro64, rd64 = pt.camera_rays(sc64.camera(), TRACE_RES, TRACE_RES)
+    ro64, rd64 = pt.camera_rays(sc64.camera(), TRACE_RES, TRACE_RES, "cpu")
     n64 = ro64.shape[0]
     rand = torch.from_numpy(np.random.default_rng(5).uniform(
         0, 1, (2 * DEPTH, 4, n64)).astype(np.float32))
@@ -642,48 +761,78 @@ def main() -> int:
     ro52, rd52 = pt.camera_rays(sc52.camera(), RES, RES, device=dev)
     prim52 = [ro52[:, k].contiguous() for k in range(3)] + \
         [rd52[:, k].contiguous() for k in range(3)]
-    # the rays of bounce iteration 2 of a terrain trace, as K3 gets them
-    bounce2 = []
-    real_k3 = intersect_hier_cuda.intersect_bvh
-
-    def recording_k3(*a):
-        if len(bounce2) == 2:
-            bounce2.append([p.clone() for p in a[:6]])
-        else:
-            bounce2.append(None)
-        return real_k3(*a)
-
-    recording_k3.launches = 0   # the wrapper counts on its module's name
-    intersect_hier_cuda.intersect_bvh = recording_k3
-    try:
-        engine.trace_radiance(scene52, ro52, rd52, rng.key(7), DEPTH)
-        torch.cuda.synchronize()
-    finally:
-        intersect_hier_cuda.intersect_bvh = real_k3
-    bounce_rays = bounce2[2]
-    check(bounce_rays is not None, "no bounce-2 rays recorded")
+    bounce_rays = rays_of_bounce(scene52, ro52, rd52, 2)
     phase_done("terrain", t_phase)
 
     # ---- 8. K3 and K4 against their plain versions -------------------------
+    # K3's cases: (planes, table, node arrays, cluster boxes, packed BVH);
+    # the constructed tie (one triangle at rows 1 and 2, met in descending
+    # index) and a tree deeper than K3's local stack are K3's alone
+    cases_mod = load_by_path("torch_cases", os.path.join(HERE, "tests",
+                                                         "torch_cases.py"))
+    pack = intersect_hier_cuda.pack_bvh
+    packed52 = pack(*nodes52)
     hier_cases = {
-        "terrain-primary": (prim52, tri52, nodes52, scene52.cluster_aabbs),
-        "soup-2000": soup,
+        "terrain-primary": (prim52, tri52, nodes52, scene52.cluster_aabbs,
+                            packed52),
+        "soup-2000": soup + (pack(*soup[2]),),
         "terrain-bounce2": (bounce_rays, tri52, nodes52,
-                            scene52.cluster_aabbs)}
+                            scene52.cluster_aabbs, packed52)}
+    tie_tri, tie_nodes, tie_planes = cases_mod.tie_case()
+    chain_tri, chain_nodes = cases_mod.chain_bvh(80)
+    chain_planes = [torch.tensor(v, dtype=torch.float32) for v in (
+        [0.1, 0.5, 0.3, 9.0], [0.1, 0.2, 0.3, 9.0], [-1.0, -3.0, 40.5, -1.0],
+        [0.0] * 4, [0.0] * 4, [1.0] * 4)]
+    k3_only = {}
+    for case, (planes, tri, nodes) in (
+            ("tie-descending", (tie_planes, tie_tri, tie_nodes)),
+            ("chain-depth-80", (chain_planes, chain_tri, chain_nodes))):
+        nodes = tuple(a.to(dev) for a in nodes)
+        k3_only[case] = ([p.to(dev) for p in planes], tri.to(dev), nodes,
+                         None, pack(*nodes))
+    check(k3_only["chain-depth-80"][4].depth > intersect_hier_cuda.LOCAL_STACK,
+          "the chain does not reach past K3's local stack")
     dense52 = intersect_cuda.intersect_dense(*prim52, tri52)
-    hier_err, hier_ms = {}, {}
-    for label, name, kernel, plain, extra in (
-            ("K3", "intersect_bvh", k3_fn,
-             intersect_hier_cuda.intersect_bvh_ref, lambda c: c[2]),
-            ("K4", "intersect_cluster", k4_fn,
-             intersect_cluster_cuda.intersect_cluster_ref,
-             lambda c: [c[3]])):
+    hier_err, hier_ms, walks = {}, {}, {}
+
+    def walk_counts(c):
+        """(skip-link walk's box and triangle tests, the ordered walk's, the
+        ordered walk's most for one ray) on case ``c``: the plain version's
+        counters and K3's counting build."""
+        stats = {}
+        intersect_hier_cuda.intersect_bvh_ref(*c[0], c[1], *c[2],
+                                              stats=stats)
+        counts = torch.zeros((2, c[0][0].shape[0]), dtype=torch.int32,
+                             device=dev)
+        k3_fn(*c[0], c[1], c[4], counts=counts)
+        return ((stats["boxes"], stats["tris"]),
+                tuple(counts.sum(dim=1).tolist()),
+                tuple(counts.max(dim=1).values.tolist()))
+
+    def k3_bound(c, counts):
+        """K3's bound on case ``c``: each ray read and its hit written, the
+        table and the node records read once, and the fewer of the two
+        walks' operations."""
+        n = c[0][0].shape[0]
+        nbytes = (n * (RAY_BYTES + HIT_BYTES) + c[1].shape[0] * 64
+                  + c[4].records.shape[0] * 64)
+        return bound(nbytes, min(walk_ops(*w) for w in counts[:2]))
+
+    for label, name, kernel, plain, cases in (
+            ("K3", "intersect_bvh",
+             lambda c: k3_fn(*c[0], c[1], c[4]),
+             lambda c: intersect_hier_cuda.intersect_bvh_ref(*c[0], c[1],
+                                                             *c[2]),
+             {**hier_cases, **k3_only}),
+            ("K4", "intersect_cluster",
+             lambda c: k4_fn(*c[0], c[1], c[3]),
+             lambda c: intersect_cluster_cuda.intersect_cluster_ref(
+                 *c[0], c[1], c[3]), hier_cases)):
         t_phase = time.perf_counter()
         hier_err[name] = 0.0
-        for case, c in hier_cases.items():
-            planes, table = c[0], c[1]
-            want = plain(*planes, table, *extra(c))
-            got = kernel(*planes, table, *extra(c))
+        for case, c in cases.items():
+            want = plain(c)
+            got = kernel(c)
             torch.cuda.synchronize()
             pct, err, hits = agreement(got, want)
             hier_err[name] = max(hier_err[name], err)
@@ -696,21 +845,35 @@ def main() -> int:
             if case == "soup-2000":
                 check(not got[0][::7].any().item(),
                       f"{label}: a parked ray hit on {case}")
-            say(label, case=case, rays=planes[0].shape[0],
-                tris=table.shape[0], hits=hits, idx_agree_pct=f"{pct:.4f}",
+            if label == "K3":
+                walks[case] = walk_counts(c)
+                fields.update(skiplink_box_tri_tests=list(walks[case][0]),
+                              ordered_box_tri_tests=list(walks[case][1]),
+                              longest_ray_box_tri_tests=list(walks[case][2]))
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"K3 is not bitwise its plain version on {case}")
+            say(label, case=case, rays=c[0][0].shape[0],
+                tris=c[1].shape[0], hits=hits, idx_agree_pct=f"{pct:.4f}",
                 max_abs_err=err, gate=f">={AGREE_GATE_PCT}%", **fields)
             check(pct >= AGREE_GATE_PCT,
                   f"{label} idx agreement {pct:.4f}% on {case}")
             check(hits > 0, f"{label} case {case} hits nothing")
-        hier_ms[name] = time_pair(
-            torch, lambda: kernel(*prim52, tri52, *extra(
-                hier_cases["terrain-primary"])),
-            lambda: plain(*prim52, tri52, *extra(
-                hier_cases["terrain-primary"])),
-            plain_iters=2, plain_warmup=1)
-        say(label, shape=f"N={prim52[0].shape[0]},T={tri52.shape[0]}",
-            kernel_ms=f"{hier_ms[name][0]:.4f}",
-            plain_ms=f"{hier_ms[name][1]:.4f}", card=repr(card))
+        if label == "K3":
+            check(int(kernel(k3_only["tie-descending"])[2].item()) == 1,
+                  "K3 did not give the tie to the lower row")
+        shapes = ("terrain-primary", "terrain-bounce2")
+        for shape in shapes if label == "K3" else shapes[:1]:
+            c = hier_cases[shape]
+            hier_ms[name, shape] = time_pair(
+                torch, lambda: kernel(c), lambda: plain(c), plain_iters=2,
+                plain_warmup=1)
+            b_ms, b_by = k3_bound(c, walks[shape])
+            say(label, case=shape,
+                shape=f"N={c[0][0].shape[0]},T={c[1].shape[0]}",
+                kernel_ms=f"{hier_ms[name, shape][0]:.4f}",
+                plain_ms=f"{hier_ms[name, shape][1]:.4f}", bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / hier_ms[name, shape][0],
+                card=repr(card))
         phase_done(label, t_phase)
 
     # K2 on the terrain's table (51,778 rows, read through the cache)
@@ -733,7 +896,7 @@ def main() -> int:
     # ---- 9. shared variates: terrain traces through K3 and K4 -------------
     t_phase = time.perf_counter()
     sc10 = terrain_scene(pt, path10, TRACE_RES)
-    ro10, rd10 = pt.camera_rays(sc10.camera(), TRACE_RES, TRACE_RES)
+    ro10, rd10 = pt.camera_rays(sc10.camera(), TRACE_RES, TRACE_RES, "cpu")
     n10 = ro10.shape[0]
     rand10 = torch.from_numpy(np.random.default_rng(6).uniform(
         0, 1, (2 * DEPTH, 4, n10)).astype(np.float32))
@@ -1018,13 +1181,42 @@ def main() -> int:
     say("textured", mrays_per_s=mr, ms_per_sample=ms, card=repr(card))
     if args.profile:
         profile(torch, sess_t, ms, "textured")
+    # K3 in context at 1080p: the session's rays at bounce iteration 2
+    nodes_t = (data_t.bvh_node_min, data_t.bvh_node_max,
+               data_t.bvh_node_skip, data_t.bvh_node_first,
+               data_t.bvh_node_count)
+    case = "textured-bounce2"
+    c = (rays_of_bounce(data_t, sess_t._ro, sess_t._rd, 2),
+         pack_tri16(data_t.tri_face_n, data_t.tri_k1, data_t.tri_k2,
+                    data_t.tri_k3, data_t.tri_consts), nodes_t, None,
+         pack(*nodes_t))
+    want = intersect_hier_cuda.intersect_bvh_ref(*c[0], c[1], *c[2])
+    got = k3_fn(*c[0], c[1], c[4])
+    torch.cuda.synchronize()
+    pct, err, hits = agreement(got, want)
+    hier_err["intersect_bvh"] = max(hier_err["intersect_bvh"], err)
+    walks[case] = walk_counts(c)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"K3 is not bitwise its plain version on {case}")
+    check(hits > 0, f"K3 case {case} hits nothing")
+    k3_tex_ms = time_fn(torch, lambda: k3_fn(*c[0], c[1], c[4]))
+    b_ms, b_by = k3_bound(c, walks[case])
+    say("K3", case=case, rays=c[0][0].shape[0], tris=c[1].shape[0],
+        hits=hits, idx_agree_pct=f"{pct:.4f}", max_abs_err=err,
+        skiplink_box_tri_tests=list(walks[case][0]),
+        ordered_box_tri_tests=list(walks[case][1]),
+        longest_ray_box_tri_tests=list(walks[case][2]),
+        kernel_ms=f"{k3_tex_ms:.4f}", bound_ms=b_ms, bound_by=b_by,
+        share_of_bound=b_ms / k3_tex_ms, card=repr(card))
+    del c, got, want
     phase_done("textured", t_phase)
 
     # ---- 13. one key: spectral and textured traces, card vs CPU ----------
     t_phase = time.perf_counter()
 
     def same_key_trace(name, sc_k, depth, **kw):
-        ro_k, rd_k = pt.camera_rays(sc_k.camera(), TRACE_RES, TRACE_RES)
+        ro_k, rd_k = pt.camera_rays(sc_k.camera(), TRACE_RES, TRACE_RES,
+                                    "cpu")
         n_k = ro_k.shape[0]
         scene_cpu, scene_dev = sc_k.compile("cpu"), sc_k.compile(dev)
         key = rng.fold_in(rng.key(13), 1)
@@ -1085,17 +1277,22 @@ def main() -> int:
     check(not any(m.split(".")[0] in ("jax", "jaxlib")
                   for m in sys.modules), "jax was imported")
     src = "pathtracing_spectrum_tpu_torch/csrc/"
+    k3_main, k4_main = "terrain-bounce2", "terrain-primary"
+    k3_b = k3_bound(hier_cases[k3_main], walks[k3_main])
+    k4_b = k3_bound(hier_cases[k4_main], walks[k4_main])
     kernels = [
         {"name": "intersect_dense", "route": "cuda",
          "source": src + "intersect_dense.cu",
          "replaces": "pathtracing_spectrum_tpu/ops/intersect_pallas.py:43",
          "launches": launches["intersect_dense"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "fetch_rows", "route": "cuda",
          "source": src + "fetch_rows.cu",
          "replaces": "pathtracing_spectrum_tpu/ops/fetch_pallas.py:32",
          "launches": launches["fetch_rows"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": k2_lib_ms},
         {"name": "intersect_bvh", "route": "cuda",
          "source": src + "intersect_bvh.cu",
          "replaces": ("pathtracing_spectrum_tpu/ops/intersect_shortlist.py"
@@ -1103,21 +1300,25 @@ def main() -> int:
                       "intersect_worklist.py:101"),
          "launches": large_counts["intersect_bvh"],
          "max_abs_err": hier_err["intersect_bvh"],
-         "ms": hier_ms["intersect_bvh"][0],
-         "plain_ms": hier_ms["intersect_bvh"][1]},
+         "ms": hier_ms["intersect_bvh", k3_main][0],
+         "plain_ms": hier_ms["intersect_bvh", k3_main][1],
+         "bound_ms": k3_b[0], "bound_by": k3_b[1], "library_ms": None},
         {"name": "intersect_cluster", "route": "cuda",
          "source": src + "intersect_cluster.cu",
          "replaces": "pathtracing_spectrum_tpu/ops/intersect_pallas.py:234",
          "launches": cluster_counts["intersect_cluster"],
          "max_abs_err": hier_err["intersect_cluster"],
-         "ms": hier_ms["intersect_cluster"][0],
-         "plain_ms": hier_ms["intersect_cluster"][1]},
+         "ms": hier_ms["intersect_cluster", k4_main][0],
+         "plain_ms": hier_ms["intersect_cluster", k4_main][1],
+         "bound_ms": k4_b[0], "bound_by": k4_b[1], "library_ms": None},
         {"name": "threefry_uniform", "route": "cuda",
          "source": src + "threefry.cu",
          "replaces": "jax.random threefry2x32 (XLA, no Pallas kernel)",
          "launches": main_counts["threefry_uniform"], "max_abs_err": rng_err,
          "ms": rng_ms[RNG_GOLDEN["uniform_shape"]][0],
-         "plain_ms": rng_ms[RNG_GOLDEN["uniform_shape"]][1]},
+         "plain_ms": rng_ms[RNG_GOLDEN["uniform_shape"]][1],
+         "bound_ms": rng_bound[0], "bound_by": rng_bound[1],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,7 +52,8 @@ _I32, _I64, _U32 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint32
 _SIGNATURES = {
     "pts_intersect_dense": [_V] * 6 + [_V, _I, _I] + [_V] * 5 + [_V],
     "pts_fetch_rows": [_V, _V, _I, _I, _I, _V, _V],
-    "pts_intersect_bvh": [_V] * 6 + [_V] * 6 + [_I, _I] + [_V] * 5 + [_V],
+    "pts_intersect_bvh": [_V] * 6 + [_V, _V, _I, _I, _V, _V] + [_V] * 5
+                         + [_V],
     "pts_intersect_cluster": [_V] * 6 + [_V, _V, _I, _I] + [_V] * 5 + [_V],
     "pts_threefry_uniform": [_U32, _U32, _I64, _V, _V],
 }

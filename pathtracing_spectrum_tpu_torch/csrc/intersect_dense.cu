@@ -10,24 +10,29 @@
 // hit (t < BIG), t, idx, and the winner's s2/s3 (the barycentric
 // numerators, which the TPU kernel returns as zeros).
 //
-// What bounds it on the card: arithmetic. Each ray-triangle test is ~30
-// float operations plus one IEEE division, against 24 bytes of ray read
-// and 17 bytes written per ray; at the main path (T = 36) the rays are
-// read once and the table is a few hundred bytes, so device memory is not
-// the limit. The division (a multi-instruction IEEE sequence) dominates.
+// What bounds it on the card: instruction issue. A pair costs 36 float
+// operations and one IEEE division (a multi-instruction sequence), about
+// 65 instructions in all, and --fmad=false keeps every multiply and add a
+// separate instruction; each ray reads 24 bytes and writes 17, and at the
+// main path (T = 36) the table is 2.3 KB, so device memory is not the
+// limit.
 //
-// Design: one thread per ray keeps (best t, best idx, s2, s3) in registers
-// and loops over the triangles in ascending index with a strict `<`, which
-// gives the lowest-index tie rule by construction. The table is staged
-// through shared memory in tiles of TILE rows; every thread of a warp reads
-// the same row at the same time, a broadcast. The per-triangle test is the
-// shared predicate of tri_hit.cuh (also used by K3 and K4), written in the
-// operation order of the plain torch version (ops/intersect.py) with
-// round-to-nearest intrinsics, and the file is built with --fmad=false: no
-// multiply-add contraction, so the kernel agrees with the plain version bit
-// for bit. Contraction is the known way grazing-edge validity flips;
-// turning it on is a later performance change, made against the agreement
-// gate.
+// Design:
+// - One thread per ray, in blocks of kThreads, keeps (best t, best idx, s2,
+//   s3) in registers and sweeps the rows in ascending index. The predicate
+//   is the shared branch-free one of tri_hit.cuh, the plain version's
+//   expressions in its order (ops/intersect.py::intersect_dense_ref), built
+//   with --fmad=false, so the kernel agrees with it bit for bit; in
+//   ascending order its tie rule keeps the lowest index.
+// - The table is staged in shared memory as float4s, once per block when it
+//   fits in one tile of kTileRows rows (the main path's 36 rows: one load,
+//   one barrier); a larger table goes through in tiles. Every thread of a
+//   warp reads the same row at once, a broadcast.
+// - Measured on the card and left out (PERF.md): a lazy predicate (the
+//   division only where rd.n != 0, the hit point and the same-side terms
+//   only for a t that would win) and two to four rays per thread. The
+//   threads of a warp take the lazy branches apart on bounce rays, so both
+//   ran slower there, up to four times on a 2,000-row table.
 
 #include <cuda_runtime.h>
 
@@ -35,8 +40,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 256;   // triangle rows per shared-memory tile (16 KB)
+constexpr int kThreads = 512;
+constexpr int kTileRows = 512;   // rows per shared-memory tile (32 KB)
 
 __global__ void __launch_bounds__(kThreads)
 intersect_dense_kernel(const float* __restrict__ rox,
@@ -45,30 +50,34 @@ intersect_dense_kernel(const float* __restrict__ rox,
                        const float* __restrict__ rdx,
                        const float* __restrict__ rdy,
                        const float* __restrict__ rdz,
-                       const float* __restrict__ tri, int n, int t_count,
+                       const float4* __restrict__ tri, int n, int t_count,
                        bool* __restrict__ hit_out, float* __restrict__ t_out,
                        int* __restrict__ idx_out, float* __restrict__ s2_out,
                        float* __restrict__ s3_out) {
-  __shared__ float s_tri[kTile * 16];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < n;
-  pts::Ray ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (active) ray = {rox[i], roy[i], roz[i], rdx[i], rdy[i], rdz[i]};
+  __shared__ float4 s_tri[kTileRows * 4];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  // a ray past the end gets a zero direction, which never hits
+  const pts::Ray ray = i < n ? pts::Ray{rox[i], roy[i], roz[i],
+                                        rdx[i], rdy[i], rdz[i]}
+                             : pts::Ray{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float best_t = pts::kBig, best_s2 = 0.f, best_s3 = 0.f;
   int best_i = 0;
 
-  for (int base = 0; base < t_count; base += kTile) {
-    const int rows = min(kTile, t_count - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int k = threadIdx.x; k < rows * 16; k += blockDim.x)
-      s_tri[k] = tri[static_cast<size_t>(base) * 16 + k];
+  for (int tile = 0; tile < t_count; tile += kTileRows) {
+    const int rows = min(kTileRows, t_count - tile);
+    if (tile > 0) __syncthreads();  // the previous tile is no longer read
+    for (int k = threadIdx.x; k < rows * 4; k += kThreads)
+      s_tri[k] = tri[static_cast<size_t>(tile) * 4 + k];
     __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < rows; ++j)
-      pts::tri_update(ray, s_tri + j * 16, base + j, best_t, best_i, best_s2,
-                      best_s3);
+    for (int j = 0; j < rows; ++j) {
+      const float4 a = s_tri[4 * j], b = s_tri[4 * j + 1];
+      const float4 c = s_tri[4 * j + 2], d = s_tri[4 * j + 3];
+      const float row[16] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                             c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
+      pts::tri_update(ray, row, tile + j, best_t, best_i, best_s2, best_s3);
+    }
   }
-  if (active) {
+  if (i < n) {
     hit_out[i] = best_t < pts::kBig;
     t_out[i] = best_t;
     idx_out[i] = best_i;
@@ -92,7 +101,7 @@ extern "C" int pts_intersect_dense(const void* rox, const void* roy,
         static_cast<const float*>(rox), static_cast<const float*>(roy),
         static_cast<const float*>(roz), static_cast<const float*>(rdx),
         static_cast<const float*>(rdy), static_cast<const float*>(rdz),
-        static_cast<const float*>(tri), n, t_count, static_cast<bool*>(hit),
+        static_cast<const float4*>(tri), n, t_count, static_cast<bool*>(hit),
         static_cast<float*>(t), static_cast<int*>(idx),
         static_cast<float*>(s2), static_cast<float*>(s3));
   }

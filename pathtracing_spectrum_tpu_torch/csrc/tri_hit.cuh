@@ -7,6 +7,11 @@
 //
 // Every step is a round-to-nearest intrinsic and the sources are built with
 // --fmad=false: no multiply-add contraction.
+//
+// The walk of K3 meets rows out of index order, so a row wins when its t is
+// smaller, or equal at a lower index: in any order the lowest index wins a
+// tie, and in ascending order (K1, K4) this is the strict `<` of the plain
+// version.
 
 #pragma once
 
@@ -33,7 +38,10 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
 
 // One row of the packed [T, 16] table (n | K1 | K2 | K3 | c0 c1 c2 c3):
 // t = (c0 - ro.n) / (rd.n), p = ro + t*rd, s_i = p.K_i - c_i; valid iff
-// rd.n != 0, t >= 0 and s1, s2, s3 >= 0.
+// rd.n != 0, t >= 0 and s1, s2, s3 >= 0. Every term is formed for every
+// pair, without a branch: a lazy form (the division only where rd.n != 0,
+// p and s_i only for a t that would win) measured slower on the card
+// because the threads of a warp take those branches apart (PERF.md).
 __device__ __forceinline__ bool tri_hit(const Ray& ray, const float* r,
                                         float& t, float& s2, float& s3) {
   const float denom = dot3(ray.dx, ray.dy, ray.dz, r[0], r[1], r[2]);
@@ -49,14 +57,15 @@ __device__ __forceinline__ bool tri_hit(const Ray& ray, const float* r,
   return denom != 0.f && t >= 0.f && s1 >= 0.f && s2 >= 0.f && s3 >= 0.f;
 }
 
-// Test one row and keep it when it is strictly closer: swept in ascending
-// index, the strict `<` gives the lowest index on a tie.
+// Test one row and keep it when it wins: a smaller t, or an equal t at a
+// lower index.
 __device__ __forceinline__ void tri_update(const Ray& ray, const float* r,
                                            int idx, float& best_t,
                                            int& best_i, float& best_s2,
                                            float& best_s3) {
   float t, s2, s3;
-  if (tri_hit(ray, r, t, s2, s3) && t < best_t) {
+  if (tri_hit(ray, r, t, s2, s3) &&
+      (t < best_t || (t == best_t && idx < best_i))) {
     best_t = t;
     best_i = idx;
     best_s2 = s2;
@@ -91,12 +100,15 @@ __device__ __forceinline__ Slab slab_setup(const Ray& ray) {
 // An axis with d == 0 bounds nothing when the origin lies in its slab and
 // culls when it does not: (b - o) / 0 is never formed, so there is no
 // 0 * inf NaN. Min and max are selects, as the plain version writes them.
-__device__ __forceinline__ bool box_hit(const Ray& ray, const Slab& s,
-                                        const float lo[3], const float hi[3],
-                                        float best_t) {
+// `near` receives the entry distance (K3 orders the children by it).
+__device__ __forceinline__ bool box_enter(const Ray& ray, const Slab& s,
+                                          const float lo[3],
+                                          const float hi[3], float best_t,
+                                          float& near) {
   const float o[3] = {ray.ox, ray.oy, ray.oz};
   const float inf = __int_as_float(0x7f800000);
-  float near = 0.f, far = 0.f;
+  float far = 0.f;
+  near = 0.f;
   for (int a = 0; a < 3; ++a) {
     const float t0 = __fmul_rn(__fsub_rn(lo[a], o[a]), s.inv[a]);
     const float t1 = __fmul_rn(__fsub_rn(hi[a], o[a]), s.inv[a]);
@@ -113,6 +125,13 @@ __device__ __forceinline__ bool box_hit(const Ray& ray, const Slab& s,
   }
   const float far_r = relax(far);
   return near <= far_r && far_r >= 0.f && near <= relax(best_t);
+}
+
+__device__ __forceinline__ bool box_hit(const Ray& ray, const Slab& s,
+                                        const float lo[3], const float hi[3],
+                                        float best_t) {
+  float near;
+  return box_enter(ray, s, lo, hi, best_t, near);
 }
 
 }  // namespace pts

@@ -69,6 +69,7 @@ import torch
 
 from . import reorder as reorder_mod
 from .constants import BIG, EPS
+from .device import DEFAULT_DEVICE, resolve_device
 from .ops import (fetch_cuda, intersect_cluster_cuda, intersect_cuda,
                   intersect_hier_cuda, planck, rng, rng_cuda, sampling)
 from .ops.intersect import pack_tri16
@@ -99,14 +100,16 @@ class TraceResult(NamedTuple):
 
 
 def resolve_backend(backend: str, n_tris: int,
-                    device: "torch.device | str" = "cpu") -> str:
+                    device: "torch.device | str" = DEFAULT_DEVICE) -> str:
     """Resolve ``"auto"`` for a scene of ``n_tris`` triangles on
-    ``device``, as the JAX package does on a TPU (the CUDA thresholds) and
-    on the CPU: ``"dense"`` up to 512 triangles and ``"hier"`` above on
-    CUDA, ``"dense"`` up to 8,192 and ``"bvh"`` above on the CPU. Other
-    names pass through; an unknown one raises ``ValueError``."""
+    ``device`` (the card unless the caller asks for the CPU), as the JAX
+    package does on a TPU (the CUDA thresholds) and on the CPU: ``"dense"``
+    up to 512 triangles and ``"hier"`` above on CUDA, ``"dense"`` up to
+    8,192 and ``"bvh"`` above on the CPU. Other names pass through; an
+    unknown one raises ``ValueError``."""
+    device = resolve_device(device)
     if backend == "auto":
-        if torch.device(device).type == "cuda":
+        if device.type == "cuda":
             return "dense" if n_tris <= DENSE_AUTO_MAX_TRIS else "hier"
         return "dense" if n_tris <= DENSE_AUTO_MAX_TRIS_CPU else "bvh"
     if backend not in _ROUTES:
@@ -119,8 +122,9 @@ def make_intersector(scene: SceneData, backend: str
                      ) -> "tuple[Callable, str]":
     """Resolve the backend and return (``intersect(ox..dz) -> (hit, t,
     idx, s2, s3)`` over [N] planes, the resolved name). The closure holds
-    the packed [T, 16] table and the kernel's scene arrays; it serves the
-    bounce loop and the primary-hit hoist alike."""
+    the packed [T, 16] table and the kernel's scene arrays (for K3 the node
+    records, packed here once per scene); it serves the bounce loop and
+    the primary-hit hoist alike."""
     backend = resolve_backend(backend, scene.n_triangles,
                               scene.tri_shade.device)
     tri16 = pack_tri16(scene.tri_face_n, scene.tri_k1, scene.tri_k2,
@@ -130,11 +134,12 @@ def make_intersector(scene: SceneData, backend: str
         def intersect(*planes):
             return intersect_cuda.intersect_dense(*planes, tri16)
     elif route == "bvh":
-        nodes = (scene.bvh_node_min, scene.bvh_node_max, scene.bvh_node_skip,
-                 scene.bvh_node_first, scene.bvh_node_count)
+        bvh = intersect_hier_cuda.pack_bvh(
+            scene.bvh_node_min, scene.bvh_node_max, scene.bvh_node_skip,
+            scene.bvh_node_first, scene.bvh_node_count)
 
         def intersect(*planes):
-            return intersect_hier_cuda.intersect_bvh(*planes, tri16, *nodes)
+            return intersect_hier_cuda.intersect_bvh(*planes, tri16, bvh)
     else:
         def intersect(*planes):
             return intersect_cluster_cuda.intersect_cluster(

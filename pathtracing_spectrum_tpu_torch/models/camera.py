@@ -16,6 +16,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -60,12 +62,14 @@ def _norm_rows(v: torch.Tensor) -> torch.Tensor:
 
 
 def camera_rays(cam: Camera, width: int, height: int,
-                device: "torch.device | str" = "cpu"):
+                device: "torch.device | str" = DEFAULT_DEVICE):
     """Primary rays through the pixel corners.
 
-    Returns (origins [N,3], directions [N,3]) float32 on ``device``, with
-    N = width*height, row-major, row 0 = image top.
+    Returns (origins [N,3], directions [N,3]) float32 on ``device`` (the
+    card unless the caller asks for the CPU), with N = width*height,
+    row-major, row 0 = image top.
     """
+    device = resolve_device(device)
     cam = cam.clamped()
     f32 = dict(dtype=torch.float32, device=device)
     pos = torch.tensor(cam.position, **f32)

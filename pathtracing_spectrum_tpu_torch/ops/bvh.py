@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -85,7 +86,8 @@ def build_bvh(soa, leaf_size: int = 4) -> FlatBVH:
 
 
 def intersect_bvh_ref(rox, roy, roz, rdx, rdy, rdz, tri16, node_min,
-                      node_max, node_skip, node_first, node_count):
+                      node_max, node_skip, node_first, node_count,
+                      stats: Optional[dict] = None):
     """Closest hit through the flat BVH (plain torch), K3's function.
 
     The lockstep skip-link walk of the JAX package's ``intersect_bvh``
@@ -105,6 +107,9 @@ def intersect_bvh_ref(rox, roy, roz, rdx, rdy, rdz, tri16, node_min,
       tri16: [T, 16] float32 packed table in BVH order.
       node_min, node_max: [NN, 3] float32; node_skip, node_first,
         node_count: [NN] int32 (``SceneData.bvh_node_*``).
+      stats: optional dict; its ``"boxes"`` and ``"tris"`` entries are
+        increased by the box tests and the triangle tests the walk makes
+        (the data-dependent work a bound on K3 is counted from).
 
     Returns (hit [N] bool, t [N] f32, idx [N] int32, s2 [N] f32, s3 [N] f32),
     t = BIG, idx = 0, s2 = s3 = 0 on a miss.
@@ -126,7 +131,9 @@ def intersect_bvh_ref(rox, roy, roz, rdx, rdy, rdz, tri16, node_min,
     node = torch.zeros(n, dtype=torch.long, device=dev)
     parked = zero[0] & zero[1] & zero[2]
     active = torch.nonzero(~parked)[:, 0]
+    boxes = tris = 0
     while active.numel():
+        boxes += active.numel()
         nd = node[active]
         lo, hi = node_min[nd], node_max[nd]
         hit = box_hits([p[active] for p in o], [p[active] for p in inv],
@@ -138,9 +145,14 @@ def intersect_bvh_ref(rox, roy, roz, rdx, rdy, rdz, tri16, node_min,
         if leaf.any():
             _leaf_test(o, d, tri16, active[leaf], first[nd[leaf]],
                        cnt[leaf], best_t, best_i, best_s2, best_s3)
+            if stats is not None:
+                tris += int(cnt[leaf].sum())
         nxt = torch.where(hit & (cnt == 0), nd + 1, skip[nd])
         node[active] = nxt
         active = active[nxt < n_nodes]
+    if stats is not None:
+        stats["boxes"] = stats.get("boxes", 0) + boxes
+        stats["tris"] = stats.get("tris", 0) + tris
     return best_t < BIG, best_t, best_i, best_s2, best_s3
 
 

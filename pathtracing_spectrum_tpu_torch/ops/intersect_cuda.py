@@ -74,7 +74,8 @@ def intersect_dense(rox, roy, roz, rdx, rdy, rdz, tri16: torch.Tensor):
     if on_cpu(*planes, tri16):
         return intersect_dense_ref(*planes, tri16)
     n, dev = check_rays("intersect_dense", planes)
-    check_table("intersect_dense", "tri16", tri16, dev, (None, 16))
+    check_table("intersect_dense", "tri16", tri16, dev, (None, 16),
+                align16=True)
     lib = _build.load()
     out = hit_outputs(n, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -15,14 +15,16 @@ from typing import Sequence
 import torch
 
 from .. import _build
+from ..device import DEFAULT_DEVICE, resolve_device
 from .rng import Key, uniform_ref
 
 
 def uniform(k: Key, shape: Sequence[int],
-            device: "torch.device | str" = "cpu") -> torch.Tensor:
-    """``jax.random.uniform(k, shape)`` as a float32 tensor on ``device``,
-    bit for bit. ``uniform.launches`` counts the kernel launches."""
-    dev = torch.device(device)
+            device: "torch.device | str" = DEFAULT_DEVICE) -> torch.Tensor:
+    """``jax.random.uniform(k, shape)`` as a float32 tensor on ``device``
+    (the card unless the caller asks for the CPU), bit for bit.
+    ``uniform.launches`` counts the kernel launches."""
+    dev = resolve_device(device)
     if dev.type == "cpu":
         return uniform_ref(k, shape, dev)
     if dev.type != "cuda":

@@ -6,7 +6,8 @@ compiles the scene and the primary rays onto the session's device (in
 samples through one ``engine.render_samples`` call, ``run`` steps until a
 target sample count and pauses, ``result`` un-permutes the running mean to
 [H, W, nw], ``stats`` reports samples, time, Mrays/s and the backend that
-``"auto"`` resolved to (``resolved_backend``). The session's key is
+``"auto"`` resolved to (``resolved_backend``). The session runs on the
+card unless it is built with ``device="cpu"``. The session's key is
 ``jax.random.key(seed)`` of the JAX session (``ops/rng.py``) and sample
 ``i`` traces under ``fold_in(key, i)``, so a port session and a JAX
 session with one seed draw the same variates; ``dispersion`` selects the
@@ -25,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .device import DEFAULT_DEVICE, resolve_device
 from .engine import render_samples, resolve_backend
 from .models.camera import camera_rays, tile_order
 from .ops import rng
@@ -42,10 +44,11 @@ class RenderStatus(enum.Enum):
 class RenderSession:
     """Owns the progressive accumulator for one scene + camera."""
 
-    def __init__(self, scene: Scene, device: "torch.device | str" = "cpu",
+    def __init__(self, scene: Scene,
+                 device: "torch.device | str" = DEFAULT_DEVICE,
                  seed: int = 0, backend: str = "auto", dispersion=False):
         self.scene = scene
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.seed = int(seed)
         self.backend = backend   # handed to the engine; "auto" resolves there
         self.dispersion = dispersion
@@ -77,7 +80,9 @@ class RenderSession:
         self._synced_version = self.scene.version
         self._scene_data = self.scene.compile(self.device)
         w, h = self.resolution
-        ro, rd = camera_rays(self.scene.camera(), w, h)
+        # the rays are made and permuted on the host, then moved: the same
+        # float32 rays on every device
+        ro, rd = camera_rays(self.scene.camera(), w, h, "cpu")
         # compact 32x32 screen tiles per ray block, permuted on the host
         perm, self._inv_perm = tile_order(w, h)
         perm_t = torch.from_numpy(perm.astype(np.int64))

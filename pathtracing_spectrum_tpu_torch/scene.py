@@ -25,6 +25,7 @@ from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .device import DEFAULT_DEVICE, resolve_device
 from .models import transforms
 from .models.camera import Camera
 from .models.geometry import TriangleSoA, build_triangle_soa, empty_soa
@@ -101,9 +102,12 @@ class SceneData(NamedTuple):
 
 
 def scene_data_from_numpy(fields: Mapping[str, np.ndarray],
-                          device: "torch.device | str" = "cpu") -> SceneData:
+                          device: "torch.device | str" = DEFAULT_DEVICE
+                          ) -> SceneData:
     """Port ``SceneData`` from a mapping of field name to numpy array, e.g.
-    ``{k: np.asarray(v) for k, v in jax_scene_data._asdict().items()}``."""
+    ``{k: np.asarray(v) for k, v in jax_scene_data._asdict().items()}``, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     return SceneData(**{name: torch.tensor(np.asarray(fields[name]),
                                            device=device)
                         for name in SceneData._fields})
@@ -253,13 +257,15 @@ class Scene:
         """ASCII temperature grid (pathtracer.cpp:192-198)."""
         self._bind(obj_id, element_id, "temperature_data_file", path)
 
-    def compile(self, device: "torch.device | str" = "cpu",
+    def compile(self, device: "torch.device | str" = DEFAULT_DEVICE,
                 build_bvh: bool = True, leaf_size: int = 4) -> SceneData:
-        """Bake the scene into tensors on ``device`` (numpy first, then one
-        transfer pass). Equals the JAX ``Scene.compile(build_bvh,
-        leaf_size)``: with ``build_bvh`` the triangles are in SAH-BVH order
-        and the ``bvh_node_*`` fields hold the tree; without it they are
-        in file order under a one-node passthrough BVH."""
+        """Bake the scene into tensors on ``device``, the card unless the
+        caller asks for the CPU (numpy first, then one transfer pass).
+        Equals the JAX ``Scene.compile(build_bvh, leaf_size)``: with
+        ``build_bvh`` the triangles are in SAH-BVH order and the
+        ``bvh_node_*`` fields hold the tree; without it they are in file
+        order under a one-node passthrough BVH."""
+        device = resolve_device(device)
         nw = len(self.wavelengths)
         wavenumbers = np.asarray(self.wavelengths, np.float32)
 

@@ -91,7 +91,7 @@ def test_trace_matches_jax(name):
 def test_trace_matches_oracle(name):
     _, sc, depth, _, _, rand = setup(name, n_pix=8)
     scene = sc.compile("cpu")
-    ro, rd = (a.numpy() for a in pt.camera_rays(sc.camera(), 8, 8))
+    ro, rd = (a.numpy() for a in pt.camera_rays(sc.camera(), 8, 8, "cpu"))
     got = port_trace(scene, ro, rd, depth, rand).radiance.numpy()
     osc = oracle.OracleScene(scene)
     want = np.stack([oracle.trace(osc, ro[k].astype(np.float64),
@@ -117,7 +117,7 @@ def test_hoisted_primary_is_bitwise_equal():
 def test_render_samples_equals_render_sample_calls():
     sc = tiny_scene(pt, depth=3)
     scene = sc.compile("cpu")
-    ro, rd = pt.camera_rays(sc.camera(), 16, 16)
+    ro, rd = pt.camera_rays(sc.camera(), 16, 16, "cpu")
     k, base, counter0 = 3, rng.key(7), 5
     total = torch.zeros((256, 4))
     rays = 0
@@ -167,7 +167,7 @@ def test_session_batches_are_exact_and_image_is_healthy():
 def test_outside_the_slice_raises(kw, item):
     sc = tiny_scene(pt, res=(4, 4))
     scene = sc.compile("cpu")
-    ro, rd = pt.camera_rays(sc.camera(), 4, 4)
+    ro, rd = pt.camera_rays(sc.camera(), 4, 4, "cpu")
     with pytest.raises(NotImplementedError, match=item):
         engine.render_samples(scene, ro, rd, torch.zeros((16, 4)), 0,
                               rng.key(0), 0, n_steps=1, max_depth=2, **kw)
@@ -181,7 +181,7 @@ def test_large_scene_options_render_as_the_default(kw):
     Cornell box exactly as the default route does."""
     sc = tiny_scene(pt, res=(8, 8), depth=3)
     scene = sc.compile("cpu")
-    ro, rd = pt.camera_rays(sc.camera(), 8, 8)
+    ro, rd = pt.camera_rays(sc.camera(), 8, 8, "cpu")
     want = engine.render_samples(scene, ro, rd, torch.zeros((64, 4)), 0,
                                  rng.key(5), 0, n_steps=2, max_depth=3)
     got = engine.render_samples(scene, ro, rd, torch.zeros((64, 4)), 0,
@@ -232,3 +232,42 @@ def test_session_reports_the_resolved_backend(which, backend, tmp_path):
     assert np.isfinite(img).all() and (img >= 0).all()
     assert sess.stats()["backend"] == jsess.resolved_backend() == backend
     assert sess.resolved_backend() == backend
+
+
+# ---- the entry points default to the card ----------------------------------
+
+def _entry_points():
+    """name -> (the function whose ``device`` default is read, a call of
+    it without ``device=``)."""
+    from pathtracing_spectrum_tpu_torch.ops import rng_cuda
+    sc = to_port_scene(cornell_scene(sky=True))
+    fields = {k: v.numpy() for k, v in sc.compile("cpu")._asdict().items()}
+    return {
+        "RenderSession": (pt.RenderSession.__init__,
+                          lambda: pt.RenderSession(sc)),
+        "Scene.compile": (pt.Scene.compile, lambda: sc.compile()),
+        "scene_data_from_numpy": (pt.scene_data_from_numpy,
+                                  lambda: pt.scene_data_from_numpy(fields)),
+        "camera_rays": (pt.camera_rays,
+                        lambda: pt.camera_rays(sc.camera(), 4, 4)),
+        "resolve_backend": (engine.resolve_backend,
+                            lambda: engine.resolve_backend("auto", 36)),
+        "rng_cuda.uniform": (rng_cuda.uniform,
+                             lambda: rng_cuda.uniform(rng.key(0), (4, 8))),
+    }
+
+
+@pytest.mark.parametrize("name", ["RenderSession", "Scene.compile",
+                                  "scene_data_from_numpy", "camera_rays",
+                                  "resolve_backend", "rng_cuda.uniform"])
+def test_entry_point_defaults_to_the_card(name):
+    """Every entry point that takes a device defaults to "cuda"; without a
+    card, calling it without ``device=`` raises the port's RuntimeError
+    naming the device instead of running on the CPU."""
+    import inspect
+    fn, call = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default call would run")
+    with pytest.raises(RuntimeError, match="'cuda'.*no CUDA device"):
+        call()

@@ -127,7 +127,7 @@ def test_camera_rays_match_jax(wh, fovy, rot):
               up=tuple(up.tolist()), focal=0.1, fovy_deg=fovy)
     w, h = wh
     ro_j, rd_j = jcam.camera_rays(jcam.Camera(**kw), w, h)
-    ro_t, rd_t = tcam.camera_rays(tcam.Camera(**kw), w, h)
+    ro_t, rd_t = tcam.camera_rays(tcam.Camera(**kw), w, h, "cpu")
     assert ro_t.shape == (w * h, 3) and rd_t.dtype == torch.float32
     np.testing.assert_array_equal(ro_t.numpy(), np.asarray(ro_j))
     # unit directions; the norms are summed in another order (a few ulp)

@@ -111,23 +111,25 @@ def test_reorder_from_policy_table(depth):
     assert reorder.REORDER_POS_BITS == 4
 
 
-def test_resolve_backend_table():
+def test_resolve_backend_table(monkeypatch):
     """On the CPU the JAX package's own resolution (this process runs JAX
     on the CPU); on CUDA its TPU thresholds (dense up to 512, hier
-    above)."""
+    above), read here with torch told that a card is present (resolving
+    for a CUDA device without one raises, test_torch_engine)."""
     names = ("auto", "dense", "dense_pallas", "hier", "shortlist",
              "worklist", "bvh", "cluster")
     for n_tris in (36, 512, 513, 2244, 8192, 8193, 51778):
         for name in names:
             assert (engine.resolve_backend(name, n_tris, "cpu")
                     == jengine.resolve_backend(name, n_tris)), (name, n_tris)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cuda = torch.device("cuda", 0)
     assert engine.resolve_backend("auto", 512, cuda) == "dense"
     assert engine.resolve_backend("auto", 513, cuda) == "hier"
     assert engine.resolve_backend("auto", 51778, cuda) == "hier"
     assert engine.resolve_backend("cluster", 51778, cuda) == "cluster"
     with pytest.raises(ValueError, match="unknown backend"):
-        engine.resolve_backend("octree", 100)
+        engine.resolve_backend("octree", 100, "cpu")
 
 
 @pytest.mark.parametrize("backend", ["dense", "bvh", "cluster"])

@@ -149,7 +149,7 @@ def test_hero_table_holds_the_flat_curves(grids, cauchy, tmp_path):
 def test_trace_without_a_key_needs_shared_variates():
     scene = to_port_scene(cornell_nw(4)).compile("cpu")
     ro, rd = pt.camera_rays(pt.Camera((0, 0, -2), (0, 0, 1), (0, 1, 0),
-                                      0.1, 50.0), 4, 4)
+                                      0.1, 50.0), 4, 4, "cpu")
     with pytest.raises(ValueError, match="key"):
         engine.trace_radiance(scene, ro, rd, None, 2)
     rand = torch.rand((4, 4, 16))
@@ -239,7 +239,8 @@ def test_glass_scene_hero_differs_from_cauchy():
     Cauchy index: same key, different images through the prism."""
     jsc = bench_suite.prism_scene((16, 16), 5)
     scene = to_port_scene(jsc).compile("cpu")
-    ro, rd = pt.camera_rays(to_port_scene(jsc).camera(), 16, 16)
+    ro, rd = pt.camera_rays(to_port_scene(jsc).camera(), 16, 16,
+                            "cpu")
     hero, cauchy = (engine.trace_radiance(scene, ro, rd, rng.key(1), 5,
                                           dispersion=d)
                     for d in ("hero", True))

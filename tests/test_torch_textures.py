@@ -469,7 +469,7 @@ def test_maps_change_the_port_render(tmp_path):
                        (normal_mapped_sphere(), "normal_tex_file"),
                        (gridded_wall(tmp_path), "temperature_data_file")):
         sc = to_port_scene(jsc)
-        ro, rd = pt.camera_rays(sc.camera(), 16, 16)
+        ro, rd = pt.camera_rays(sc.camera(), 16, 16, "cpu")
         with_map = pt.trace_radiance(sc.compile("cpu"), ro, rd,
                                      pt.rng.key(5), jsc.trace_depth)
         for obj in sc.objects:
