@@ -40,9 +40,11 @@ card's memory rate and its operations over their peak rate; for K3 and K4
 the box and triangle tests these rays need, the fewer of the skip-link
 and the near-first walk's) and what binds it, and the time of one PyTorch
 call of the same function where there is one (K2: ``index_select``).
-K1 and K3 are held to their plain versions bit for bit; K3 is timed on
-the terrain primaries, in context on the terrain's bounce-2 rays (the
-``kernels`` entry) and on the textured path's bounce-2 rays.
+K1, K3 and K4 are held to their plain versions bit for bit; K3 and K4
+are timed on the terrain primaries, in context on the terrain's bounce-2
+rays (the ``kernels`` entry) and on the textured path's bounce-2 rays, K4
+beside its counting build's box tests, row-test steps and swept
+clusters.
 """
 
 from __future__ import annotations
@@ -767,7 +769,10 @@ def main() -> int:
     # ---- 8. K3 and K4 against their plain versions -------------------------
     # K3's cases: (planes, table, node arrays, cluster boxes, packed BVH);
     # the constructed tie (one triangle at rows 1 and 2, met in descending
-    # index) and a tree deeper than K3's local stack are K3's alone
+    # index) and a tree deeper than K3's local stack are K3's alone.
+    # K4's cases: (planes, table, packed cluster and group boxes), K3's
+    # first three and K4's own tie (one triangle at rows 5 and 1030, the
+    # higher row's cluster entered first)
     cases_mod = load_by_path("torch_cases", os.path.join(HERE, "tests",
                                                          "torch_cases.py"))
     pack = intersect_hier_cuda.pack_bvh
@@ -792,8 +797,15 @@ def main() -> int:
                          None, pack(*nodes))
     check(k3_only["chain-depth-80"][4].depth > intersect_hier_cuda.LOCAL_STACK,
           "the chain does not reach past K3's local stack")
+    pack_cl = intersect_cluster_cuda.pack_clusters
+    k4_cases = {case: (c[0], c[1], pack_cl(c[3]))
+                for case, c in hier_cases.items()}
+    ct_tri, ct_caabb, ct_planes = cases_mod.cluster_tie_case()
+    k4_cases["tie-nearest-cluster"] = ([p.to(dev) for p in ct_planes],
+                                       ct_tri.to(dev),
+                                       pack_cl(ct_caabb.to(dev)))
     dense52 = intersect_cuda.intersect_dense(*prim52, tri52)
-    hier_err, hier_ms, walks = {}, {}, {}
+    hier_err, hier_ms, walks, sweeps = {}, {}, {}, {}
 
     def walk_counts(c):
         """(skip-link walk's box and triangle tests, the ordered walk's, the
@@ -812,11 +824,24 @@ def main() -> int:
     def k3_bound(c, counts):
         """K3's bound on case ``c``: each ray read and its hit written, the
         table and the node records read once, and the fewer of the two
-        walks' operations."""
+        walks' operations. K4 is held to the same bound on the same rays:
+        its function is K3's, and it needs no more work than they do."""
         n = c[0][0].shape[0]
         nbytes = (n * (RAY_BYTES + HIT_BYTES) + c[1].shape[0] * 64
                   + c[4].records.shape[0] * 64)
         return bound(nbytes, min(walk_ops(*w) for w in counts[:2]))
+
+    def sweep_counts(c):
+        """K4's counting build on case ``c``: the sums and the maxima over
+        the rays of their box tests, their warp's row-test steps and their
+        warp's swept clusters."""
+        counts = torch.zeros((3, c[0][0].shape[0]), dtype=torch.int32,
+                             device=dev)
+        k4_fn(*c[0], c[1], c[2], counts=counts)
+        return {"box_tests_row_steps_clusters_sum":
+                    counts.sum(dim=1).tolist(),
+                "box_tests_row_steps_clusters_max":
+                    counts.max(dim=1).values.tolist()}
 
     for label, name, kernel, plain, cases in (
             ("K3", "intersect_bvh",
@@ -825,9 +850,9 @@ def main() -> int:
                                                              *c[2]),
              {**hier_cases, **k3_only}),
             ("K4", "intersect_cluster",
-             lambda c: k4_fn(*c[0], c[1], c[3]),
+             lambda c: k4_fn(*c[0], c[1], c[2]),
              lambda c: intersect_cluster_cuda.intersect_cluster_ref(
-                 *c[0], c[1], c[3]), hier_cases)):
+                 *c[0], c[1], c[2].aabbs), k4_cases)):
         t_phase = time.perf_counter()
         hier_err[name] = 0.0
         for case, c in cases.items():
@@ -850,8 +875,12 @@ def main() -> int:
                 fields.update(skiplink_box_tri_tests=list(walks[case][0]),
                               ordered_box_tri_tests=list(walks[case][1]),
                               longest_ray_box_tri_tests=list(walks[case][2]))
-                check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                      f"K3 is not bitwise its plain version on {case}")
+            else:
+                sweeps[case] = sweep_counts(c)
+                fields.update(sweeps[case])
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{label} is not bitwise its plain version on {case}")
+            fields["bitwise_equal"] = True
             say(label, case=case, rays=c[0][0].shape[0],
                 tris=c[1].shape[0], hits=hits, idx_agree_pct=f"{pct:.4f}",
                 max_abs_err=err, gate=f">={AGREE_GATE_PCT}%", **fields)
@@ -861,19 +890,21 @@ def main() -> int:
         if label == "K3":
             check(int(kernel(k3_only["tie-descending"])[2].item()) == 1,
                   "K3 did not give the tie to the lower row")
-        shapes = ("terrain-primary", "terrain-bounce2")
-        for shape in shapes if label == "K3" else shapes[:1]:
-            c = hier_cases[shape]
+        else:
+            check(int(kernel(k4_cases["tie-nearest-cluster"])[2].item())
+                  == 5, "K4 did not give the tie to the lower row")
+        for shape in ("terrain-primary", "terrain-bounce2"):
+            c = cases[shape]
             hier_ms[name, shape] = time_pair(
                 torch, lambda: kernel(c), lambda: plain(c), plain_iters=2,
                 plain_warmup=1)
-            b_ms, b_by = k3_bound(c, walks[shape])
+            b_ms, b_by = k3_bound(hier_cases[shape], walks[shape])
             say(label, case=shape,
                 shape=f"N={c[0][0].shape[0]},T={c[1].shape[0]}",
                 kernel_ms=f"{hier_ms[name, shape][0]:.4f}",
                 plain_ms=f"{hier_ms[name, shape][1]:.4f}", bound_ms=b_ms,
                 bound_by=b_by, share_of_bound=b_ms / hier_ms[name, shape][0],
-                card=repr(card))
+                **(sweeps[shape] if label == "K4" else {}), card=repr(card))
         phase_done(label, t_phase)
 
     # K2 on the terrain's table (51,778 rows, read through the cache)
@@ -1208,7 +1239,30 @@ def main() -> int:
         longest_ray_box_tri_tests=list(walks[case][2]),
         kernel_ms=f"{k3_tex_ms:.4f}", bound_ms=b_ms, bound_by=b_by,
         share_of_bound=b_ms / k3_tex_ms, card=repr(card))
-    del c, got, want
+    # K4 on the same rays, against its plain version and K3's bound
+    c4 = (c[0], c[1], intersect_cluster_cuda.pack_clusters(
+        data_t.cluster_aabbs))
+    want = intersect_cluster_cuda.intersect_cluster_ref(*c4[0], c4[1],
+                                                        c4[2].aabbs)
+    got = k4_fn(*c4[0], c4[1], c4[2])
+    torch.cuda.synchronize()
+    pct, err, hits = agreement(got, want)
+    hier_err["intersect_cluster"] = max(hier_err["intersect_cluster"], err)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"K4 is not bitwise its plain version on {case}")
+    sweeps[case] = sweep_counts(c4)
+    hier_ms["intersect_cluster", case] = time_pair(
+        torch, lambda: k4_fn(*c4[0], c4[1], c4[2]),
+        lambda: intersect_cluster_cuda.intersect_cluster_ref(
+            *c4[0], c4[1], c4[2].aabbs), plain_iters=2, plain_warmup=1)
+    k4_tex_ms = hier_ms["intersect_cluster", case][0]
+    say("K4", case=case, rays=c[0][0].shape[0], tris=c[1].shape[0],
+        hits=hits, idx_agree_pct=f"{pct:.4f}", max_abs_err=err,
+        bitwise_equal=True, **sweeps[case], kernel_ms=f"{k4_tex_ms:.4f}",
+        plain_ms=f"{hier_ms['intersect_cluster', case][1]:.4f}",
+        bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / k4_tex_ms,
+        card=repr(card))
+    del c, c4, got, want
     phase_done("textured", t_phase)
 
     # ---- 13. one key: spectral and textured traces, card vs CPU ----------
@@ -1277,9 +1331,8 @@ def main() -> int:
     check(not any(m.split(".")[0] in ("jax", "jaxlib")
                   for m in sys.modules), "jax was imported")
     src = "pathtracing_spectrum_tpu_torch/csrc/"
-    k3_main, k4_main = "terrain-bounce2", "terrain-primary"
-    k3_b = k3_bound(hier_cases[k3_main], walks[k3_main])
-    k4_b = k3_bound(hier_cases[k4_main], walks[k4_main])
+    k_main = "terrain-bounce2"
+    k3_b = k3_bound(hier_cases[k_main], walks[k_main])
     kernels = [
         {"name": "intersect_dense", "route": "cuda",
          "source": src + "intersect_dense.cu",
@@ -1300,17 +1353,17 @@ def main() -> int:
                       "intersect_worklist.py:101"),
          "launches": large_counts["intersect_bvh"],
          "max_abs_err": hier_err["intersect_bvh"],
-         "ms": hier_ms["intersect_bvh", k3_main][0],
-         "plain_ms": hier_ms["intersect_bvh", k3_main][1],
+         "ms": hier_ms["intersect_bvh", k_main][0],
+         "plain_ms": hier_ms["intersect_bvh", k_main][1],
          "bound_ms": k3_b[0], "bound_by": k3_b[1], "library_ms": None},
         {"name": "intersect_cluster", "route": "cuda",
          "source": src + "intersect_cluster.cu",
          "replaces": "pathtracing_spectrum_tpu/ops/intersect_pallas.py:234",
          "launches": cluster_counts["intersect_cluster"],
          "max_abs_err": hier_err["intersect_cluster"],
-         "ms": hier_ms["intersect_cluster", k4_main][0],
-         "plain_ms": hier_ms["intersect_cluster", k4_main][1],
-         "bound_ms": k4_b[0], "bound_by": k4_b[1], "library_ms": None},
+         "ms": hier_ms["intersect_cluster", k_main][0],
+         "plain_ms": hier_ms["intersect_cluster", k_main][1],
+         "bound_ms": k3_b[0], "bound_by": k3_b[1], "library_ms": None},
         {"name": "threefry_uniform", "route": "cuda",
          "source": src + "threefry.cu",
          "replaces": "jax.random threefry2x32 (XLA, no Pallas kernel)",

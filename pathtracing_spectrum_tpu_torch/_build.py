@@ -54,7 +54,8 @@ _SIGNATURES = {
     "pts_fetch_rows": [_V, _V, _I, _I, _I, _V, _V],
     "pts_intersect_bvh": [_V] * 6 + [_V, _V, _I, _I, _V, _V] + [_V] * 5
                          + [_V],
-    "pts_intersect_cluster": [_V] * 6 + [_V, _V, _I, _I] + [_V] * 5 + [_V],
+    "pts_intersect_cluster": [_V] * 6 + [_V, _V, _V, _I, _I, _I, _V]
+                             + [_V] * 5 + [_V],
     "pts_threefry_uniform": [_U32, _U32, _I64, _V, _V],
 }
 _HOST_SIGNATURES = {

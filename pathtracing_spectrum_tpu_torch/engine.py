@@ -123,8 +123,8 @@ def make_intersector(scene: SceneData, backend: str
     """Resolve the backend and return (``intersect(ox..dz) -> (hit, t,
     idx, s2, s3)`` over [N] planes, the resolved name). The closure holds
     the packed [T, 16] table and the kernel's scene arrays (for K3 the node
-    records, packed here once per scene); it serves the bounce loop and
-    the primary-hit hoist alike."""
+    records, for K4 the cluster and group boxes, packed here once per
+    scene); it serves the bounce loop and the primary-hit hoist alike."""
     backend = resolve_backend(backend, scene.n_triangles,
                               scene.tri_shade.device)
     tri16 = pack_tri16(scene.tri_face_n, scene.tri_k1, scene.tri_k2,
@@ -141,9 +141,11 @@ def make_intersector(scene: SceneData, backend: str
         def intersect(*planes):
             return intersect_hier_cuda.intersect_bvh(*planes, tri16, bvh)
     else:
+        clusters = intersect_cluster_cuda.pack_clusters(scene.cluster_aabbs)
+
         def intersect(*planes):
             return intersect_cluster_cuda.intersect_cluster(
-                *planes, tri16, scene.cluster_aabbs)
+                *planes, tri16, clusters)
     return intersect, backend
 
 

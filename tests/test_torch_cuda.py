@@ -34,7 +34,8 @@ from pathtracing_spectrum_tpu_torch.ops.intersect import (  # noqa: E402
     pack_tri16, precompute_intersect_tables)
 from pathtracing_spectrum_tpu_torch.scene import build_cluster_aabbs  # noqa: E402,E501
 
-from torch_cases import chain_bvh, scene_rays, tie_case  # noqa: E402
+from torch_cases import (chain_bvh, cluster_tie_case,  # noqa: E402
+                         many_clusters_case, scene_rays, tie_case)
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
@@ -402,6 +403,79 @@ def test_k3_deeper_than_the_local_stack(dev):
     assert got[0].tolist() == [True, True, True, False]
     assert got[2][0].item() == 80
     assert counts[0][0].item() == 1 + 2 * 80
+
+
+def k4_case(name, directory):
+    """(ray planes, tri16, cluster boxes) of a K4 case, CPU tensors: a
+    BVH-ordered soup (every 7th ray parked), a 100-row table (one
+    cluster, one group), the constructed tie, 600 clusters on every ray
+    (two windows of a warp's list), or terrain 10k's 16x16 camera rays and
+    160 rays from inside it."""
+    if name in ("tie", "many-clusters"):
+        tri16, caabb, planes = (cluster_tie_case() if name == "tie"
+                                else many_clusters_case())
+        return planes, tri16, caabb
+    if name == "terrain-10k":
+        sc = terrain(make_terrain_10k(directory), 16)
+        scene = sc.compile("cpu")
+        tri16 = pack_tri16(scene.tri_face_n, scene.tri_k1, scene.tri_k2,
+                           scene.tri_k3, scene.tri_consts)
+        cam_o, cam_d = (a.numpy() for a in pt.camera_rays(
+            sc.camera(), 16, 16, "cpu"))
+        ro, rd = scene_rays((scene.bvh_node_min, scene.bvh_node_max), 160,
+                            seed=21)
+        ro, rd = np.concatenate([cam_o, ro]), np.concatenate([cam_d, rd])
+        planes = [torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                  for a in (ro, rd) for k in range(3)]
+        return planes, tri16, scene.cluster_aabbs
+    n_tris = 100 if name == "one-cluster" else int(name.split("-")[1])
+    planes, tri16, _, caabb = random_bvh_soup(n_tris, 4096, n_tris)
+    return planes, tri16, caabb
+
+
+@pytest.mark.parametrize("case", ["soup-300", "soup-2000", "soup-6000",
+                                  "one-cluster", "tie", "many-clusters",
+                                  "terrain-10k"])
+def test_k4_equals_plain_and_cluster_model(dev, case, tmp_path):
+    """K4 against its plain version and its warp model bit for bit, and
+    its counting build against the model's counts."""
+    planes, tri16, caabb = k4_case(case, tmp_path)
+    n = planes[0].shape[0]
+    packed = intersect_cluster_cuda.pack_clusters(caabb.to(dev))
+    counts = torch.zeros((3, n), dtype=torch.int32, device=dev)
+    before = intersect_cluster_cuda.intersect_cluster.launches
+    got = intersect_cluster_cuda.intersect_cluster(
+        *(p.to(dev) for p in planes), tri16.to(dev), packed, counts=counts)
+    torch.cuda.synchronize()
+    assert intersect_cluster_cuda.intersect_cluster.launches == before + 1
+    got = [g.cpu() for g in got]
+    want = intersect_cluster_cuda.intersect_cluster_ref(*planes, tri16,
+                                                        caabb)
+    model, model_counts = intersect_cluster_cuda.cluster_model_batch(
+        planes, tri16, caabb)
+    assert want[0].any()
+    for g, w, m in zip(got, want, model):
+        assert torch.equal(g, w) and torch.equal(g, m)
+    assert torch.equal(counts.cpu(), model_counts)
+    if case == "tie":
+        assert got[2].item() == 5
+    if case == "many-clusters":
+        assert counts[2, 0].item() == 2     # one cluster in each window
+
+
+def test_k4_refuses_bad_counts_and_group_boxes(dev):
+    planes = [torch.zeros(8, device=dev) for _ in range(6)]
+    tri16 = torch.zeros((300, 16), device=dev)
+    packed = intersect_cluster_cuda.pack_clusters(
+        torch.zeros((3, 8), device=dev))
+    for bad in (torch.zeros((2, 8), dtype=torch.int32, device=dev),
+                torch.zeros((3, 8), device=dev)):
+        with pytest.raises(ValueError):
+            intersect_cluster_cuda.intersect_cluster(*planes, tri16, packed,
+                                                     counts=bad)
+    with pytest.raises(ValueError):
+        intersect_cluster_cuda.intersect_cluster(
+            *planes, tri16, packed._replace(groups=packed.groups[:, :7]))
 
 
 def make_terrain_10k(directory):

@@ -1,12 +1,14 @@
-"""Hand-built BVHs for K3's walk, shared by the CPU tests
-(``test_torch_hier.py``) and the card tests (``test_torch_cuda.py``).
-jax-free, so the card tests run where jax is not installed."""
+"""Hand-built cases for K3's walk and K4's cluster sweep, shared by the CPU
+tests (``test_torch_hier.py``, ``test_torch_cluster.py``), the card tests
+(``test_torch_cuda.py``) and ``chip_smoke.py``. jax-free, so the card
+tests run where jax is not installed."""
 
 import numpy as np
 import torch
 
 from pathtracing_spectrum_tpu_torch.ops.intersect import (
     pack_tri16, precompute_intersect_tables)
+from pathtracing_spectrum_tpu_torch.scene import build_cluster_aabbs
 
 
 def _flat_rows(v1):
@@ -74,6 +76,52 @@ def tie_case():
     planes = [torch.tensor([v], dtype=torch.float32)
               for v in (0.1, 0.1, -1.0, 0.0, 0.0, 1.0)]
     return tri16, nodes, planes
+
+
+def cluster_tie_case():
+    """One triangle at rows 5 and 1030 of a 1,152-row table: in cluster 0
+    (group 0) and cluster 8 (group 1). Row 1031, which the ray misses,
+    stretches cluster 8's box toward the ray, so cluster 8 has the nearer
+    entry and a nearest-first sweep meets row 1030 first. Every other row
+    lies beside the ray, at x >= 100. Returns (tri16, cluster_aabbs, ray
+    planes); the closest hit is row 5."""
+    t = 9 * 128
+    v1 = np.zeros((t, 3))
+    v1[:, 0] = 100.0 + 3.0 * np.arange(t)
+    v1[:, 2] = 5.0
+    v1[5] = v1[1030] = 0.0
+    v1[1031] = [5.0, 5.0, -0.5]
+    tri16, lo, hi = _flat_rows(v1)
+    caabb = torch.from_numpy(build_cluster_aabbs(lo.astype(np.float32),
+                                                 hi.astype(np.float32)))
+    planes = [torch.tensor([v], dtype=torch.float32)
+              for v in (0.1, 0.1, -1.0, 0.0, 0.0, 1.0)]
+    return tri16, caabb, planes
+
+
+def many_clusters_case():
+    """600 clusters stacked along +z (cluster c at z = 600 - c), each with
+    one unit triangle at x, y in [0, 1] in its first row and the rest
+    beside the rays, at x, y = 2: every ray enters every cluster box, so a
+    warp lists more clusters than its list holds and sweeps them in two
+    windows. Rays: 39 along +z from z = -1 through (0.25 + k/100, 0.25),
+    and one parked. Returns (tri16, cluster_aabbs, ray planes); the
+    closest hit is row 599 * 128, at t = 2."""
+    c = np.repeat(np.arange(600), 128)
+    v1 = np.full((c.size, 3), 2.0)
+    v1[:, 2] = 600.0 - c
+    v1[::128, :2] = 0.0
+    tri16, lo, hi = _flat_rows(v1)
+    caabb = torch.from_numpy(build_cluster_aabbs(lo.astype(np.float32),
+                                                 hi.astype(np.float32)))
+    ro = np.zeros((40, 3), np.float32)
+    ro[:, 0] = 0.25 + np.arange(40) / 100.0
+    ro[:, 1], ro[:, 2] = 0.25, -1.0
+    rd = np.tile(np.float32([0.0, 0.0, 1.0]), (40, 1))
+    ro[39], rd[39] = 1e30, 0.0
+    planes = [torch.from_numpy(np.ascontiguousarray(a[:, k]))
+              for a in (ro, rd) for k in range(3)]
+    return tri16, caabb, planes
 
 
 def scene_rays(nodes, n_random, seed):

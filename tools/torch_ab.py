@@ -2,7 +2,7 @@
 """Compare checkouts of the PyTorch/CUDA port on one card, in turns.
 
     python3 tools/torch_ab.py _checkout . . _checkout   # parent, change, change, parent
-    python3 tools/torch_ab.py --ptxas                   # K1's and K3's registers, spills
+    python3 tools/torch_ab.py --ptxas                   # K1's, K3's, K4's registers, spills
     python3 tools/torch_ab.py --sessions-only --pairs 6 _checkout .
 
 Each positional argument is the root of a checkout of this repository
@@ -12,13 +12,15 @@ that checkout's port package first on ``sys.path`` (both trees hold a
 package of the same name), builds its kernels, and measures on card 0:
 
 - K1 per call on the Cornell box's 512x512 primaries and bounce-2 rays,
-  and K3 per call on the terrain-52k primaries, on the terrain's bounce-2
-  rays and on the textured sphere's 1920x1080 bounce-2 rays, each through
-  ``engine.make_intersector``, which every tree has (device time, CUDA
-  events, ``chip_smoke.time_fn``);
+  and K3 and K4 per call on the terrain-52k primaries, on the terrain's
+  bounce-2 rays and on the textured sphere's 1920x1080 bounce-2 rays, each
+  through ``engine.make_intersector``, which every tree has and which
+  packs the scene's arrays outside the timing (device time, CUDA events,
+  ``chip_smoke.time_fn``);
 - Mrays/s and ms per sample of a ``RenderSession`` on the Cornell box
-  (64 samples a step), the terrain (16) and the textured sphere (16), two
-  timed steps each after a warmup, timed with CUDA events.
+  (64 samples a step), the terrain (16), the terrain with
+  ``backend="cluster"`` (16, K4) and the textured sphere (16), two timed
+  steps each after a warmup, timed with CUDA events.
 
 ``--sessions-only`` leaves out the kernel times; ``--pairs k`` runs the
 two trees given k times each, in turns (A B B A A B ...), for rates whose
@@ -41,7 +43,11 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SESSIONS = (("cornell", 64), ("terrain", 16), ("textured", 16))
+# (name, scene, samples a step, backend)
+SESSIONS = (("cornell", "cornell", 64, "auto"),
+            ("terrain", "terrain", 16, "auto"),
+            ("terrain-cluster", "terrain", 16, "cluster"),
+            ("textured", "textured", 16, "auto"))
 
 
 def card_name() -> str:
@@ -95,19 +101,22 @@ def turn(tree: str, kernels: bool = True) -> dict:
         terrain = scenes["terrain"].compile(dev)
         ro, rd = pt.camera_rays(scenes["terrain"].camera(), cs.RES, cs.RES,
                                 device=dev)
-        res["k3_terrain_primary_ms"] = kernel_ms(terrain, "hier",
-                                                 planes_of(ro, rd))
-        res["k3_terrain_bounce2_ms"] = kernel_ms(
-            terrain, "hier", cs.rays_of_bounce(terrain, ro, rd, 2))
+        bounce2 = cs.rays_of_bounce(terrain, ro, rd, 2)
         sess = pt.RenderSession(scenes["textured"], dev, seed=0)
         sess.start()
-        res["k3_textured_bounce2_ms"] = kernel_ms(
-            sess._scene_data, "hier",
-            cs.rays_of_bounce(sess._scene_data, sess._ro, sess._rd, 2))
-        del sess
+        tex_bounce2 = cs.rays_of_bounce(sess._scene_data, sess._ro,
+                                        sess._rd, 2)
+        for k, backend in (("k3", "hier"), ("k4", "cluster")):
+            res[f"{k}_terrain_primary_ms"] = kernel_ms(terrain, backend,
+                                                       planes_of(ro, rd))
+            res[f"{k}_terrain_bounce2_ms"] = kernel_ms(terrain, backend,
+                                                       bounce2)
+            res[f"{k}_textured_bounce2_ms"] = kernel_ms(
+                sess._scene_data, backend, tex_bounce2)
+        del sess, bounce2, tex_bounce2
 
-    for name, spp in SESSIONS:
-        sess = pt.RenderSession(scenes[name], dev, seed=0)
+    for name, scene, spp, backend in SESSIONS:
+        sess = pt.RenderSession(scenes[scene], dev, seed=0, backend=backend)
         sess.run(2, batch=2)
         rates = []
         for _ in range(2):
@@ -128,12 +137,13 @@ def turn(tree: str, kernels: bool = True) -> dict:
 
 
 def ptxas() -> None:
-    """Print nvcc's -Xptxas -v report (registers, spills, local memory)
-    for K1 and K3 as the port builds them."""
+    """Print nvcc's -Xptxas -v report (registers, spills, local and shared
+    memory) for K1, K3 and K4 as the port builds them."""
     sys.path.insert(0, REPO)
     from pathtracing_spectrum_tpu_torch import _build
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("intersect_dense", "intersect_bvh"):
+        for name in ("intersect_dense", "intersect_bvh",
+                     "intersect_cluster"):
             src = os.path.join(REPO, "pathtracing_spectrum_tpu_torch",
                                "csrc", f"{name}.cu")
             run = subprocess.run(
@@ -150,7 +160,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", help="checkout roots, in turn order")
     ap.add_argument("--ptxas", action="store_true",
-                    help="print K1's and K3's ptxas report")
+                    help="print K1's, K3's and K4's ptxas report")
     ap.add_argument("--sessions-only", action="store_true",
                     help="leave out the kernel times")
     ap.add_argument("--pairs", type=int, default=0,
