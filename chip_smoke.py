@@ -23,16 +23,29 @@ through its kernels and made a healthy image:
   8 samples with the hero estimator and without;
 - the textured path: ``bench_suite.textured_sphere_scene`` (2,244
   triangles, a checker roughness map) at 1920x1080, 16 samples through
-  ``"hier"`` (K3, K2, threefry).
+  ``"hier"`` (K3, K2, threefry);
+- the user's session: the Cornell box of ``bench_suite`` config 5 at
+  3840x2160 through ``RenderSession(chunks=32).run(16, batch=16)`` (K1
+  and K2 1 + 16*32*5 = 2561 times each, threefry 16*32*6 = 3072), then
+  ``chunks=32`` and ``chunks=1`` timed in turns, 4 samples a step; the
+  Cornell box at 512x512 with ``jitter=True``, 16 samples (K1 and K2
+  16*6 = 96 times, no hoist; threefry 16*(6+2) = 128), and a 64x64
+  one-key jittered trace against the CPU; the terrain through ``"hier"``
+  with ``chunks=4``, checkpointed at 8 samples and resumed in a fresh
+  session to 16, bitwise the uninterrupted image (K3 and K2 1 + 8*4*5 =
+  161 times in the first 8, 160 sorts); stop, restart and the async loop
+  (4 samples, paused, ended by stop).
 
 Run from the repository root:
 
-    python3 chip_smoke.py              # one card, about three minutes
+    python3 chip_smoke.py              # one card, about two minutes
     python3 chip_smoke.py --profile    # also print torch.profiler tables
 
 Every check raises on failure, and the script exits non-zero without
 printing its result line. It refuses to run without a CUDA device and
-without the port's package beside it. Its last line is
+without the port's package beside it. Before its result it ends on
+purpose (:func:`finish`): no kernel in flight, no thread left. Its last
+line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
 with its launches on its path, its error against the plain version, its
 time and the plain version's, its bound (the larger of its bytes over the
@@ -40,8 +53,11 @@ card's memory rate and its operations over their peak rate; for K3 and K4
 the box and triangle tests these rays need, the fewer of the skip-link
 and the near-first walk's) and what binds it, and the time of one PyTorch
 call of the same function where there is one (K2: ``index_select``).
-K1, K3 and K4 are held to their plain versions bit for bit; K3 and K4
-are timed on the terrain primaries, in context on the terrain's bounce-2
+Every kernel is held to its plain version bit for bit, at the shapes of
+each path that runs it (the user's session included: K1 and K2 on the 4K
+frame's 8,294,400 primaries and one 259,200-ray chunk, threefry at
+[4, 259,200]; K3, K2 and threefry on one 65,536-ray terrain chunk,
+sorted as K3 gets it); K3 and K4 are timed on the terrain primaries, in context on the terrain's bounce-2
 rays (the ``kernels`` entry) and on the textured path's bounce-2 rays, K4
 beside its counting build's box tests, row-test steps and swept
 clusters.
@@ -51,12 +67,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import importlib.util
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -75,6 +93,12 @@ CLUSTER_SPP = 4        # ... then 4 through the cluster backend
 PRISM_DEPTH, PRISM_SPP = 5, 32     # spectral path (bench_suite config 2)
 NW_BIG, NW_SPP = 256, 8            # Cornell at nw = 256 (config 7)
 TEX_RES, TEX_SPP = (1920, 1080), 16  # textured path (config 3)
+# the user's session: the 4K frame in 32 chunks, 16 samples in one call
+# (bench_suite config 5 on one card), then 4 a step for the rates ...
+FOURK_RES, FOURK_CHUNKS, FOURK_SPP, FOURK_RATE_SPP = (3840, 2160), 32, 16, 4
+JITTER_SPP = 16          # ... the Cornell box with camera jitter ...
+CKPT_CHUNKS, CKPT_SPP = 4, 16   # ... the terrain saved at 8, resumed to 16
+ASYNC_SPP, ASYNC_DEADLINE_S = 4, 60.0
 # make_terrain arguments of the repo's terrain assets (make_assets.py)
 TERRAINS = {"10k": dict(grid=64, n_rocks=8, rock_sub=8),
             "52k": dict(grid=128, n_rocks=36, rock_sub=12)}
@@ -275,9 +299,11 @@ def prism_scene(pt, res: int, depth: int = PRISM_DEPTH):
     return sc
 
 
-def cornell_nw_scene(pt, res: int, nw: int, depth: int = DEPTH):
+def cornell_nw_scene(pt, res, nw: int, depth: int = DEPTH):
     """``bench_suite.cornell_scene_nw``: the Cornell box over an nw-point
-    wavenumber grid from 500 to 2000 1/cm."""
+    wavenumber grid from 500 to 2000 1/cm, at ``res`` (width, height). At
+    nw = 4 it is ``bench_suite.cornell_scene`` (roughness 0.2 throughout),
+    the scene of the 4K configuration."""
     waves = np.linspace(500.0, 2000.0, nw)
     white = np.interp(waves, [500.0, 1000.0, 1500.0, 2000.0],
                       [0.8, 0.7, 0.75, 0.8])
@@ -287,7 +313,7 @@ def cornell_nw_scene(pt, res: int, nw: int, depth: int = DEPTH):
         pt.SpectrumMaterial("white", [float(v) for v in white]),
         pt.SpectrumMaterial("emitter", [1.0] * nw)]
     sc.trace_depth = depth
-    sc.resolution = (res, res)
+    sc.resolution = tuple(res)
     obj = sc.load_object(os.path.join(HERE, "assets", "cornell_box.obj"))
     for i, el in enumerate(obj.elements):
         hot = el.name == "light"
@@ -417,6 +443,382 @@ def bound(nbytes: float, ops: float = 0.0,
 
 def walk_ops(boxes: int, tris: int) -> int:
     return boxes * BOX_TEST_OPS + tris * TRI_TEST_OPS
+
+
+def want_counts(n, depth, hero=False, route="intersect_dense", sorts=0,
+                chunks=1, jitter=False):
+    """Launches of one render_samples call of n samples: the primary hit
+    and its fetch hoisted once on the whole frame (not with jitter: each
+    sample intersects its own primaries), then each chunk's looped
+    iterations on the closest-hit kernel and K2 (plus one hero-table read
+    per iteration); one threefry draw per iteration (plus the hero
+    channel's per chunk, and jitter's two per sample)."""
+    hits = n * chunks * (2 * depth - (0 if jitter else 1)) + (not jitter)
+    want = {"intersect_dense": 0, "intersect_bvh": 0,
+            "intersect_cluster": 0, "sorts": sorts,
+            "fetch_rows": hits + (n * chunks * 2 * depth if hero else 0),
+            "threefry_uniform": (n * chunks * (2 * depth + (1 if hero else 0))
+                                 + (2 * n if jitter else 0))}
+    want[route] = hits
+    return want
+
+
+def timed_step(torch, sess, n: int):
+    """(Mrays/s, ms per sample) of one more ``step(n)`` of ``sess``, timed
+    with CUDA events; the step ends by reading its ray count."""
+    torch.cuda.synchronize()
+    rays0 = sess.rays_traced
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    sess.step(n, readback=False)
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1)
+    return (sess.rays_traced - rays0) / ms / 1e3, ms / n
+
+
+def drive(torch, sess, n, counts, zero_counts):
+    """``sess.run(n, batch=n)`` with the launch counts set to 0 just before
+    and read just after: (image, counts)."""
+    sess.start()
+    torch.cuda.synchronize()
+    zero_counts()
+    img = sess.run(n, batch=n)
+    torch.cuda.synchronize()
+    return img, counts()
+
+
+def lit_from_top(img, what: str) -> None:
+    healthy(img, what)
+    h = img.shape[0]
+    check(img[: h // 8].mean() > img[-(h // 8):].mean(),
+          f"{what}: image is not lit from the top")
+
+
+def hold(label: str, case: str, got, want) -> float:
+    """Check one kernel call bitwise against its plain version on the same
+    inputs (float32 outputs compared as bits) and print the case; returns
+    the largest absolute difference over the outputs."""
+    import torch
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    torch.cuda.synchronize()
+
+    def bits(a):
+        return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+    same = all(a.shape == b.shape and torch.equal(bits(a), bits(b))
+               for a, b in zip(got, want))
+    err = max((a.double() - b.double()).abs().max().item()
+              for a, b in zip(got, want))
+    say(label, case=case, shape=list(got[0].shape), bitwise_equal=same,
+        max_abs_err=err, gate="bitwise")
+    check(same, f"{label} is not bitwise its plain version on {case}")
+    return err
+
+
+def tri16_of(data):
+    """The packed [T, 16] triangle table of a compiled scene."""
+    from pathtracing_spectrum_tpu_torch.ops.intersect import pack_tri16
+    return pack_tri16(data.tri_face_n, data.tri_k1, data.tri_k2,
+                      data.tri_k3, data.tri_consts)
+
+
+def hier_tables(data):
+    """(packed [T, 16] table, node arrays, packed node records) of a
+    compiled scene: K3's inputs."""
+    from pathtracing_spectrum_tpu_torch.ops import intersect_hier_cuda
+    nodes = (data.bvh_node_min, data.bvh_node_max, data.bvh_node_skip,
+             data.bvh_node_first, data.bvh_node_count)
+    return tri16_of(data), nodes, intersect_hier_cuda.pack_bvh(*nodes)
+
+
+def planes_of(ro, rd):
+    """The six contiguous [N] ray planes of [N, 3] origins and
+    directions."""
+    return [ro[:, k].contiguous() for k in range(3)] + \
+        [rd[:, k].contiguous() for k in range(3)]
+
+
+def chunks_4k_phase(torch, pt, dev, card, counts, zero_counts,
+                    res=FOURK_RES, chunks=FOURK_CHUNKS, spp=FOURK_SPP,
+                    rate_spp=FOURK_RATE_SPP, with_profile=False):
+    """The 4K Cornell box (``bench_suite`` config 5 on one card) through
+    ``RenderSession(chunks=32).run(16, batch=16)``: one K1/K2 call on the
+    whole frame, then 32 chunks of 259,200 rays a sample. K1, K2 and
+    threefry are then held to their plain versions at this path's shapes:
+    K1 and K2 on the session's 8,294,400 primaries and on one chunk's
+    bounce-2 rays (259,200, a ragged last block), threefry at [4, 259,200].
+    Then the rates of ``chunks=32`` and ``chunks=1`` in turns, ``rate_spp``
+    samples a step. Returns the largest error of each kernel held."""
+    from pathtracing_spectrum_tpu_torch import engine
+    from pathtracing_spectrum_tpu_torch.ops import (fetch_cuda,
+                                                    intersect_cuda, rng,
+                                                    rng_cuda)
+    sc = cornell_nw_scene(pt, res, 4)
+    warm = pt.RenderSession(sc, dev, seed=1, chunks=chunks)
+    warm.run(1, batch=1)
+    del warm
+    sess = pt.RenderSession(sc, dev, seed=0, chunks=chunks)
+    img, got = drive(torch, sess, spp, counts, zero_counts)
+    st = sess.stats()
+    want = want_counts(spp, DEPTH, chunks=chunks)
+    say("4k-chunks", res=f"{res[0]}x{res[1]}", chunks=chunks,
+        rays_per_chunk=res[0] * res[1] // chunks, depth=DEPTH, spp=spp,
+        backend=st["backend"], launches=json.dumps(got),
+        expected=json.dumps(want), rays_traced=st["rays_traced"],
+        session_mrays_per_s=st["mrays_per_s"],
+        session_ms_per_sample=1e3 * st["avg_time_per_sample_s"],
+        mean=float(img.mean()), card=repr(card))
+    check(st["backend"] == "dense", f"4K resolved {st['backend']}")
+    check(got == want, f"4k-chunks launches {got}, expected {want}")
+    check(img.shape == (res[1], res[0], 4), f"4K image shape {img.shape}")
+    lit_from_top(img, "4k-chunks")
+
+    data = sess._scene_data
+    prep = engine._prepare(data, "auto")
+    tri16 = tri16_of(data)
+    nc = sess._ro.shape[0] // chunks
+    errs = {"intersect_dense": 0.0, "fetch_rows": 0.0,
+            "threefry_uniform": 0.0}
+    for case, planes in (
+            ("4k-primaries", planes_of(sess._ro, sess._rd)),
+            ("4k-chunk-bounce2", rays_of_bounce(data, sess._ro[-nc:],
+                                                sess._rd[-nc:], 2))):
+        hit = intersect_cuda.intersect_dense(*planes, tri16)
+        errs["intersect_dense"] = max(errs["intersect_dense"], hold(
+            "K1", case, hit,
+            intersect_cuda.intersect_dense_ref(*planes, tri16)))
+        errs["fetch_rows"] = max(errs["fetch_rows"], hold(
+            "K2", case, fetch_cuda.fetch_rows(hit[2], prep.shade_sub),
+            fetch_cuda.fetch_rows_ref(hit[2], prep.shade_sub)))
+        del hit, planes
+    # the last chunk's key of sample 0
+    k = rng.fold_in(rng.fold_in(rng.key(0), 0),
+                    engine.CHUNK_FOLD + chunks - 1)
+    errs["threefry_uniform"] = hold(
+        "rng", "4k-chunk", rng_cuda.uniform(k, (4, nc), dev),
+        rng.uniform_ref(k, (4, nc), dev))
+
+    one = pt.RenderSession(sc, dev, seed=0)          # chunks=1
+    one.run(1, batch=1)
+    rates = {1: [], chunks: []}
+    for s, c in ((one, 1), (sess, chunks), (sess, chunks), (one, 1)):
+        rates[c].append(timed_step(torch, s, rate_spp))
+    for c, vals in rates.items():
+        say("4k-chunks", chunks=c, spp_per_step=rate_spp,
+            mrays_per_s=[v[0] for v in vals],
+            ms_per_sample=[v[1] for v in vals], card=repr(card))
+    if with_profile:
+        for s, c in ((sess, chunks), (one, 1)):
+            profile(torch, s, min(v[1] for v in rates[c]),
+                    f"4k-chunks{c}")
+    return errs
+
+
+def jitter_phase(torch, pt, dev, card, counts, zero_counts, res=RES,
+                 spp=JITTER_SPP, with_profile=False):
+    """The Cornell box with camera jitter through
+    ``RenderSession(jitter=True).run(16, batch=16)``: no primary hoist, two
+    [N] threefry draws a sample for the offsets. Then the jittered and the
+    pixel-corner sessions timed in turns. Returns the counts."""
+    sc = tiny_scene(pt, res)
+    sess = pt.RenderSession(sc, dev, seed=0, jitter=True)
+    img, got = drive(torch, sess, spp, counts, zero_counts)
+    st = sess.stats()
+    want = want_counts(spp, DEPTH, jitter=True)
+    plain = pt.RenderSession(sc, dev, seed=0)        # the pixel corners
+    corners = plain.run(spp, batch=spp)
+    rel = abs(float(img.mean()) - float(corners.mean())) / corners.mean()
+    say("jitter", res=f"{res}x{res}", spp=spp, backend=st["backend"],
+        launches=json.dumps(got), expected=json.dumps(want),
+        mean=float(img.mean()), corners_mean=float(corners.mean()),
+        rel_mean_diff=rel)
+    rates = {"corners": [], "jitter": []}
+    for s, name in ((plain, "corners"), (sess, "jitter"), (sess, "jitter"),
+                    (plain, "corners")):
+        rates[name].append(timed_step(torch, s, spp))
+    for name, vals in rates.items():
+        say("jitter", rays=name, spp_per_step=spp,
+            mrays_per_s=[v[0] for v in vals],
+            ms_per_sample=[v[1] for v in vals], card=repr(card))
+    if with_profile:
+        profile(torch, sess, min(v[1] for v in rates["jitter"]), "jitter")
+    check(got == want, f"jitter launches {got}, expected {want}")
+    check(img.shape == (res, res, 4), f"jitter image shape {img.shape}")
+    lit_from_top(img, "jitter")
+    check(not np.array_equal(img, corners),
+          "the jittered image is the pixel-corner image")
+    check(rel < 0.1, f"jittered mean {rel:.3f} away from the corners'")
+    return got
+
+
+def jitter_trace(torch, pt, dev, res=TRACE_RES):
+    """One jittered sample of ``render_samples(jitter_cam=...)`` under one
+    key at ``res``², on the card and on the CPU: the rays of each pixel
+    that hit the same triangles on both agree within the trace
+    tolerance."""
+    from pathtracing_spectrum_tpu_torch import engine
+    from pathtracing_spectrum_tpu_torch.ops import fetch_cuda, rng
+    sc = tiny_scene(pt, res)
+    ro, rd = pt.camera_rays(sc.camera(), res, res, "cpu")
+    n = ro.shape[0]
+    fetched, out, side = {}, {}, [None]
+    real_fetch = fetch_cuda.fetch_rows
+
+    def recording_fetch(idx, table):
+        fetched.setdefault(side[0], []).append(idx.cpu())
+        return real_fetch(idx, table)
+
+    recording_fetch.launches = 0
+    fetch_cuda.fetch_rows = recording_fetch
+    try:
+        for side[0], d in (("cpu", "cpu"), ("cuda", dev)):
+            jc = pt.jitter_cam_arrays(sc.camera(), res, res, device=d)
+            out[side[0]] = engine.render_samples(
+                sc.compile(d), ro.to(d), rd.to(d),
+                torch.zeros((n, 4), device=d), 0, rng.key(13), 1,
+                n_steps=1, max_depth=DEPTH, jitter_cam=jc)
+        torch.cuda.synchronize()
+    finally:
+        fetch_cuda.fetch_rows = real_fetch
+    differs = torch.zeros(n, dtype=torch.bool)
+    for ic, idd in zip(fetched["cpu"], fetched["cuda"]):
+        differs |= ic != idd
+    a, b = out["cuda"][0].cpu()[~differs], out["cpu"][0][~differs]
+    close = torch.allclose(a, b, rtol=TRACE_RTOL, atol=TRACE_ATOL)
+    n_diff = int(differs.sum())
+    say("trace", scene="cornell-jitter", key="key(13), counter 1",
+        pixels=n, depth=DEPTH, bounces=len(fetched["cuda"]),
+        pixels_with_other_hits=n_diff,
+        max_abs_diff_elsewhere=(a - b).abs().max().item(),
+        rays_cuda=int(out["cuda"][3]), rays_cpu=int(out["cpu"][3]),
+        tolerance=f"rtol={TRACE_RTOL},atol={TRACE_ATOL}")
+    check(len(fetched["cuda"]) == len(fetched["cpu"]) == 2 * DEPTH,
+          "the jittered trace did not fetch once per bounce (no hoist)")
+    check(close, "jitter: CUDA and CPU traces differ beyond tolerance")
+    check(n_diff <= n * (100.0 - AGREE_GATE_PCT) / 100.0,
+          f"jitter: {n_diff} pixels hit other triangles on the card")
+
+
+def checkpoint_phase(torch, pt, dev, card, counts, zero_counts, sc_terrain,
+                     sc_small, chunks=CKPT_CHUNKS, spp=CKPT_SPP):
+    """The terrain through ``"auto"`` (``"hier"``: K3, K2, the reorder)
+    with ``chunks=4``: 8 samples, a checkpoint, 8 more; a fresh session
+    loads the checkpoint and runs to 16, bitwise the uninterrupted image.
+    Then the state machine on ``sc_small``: stop and start reset, restart
+    resets, and the async loop reaches ``ASYNC_SPP`` samples, pauses, and
+    ends on stop. K3, K2 and threefry are held to their plain versions on
+    one 65,536-ray chunk (its sorted bounce-2 rays, its [4, 65,536] draw).
+    Returns the largest error of each kernel held."""
+    from pathtracing_spectrum_tpu_torch import engine
+    from pathtracing_spectrum_tpu_torch.ops import (
+        fetch_cuda, intersect_hier_cuda, rng, rng_cuda)
+    from pathtracing_spectrum_tpu_torch.render import RenderStatus
+    k3_fn = intersect_hier_cuda.intersect_bvh
+    half = spp // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "terrain.npz")
+        a = pt.RenderSession(sc_terrain, dev, seed=5, chunks=chunks)
+        _, got = drive(torch, a, half, counts, zero_counts)
+        want = want_counts(half, DEPTH, route="intersect_bvh",
+                           sorts=half * chunks * (2 * DEPTH - 1),
+                           chunks=chunks)
+        a.save_checkpoint(path)
+        full = a.run(spp)
+        b = pt.RenderSession(sc_terrain, dev, seed=0, chunks=chunks)
+        b.start()
+        b.load_checkpoint(path)
+        resumed_at = (b.samples, b.seed, b.status.value)
+        resumed = b.run(spp)
+    torch.cuda.synchronize()
+    same = np.array_equal(resumed, full)
+    say("checkpoint", scene="terrain-52k", res="x".join(
+        map(str, sc_terrain.resolution)), backend=a.stats()["backend"],
+        chunks=chunks, saved_at=half, resumed_at=list(resumed_at),
+        samples=[a.samples, b.samples], launches=json.dumps(got),
+        expected=json.dumps(want), bitwise_equal=same,
+        max_abs_diff=float(np.abs(resumed - full).max()),
+        mean=float(full.mean()), card=repr(card))
+    check(a.stats()["backend"] == "hier", "the terrain did not resolve hier")
+    check(got == want, f"checkpoint-phase launches {got}, expected {want}")
+    check(resumed_at == (half, 5, "paused"),
+          f"the checkpoint resumed at {resumed_at}")
+    check(a.samples == b.samples == spp, "samples after the resume")
+    healthy(full, "terrain chunks=4")
+    check(same, "the resumed terrain image is not bitwise the "
+          "uninterrupted one")
+
+    # K3, K2 and threefry at this path's shapes: one 65,536-ray chunk's
+    # bounce-2 rays, sorted as K3 gets them
+    data = a._scene_data
+    tri16, nodes, packed = hier_tables(data)
+    nc = a._ro.shape[0] // chunks
+    planes = rays_of_bounce(data, a._ro[:nc], a._rd[:nc], 2)
+    hit = k3_fn(*planes, tri16, packed)
+    shade = engine._prepare(data, "auto").shade_sub
+    k = rng.fold_in(rng.fold_in(rng.key(5), 0), engine.CHUNK_FOLD)
+    errs = {"intersect_bvh": hold(
+                "K3", "terrain-chunk-bounce2", hit,
+                intersect_hier_cuda.intersect_bvh_ref(*planes, tri16,
+                                                      *nodes)),
+            "fetch_rows": hold(
+                "K2", "terrain-chunk-bounce2",
+                fetch_cuda.fetch_rows(hit[2], shade),
+                fetch_cuda.fetch_rows_ref(hit[2], shade)),
+            "threefry_uniform": hold(
+                "rng", "terrain-chunk", rng_cuda.uniform(k, (4, nc), dev),
+                rng.uniform_ref(k, (4, nc), dev))}
+    del planes, hit
+
+    s = pt.RenderSession(sc_small, dev, seed=0)
+    s.run(2, batch=2)
+    s.stop()
+    stopped = s.status
+    s.start()
+    check(stopped == RenderStatus.STOPPED and s.samples == 0
+          and not bool(s._total.any()), "stop -> start did not reset")
+    s.step(1, readback=False)
+    s.restart()
+    check(s.samples == 0 and s.status == RenderStatus.RENDERING,
+          "restart did not reset")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    s.start_async(ASYNC_SPP)
+    deadline = t0 + ASYNC_DEADLINE_S
+    while s.status != RenderStatus.PAUSED and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    paused_s = time.perf_counter() - t0
+    got_async = counts()
+    paused = (s.status, s.samples)
+    s.stop()
+    s.join(timeout=ASYNC_DEADLINE_S)
+    alive = s._thread.is_alive()
+    want_async = {k: ASYNC_SPP * v for k, v in want_counts(1, DEPTH).items()}
+    say("session", async_target=ASYNC_SPP, paused_after_s=paused_s,
+        status=paused[0].value, samples=paused[1],
+        launches=json.dumps(got_async), expected=json.dumps(want_async),
+        thread_alive_after_join=alive)
+    check(paused == (RenderStatus.PAUSED, ASYNC_SPP),
+          f"the async loop stood at {paused}, not paused at {ASYNC_SPP}")
+    check(got_async == want_async, f"async launches {got_async}")
+    check(not alive, "the async thread outlived stop() and join()")
+    healthy(s.result(), "async")
+    return errs
+
+
+def finish(torch) -> None:
+    """End on purpose: no kernel in flight, no session thread left, the
+    port's device memory released, the output flushed."""
+    torch.cuda.synchronize()
+    threads = [t.name for t in threading.enumerate()
+               if t is not threading.main_thread()]
+    check(not threads, f"threads still running at the end: {threads}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
 
 
 def main() -> int:
@@ -686,12 +1088,7 @@ def main() -> int:
     warm.run(2, batch=2)
     torch.cuda.synchronize()
     sess = pt.RenderSession(sc, dev, seed=0)
-    sess.start()
-    torch.cuda.synchronize()
-    zero_counts()
-    img = sess.run(SPP, batch=SPP)
-    torch.cuda.synchronize()
-    main_counts = counts()
+    img, main_counts = drive(torch, sess, SPP, counts, zero_counts)
     launches = {k: main_counts[k] for k in ("intersect_dense", "fetch_rows")}
     st = sess.stats()
     want_launches = 1 + SPP * (2 * DEPTH - 1)
@@ -705,36 +1102,19 @@ def main() -> int:
         expected_threefry=want_draws,
         rays_traced=st["rays_traced"], mean=float(img.mean()),
         top_band=float(top), bottom_band=float(bottom))
-    for name, n in launches.items():
-        check(n == want_launches, f"{name} launched {n} times on the main "
-              f"path, expected {want_launches}")
-    check(main_counts["threefry_uniform"] == want_draws,
-          f"threefry launched {main_counts['threefry_uniform']} times on "
-          f"the main path, expected {want_draws}")
+    check(main_counts == want_counts(SPP, DEPTH),
+          f"main path launches {main_counts}, expected "
+          f"{want_counts(SPP, DEPTH)}")
     check(st["backend"] == "dense", f"main path resolved {st['backend']}")
-    check(main_counts["intersect_bvh"] == main_counts["intersect_cluster"]
-          == main_counts["sorts"] == 0, f"main path counts {main_counts}")
     check(isinstance(st["rays_traced"], int)
           and st["rays_traced"] >= SPP * RES * RES, "rays_traced")
     check(img.shape == (RES, RES, 4), f"image shape {img.shape}")
-    check(bool(np.isfinite(img).all()), "image has non-finite values")
-    check(bool((img >= 0).all()), "image has negative values")
-    check(img.mean() > 0 and top > bottom, "image is not lit from the top")
+    lit_from_top(img, "main")
 
     # Mrays/s: more steps of the same session (one render_samples call
     # each), timed with CUDA events; the step ends by reading rays_traced
-    mrays, ms_per_sample = [], []
-    for _ in range(2):
-        rays0 = sess.rays_traced
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        sess.step(SPP, readback=False)
-        e1.record()
-        e1.synchronize()
-        ms = e0.elapsed_time(e1)
-        mrays.append((sess.rays_traced - rays0) / ms / 1e3)
-        ms_per_sample.append(ms / SPP)
+    mrays, ms_per_sample = (list(v) for v in zip(
+        *(timed_step(torch, sess, SPP) for _ in range(2))))
     say("main", mrays_per_s=mrays, ms_per_sample=ms_per_sample,
         session_mrays_per_s=st["mrays_per_s"], card=repr(card))
     if args.profile:
@@ -988,12 +1368,7 @@ def main() -> int:
     warm.run(2, batch=2)
     torch.cuda.synchronize()
     sess52 = pt.RenderSession(sc52, dev, seed=0)
-    sess52.start()
-    torch.cuda.synchronize()
-    zero_counts()
-    img52 = sess52.run(LARGE_SPP, batch=LARGE_SPP)
-    torch.cuda.synchronize()
-    large_counts = counts()
+    img52, large_counts = drive(torch, sess52, LARGE_SPP, counts, zero_counts)
     st52 = sess52.stats()
     want52 = 1 + LARGE_SPP * (2 * DEPTH - 1)
     say("large", res=f"{RES}x{RES}", tris=scene52.n_triangles,
@@ -1005,21 +1380,13 @@ def main() -> int:
         sorts=large_counts["sorts"], rays_traced=st52["rays_traced"],
         mean=float(img52.mean()))
     check(st52["backend"] == "hier", f"terrain resolved {st52['backend']}")
-    check(large_counts["intersect_bvh"] == want52
-          and large_counts["fetch_rows"] == want52,
-          f"large-scene launches {large_counts}, expected {want52}")
-    check(large_counts["intersect_dense"] == 0
-          and large_counts["intersect_cluster"] == 0,
-          f"large-scene path left K3: {large_counts}")
-    check(large_counts["threefry_uniform"] == LARGE_SPP * 2 * DEPTH,
-          f"threefry launched {large_counts['threefry_uniform']} times")
-    check(large_counts["sorts"] == LARGE_SPP * (2 * DEPTH - 1),
-          f"reorder ran {large_counts['sorts']} times, expected every "
-          "looped iteration")
+    # the reorder sorts every looped iteration at 52k triangles
+    want = want_counts(LARGE_SPP, DEPTH, route="intersect_bvh",
+                       sorts=LARGE_SPP * (2 * DEPTH - 1))
+    check(large_counts == want,
+          f"large-scene launches {large_counts}, expected {want}")
     check(img52.shape == (RES, RES, 4), f"image shape {img52.shape}")
-    check(bool(np.isfinite(img52).all()), "terrain image non-finite")
-    check(bool((img52 >= 0).all()), "terrain image negative")
-    check(img52.mean() > 0, "terrain image is black")
+    healthy(img52, "terrain")
 
     # Mrays/s with the reorder on ("auto") and off, in turns, through
     # render_samples on the session's rays, timed with CUDA events
@@ -1050,12 +1417,8 @@ def main() -> int:
 
     # the second entry point: backend="cluster" on the same scene
     sess_c = pt.RenderSession(sc52, dev, seed=0, backend="cluster")
-    sess_c.start()
-    torch.cuda.synchronize()
-    zero_counts()
-    img_c = sess_c.run(CLUSTER_SPP, batch=CLUSTER_SPP)
-    torch.cuda.synchronize()
-    cluster_counts = counts()
+    img_c, cluster_counts = drive(torch, sess_c, CLUSTER_SPP, counts,
+                                  zero_counts)
     st_c = sess_c.stats()
     want_c = 1 + CLUSTER_SPP * (2 * DEPTH - 1)
     say("cluster", backend=st_c["backend"], spp=CLUSTER_SPP,
@@ -1065,13 +1428,11 @@ def main() -> int:
         sorts=cluster_counts["sorts"], mrays_per_s=st_c["mrays_per_s"],
         mean=float(img_c.mean()), card=repr(card))
     check(st_c["backend"] == "cluster", "cluster session backend")
-    check(cluster_counts["intersect_cluster"] == want_c
-          and cluster_counts["fetch_rows"] == want_c
-          and cluster_counts["intersect_bvh"] == 0
-          and cluster_counts["intersect_dense"] == 0,
-          f"cluster launches {cluster_counts}, expected {want_c}")
-    check(bool(np.isfinite(img_c).all()) and bool((img_c >= 0).all())
-          and img_c.mean() > 0, "cluster image unhealthy")
+    want = want_counts(CLUSTER_SPP, DEPTH, route="intersect_cluster",
+                       sorts=CLUSTER_SPP * (2 * DEPTH - 1))
+    check(cluster_counts == want,
+          f"cluster launches {cluster_counts}, expected {want}")
+    healthy(img_c, "cluster")
     phase_done("large", t_phase)
 
     def rate(sess, n):
@@ -1079,29 +1440,8 @@ def main() -> int:
         session, timed with CUDA events."""
         torch.cuda.synchronize()
         zero_counts()
-        rays0 = sess.rays_traced
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        sess.step(n, readback=False)
-        e1.record()
-        e1.synchronize()
-        ms = e0.elapsed_time(e1)
-        return (sess.rays_traced - rays0) / ms / 1e3, ms / n, counts()
-
-    def want_counts(n, depth, hero=False, route="intersect_dense",
-                    sorts=0):
-        """Launches of one render_samples call of n samples: the hoisted
-        primary plus the looped iterations on the closest-hit kernel and
-        K2 (plus one hero-table read per iteration), one threefry draw
-        per iteration (plus the hero channel's per sample)."""
-        looped = n * (2 * depth - 1)
-        want = {"intersect_dense": 0, "intersect_bvh": 0,
-                "intersect_cluster": 0, "sorts": sorts,
-                "fetch_rows": 1 + looped + (n * 2 * depth if hero else 0),
-                "threefry_uniform": n * (2 * depth + (1 if hero else 0))}
-        want[route] = 1 + looped
-        return want
+        mr, ms = timed_step(torch, sess, n)
+        return mr, ms, counts()
 
     # ---- 11. spectral path: the dispersion prism, then nw = 256 ----------
     t_phase = time.perf_counter()
@@ -1110,12 +1450,7 @@ def main() -> int:
     warm.run(2, batch=2)
     torch.cuda.synchronize()
     sess_p = pt.RenderSession(scp, dev, seed=0, dispersion=True)
-    sess_p.start()
-    torch.cuda.synchronize()
-    zero_counts()
-    img_p = sess_p.run(PRISM_SPP, batch=PRISM_SPP)
-    torch.cuda.synchronize()
-    prism_counts = counts()
+    img_p, prism_counts = drive(torch, sess_p, PRISM_SPP, counts, zero_counts)
     st_p = sess_p.stats()
     want_p = want_counts(PRISM_SPP, PRISM_DEPTH, hero=True)
     say("spectral", scene="prism", res=f"{RES}x{RES}", dispersion=True,
@@ -1153,7 +1488,7 @@ def main() -> int:
         max_abs_err=err, gate="bitwise")
     check(same, "K2 differs on the hero table")
 
-    sc256 = cornell_nw_scene(pt, RES, NW_BIG)
+    sc256 = cornell_nw_scene(pt, (RES, RES), NW_BIG)
     for mode in ("hero", False):
         s256 = pt.RenderSession(sc256, dev, seed=0, dispersion=mode)
         s256.run(1, batch=1)
@@ -1187,12 +1522,7 @@ def main() -> int:
     warm.run(1, batch=1)
     torch.cuda.synchronize()
     sess_t = pt.RenderSession(sct, dev, seed=0)
-    sess_t.start()
-    torch.cuda.synchronize()
-    zero_counts()
-    img_t = sess_t.run(TEX_SPP, batch=TEX_SPP)
-    torch.cuda.synchronize()
-    tex_counts = counts()
+    img_t, tex_counts = drive(torch, sess_t, TEX_SPP, counts, zero_counts)
     st_t = sess_t.stats()
     # 2,244 triangles: reorder on ("auto", K3 on CUDA), from the last
     # iteration (reorder_from_policy below 4,096 triangles)
@@ -1322,11 +1652,35 @@ def main() -> int:
                               for y in range(7)) + "\n")
         same_key_trace("prism", prism_scene(pt, TRACE_RES), PRISM_DEPTH,
                        dispersion=True)
-        same_key_trace("cornell-nw4", cornell_nw_scene(pt, TRACE_RES, 4),
+        same_key_trace("cornell-nw4",
+                       cornell_nw_scene(pt, (TRACE_RES, TRACE_RES), 4),
                        DEPTH, dispersion="hero")
         same_key_trace("textured-grid", textured_sphere_scene(
             pt, (TRACE_RES, TRACE_RES), grid), DEPTH, backend="hier")
     phase_done("trace-one-key", t_phase)
+
+    # ---- 14. the user's session: 4K chunks, jitter, checkpoints --------
+    # (each phase holds its kernels at its own shapes: their errors join
+    # the kernels line's)
+    t_phase = time.perf_counter()
+    errs = chunks_4k_phase(torch, pt, dev, card, counts, zero_counts,
+                           with_profile=args.profile)
+    phase_done("4k-chunks", t_phase)
+    t_phase = time.perf_counter()
+    jitter_phase(torch, pt, dev, card, counts, zero_counts,
+                 with_profile=args.profile)
+    jitter_trace(torch, pt, dev)
+    phase_done("jitter", t_phase)
+    t_phase = time.perf_counter()
+    ckpt_errs = checkpoint_phase(torch, pt, dev, card, counts, zero_counts,
+                                 sc52, sc)
+    phase_done("checkpoint", t_phase)
+    k1_err = max(k1_err, errs["intersect_dense"])
+    k2_err = max(k2_err, errs["fetch_rows"], ckpt_errs["fetch_rows"])
+    rng_err = max(rng_err, errs["threefry_uniform"],
+                  ckpt_errs["threefry_uniform"])
+    hier_err["intersect_bvh"] = max(hier_err["intersect_bvh"],
+                                    ckpt_errs["intersect_bvh"])
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib")
                   for m in sys.modules), "jax was imported")
@@ -1373,6 +1727,7 @@ def main() -> int:
          "bound_ms": rng_bound[0], "bound_by": rng_bound[1],
          "library_ms": None},
     ]
+    finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1384,7 +1739,8 @@ def profile(torch, sess, ms_per_sample: float, path: str) -> None:
     """Kernel time by name over 4 more samples of the session. The device's
     busy share is that kernel time per sample over ``ms_per_sample``, the
     unprofiled time of a sample (the profiler's own overhead stretches the
-    host side of the profiled run)."""
+    host side of the profiled run); launches are counted per bounce
+    iteration of one wavefront (of one chunk, in a chunked session)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     n = 4
@@ -1398,7 +1754,8 @@ def profile(torch, sess, ms_per_sample: float, path: str) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     launches = sum(e.count for e in kernels) / n
     say("profile", path=path, samples=n, kernel_ms_per_sample=busy_ms,
-        launches_per_bounce=launches / (2 * sess.scene.trace_depth),
+        launches_per_bounce=launches / (2 * sess.scene.trace_depth
+                                        * sess.chunks),
         device_busy_pct=100.0 * busy_ms / ms_per_sample)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         name = e.key.replace("void ", "").replace("at::native::", "")

@@ -18,25 +18,29 @@ and the threefry draw of ``jax.random`` (hand-written CUDA kernels under
 ``csrc/``), the bounce loop in every spectral mode (dense, hero, Cauchy
 dispersion) with the bounce-ray reorder, ``render_samples`` under JAX's
 key schedule (``ops/rng.py``; ``rng.key(seed)`` makes a key) with the
-primary-hit hoist, and a synchronous ``RenderSession``. Everything else
-raises ``NotImplementedError`` with a pointer to its ROADMAP item.
+primary-hit hoist, chunked wavefronts and batched camera jitter, and the
+progressive ``RenderSession`` (start/pause/resume/stop/restart, an async
+loop, checkpoints that resume in either package). Everything else raises
+``NotImplementedError`` with a pointer to its ROADMAP item.
 """
 
 from .constants import BIG, EPS, __version__
 from .models.materials import Material, MaterialType, SpectrumMaterial
-from .models.camera import Camera, camera_rays
+from .models.camera import (Camera, JitterCam, camera_rays,
+                            jitter_cam_arrays, jittered_dirs)
 from .scene import Scene, SceneData, scene_data_from_numpy
 from .ops import rng
 from .engine import (make_intersector, render_sample, render_samples,
                      resolve_backend, trace_radiance)
-from .render import RenderSession
+from .render import KEY_SCHEDULE_VERSION, RenderSession, RenderStatus
 
 __all__ = [
     "BIG", "EPS", "__version__",
     "Material", "MaterialType", "SpectrumMaterial",
-    "Camera", "camera_rays",
+    "Camera", "JitterCam", "camera_rays", "jitter_cam_arrays",
+    "jittered_dirs",
     "Scene", "SceneData", "scene_data_from_numpy",
     "make_intersector", "render_sample", "render_samples",
     "resolve_backend", "trace_radiance",
-    "RenderSession", "rng",
+    "KEY_SCHEDULE_VERSION", "RenderSession", "RenderStatus", "rng",
 ]

@@ -53,9 +53,11 @@ counter0 + i)``, iteration ``h`` draws ``uniform(fold_in(key, h), (4, N))``
 and the hero channel ``uniform(fold_in(key, 0x0D15), (N,))``; the draws run
 in the threefry kernel (``ops/rng_cuda.py``). ``rand_override``
 ([2*max_depth, 4, N]) replaces the per-iteration draws exactly.
+:func:`render_samples` also runs the frame as ``chunks`` sub-wavefronts
+and regenerates jittered primary rays per sample (``jitter_cam``), under
+the JAX package's key folds.
 
-Not ported yet, each raising ``NotImplementedError``: camera jitter and
-``chunks > 1`` (ROADMAP Queue 1 item 8). Left out for good (item 10): the
+Left out for good (ROADMAP Queue 1 item 10): the
 TPU tuning knobs (``sweep_policy``, the shortlist/worklist split by SMEM
 budget), ``reorder_period``/``reorder_freeze``, the material-keyed sort,
 the one-hot fetch and hero-select routes.
@@ -63,6 +65,7 @@ the one-hot fetch and hero-select routes.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -70,6 +73,7 @@ import torch
 from . import reorder as reorder_mod
 from .constants import BIG, EPS
 from .device import DEFAULT_DEVICE, resolve_device
+from .models.camera import jittered_dirs
 from .ops import (fetch_cuda, intersect_cluster_cuda, intersect_cuda,
                   intersect_hier_cuda, planck, rng, rng_cuda, sampling)
 from .ops.intersect import pack_tri16
@@ -90,8 +94,11 @@ _ROUTES = {"dense": "dense", "dense_pallas": "dense",
            "hier": "bvh", "shortlist": "bvh", "worklist": "bvh",
            "bvh": "bvh", "cluster": "cluster"}
 
-# fold_in data of the hero-channel draw (engine.py:564 of the JAX package)
+# fold_in data of the hero-channel draw (engine.py:564 of the JAX package),
+# of chunk c's key (CHUNK_FOLD + c, :1041) and of the jitter key (:1063)
 HERO_FOLD = 0x0D15
+CHUNK_FOLD = 0xC40000
+JITTER_FOLD = 0xC0FFEE
 
 
 class TraceResult(NamedTuple):
@@ -528,33 +535,77 @@ def render_samples(scene: SceneData, ro, rd, total, samples: int,
                    reorder: object = "auto", jitter_cam=None,
                    chunks: int = 1):
     """``n_steps`` progressive samples; sample ``i`` traces under
-    ``rng.fold_in(base_key, counter0 + i)``, the JAX package's schedule and
-    that of repeated :func:`render_sample` calls.
+    ``k_i = rng.fold_in(base_key, counter0 + i)``, the JAX package's
+    schedule and that of repeated :func:`render_sample` calls.
 
-    The primary intersection AND its attribute fetch are sample-invariant
-    (fixed rays, no randomness before the first hit), so both are computed
-    once here and reused by every sample — the same calls, made earlier.
+    Without ``jitter_cam`` the primary intersection AND its attribute fetch
+    are sample-invariant (fixed rays, no randomness before the first hit),
+    so both are computed once here, on the whole frame, and reused by every
+    sample — the same calls, made earlier.
 
-    ``total`` is accumulated IN PLACE (the JAX version donates it) and
-    returned. Returns (total, samples', out, rays_traced 0-d int64 tensor).
+    ``chunks > 1`` traces the frame as ``chunks`` sequential
+    sub-wavefronts of ``N / chunks`` rays (JAX ``engine.py:1002-1056``):
+    chunk ``c`` traces under ``fold_in(k_i, 0xC40000 + c)`` with its rows
+    of the hoisted primary hit and its columns of the hoisted attributes,
+    and the bounce-ray reorder sorts within the chunk. The per-pixel
+    arithmetic does not depend on the width, so only the variate stream
+    differs from ``chunks=1``.
+
+    ``jitter_cam`` (``models/camera.JitterCam``, rays in the same order as
+    ``ro``) regenerates the primary directions of sample ``i`` from
+    ``kx, ky = split(fold_in(k_i, 0xC0FFEE))``, two ``[N]`` uniform draws
+    (JAX ``engine.py:1057-1070``); the primary hoist is off, since the
+    rays differ per sample. Chunks and jitter together are refused, as in
+    the JAX package.
+
+    ``total`` is accumulated IN PLACE (the JAX version donates it), one
+    chunk's rows at a time, and returned. Returns (total, samples', out,
+    rays_traced): ``rays_traced`` is a 0-d int64 tensor where the JAX
+    package's is int32, so a long 4K run cannot wrap it.
     """
-    if jitter_cam is not None:
-        raise NotImplementedError(
-            "camera jitter is not ported (ROADMAP Queue 1 item 8)")
-    if chunks != 1:
-        raise NotImplementedError(
-            "chunks > 1 (bounded-width wavefront) is not ported "
-            "(ROADMAP Queue 1 item 8)")
+    n = ro.shape[0]
+    if chunks > 1:
+        if jitter_cam is not None:
+            raise ValueError("chunks > 1 does not support jitter_cam yet")
+        if n % chunks:
+            raise ValueError(f"chunks={chunks} must divide the ray count {n}")
     _check_reorder(reorder)
+    dev = ro.device
     prep = _prepare(scene, backend, reorder, dispersion)
-    primary0 = _primary(prep, ro, rd)
-    rays = torch.zeros((), dtype=torch.int64, device=ro.device)
-    for i in range(n_steps):
-        res = trace_radiance(scene, ro, rd,
-                             rng.fold_in(base_key, counter0 + i), max_depth,
-                             backend, dispersion=dispersion, reorder=reorder,
-                             primary0=primary0, _prep=prep)
-        total.add_(res.radiance)
-        rays = rays + res.rays_traced
+    primary0 = _primary(prep, ro, rd) if jitter_cam is None else None
+    trace = functools.partial(trace_radiance, scene, max_depth=max_depth,
+                              backend=backend, dispersion=dispersion,
+                              reorder=reorder, _prep=prep)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    if chunks > 1:
+        # each chunk's rows of the hoisted hit and columns of the hoisted
+        # [F', N] attributes, cut once for every sample
+        nc = n // chunks
+        parts = []
+        for c in range(chunks):
+            s = slice(c * nc, (c + 1) * nc)
+            parts.append((s, tuple(p[s] for p in primary0[:5])
+                          + (primary0[5][:, s].contiguous(),)))
+        del primary0
+        for i in range(n_steps):
+            k = rng.fold_in(base_key, counter0 + i)
+            for c, (s, prim) in enumerate(parts):
+                res = trace(ro[s], rd[s], rng.fold_in(k, CHUNK_FOLD + c),
+                            primary0=prim)
+                total[s].add_(res.radiance)
+                rays = rays + res.rays_traced
+    else:
+        for i in range(n_steps):
+            k = rng.fold_in(base_key, counter0 + i)
+            rd_i = rd
+            if jitter_cam is not None:
+                kx, ky = rng.split(rng.fold_in(k, JITTER_FOLD))
+                nj = jitter_cam.px.shape[0]
+                rd_i = jittered_dirs(jitter_cam,
+                                     rng_cuda.uniform(kx, (nj,), dev),
+                                     rng_cuda.uniform(ky, (nj,), dev))
+            res = trace(ro, rd_i, k, primary0=primary0)
+            total.add_(res.radiance)
+            rays = rays + res.rays_traced
     samples = samples + n_steps
     return total, samples, total / samples, rays

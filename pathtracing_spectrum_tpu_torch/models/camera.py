@@ -4,19 +4,24 @@ Port of ``pathtracing_spectrum_tpu/models/camera.py`` (reference
 ``PathTracer::RenderFrame`` camera setup, pathtracer.cpp:560-571, and the
 ``SetProjection`` clamps, pathtracer.cpp:343-353): image plane centred at
 ``pos + dir * focal``, height ``2 * focal * tan(fovy/2)``, rays through the
-top-left corner of each pixel (no jitter), row 0 = image top.
+top-left corner of each pixel, row 0 = image top. The reference has no
+sub-pixel jitter; ``camera_rays(key=, jitter=True)`` and the batched
+:class:`JitterCam` (regenerated per sample inside
+``engine.render_samples``) add it as the JAX package does, drawing the
+offsets through the threefry kernel under JAX's keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..ops import rng, rng_cuda
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +66,72 @@ def _norm_rows(v: torch.Tensor) -> torch.Tensor:
                           + v[..., 2] * v[..., 2])[..., None]
 
 
+class JitterCam(NamedTuple):
+    """The camera for per-sample jittered rays (JAX ``models/camera.py::
+    JitterCam``), as float32 tensors on one device. ``px``/``py`` are the
+    pixel coordinates of each ray slot in the engine's ray order (tile
+    order in a session), so the offsets are drawn in that order."""
+
+    px: torch.Tensor        # [N] pixel x in ray-slot order
+    py: torch.Tensor        # [N] pixel y
+    pos: torch.Tensor       # [3]
+    top_left: torch.Tensor  # [3]
+    right: torch.Tensor     # [3]
+    up: torch.Tensor        # [3]
+    dx: torch.Tensor        # [] pixel width on the image plane
+    dy: torch.Tensor        # [] pixel height
+
+
+def jitter_cam_arrays(cam: Camera, width: int, height: int,
+                      perm: Optional[np.ndarray] = None,
+                      device: "torch.device | str" = DEFAULT_DEVICE
+                      ) -> JitterCam:
+    """The :class:`JitterCam` of ``cam`` on ``device`` (the card unless
+    the caller asks for the CPU). The image plane is set up on the host in
+    float32 numpy exactly as the JAX ``jitter_cam_arrays`` does it, so the
+    fields are the JAX ones bit for bit; ``perm`` maps ray slots to
+    scanline pixels."""
+    device = resolve_device(device)
+    cam = cam.clamped()
+    pos = np.asarray(cam.position, np.float32)
+    d = np.asarray(cam.direction, np.float32)
+    up = np.asarray(cam.up, np.float32)
+    img_center = pos + d * cam.focal
+    img_h = 2.0 * cam.focal * math.tan(math.radians(cam.fovy_deg / 2.0))
+    img_w = img_h * (float(width) / float(height))
+    right = np.cross(up, d)
+    right = (right / np.linalg.norm(right)).astype(np.float32)
+    top_left = img_center - right * (img_w * 0.5) + up * (img_h * 0.5)
+    idx = (np.asarray(perm, np.int64) if perm is not None
+           else np.arange(width * height, dtype=np.int64))
+    fields = ((idx % width).astype(np.float32),
+              (idx // width).astype(np.float32), pos,
+              top_left.astype(np.float32), right, up,
+              np.float32(img_w / float(width)),
+              np.float32(img_h / float(height)))
+    return JitterCam(*(torch.tensor(a, dtype=torch.float32, device=device)
+                       for a in fields))
+
+
+def jittered_dirs(jc: JitterCam, u: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """[N, 3] unit directions through the sub-pixel offsets (u, v) in
+    [0, 1) of each ray slot: the jittered form of :func:`camera_rays`'
+    pixel-corner rays."""
+    xo = (jc.px + u) * jc.dx
+    yo = (jc.py + v) * jc.dy
+    pix = (jc.top_left[None, :] - jc.up[None, :] * yo[:, None]
+           + jc.right[None, :] * xo[:, None])
+    return _norm_rows(pix - jc.pos[None, :])
+
+
 def camera_rays(cam: Camera, width: int, height: int,
-                device: "torch.device | str" = DEFAULT_DEVICE):
-    """Primary rays through the pixel corners.
+                device: "torch.device | str" = DEFAULT_DEVICE,
+                key: Optional[rng.Key] = None, jitter: bool = False):
+    """Primary rays through the pixel corners, or with ``jitter`` and a
+    ``key`` through corners offset by ``uniform(kx, (h, w))`` and
+    ``uniform(ky, (h, w))``, ``kx, ky = split(key)`` (the JAX
+    ``camera_rays``; drawn by the threefry kernel on a CUDA device).
 
     Returns (origins [N,3], directions [N,3]) float32 on ``device`` (the
     card unless the caller asks for the CPU), with N = width*height,
@@ -87,6 +155,10 @@ def camera_rays(cam: Camera, width: int, height: int,
 
     ii, jj = torch.meshgrid(torch.arange(height, **f32),
                             torch.arange(width, **f32), indexing="ij")
+    if jitter and key is not None:
+        kx, ky = rng.split(key)
+        jj = jj + rng_cuda.uniform(kx, (height, width), device)
+        ii = ii + rng_cuda.uniform(ky, (height, width), device)
     pixel = (top_left[None, None, :]
              - up[None, None, :] * (ii * dy)[..., None]
              + right[None, None, :] * (jj * dx)[..., None])

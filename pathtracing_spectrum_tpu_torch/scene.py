@@ -2,8 +2,9 @@
 
 Port of ``pathtracing_spectrum_tpu/scene.py`` for rendering: waves,
 spectrum materials, ``load_object``, object transforms, ``set_material``,
-the texture and temperature-grid setters, ``set_camera``, sky, resolution
-and trace depth. :meth:`Scene.compile` builds, in numpy, the same arrays
+the texture and temperature-grid setters, ``set_camera``, sky, resolution,
+trace depth and ``content_digest`` (equal to the JAX digest of the same
+scene). :meth:`Scene.compile` builds, in numpy, the same arrays
 as the JAX ``Scene.compile`` — BVH-ordered by default, in file order with
 ``build_bvh=False``; the tests hold them equal field by field — and then
 moves them to the device in one pass. The BVH is the binned-SAH tree of
@@ -20,6 +21,7 @@ the reference) and temperature grids by ``utils/tempdata.py``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -256,6 +258,41 @@ class Scene:
                              path: str) -> None:
         """ASCII temperature grid (pathtracer.cpp:192-198)."""
         self._bind(obj_id, element_id, "temperature_data_file", path)
+
+    def content_digest(self) -> str:
+        """SHA-1 of everything that affects rendered pixels (JAX
+        ``Scene.content_digest``): the wavelengths, spectrum materials,
+        sky, depth, camera, and each object's source, transform and
+        element materials. A render checkpoint binds to it. Every value is
+        ``repr``'d as the JAX package's is, with the same Python types, so
+        both packages give one scene one digest."""
+        h = hashlib.sha1()
+
+        def put(*parts):
+            for p in parts:
+                h.update(repr(p).encode())
+                h.update(b"\x00")
+
+        put("waves", [float(w) for w in self.wavelengths])
+        for m in self.spectrum_materials:
+            put("specmat", m.name, [float(e) for e in m.emissivity])
+        put("sky", self.sky_material_id, float(self.sky_temperature))
+        put("depth", self.trace_depth)
+        put("cam", self.camera_position.tolist(),
+            self.camera_rotation.tolist(),
+            float(self.camera_focal), float(self.camera_fovy))
+        for obj in self.objects:
+            # the JAX object holds its transform as float32 arrays
+            put("obj", obj.filename,
+                *(np.asarray(v, np.float32).tolist()
+                  for v in (obj.location, obj.rotation, obj.scale)))
+            for el in obj.elements:
+                m = el.material
+                put("el", int(m.type), tuple(m.base_color), float(m.roughness),
+                    float(m.ior), float(m.dispersion_b), m.normal_tex_file,
+                    m.roughness_tex_file, m.temperature_data_file,
+                    float(m.temperature), int(m.spectrum_mat_id))
+        return h.hexdigest()
 
     def compile(self, device: "torch.device | str" = DEFAULT_DEVICE,
                 build_bvh: bool = True, leaf_size: int = 4) -> SceneData:

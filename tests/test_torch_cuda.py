@@ -2,8 +2,9 @@
 K1 (dense sweep), K2 (attribute fetch), K3 (BVH walk), K4
 (cluster-culled sweep) and the threefry draw, the wrappers' refusals,
 whole traces against the CPU (shared variates, and one key for the
-spectral modes, textures and grids), and sessions counted through their
-kernels.
+spectral modes, textures, grids and jitter), chunked sampling against its
+per-chunk truth, a checkpoint round trip, and sessions counted through
+their kernels.
 
 Every test here needs a CUDA device and skips without one. The module
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -208,6 +209,67 @@ def test_session_goes_through_both_kernels(dev):
     assert fetch_cuda.fetch_rows.launches - k2 == want
     assert np.isfinite(img).all() and (img >= 0).all()
     assert img[:8].mean() > img[-8:].mean() > 0
+
+
+def test_chunked_render_samples_equals_per_chunk_truth_on_card(dev):
+    """render_samples(chunks=4) on the card against the same per-chunk key
+    folds replayed through trace_radiance on each chunk's rays, bitwise;
+    one hoisted K1 call on the frame, then the looped ones per chunk."""
+    depth, chunks, n_steps, base = 3, 4, 2, rng.key(21)
+    sc = cornell(64, depth)
+    scene = sc.compile(dev)
+    ro, rd = pt.camera_rays(sc.camera(), 64, 64, dev)
+    k1 = intersect_cuda.intersect_dense.launches
+    total, _, _, rays = engine.render_samples(
+        scene, ro, rd, torch.zeros((64 * 64, 4), device=dev), 0, base, 0,
+        n_steps=n_steps, max_depth=depth, chunks=chunks)
+    assert (intersect_cuda.intersect_dense.launches - k1
+            == 1 + n_steps * chunks * (2 * depth - 1))
+    want = torch.zeros_like(total)
+    nc = 64 * 64 // chunks
+    for i in range(n_steps):
+        for c in range(chunks):
+            s = slice(c * nc, (c + 1) * nc)
+            want[s] += engine.trace_radiance(
+                scene, ro[s], rd[s],
+                rng.fold_in(rng.fold_in(base, i), 0xC40000 + c),
+                depth).radiance
+    torch.cuda.synchronize()
+    assert torch.equal(total, want) and int(rays) > n_steps * 64 * 64
+
+
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A chunked session on the card, saved at 2 samples and resumed in a
+    fresh session to 4, equals the uninterrupted one bitwise."""
+    path = str(tmp_path / "ckpt.npz")
+    sc = cornell(64)
+    a = pt.RenderSession(sc, dev, seed=4, chunks=2)
+    a.run(2, batch=2)
+    a.save_checkpoint(path)
+    full = a.run(4, batch=2)
+    b = pt.RenderSession(sc, dev, seed=4, chunks=2)
+    b.start()
+    b.load_checkpoint(path)
+    assert b.samples == 2 and b._total.device.type == "cuda"
+    np.testing.assert_array_equal(b.run(4, batch=2), full)
+
+
+def test_jitter_on_card_matches_cpu(dev):
+    """One jittered sample at 16x16, card against CPU under one key: the
+    offsets drawn by the threefry kernel, the directions, the trace."""
+    sc = cornell(16, 3)
+    ro, rd = pt.camera_rays(sc.camera(), 16, 16, "cpu")
+    out = {}
+    for d in ("cpu", dev):
+        jc = pt.jitter_cam_arrays(sc.camera(), 16, 16, device=d)
+        out[str(d)] = engine.render_samples(
+            sc.compile(d), ro.to(d), rd.to(d), torch.zeros((256, 4),
+                                                           device=d),
+            0, rng.key(8), 3, n_steps=1, max_depth=3, jitter_cam=jc)
+    torch.cuda.synchronize()
+    cpu, card = out["cpu"], out[str(dev)]
+    assert int(card[3]) == int(cpu[3])
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-4, atol=1e-6)
 
 
 # ---- K3 and K4 -------------------------------------------------------------

@@ -1,9 +1,10 @@
 """The port's bounce loop vs the JAX engine and the numpy oracle under
 shared variates (``rand_override``), on the scenes of
 ``tests/test_engine_parity.py``; the primary-hit hoist; ``render_samples``
-against repeated ``render_sample`` under the key schedule; the session;
-what is not ported yet. Traces under one key, without shared variates,
-are in ``tests/test_torch_spectral.py``."""
+against repeated ``render_sample`` under the key schedule, and its
+refusals; the session. Traces under one key, without shared variates,
+are in ``tests/test_torch_spectral.py``; chunks and jitter in
+``tests/test_torch_chunks.py``."""
 
 import pytest
 
@@ -160,17 +161,34 @@ def test_session_batches_are_exact_and_image_is_healthy():
     assert st["samples"] == 4 and st["rays_traced"] >= 4 * 32 * 32
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(chunks=2), "item 8"),
-    (dict(jitter_cam=object()), "item 8"),
+@pytest.mark.parametrize("kw,match", [
+    (dict(chunks=3), "chunks=3 must divide the ray count 16"),
+    (dict(chunks=32), "chunks=32 must divide the ray count 16"),
+    (dict(chunks=2, jitter=True), "does not support jitter"),
 ])
-def test_outside_the_slice_raises(kw, item):
-    sc = tiny_scene(pt, res=(4, 4))
-    scene = sc.compile("cpu")
+def test_render_samples_refuses(kw, match):
+    """The port refuses what the JAX package refuses (chunks that do not
+    divide the ray count, chunks together with jitter), with the
+    divisibility message the right way round (the JAX one reads "ray count
+    16 must divide chunks=3")."""
+    jitter = kw.pop("jitter", False)
+    jsc = cornell_scene(res=(4, 4))
+    sc = to_port_scene(jsc)
     ro, rd = pt.camera_rays(sc.camera(), 4, 4, "cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        engine.render_samples(scene, ro, rd, torch.zeros((16, 4)), 0,
-                              rng.key(0), 0, n_steps=1, max_depth=2, **kw)
+    jc = (pt.jitter_cam_arrays(sc.camera(), 4, 4, device="cpu")
+          if jitter else None)
+    with pytest.raises(ValueError, match=match):
+        engine.render_samples(sc.compile("cpu"), ro, rd,
+                              torch.zeros((16, 4)), 0, rng.key(0), 0,
+                              n_steps=1, max_depth=2, jitter_cam=jc, **kw)
+    from pathtracing_spectrum_tpu.models.camera import jitter_cam_arrays
+    jro, jrd = jax_camera_rays(jsc.camera(), 4, 4)
+    with pytest.raises(ValueError):
+        jengine.render_samples(
+            jsc.compile(), jro, jrd, jnp.zeros((16, 4), jnp.float32),
+            jnp.zeros((), jnp.int32), jax.random.key(0), 0, n_steps=1,
+            max_depth=2, jitter_cam=(jitter_cam_arrays(jsc.camera(), 4, 4)
+                                     if jitter else None), **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(backend="bvh"),
@@ -250,6 +268,9 @@ def _entry_points():
                                   lambda: pt.scene_data_from_numpy(fields)),
         "camera_rays": (pt.camera_rays,
                         lambda: pt.camera_rays(sc.camera(), 4, 4)),
+        "jitter_cam_arrays": (pt.jitter_cam_arrays,
+                              lambda: pt.jitter_cam_arrays(sc.camera(), 4,
+                                                           4)),
         "resolve_backend": (engine.resolve_backend,
                             lambda: engine.resolve_backend("auto", 36)),
         "rng_cuda.uniform": (rng_cuda.uniform,
@@ -259,7 +280,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["RenderSession", "Scene.compile",
                                   "scene_data_from_numpy", "camera_rays",
-                                  "resolve_backend", "rng_cuda.uniform"])
+                                  "jitter_cam_arrays", "resolve_backend",
+                                  "rng_cuda.uniform"])
 def test_entry_point_defaults_to_the_card(name):
     """Every entry point that takes a device defaults to "cuda"; without a
     card, calling it without ``device=`` raises the port's RuntimeError

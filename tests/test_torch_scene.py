@@ -173,6 +173,19 @@ sc.set_camera([0.0, 0.0, -2.0], [0.0, 0.0, 0.0])
 sc.camera_fovy = 50.0
 img = RenderSession(sc, "cpu", seed=1).run(2, batch=2)
 assert img.shape == (8, 8, 4) and np.isfinite(img).all() and img.mean() > 0
+import tempfile
+for kw in ({"chunks": 4}, {"jitter": True}):
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        a = RenderSession(sc, "cpu", seed=2, **kw)
+        a.run(2, batch=2)
+        a.save_checkpoint(path)
+        full = a.run(3)
+        b = RenderSession(sc, "cpu", seed=2, **kw)
+        b.start()
+        b.load_checkpoint(path)
+        assert b.samples == 2
+        assert np.array_equal(b.run(3), full), kw
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "PIL"))
 assert not bad, bad
 print("ok")

@@ -19,8 +19,10 @@ package of the same name), builds its kernels, and measures on card 0:
   ``chip_smoke.time_fn``);
 - Mrays/s and ms per sample of a ``RenderSession`` on the Cornell box
   (64 samples a step), the terrain (16), the terrain with
-  ``backend="cluster"`` (16, K4) and the textured sphere (16), two timed
-  steps each after a warmup, timed with CUDA events.
+  ``backend="cluster"`` (16, K4), the textured sphere (16) and the
+  Cornell box of ``bench_suite`` config 5 at 3840x2160 with
+  ``chunks=32`` (``4k-chunks``, 16), two timed steps each after a warmup,
+  timed with CUDA events.
 
 ``--sessions-only`` leaves out the kernel times; ``--pairs k`` runs the
 two trees given k times each, in turns (A B B A A B ...), for rates whose
@@ -43,11 +45,12 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (name, scene, samples a step, backend)
-SESSIONS = (("cornell", "cornell", 64, "auto"),
-            ("terrain", "terrain", 16, "auto"),
-            ("terrain-cluster", "terrain", 16, "cluster"),
-            ("textured", "textured", 16, "auto"))
+# (name, scene, samples a step, backend, chunks)
+SESSIONS = (("cornell", "cornell", 64, "auto", 1),
+            ("terrain", "terrain", 16, "auto", 1),
+            ("terrain-cluster", "terrain", 16, "cluster", 1),
+            ("textured", "textured", 16, "auto", 1),
+            ("4k-chunks", "cornell-4k", 16, "auto", 32))
 
 
 def card_name() -> str:
@@ -89,7 +92,8 @@ def turn(tree: str, kernels: bool = True) -> dict:
     scenes = {"cornell": cs.tiny_scene(pt, cs.RES),
               "terrain": cs.terrain_scene(pt, cs.make_terrain("52k"),
                                           cs.RES),
-              "textured": cs.textured_sphere_scene(pt, cs.TEX_RES)}
+              "textured": cs.textured_sphere_scene(pt, cs.TEX_RES),
+              "cornell-4k": cs.cornell_nw_scene(pt, cs.FOURK_RES, 4)}
     if kernels:
         cornell = scenes["cornell"].compile(dev)
         ro, rd = pt.camera_rays(scenes["cornell"].camera(), cs.RES, cs.RES,
@@ -115,8 +119,10 @@ def turn(tree: str, kernels: bool = True) -> dict:
                 sess._scene_data, backend, tex_bounce2)
         del sess, bounce2, tex_bounce2
 
-    for name, scene, spp, backend in SESSIONS:
-        sess = pt.RenderSession(scenes[scene], dev, seed=0, backend=backend)
+    for name, scene, spp, backend, chunks in SESSIONS:
+        # a tree from before chunks were ported takes no chunks argument
+        sess = pt.RenderSession(scenes[scene], dev, seed=0, backend=backend,
+                                **({"chunks": chunks} if chunks > 1 else {}))
         sess.run(2, batch=2)
         rates = []
         for _ in range(2):
