@@ -34,11 +34,19 @@ through its kernels and made a healthy image:
   with ``chunks=4``, checkpointed at 8 samples and resumed in a fresh
   session to 16, bitwise the uninterrupted image (K3 and K2 1 + 8*4*5 =
   161 times in the first 8, 160 sorts); stop, restart and the async loop
-  (4 samples, paused, ended by stop).
+  (4 samples, paused, ended by stop);
+- the user's surface: the main path's box saved to a ``.pts`` file, loaded
+  back, rendered by ``cli.main(["render", ...])`` (16 samples, the export,
+  the sRGB PNG and a checkpoint checked against the session) and by
+  ``python -m pathtracing_spectrum_tpu_torch render`` in a subprocess;
+  ``preview_render`` grey and RGB and two picks of the box (one K1 launch
+  each) and of the terrain (one K3 launch each), 20 preview frames timed
+  on each; ``result_srgb`` of the 4K session within 1 uint8 step of the
+  host conversion, both timed, and the 512x512 export timed.
 
 Run from the repository root:
 
-    python3 chip_smoke.py              # one card, about two minutes
+    python3 chip_smoke.py              # one card, about three minutes
     python3 chip_smoke.py --profile    # also print torch.profiler tables
 
 Every check raises on failure, and the script exits non-zero without
@@ -57,7 +65,8 @@ Every kernel is held to its plain version bit for bit, at the shapes of
 each path that runs it (the user's session included: K1 and K2 on the 4K
 frame's 8,294,400 primaries and one 259,200-ray chunk, threefry at
 [4, 259,200]; K3, K2 and threefry on one 65,536-ray terrain chunk,
-sorted as K3 gets it); K3 and K4 are timed on the terrain primaries, in context on the terrain's bounce-2
+sorted as K3 gets it; K1 and K3 on the preview's rays in tile order and
+on single pick rays); K3 and K4 are timed on the terrain primaries, in context on the terrain's bounce-2
 rays (the ``kernels`` entry) and on the textured path's bounce-2 rays, K4
 beside its counting build's box tests, row-test steps and swept
 clusters.
@@ -99,6 +108,10 @@ FOURK_RES, FOURK_CHUNKS, FOURK_SPP, FOURK_RATE_SPP = (3840, 2160), 32, 16, 4
 JITTER_SPP = 16          # ... the Cornell box with camera jitter ...
 CKPT_CHUNKS, CKPT_SPP = 4, 16   # ... the terrain saved at 8, resumed to 16
 ASYNC_SPP, ASYNC_DEADLINE_S = 4, 60.0
+# the user's surface: the main path's box as a .pts file rendered by the
+# CLI, then preview frames and picks (timed over 20 frames), and the sRGB
+# epilogue of the 4K session against the host path (3 turns each)
+SURFACE_SPP, PREVIEW_FRAMES, SRGB_TURNS = 16, 20, 3
 # make_terrain arguments of the repo's terrain assets (make_assets.py)
 TERRAINS = {"10k": dict(grid=64, n_rocks=8, rock_sub=8),
             "52k": dict(grid=128, n_rocks=36, rock_sub=12)}
@@ -551,7 +564,8 @@ def chunks_4k_phase(torch, pt, dev, card, counts, zero_counts,
     K1 and K2 on the session's 8,294,400 primaries and on one chunk's
     bounce-2 rays (259,200, a ragged last block), threefry at [4, 259,200].
     Then the rates of ``chunks=32`` and ``chunks=1`` in turns, ``rate_spp``
-    samples a step. Returns the largest error of each kernel held."""
+    samples a step. Returns the largest error of each kernel held and the
+    16-sample session (its accumulator feeds the sRGB epilogue)."""
     from pathtracing_spectrum_tpu_torch import engine
     from pathtracing_spectrum_tpu_torch.ops import (fetch_cuda,
                                                     intersect_cuda, rng,
@@ -614,7 +628,7 @@ def chunks_4k_phase(torch, pt, dev, card, counts, zero_counts,
         for s, c in ((sess, chunks), (one, 1)):
             profile(torch, s, min(v[1] for v in rates[c]),
                     f"4k-chunks{c}")
-    return errs
+    return errs, sess
 
 
 def jitter_phase(torch, pt, dev, card, counts, zero_counts, res=RES,
@@ -807,6 +821,268 @@ def checkpoint_phase(torch, pt, dev, card, counts, zero_counts, sc_terrain,
     check(not alive, "the async thread outlived stop() and join()")
     healthy(s.result(), "async")
     return errs
+
+
+def scene_file_render(torch, pt, dev, card, counts, zero_counts, sc, tmp,
+                      spp=SURFACE_SPP):
+    """``sc`` saved to a ``.pts`` and loaded back (the digest equal once the
+    fields a ``.pts`` does not carry are copied over), then rendered by
+    ``cli.main(["render", ...])`` in-process, with the counts set to 0 just
+    before and read just after. Checks the launches against those of the
+    session's ``step`` calls, the exported text against ``result()`` to
+    ``%g`` precision, the sRGB PNG against ``result_srgb()`` and the
+    checkpoint; times the export of ``result()`` once. Returns (the
+    launches, the session, the .pts path)."""
+    import contextlib
+    import io
+    from pathtracing_spectrum_tpu_torch import cli, render
+    from pathtracing_spectrum_tpu_torch.utils import scene_io, spectral_io
+    from pathtracing_spectrum_tpu_torch.utils.image import load_rgba
+    pts = os.path.join(tmp, "scene.pts")
+    scene_io.save_scene(sc, pts)
+    back = scene_io.load_scene(pts)
+    back.camera_fovy, back.camera_focal = sc.camera_fovy, sc.camera_focal
+    for ob, os_ in zip(back.objects, sc.objects):
+        for eb, es in zip(ob.elements, os_.elements):
+            for field in ("ior", "dispersion_b", "roughness_tex_file",
+                          "temperature_data_file"):
+                setattr(eb.material, field, getattr(es.material, field))
+    same_digest = back.content_digest() == sc.content_digest()
+
+    made, steps = [], []
+    real_session = render.RenderSession
+
+    class Recorded(real_session):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def step(self, n_samples=1, readback=True):
+            steps.append(n_samples)
+            return super().step(n_samples, readback)
+
+    txt, png, npz = (os.path.join(tmp, f"cli.{e}") for e in
+                     ("txt", "png", "npz"))
+    out = io.StringIO()
+    render.RenderSession = Recorded
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["render", pts, "--spp", str(spp), "--out", txt,
+                           "--png-srgb", png, "--checkpoint", npz,
+                           "--quiet", "--device", str(dev)])
+        torch.cuda.synchronize()
+        got = counts()
+    finally:
+        render.RenderSession = real_session
+    sess = made[0]
+    want = {k: sum(want_counts(n, sc.trace_depth)[k] for n in steps)
+            for k in got}
+    img = sess.result()
+    w, h = sess.resolution
+    exported = spectral_io.import_spectrum(txt, w, h, img.shape[2])
+    pct_err = float(np.max(np.abs(exported - img)
+                           / np.maximum(np.abs(img), 1e-30)))
+    srgb = sess.result_srgb()
+    png_rgb = np.round(load_rgba(png)[..., :3] * 255.0).astype(np.uint8)
+    ck = np.load(npz)
+    t0 = time.perf_counter()
+    spectral_io.export_spectrum(os.path.join(tmp, "again.txt"), img)
+    export_s = time.perf_counter() - t0
+    say("surface", pts=os.path.basename(pts), digest_equal=same_digest,
+        cli_rc=rc, res=f"{w}x{h}", spp=sess.samples, steps=steps,
+        backend=sess.stats()["backend"], launches=json.dumps(got),
+        expected=json.dumps(want), export_max_rel_err=pct_err,
+        png_equals_result_srgb=bool(np.array_equal(png_rgb, srgb)),
+        checkpoint_samples=int(ck["samples"]), mean=float(img.mean()))
+    for line in out.getvalue().splitlines():
+        say("surface", cli_stdout=repr(line))
+    say("surface", export=f"{w}x{h}x{img.shape[2]}",
+        export_values=int(img.size), export_s=export_s,
+        export_mb=os.path.getsize(txt) / 1e6, card=repr(card))
+    check(same_digest, "the loaded .pts has another content_digest")
+    check(rc == 0 and sess.samples == spp, f"cli render rc {rc}, "
+          f"{sess.samples} samples")
+    check(got == want, f"cli render launches {got}, expected {want}")
+    check(pct_err <= 5.1e-6, f"the export is {pct_err} off result()")
+    check(np.array_equal(png_rgb, srgb), "the sRGB PNG is not result_srgb()")
+    check(int(ck["samples"]) == spp, "the checkpoint's sample count")
+    healthy(img, "cli render")
+    return got, sess, pts
+
+
+def preview_holds(torch, pt, dev, card, counts, zero_counts, name, sc, data,
+                  res, frames=PREVIEW_FRAMES):
+    """``preview_render`` grey and RGB and two picks (below the centre and
+    a corner) of ``sc`` at ``res``² on ``dev``: each one launch of the
+    scene's closest-hit kernel, K1 at up to 512 triangles, K3 above, and no
+    other. Then that kernel held bitwise against its plain version on the
+    preview's rays (in tile order) and on the picks' single rays, and the
+    grey frame timed over ``frames`` (median). Returns (kernel name, its
+    launches, the largest error)."""
+    from pathtracing_spectrum_tpu_torch import preview
+    from pathtracing_spectrum_tpu_torch.models.camera import tile_order
+    from pathtracing_spectrum_tpu_torch.ops import (intersect_cuda,
+                                                    intersect_hier_cuda)
+    dense = pt.resolve_backend("auto", data.n_triangles, dev) == "dense"
+    kname, label = (("intersect_dense", "K1") if dense
+                    else ("intersect_bvh", "K3"))
+    sc.select_object(0)
+    sc.set_highlight(0, 0, True)
+    lower = 3 * res // 4      # the terrain's horizon is near mid-frame
+    launches = 0
+    for what, call in (
+            ("grey", lambda: preview.preview_render(sc, res, res, data,
+                                                    device=dev)),
+            ("rgb", lambda: preview.preview_render(sc, res, res, data,
+                                                   rgb=True, device=dev)),
+            ("pick-lower", lambda: preview.pick(sc, res, res, res // 2,
+                                                lower, data, device=dev)),
+            ("pick-corner", lambda: preview.pick(sc, res, res, 0, 0, data,
+                                                 device=dev))):
+        torch.cuda.synchronize()
+        zero_counts()
+        out = call()
+        torch.cuda.synchronize()
+        got = counts()
+        want = {k: 0 for k in got}
+        want[kname] = 1
+        image = isinstance(out, np.ndarray)
+        say("preview", scene=name, call=what, launches=json.dumps(got),
+            result=list(out.shape) if image else list(out),
+            lit_pct=100.0 * float((out > 0).mean()) if image else None)
+        check(got == want, f"{name} preview {what} launches {got}")
+        check((out > 0).mean() > 0.2 if image
+              else out[0] in ((0,) if what == "pick-lower" else (0, -1)),
+              f"{name} {what} gave {out if not image else 'black'}")
+        launches += got[kname]
+
+    tri16 = tri16_of(data)
+    if dense:
+        def kernel(planes):
+            return intersect_cuda.intersect_dense(*planes, tri16)
+
+        def plain(planes):
+            return intersect_cuda.intersect_dense_ref(*planes, tri16)
+    else:
+        _, nodes, packed = hier_tables(data)
+
+        def kernel(planes):
+            return intersect_hier_cuda.intersect_bvh(*planes, tri16, packed)
+
+        def plain(planes):
+            return intersect_hier_cuda.intersect_bvh_ref(*planes, tri16,
+                                                         *nodes)
+    ro, rd = pt.camera_rays(sc.camera(), res, res, "cpu")
+    perm, _ = tile_order(res, res)
+    perm_t = torch.from_numpy(perm.astype(np.int64))
+    err = 0.0
+    for case, idx in (("preview", perm_t),
+                      ("pick", torch.tensor([lower * res + res // 2])),
+                      ("pick", torch.tensor([0]))):
+        planes = planes_of(ro[idx].to(dev), rd[idx].to(dev))
+        err = max(err, hold(label, case, kernel(planes), plain(planes)))
+
+    times = []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preview.preview_render(sc, res, res, data, device=dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    say("preview", scene=name, res=f"{res}x{res}", tris=data.n_triangles,
+        kernel=label, frames=frames, median_ms=float(np.median(times)),
+        min_ms=min(times), max_ms=max(times), card=repr(card))
+    sc.select_object(0, False)
+    sc.set_highlight(0, 0, False)
+    return kname, launches, err
+
+
+def srgb_epilogue(torch, pt, card, sess, turns=SRGB_TURNS):
+    """``result_srgb()`` of ``sess`` (the epilogue on the card, [N, 3]
+    uint8 read back) within 1 uint8 step of ``spectral_to_srgb(result())``
+    (the [N, nw] float32 read back, float64 on the host). The session's
+    thermal-IR wavenumbers map to black, so the same accumulator is then
+    read as visible samples (450, 520, 590 and 650 nm): held to the same
+    step, and both paths timed on the host clock in turns (host, card,
+    card, host, ...)."""
+    from pathtracing_spectrum_tpu_torch import viewer
+    ir = sess.result_srgb()
+    diff_ir = int(np.abs(ir.astype(np.int32) - viewer.spectral_to_srgb(
+        sess.result(), sess.scene.wavelengths)).max())
+    waves = sess.scene.wavelengths
+    sess.scene.wavelengths = [1e7 / nm for nm in (450.0, 520.0, 590.0,
+                                                  650.0)]
+    times = {"card": [], "host": []}
+    try:
+        order = ["host", "card", "card", "host"] * ((turns + 1) // 2)
+        for which in order[:2 * turns]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == "card":
+                dev_img = sess.result_srgb()
+            else:
+                host_img = viewer.spectral_to_srgb(sess.result(),
+                                                   sess.scene.wavelengths)
+            times[which].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        sess.scene.wavelengths = waves
+    diff = int(np.abs(dev_img.astype(np.int32) - host_img).max())
+    n = sess._out.shape[0]
+    say("srgb", res="x".join(map(str, sess.resolution)), samples=sess.samples,
+        thermal_max_step_diff=diff_ir,
+        thermal_nonzero_pct=100.0 * float((ir > 0).mean()),
+        visible_max_step_diff=diff,
+        visible_nonzero_pct=100.0 * float((dev_img > 0).mean()),
+        readback_mb_card=n * 3 / 1e6,
+        readback_mb_host=n * sess._out.shape[1] * 4 / 1e6,
+        card_ms=times["card"], host_ms=times["host"], card=repr(card))
+    check(dev_img.shape == host_img.shape == ir.shape
+          == (sess.resolution[1], sess.resolution[0], 3),
+          f"sRGB shape {dev_img.shape}")
+    check(diff_ir <= 1 and diff <= 1, f"the sRGB epilogue is {diff_ir} "
+          f"(thermal) and {diff} (visible) steps off the host path")
+    check((dev_img > 0).mean() > 0.5, "the visible sRGB image is black")
+    return diff
+
+
+def surface_phase(torch, pt, dev, card, counts, zero_counts, cornell,
+                  terrain, sess_4k, res=RES, spp=SURFACE_SPP,
+                  frames=PREVIEW_FRAMES, module_timeout=600):
+    """The user's surface on the card: a ``.pts`` file rendered by the CLI
+    in-process and by ``python -m pathtracing_spectrum_tpu_torch render``
+    in a subprocess; preview frames and picks of the Cornell box (K1) and
+    the terrain (K3), their kernels held on the preview and pick rays; the
+    sRGB epilogue of the 4K session against the host path. ``cornell`` and
+    ``terrain`` are (Scene, its SceneData on ``dev``). Returns (the
+    launches of each kernel, the largest error of each kernel held)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        got, _, pts = scene_file_render(torch, pt, dev, card, counts,
+                                        zero_counts, cornell[0], tmp, spp)
+        t0 = time.perf_counter()
+        res_m = subprocess.run(
+            [sys.executable, "-m", PKG, "render", pts, "--spp", str(spp),
+             "--out", os.path.join(tmp, "module.txt"), "--quiet",
+             "--device", str(dev)], capture_output=True, text=True,
+            timeout=module_timeout, cwd=HERE)
+        lines = res_m.stdout.strip().splitlines()
+        stats = json.loads(lines[-1]) if res_m.returncode == 0 else {}
+        say("surface", module_rc=res_m.returncode,
+            module_seconds=time.perf_counter() - t0,
+            module_stats=json.dumps(stats),
+            module_stderr=repr(res_m.stderr[-500:]))
+        check(res_m.returncode == 0, "python -m render failed")
+        check(stats.get("device") == str(dev) and stats["samples"] == spp,
+              f"python -m render stats {stats}")
+    launches, errs = dict(got), {}
+    for name, (sc, data) in (("cornell", cornell), ("terrain", terrain)):
+        kname, n, err = preview_holds(torch, pt, dev, card, counts,
+                                      zero_counts, name, sc, data, res,
+                                      frames)
+        launches[kname] += n
+        errs[kname] = max(errs.get(kname, 0.0), err)
+    srgb_epilogue(torch, pt, card, sess_4k)
+    return launches, errs
 
 
 def finish(torch) -> None:
@@ -1663,8 +1939,8 @@ def main() -> int:
     # (each phase holds its kernels at its own shapes: their errors join
     # the kernels line's)
     t_phase = time.perf_counter()
-    errs = chunks_4k_phase(torch, pt, dev, card, counts, zero_counts,
-                           with_profile=args.profile)
+    errs, sess_4k = chunks_4k_phase(torch, pt, dev, card, counts,
+                                    zero_counts, with_profile=args.profile)
     phase_done("4k-chunks", t_phase)
     t_phase = time.perf_counter()
     jitter_phase(torch, pt, dev, card, counts, zero_counts,
@@ -1675,12 +1951,20 @@ def main() -> int:
     ckpt_errs = checkpoint_phase(torch, pt, dev, card, counts, zero_counts,
                                  sc52, sc)
     phase_done("checkpoint", t_phase)
-    k1_err = max(k1_err, errs["intersect_dense"])
+    t_phase = time.perf_counter()
+    surf_launches, surf_errs = surface_phase(
+        torch, pt, dev, card, counts, zero_counts, (sc, scene),
+        (sc52, scene52), sess_4k)
+    del sess_4k
+    phase_done("surface", t_phase)
+    k1_err = max(k1_err, errs["intersect_dense"],
+                 surf_errs.get("intersect_dense", 0.0))
     k2_err = max(k2_err, errs["fetch_rows"], ckpt_errs["fetch_rows"])
     rng_err = max(rng_err, errs["threefry_uniform"],
                   ckpt_errs["threefry_uniform"])
     hier_err["intersect_bvh"] = max(hier_err["intersect_bvh"],
-                                    ckpt_errs["intersect_bvh"])
+                                    ckpt_errs["intersect_bvh"],
+                                    surf_errs.get("intersect_bvh", 0.0))
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib")
                   for m in sys.modules), "jax was imported")
@@ -1727,6 +2011,8 @@ def main() -> int:
          "bound_ms": rng_bound[0], "bound_by": rng_bound[1],
          "library_ms": None},
     ]
+    for k in kernels:   # the surface phase's CLI render, previews, picks
+        k["launches_surface"] = surf_launches[k["name"]]
     finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

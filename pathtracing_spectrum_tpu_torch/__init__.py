@@ -5,42 +5,55 @@ It imports ``torch`` and never ``jax``: the JAX package's ``__init__``
 imports modules that import jax at module level, so even its numpy-only
 host layer cannot be reused by import on a machine without jax. The host
 layer this package needs (OBJ parsing, triangle SoA, scene compilation,
-shading-table packing, intersection precompute) is therefore carried here
-as a jax-free copy, and the CPU tests hold it equal to the JAX package,
-array for array.
+shading-table packing, intersection precompute, scene files and spectral
+text) is therefore carried here as a jax-free copy, and the CPU tests hold
+it equal to the JAX package, array for array and byte for byte.
 
-The port covers the main path, the large-scene path and the spectral
-path: BVH-ordered scene compilation (the binned-SAH builder, host C++)
-with normal and roughness maps (PNG, decoded without PIL) and temperature
-grids, the closest-hit kernels K1 (dense sweep), K3 (BVH walk, the
-``hier`` backend) and K4 (cluster-culled sweep), the attribute fetch K2
-and the threefry draw of ``jax.random`` (hand-written CUDA kernels under
-``csrc/``), the bounce loop in every spectral mode (dense, hero, Cauchy
-dispersion) with the bounce-ray reorder, ``render_samples`` under JAX's
-key schedule (``ops/rng.py``; ``rng.key(seed)`` makes a key) with the
-primary-hit hoist, chunked wavefronts and batched camera jitter, and the
-progressive ``RenderSession`` (start/pause/resume/stop/restart, an async
-loop, checkpoints that resume in either package). Everything else raises
-``NotImplementedError`` with a pointer to its ROADMAP item.
+The port covers the main path, the large-scene path, the spectral path,
+the user's session and the user's surface: BVH-ordered scene compilation
+(the binned-SAH builder, host C++) with normal and roughness maps (PNG,
+decoded without PIL) and temperature grids, the closest-hit kernels K1
+(dense sweep), K3 (BVH walk, the ``hier`` backend) and K4 (cluster-culled
+sweep), the attribute fetch K2 and the threefry draw of ``jax.random``
+(hand-written CUDA kernels under ``csrc/``), the bounce loop in every
+spectral mode (dense, hero, Cauchy dispersion) with the bounce-ray reorder,
+``render_samples`` under JAX's key schedule (``ops/rng.py``;
+``rng.key(seed)`` makes a key) with the primary-hit hoist, chunked
+wavefronts and batched camera jitter, the progressive ``RenderSession``
+(start/pause/resume/stop/restart, an async loop, checkpoints that resume in
+either package, ``result_srgb`` through the sRGB epilogue on the card), the
+authoring API of ``Scene``, ``.pts`` scene files (``utils/scene_io.py``)
+and ASCII spectra (``utils/spectral_io.py``), the viewer (``viewer.py``,
+PNGs written without PIL), the headlight preview and pick through K1/K3
+(``preview.py``) and the command line (``python -m
+pathtracing_spectrum_tpu_torch``). Not ported yet: sharding (ROADMAP Queue
+1 item 9), the interactive shell (item 8f), the port's benchmark (item 5);
+each raises ``NotImplementedError`` naming its item.
 """
 
-from .constants import BIG, EPS, __version__
+from .constants import (BIG, EPS, INF, SCENE_FILE_HEADER, SCENE_FILE_VERSION,
+                        __version__)
 from .models.materials import Material, MaterialType, SpectrumMaterial
 from .models.camera import (Camera, JitterCam, camera_rays,
                             jitter_cam_arrays, jittered_dirs)
-from .scene import Scene, SceneData, scene_data_from_numpy
+from .scene import (Scene, SceneData, SceneElement, SceneObject,
+                    scene_data_from_numpy)
 from .ops import rng
+from .ops.wave import Wave
 from .engine import (make_intersector, render_sample, render_samples,
                      resolve_backend, trace_radiance)
 from .render import KEY_SCHEDULE_VERSION, RenderSession, RenderStatus
 
 __all__ = [
-    "BIG", "EPS", "__version__",
+    "BIG", "EPS", "INF", "SCENE_FILE_HEADER", "SCENE_FILE_VERSION",
+    "__version__",
     "Material", "MaterialType", "SpectrumMaterial",
     "Camera", "JitterCam", "camera_rays", "jitter_cam_arrays",
     "jittered_dirs",
-    "Scene", "SceneData", "scene_data_from_numpy",
+    "Scene", "SceneData", "SceneElement", "SceneObject",
+    "scene_data_from_numpy",
     "make_intersector", "render_sample", "render_samples",
     "resolve_backend", "trace_radiance",
     "KEY_SCHEDULE_VERSION", "RenderSession", "RenderStatus", "rng",
+    "Wave",
 ]

@@ -1,8 +1,8 @@
 """Progressive render session: the host-side state machine.
 
 Port of ``pathtracing_spectrum_tpu/render.py::RenderSession`` without
-sharding (ROADMAP Queue 1 item 9) and ``result_srgb`` (item 8e). The
-session runs on the card unless it is built with ``device="cpu"``:
+sharding (ROADMAP Queue 1 item 9). The session runs on the card unless it
+is built with ``device="cpu"``:
 
 * ``start()``   — (re)compiles the scene onto the device when it changed,
   makes the primary rays in 32x32 tile order, and resets the accumulator
@@ -19,7 +19,9 @@ session runs on the card unless it is built with ``device="cpu"``:
   stopped by ``stop()``;
 * ``save_checkpoint``/``load_checkpoint`` — the JAX session's npz file:
   the same fields, dtypes and refusals, so a checkpoint that either
-  package writes resumes exactly in the other.
+  package writes resumes exactly in the other;
+* ``result()``/``result_srgb()`` — the running mean as spectra, or as
+  sRGB through the device epilogue.
 
 The session's key is ``jax.random.key(seed)`` (``ops/rng.py``) and sample
 ``i`` traces under ``fold_in(key, i)``, so a port session and a JAX session
@@ -100,6 +102,7 @@ class RenderSession:
         self._ro = self._rd = None
         self._jitter_cam = None
         self._perm = self._inv_perm = None
+        self._inv_perm_dev = None  # made by result_srgb at first use
         self._total = None
         self._out = None
         self._samples = 0
@@ -142,6 +145,7 @@ class RenderSession:
         if self._tile_ordering:
             # compact 32x32 screen tiles per ray block
             self._perm, self._inv_perm = tile_order(w, h)
+            self._inv_perm_dev = None
             perm_t = torch.from_numpy(self._perm.astype(np.int64))
             ro, rd = ro[perm_t], rd[perm_t]
         self._ro, self._rd = ro.to(self.device), rd.to(self.device)
@@ -290,6 +294,31 @@ class RenderSession:
         if self._inv_perm is not None:
             out = out[self._inv_perm]
         return out.reshape(h, w, nw)
+
+    def result_srgb(self, exposure: float = 0.0) -> np.ndarray:
+        """Running mean as uint8 sRGB [H, W, 3] through the device epilogue
+        (``viewer.spectral_to_srgb_device``) on the accumulator's device:
+        only [N, 3] uint8 is read back, never the [N, nw] float32 spectra.
+        The epilogue is per pixel plus one global percentile, so it
+        commutes with the tile-order unscramble, applied after, on the
+        uint8 result and on the same device (at 4K a host gather took 199
+        ms, the device's 1 ms: ``tools/srgb_epilogue.py``). Without an
+        accumulator, the host path on :meth:`result`."""
+        from . import viewer
+
+        w, h = self.resolution
+        if self._out is None:
+            return viewer.spectral_to_srgb(self.result(),
+                                           self.scene.wavelengths,
+                                           exposure=exposure)
+        srgb = viewer.spectral_to_srgb_device(
+            self._out, self.scene.wavelengths, exposure=exposure)
+        if self._inv_perm is not None:
+            if self._inv_perm_dev is None:
+                self._inv_perm_dev = torch.from_numpy(
+                    self._inv_perm.astype(np.int64)).to(self.device)
+            srgb = srgb.index_select(0, self._inv_perm_dev)
+        return srgb.cpu().numpy().reshape(h, w, 3)
 
     def stats(self) -> dict:
         s = self.samples

@@ -18,7 +18,9 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   file: a texture is never dropped quietly.
 
 Sampling on the device is ``ops/texturing.py``; :func:`sample_nearest` is
-the host ``tex2D`` for tests and tools.
+the host ``tex2D`` for tests and tools. :func:`write_png` is the writer the
+viewer and the CLI save through (8-bit grey or RGB; the JAX package saves
+through PIL).
 """
 
 from __future__ import annotations
@@ -212,6 +214,32 @@ def _to_rgba(samples: np.ndarray, colour: int, depth: int, palette,
                  & (samples[..., 2] == key[2]))
         out[..., 3] = np.where(match, 0, 255)
     return out
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def write_png(path: str, pixels: np.ndarray) -> None:
+    """Write uint8 ``pixels``, [H, W] grey (mode ``L``) or [H, W, 3] RGB
+    with row 0 = image top, as a PNG file: 8 bits, non-interlaced, every
+    row under filter 0."""
+    img = np.asarray(pixels)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError("write_png: pixels must be uint8 [H, W] or "
+                         f"[H, W, 3], got {img.dtype} {list(img.shape)}")
+    h, w = img.shape[:2]
+    colour = 0 if img.ndim == 2 else 2
+    rows = np.zeros((h, 1 + img.size // max(h, 1)), np.uint8)
+    rows[:, 1:] = img.reshape(h, -1)
+    header = struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0)
+    data = (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def sample_nearest(img: "np.ndarray | None", u: float, v: float) -> np.ndarray:

@@ -724,3 +724,55 @@ def test_dispersion_session_goes_through_its_kernels(dev):
     assert k2 == 1 + looped + spp * 2 * depth     # + the hero-table reads
     assert rn == spp * (2 * depth + 1)            # bounces + hero channel
     assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0
+
+
+# ---- the user's surface: preview, pick, the sRGB epilogue -----------------
+
+@pytest.mark.parametrize("name", ["cornell", "terrain-10k"])
+def test_preview_and_pick_on_card_equal_cpu(dev, name, tmp_path):
+    """The preview (grey and RGB) and the pick on the card equal the CPU's:
+    one K1 launch each on the Cornell box, one K3 launch on the terrain."""
+    from pathtracing_spectrum_tpu_torch.preview import pick, preview_render
+    sc = (cornell(48) if name == "cornell"
+          else terrain(make_terrain_10k(tmp_path), 48))
+    sc.select_object(0)
+    sc.set_highlight(0, 0, True)
+    on_dev, on_cpu = sc.compile(dev), sc.compile("cpu")
+    route = (intersect_cuda.intersect_dense if name == "cornell"
+             else intersect_hier_cuda.intersect_bvh)
+    for rgb in (False, True):
+        before = route.launches
+        got = preview_render(sc, 48, 40, scene_data=on_dev, rgb=rgb,
+                             device=dev)
+        assert route.launches == before + 1
+        want = preview_render(sc, 48, 40, scene_data=on_cpu, rgb=rgb,
+                              device="cpu")
+        np.testing.assert_array_equal(got, want)
+    for x, y in ((24, 20), (0, 0), (47, 39), (5, 33)):
+        before = route.launches
+        assert pick(sc, 48, 40, x, y, scene_data=on_dev, device=dev) == \
+            pick(sc, 48, 40, x, y, scene_data=on_cpu, device="cpu")
+        assert route.launches == before + 1
+
+
+def test_srgb_epilogue_on_card_within_a_step_of_host(dev):
+    """The device epilogue on the card, on an image above 2**24 pixels (past
+    ``torch.quantile``'s limit), within 1 uint8 step of the host path;
+    ``result_srgb`` of a card session equals the host conversion."""
+    from pathtracing_spectrum_tpu_torch import viewer
+    wn = [1e7 / 450, 1e7 / 520, 1e7 / 590, 1e7 / 650]
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    img = torch.rand((4096, 4097, 4), generator=g, device=dev)
+    img[0, 0] = float("nan")
+    img[7, 7] = 80.0
+    got = viewer.spectral_to_srgb_device(img, wn)
+    assert got.device == img.device and got.dtype == torch.uint8
+    host = viewer.spectral_to_srgb(img.cpu().numpy(), wn)
+    assert np.abs(got.cpu().numpy().astype(int) - host).max() <= 1
+    sc = cornell(32)
+    sc.wavelengths = wn
+    sess = pt.RenderSession(sc, dev, seed=0)
+    sess.run(2, batch=2)
+    want = viewer.spectral_to_srgb(sess.result(), wn).astype(int)
+    assert np.abs(sess.result_srgb().astype(int) - want).max() <= 1

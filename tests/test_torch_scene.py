@@ -1,5 +1,6 @@
 """Port scene compilation vs the JAX package's, field by field, and the
-port's import graph (no jax, no PIL)."""
+port's import graph (no jax, no PIL: the session, scene files, spectra,
+the viewer, preview and the CLI run with both refused)."""
 
 import os
 import subprocess
@@ -59,9 +60,9 @@ def to_port_scene(jsc):
     sc.sky_temperature = jsc.sky_temperature
     for k, jobj in enumerate(jsc.objects):
         obj = sc.load_object(jobj.filename)
-        obj.location = jobj.location.copy()
-        obj.rotation = jobj.rotation.copy()
-        obj.scale = jobj.scale.copy()
+        obj.set_location(jobj.location)
+        obj.set_rotation(jobj.rotation)
+        obj.set_scale(jobj.scale, respect_lock=False)
         for i, el in enumerate(jobj.elements):
             m = el.material
             assert obj.elements[i].name == el.name
@@ -186,6 +187,20 @@ for kw in ({"chunks": 4}, {"jitter": True}):
         b.load_checkpoint(path)
         assert b.samples == 2
         assert np.array_equal(b.run(3), full), kw
+# the user's surface: scene files, spectra, the viewer, preview, the CLI
+from pathtracing_spectrum_tpu_torch import cli, preview, viewer
+from pathtracing_spectrum_tpu_torch.utils import scene_io, spectral_io
+with tempfile.TemporaryDirectory() as tmp:
+    pts = os.path.join(tmp, "s.pts")
+    scene_io.save_scene(sc, pts)
+    assert scene_io.load_scene(pts).triangle_count() == 36
+    png, txt = os.path.join(tmp, "s.png"), os.path.join(tmp, "s.txt")
+    assert cli.main(["render", pts, "--spp", "1", "--out", txt, "--png-srgb",
+                     png, "--quiet", "--device", "cpu"]) == 0
+    assert spectral_io.import_spectrum(txt, 8, 8, 4).shape == (8, 8, 4)
+    viewer.save_png(img, 0, png)
+assert preview.preview_render(sc, 8, 8, device="cpu").shape == (8, 8)
+assert preview.pick(sc, 8, 8, 4, 4, device="cpu")[0] == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "PIL"))
 assert not bad, bad
 print("ok")
