@@ -42,7 +42,18 @@ through its kernels and made a healthy image:
   ``preview_render`` grey and RGB and two picks of the box (one K1 launch
   each) and of the terrain (one K3 launch each), 20 preview frames timed
   on each; ``result_srgb`` of the 4K session within 1 uint8 step of the
-  host conversion, both timed, and the 512x512 export timed.
+  host conversion, both timed, and the 512x512 export timed;
+- multi-device rendering on the one card: the main path's box through
+  ``RenderSession(sharding=TileSharding(make_mesh()))``, then on a mesh of
+  3 entries of the card (tiles of 87,382 rays, the last ending in 2
+  zero-direction padding rays) with the terrain 52k through ``"hier"``
+  beside it, then ``SppAllreduce`` on a one-rank NCCL group; each image
+  bitwise its per-tile ``render_samples(fold_device=g)`` replay, the
+  kernels held on the padded tile, and the unsharded, one-device and
+  3-entry sessions timed in turns;
+- the shell: a scripted ``SpectrumShell`` on the card opens the box's
+  ``.pts``, renders 4 samples on its async loop, exports, previews and
+  autopreviews.
 
 Run from the repository root:
 
@@ -66,7 +77,8 @@ each path that runs it (the user's session included: K1 and K2 on the 4K
 frame's 8,294,400 primaries and one 259,200-ray chunk, threefry at
 [4, 259,200]; K3, K2 and threefry on one 65,536-ray terrain chunk,
 sorted as K3 gets it; K1 and K3 on the preview's rays in tile order and
-on single pick rays); K3 and K4 are timed on the terrain primaries, in context on the terrain's bounce-2
+on single pick rays; K1 or K3, K2 and threefry on a sharded session's
+padded 87,382-ray tile); K3 and K4 are timed on the terrain primaries, in context on the terrain's bounce-2
 rays (the ``kernels`` entry) and on the textured path's bounce-2 rays, K4
 beside its counting build's box tests, row-test steps and swept
 clusters.
@@ -112,6 +124,12 @@ ASYNC_SPP, ASYNC_DEADLINE_S = 4, 60.0
 # CLI, then preview frames and picks (timed over 20 frames), and the sRGB
 # epilogue of the 4K session against the host path (3 turns each)
 SURFACE_SPP, PREVIEW_FRAMES, SRGB_TURNS = 16, 20, 3
+# multi-device rendering on one card: the main path's box through
+# TileSharding (the card's mesh, then 3 entries of it: 2 padding rays) and
+# SppAllreduce on a one-rank NCCL group, 16 samples; the terrain through
+# "hier" on the 3-entry mesh, 4; then the rates in turns, once each way
+MULTI_SPP, MULTI_TERRAIN_SPP, MULTI_RAGGED, MULTI_RATE_TURNS = 16, 4, 3, 1
+SHELL_SPP = 4            # the scripted shell's render
 # make_terrain arguments of the repo's terrain assets (make_assets.py)
 TERRAINS = {"10k": dict(grid=64, n_rocks=8, rock_sub=8),
             "52k": dict(grid=128, n_rocks=36, rock_sub=12)}
@@ -1085,6 +1103,249 @@ def surface_phase(torch, pt, dev, card, counts, zero_counts, cornell,
     return launches, errs
 
 
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that no process listens on."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_replay(torch, pt, sc, data, dev, size, spp, seed):
+    """The [H, W, nw] image a sharded session of ``spp`` samples (one
+    ``render_samples`` call) on a mesh of ``size`` entries must give,
+    rebuilt without the strategy: the session's rays in tile order, padded
+    with zero rays to a multiple of ``size``, each tile ``g`` through the
+    one-device ``engine.render_samples(fold_device=g)`` on ``dev``, the
+    tiles put together, the padding dropped. With ``size`` 1 it is also
+    ``SppAllreduce``'s image on a one-device mesh."""
+    from pathtracing_spectrum_tpu_torch import engine
+    from pathtracing_spectrum_tpu_torch.models.camera import tile_order
+    from pathtracing_spectrum_tpu_torch.ops import rng
+    w, h = sc.resolution
+    nw = data.n_waves
+    ro, rd = pt.camera_rays(sc.camera(), w, h, "cpu")
+    perm, inv = tile_order(w, h)
+    perm_t = torch.from_numpy(perm.astype(np.int64))
+    n = w * h
+    pad = torch.zeros(((-n) % size, 3))
+    ro, rd = torch.cat([ro[perm_t], pad]), torch.cat([rd[perm_t], pad])
+    nloc = ro.shape[0] // size
+    tiles = []
+    for g in range(size):
+        s = slice(g * nloc, (g + 1) * nloc)
+        total = torch.zeros((nloc, nw), device=dev)
+        engine.render_samples(data, ro[s].to(dev), rd[s].to(dev), total, 0,
+                              rng.key(seed), 0, n_steps=spp,
+                              max_depth=sc.trace_depth, fold_device=g)
+        tiles.append(total)
+    out = (torch.cat(tiles)[:n] / spp).cpu().numpy()
+    return out[inv].reshape(h, w, nw)
+
+
+def multi_phase(torch, pt, dev, card, counts, zero_counts, sc, sc52,
+                spp=MULTI_SPP, terrain_spp=MULTI_TERRAIN_SPP,
+                ragged=MULTI_RAGGED, rate_turns=MULTI_RATE_TURNS):
+    """Multi-device rendering on the one card. ``TileSharding(make_mesh())``
+    runs the main path's box (``sc``, 512², ``spp`` samples); then a mesh of
+    ``ragged`` entries of this card cuts its 262,144 rays into tiles of
+    87,382, the last with 2 zero-direction padding rays, for the box (K1)
+    and the terrain 52k (``sc52``, ``"hier"``: K3 and the reorder); then
+    ``SppAllreduce`` on a one-rank NCCL group (the group's all_reduce on
+    the card). Each session is driven with the counts set to 0 just
+    before and read just after, and its image must be bitwise
+    :func:`sharded_replay`'s. K1 or K3, K2 and threefry are held bitwise
+    against their plain versions on the padded tile's primaries and
+    bounce-2 rays and at its [4, 87,382] draw. Then ms per sample of the
+    unsharded, the one-device and the ragged session in turns. Returns
+    (the launches of each kernel over the driven runs, the largest error
+    of each kernel held)."""
+    import torch.distributed as dist
+    from pathtracing_spectrum_tpu_torch import engine
+    from pathtracing_spectrum_tpu_torch.ops import (
+        fetch_cuda, intersect_cuda, intersect_hier_cuda, rng, rng_cuda)
+    from pathtracing_spectrum_tpu_torch.parallel import (
+        SppAllreduce, TileSharding, make_mesh)
+    launches, errs, sessions = {}, {}, {}
+
+    def driven(label, scene, sharding, n, route="intersect_dense", sorts=0):
+        sess = pt.RenderSession(scene, seed=0, sharding=sharding)
+        img, got = drive(torch, sess, n, counts, zero_counts)
+        size = sharding.mesh.size
+        want = {k: v * (size if sharding.name == "tiles" else 1)
+                for k, v in want_counts(n, DEPTH, route=route,
+                                        sorts=sorts).items()}
+        replay = sharded_replay(torch, pt, scene, sess._scene_data, dev,
+                                size if sharding.name == "tiles" else 1, n,
+                                0)
+        same = np.array_equal(img, replay)
+        st = sess.stats()
+        w, h = scene.resolution
+        say("multi", case=label, strategy=sharding.name, mesh_size=size,
+            distributed=sharding.mesh.distributed, res=f"{w}x{h}", spp=n,
+            padding_rays=(-(w * h)) % size if sharding.name == "tiles" else 0,
+            backend=st["backend"], launches=json.dumps(got),
+            expected=json.dumps(want), rays_traced=st["rays_traced"],
+            bitwise_equal_replay=same,
+            max_abs_diff=float(np.abs(img - replay).max()),
+            mean=float(img.mean()))
+        check(got == want, f"multi {label} launches {got}, expected {want}")
+        check(same, f"multi {label}: the image is not bitwise its replay")
+        healthy(img, f"multi {label}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        sessions[label] = sess
+        return sess
+
+    def held(label, case, got, want, kname):
+        errs[kname] = max(errs.get(kname, 0.0), hold(label, case, got, want))
+
+    mesh1 = make_mesh()
+    mesh3 = make_mesh([str(dev)] * ragged)
+    driven("cornell-card", sc, TileSharding(mesh1), spp)
+    box3 = driven(f"cornell-{ragged}", sc, TileSharding(mesh3), spp)
+    t3 = driven(f"terrain-{ragged}", sc52, TileSharding(mesh3), terrain_spp,
+                route="intersect_bvh", sorts=terrain_spp * (2 * DEPTH - 1))
+    check(t3.stats()["backend"] == "hier", "the sharded terrain is not hier")
+
+    # the kernels at the padded tile's shapes: its last 2 rays are zero
+    for sess, label in ((box3, "K1"), (t3, "K3")):
+        data = sess._scene_data
+        ro_t, rd_t = sess._ro[-1], sess._rd[-1]
+        nloc = ro_t.shape[0]
+        check(not ro_t[-2:].any() and not rd_t[-2:].any(),
+              "the last tile does not end in 2 zero rays")
+        tri16 = tri16_of(data)
+        if label == "K1":
+            def kernel(planes):
+                return intersect_cuda.intersect_dense(*planes, tri16)
+
+            def plain(planes):
+                return intersect_cuda.intersect_dense_ref(*planes, tri16)
+            kname = "intersect_dense"
+        else:
+            _, nodes, packed = hier_tables(data)
+
+            def kernel(planes):
+                return intersect_hier_cuda.intersect_bvh(*planes, tri16,
+                                                         packed)
+
+            def plain(planes):
+                return intersect_hier_cuda.intersect_bvh_ref(*planes, tri16,
+                                                             *nodes)
+            kname = "intersect_bvh"
+        prim = planes_of(ro_t, rd_t)
+        hit = kernel(prim)
+        held(label, "padded-tile-primaries", hit, plain(prim), kname)
+        check(not hit[0][-2:].any(), "a zero-direction padding ray hit")
+        shade = engine._prepare(data, "auto").shade_sub
+        held("K2", "padded-tile-primaries", fetch_cuda.fetch_rows(hit[2],
+                                                                  shade),
+             fetch_cuda.fetch_rows_ref(hit[2], shade), "fetch_rows")
+        bounce = rays_of_bounce(data, ro_t, rd_t, 2)
+        held(label, "padded-tile-bounce2", kernel(bounce), plain(bounce),
+             kname)
+        k = rng.fold_in(rng.fold_in(rng.key(0), 0), ragged - 1)
+        held("rng", "padded-tile", rng_cuda.uniform(k, (4, nloc), dev),
+             rng.uniform_ref(k, (4, nloc), dev), "threefry_uniform")
+        del hit, prim, bounce
+
+    # spp-allreduce through NCCL: a group of this one process, brought up
+    # here with initialize_multihost's own arguments (initialize_multihost
+    # is a no-op for one process, as in the JAX package)
+    check(dist.is_nccl_available(), "torch has no NCCL")
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh_nccl = make_mesh()
+        check(mesh_nccl.distributed, "the mesh did not see the NCCL group")
+        driven("cornell-nccl", sc, SppAllreduce(mesh_nccl), spp)
+    finally:
+        dist.destroy_process_group()
+
+    # ms per sample: unsharded, the card's mesh, the ragged mesh, in turns
+    plain_sess = pt.RenderSession(sc, dev, seed=0)
+    plain_sess.run(1, batch=1)
+    rates = {"unsharded": [], "cornell-card": [], f"cornell-{ragged}": []}
+    order = list(rates) + list(rates)[::-1]
+    for name in order * rate_turns:
+        sess = plain_sess if name == "unsharded" else sessions[name]
+        rates[name].append(timed_step(torch, sess, spp))
+    for name, vals in rates.items():
+        say("multi", case=name, spp_per_step=spp,
+            mrays_per_s=[v[0] for v in vals],
+            ms_per_sample=[v[1] for v in vals], card=repr(card))
+    return launches, errs
+
+
+def shell_phase(torch, pt, dev, card, counts, zero_counts, sc,
+                spp=SHELL_SPP):
+    """A scripted shell session on the card (``SpectrumShell`` on ``dev``):
+    open the main path's box from a ``.pts``, ``render`` ``spp`` samples on
+    the async loop (one ``step(1)`` a sample: ``spp * 6`` launches of K1,
+    K2 and threefry), ``status``, ``export``, ``preview``, ``autopreview
+    on`` and a ``select`` (one K1 launch each), ``quit``; the counts set to
+    0 just before and read just after. The export is the session's image
+    and the preview PNG ``preview_render``'s. Returns the launches."""
+    import io
+    from pathtracing_spectrum_tpu_torch import preview
+    from pathtracing_spectrum_tpu_torch.render import RenderStatus
+    from pathtracing_spectrum_tpu_torch.shell import SpectrumShell
+    from pathtracing_spectrum_tpu_torch.utils import scene_io, spectral_io
+    from pathtracing_spectrum_tpu_torch.utils.image import load_rgba
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        pts, txt, png, auto = (os.path.join(tmp, f) for f in (
+            "box.pts", "box.txt", "preview.png", "auto.png"))
+        scene_io.save_scene(sc, pts)
+        sh = SpectrumShell(stdin=io.StringIO(""), stdout=out, device=dev)
+
+        def cmd(line):   # as cmdloop runs a line: onecmd, then postcmd
+            return sh.postcmd(sh.onecmd(line), line)
+
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        cmd(f"open {pts}")
+        cmd(f"render {spp}")
+        deadline = t0 + ASYNC_DEADLINE_S
+        while (sh.session.status != RenderStatus.PAUSED
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        render_s = time.perf_counter() - t0
+        for line in ("status", f"export {txt}", f"preview {png}",
+                     f"autopreview on {auto}", "select 0",
+                     "autopreview off", "quit"):
+            check(bool(cmd(line)) == (line == "quit"), f"shell {line!r}")
+        torch.cuda.synchronize()
+        got = counts()
+        img = sh.session.result()
+        exported = open(txt).read() == spectral_io.format_spectrum(img)
+        rgb = np.round(load_rgba(png)[..., :3] * 255.0).astype(np.uint8)
+        w, h = sh.scene.resolution
+        sh.scene.select_object(0, False)   # as at the preview command
+        same_png = np.array_equal(rgb, preview.preview_render(
+            sh.scene, w, h, rgb=True, device=dev))
+        thread_alive = sh.session._thread.is_alive()
+    want = {k: v * spp for k, v in want_counts(1, DEPTH).items()}
+    want["intersect_dense"] += 3          # preview, autopreview, select
+    say("shell", res=f"{w}x{h}", spp=sh.session.samples,
+        paused_after_s=render_s, launches=json.dumps(got),
+        expected=json.dumps(want), export_equals_result=exported,
+        preview_png_equals_preview_render=same_png,
+        thread_alive_after_quit=thread_alive, mean=float(img.mean()),
+        card=repr(card))
+    for line in out.getvalue().splitlines():
+        say("shell", stdout=repr(line))
+    check(sh.session.samples == spp, f"shell rendered {sh.session.samples}")
+    check(got == want, f"shell launches {got}, expected {want}")
+    check(exported, "the shell's export is not the session's image")
+    check(same_png, "the shell's preview PNG is not preview_render's")
+    check(not thread_alive, "the shell's render thread outlived quit")
+    healthy(img, "shell")
+    return got
+
+
 def finish(torch) -> None:
     """End on purpose: no kernel in flight, no session thread left, the
     port's device memory released, the output flushed."""
@@ -1957,14 +2218,25 @@ def main() -> int:
         (sc52, scene52), sess_4k)
     del sess_4k
     phase_done("surface", t_phase)
+    t_phase = time.perf_counter()
+    multi_launches, multi_errs = multi_phase(torch, pt, dev, card, counts,
+                                             zero_counts, sc, sc52)
+    phase_done("multi", t_phase)
+    t_phase = time.perf_counter()
+    shell_phase(torch, pt, dev, card, counts, zero_counts, sc)
+    phase_done("shell", t_phase)
     k1_err = max(k1_err, errs["intersect_dense"],
-                 surf_errs.get("intersect_dense", 0.0))
-    k2_err = max(k2_err, errs["fetch_rows"], ckpt_errs["fetch_rows"])
+                 surf_errs.get("intersect_dense", 0.0),
+                 multi_errs["intersect_dense"])
+    k2_err = max(k2_err, errs["fetch_rows"], ckpt_errs["fetch_rows"],
+                 multi_errs["fetch_rows"])
     rng_err = max(rng_err, errs["threefry_uniform"],
-                  ckpt_errs["threefry_uniform"])
+                  ckpt_errs["threefry_uniform"],
+                  multi_errs["threefry_uniform"])
     hier_err["intersect_bvh"] = max(hier_err["intersect_bvh"],
                                     ckpt_errs["intersect_bvh"],
-                                    surf_errs.get("intersect_bvh", 0.0))
+                                    surf_errs.get("intersect_bvh", 0.0),
+                                    multi_errs["intersect_bvh"])
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib")
                   for m in sys.modules), "jax was imported")
@@ -2013,6 +2285,8 @@ def main() -> int:
     ]
     for k in kernels:   # the surface phase's CLI render, previews, picks
         k["launches_surface"] = surf_launches[k["name"]]
+        # the multi phase's driven sessions (tiles on 1 and 3, spp on NCCL)
+        k["launches_multi"] = multi_launches[k["name"]]
     finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,10 +25,14 @@ either package, ``result_srgb`` through the sRGB epilogue on the card), the
 authoring API of ``Scene``, ``.pts`` scene files (``utils/scene_io.py``)
 and ASCII spectra (``utils/spectral_io.py``), the viewer (``viewer.py``,
 PNGs written without PIL), the headlight preview and pick through K1/K3
-(``preview.py``) and the command line (``python -m
-pathtracing_spectrum_tpu_torch``). Not ported yet: sharding (ROADMAP Queue
-1 item 9), the interactive shell (item 8f), the port's benchmark (item 5);
-each raises ``NotImplementedError`` naming its item.
+(``preview.py``), the interactive shell (``shell.py``), multi-device
+rendering (``parallel/``: ``TileSharding`` and ``SppAllreduce`` over a
+device mesh, across processes through ``torch.distributed``, NCCL between
+cards and gloo between CPU processes) and the command line (``python -m
+pathtracing_spectrum_tpu_torch``). Not ported yet (ROADMAP Queue 1): the
+port's benchmark (item 5; ``cli bench`` raises ``NotImplementedError``
+naming it), textures other than PNG (item 11), the native OBJ parser
+(item 12) and the native spectral writer (item 13).
 """
 
 from .constants import (BIG, EPS, INF, SCENE_FILE_HEADER, SCENE_FILE_VERSION,

@@ -10,10 +10,12 @@ Commands:
   preview    headlight preview PNG through the closest-hit kernel
   import     validate/convert spectral txt inputs (waves / materials)
   bench      the port's benchmark (not ported yet: ROADMAP Queue 1 item 5)
-  shell      the interactive shell (not ported yet: ROADMAP Queue 1 item 8f)
+  shell      interactive scene-editing shell (the GUI edit loop, headless)
 
-``render`` and ``preview`` run on ``--device`` (``cuda`` unless asked for
-``cpu``); ``--profile DIR`` writes a ``torch.profiler`` Chrome trace,
+``render``, ``preview`` and ``shell`` run on ``--device`` (``cuda`` unless
+asked for ``cpu``); ``render --shard tiles|spp`` renders on a mesh of the
+``--device``'s cards (every card for ``cuda``, one device otherwise).
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace,
 ``DIR/trace.json``, and PNGs go through ``utils/image.py::write_png``.
 """
 
@@ -87,8 +89,8 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="redirect missing OBJ path for object IDX")
     r.add_argument("--shard", default="none",
                    choices=["none", "tiles", "spp"],
-                   help="multi-device strategy (not ported yet: ROADMAP "
-                        "Queue 1 item 9)")
+                   help="multi-device strategy: pixel tiles or "
+                        "samples per pixel over the --device's cards")
     r.add_argument("--ascii", action="store_true",
                    help="print an ASCII preview when done")
     r.add_argument("--quiet", action="store_true")
@@ -129,15 +131,30 @@ def _build_parser() -> argparse.ArgumentParser:
     sub.add_parser("bench", help="the port's benchmark (not ported yet)")
 
     sh = sub.add_parser("shell", help="interactive scene-editing shell "
-                        "(not ported yet)")
+                        "(the GUI edit loop, headless)")
     sh.add_argument("scene", nargs="?", default=None,
                     help="scene file to open at startup")
+    sh.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="torch device to render on (default: cuda)")
     return p
 
 
 def _parse_res(spec: str):
     w, h = spec.lower().split("x")
     return int(w), int(h)
+
+
+def _sharding(shard: str, device: str):
+    """The strategy of ``--shard`` on a mesh of ``device``'s cards: every
+    card for ``cuda`` without an index, else the one device named."""
+    if shard == "none":
+        return None
+    from .device import resolve_device
+    from .parallel import SppAllreduce, TileSharding, make_mesh
+    dev = resolve_device(device)
+    mesh = make_mesh() if dev.type == "cuda" and dev.index is None \
+        else make_mesh([dev])
+    return TileSharding(mesh) if shard == "tiles" else SppAllreduce(mesh)
 
 
 def _profiler(device, trace_dir: str):
@@ -186,7 +203,7 @@ def cmd_render(args) -> int:
     session = RenderSession(
         scene, device=args.device, backend=args.backend, seed=args.seed,
         jitter=args.jitter, resolution=resolution,
-        sharding=None if args.shard == "none" else args.shard,
+        sharding=_sharding(args.shard, args.device),
         dispersion=(True if args.dispersion
                     else "hero" if args.hero else False),
         chunks=args.chunks)
@@ -370,9 +387,8 @@ def cmd_bench(args) -> int:
 
 
 def cmd_shell(args) -> int:
-    raise NotImplementedError(
-        "the interactive shell is not ported yet (ROADMAP Queue 1 item 8f, "
-        "shell.py)")
+    from .shell import run_shell
+    return run_shell(args.scene, device=args.device)
 
 
 def main(argv=None) -> int:

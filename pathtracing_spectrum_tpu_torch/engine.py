@@ -268,13 +268,23 @@ def _sorted_intersect(prep: _Prepared, planes, alive):
     return t < BIG, t, idx[inv], s2[inv], s3[inv]
 
 
+def _draw(k: rng.Key, rows: tuple, n: int, dev, frame=None) -> torch.Tensor:
+    """``uniform(k, (*rows, n))``; with ``frame=(offset, width)`` columns
+    ``offset..offset+n`` of ``uniform(k, (*rows, width))``."""
+    if frame is None:
+        return rng_cuda.uniform(k, (*rows, n), dev)
+    offset, width = frame
+    return rng_cuda.uniform(k, (*rows, width),
+                            dev)[..., offset:offset + n].contiguous()
+
+
 def trace_radiance(scene: SceneData, ro: torch.Tensor, rd: torch.Tensor,
                    key: Optional[rng.Key], max_depth: int,
                    backend: str = "auto",
                    rand_override: Optional[torch.Tensor] = None,
                    dispersion=False, reorder: object = "auto",
-                   primary0=None, _prep: Optional[_Prepared] = None
-                   ) -> TraceResult:
+                   primary0=None, _prep: Optional[_Prepared] = None,
+                   frame: Optional[tuple] = None) -> TraceResult:
     """Trace radiance spectra for a batch of rays.
 
     Args:
@@ -294,6 +304,11 @@ def trace_radiance(scene: SceneData, ro: torch.Tensor, rd: torch.Tensor,
         intersection (see :func:`_prepare`); result-exact either way.
       primary0: optional (hit, t, idx, s2, s3, attrs_t) for THIS (ro, rd),
         the hoisted primary intersection and fetch (see render_samples).
+      frame: optional (offset, width): the rays are columns
+        ``offset..offset+N`` of a ``width``-ray frame, and each draw is the
+        frame's draw cut to those columns, so a tile traces as the whole
+        frame would trace it (``parallel/tiling.py`` without the device
+        fold).
 
     Returns TraceResult(radiance [N, nw], rays_traced 0-d int64 tensor).
     """
@@ -328,7 +343,7 @@ def trace_radiance(scene: SceneData, ro: torch.Tensor, rd: torch.Tensor,
                                          attrs_t[wh + 1], uvu, uvv)
 
     if prep.hero:
-        hero_u = rng_cuda.uniform(rng.fold_in(key, HERO_FOLD), (n,), dev)
+        hero_u = _draw(rng.fold_in(key, HERO_FOLD), (), n, dev, frame)
         hero = torch.clamp_max((hero_u * nw).to(torch.int32), nw - 1)
         hero_l = hero.long()
         channels = torch.arange(nw, dtype=torch.int32, device=dev)
@@ -413,8 +428,8 @@ def trace_radiance(scene: SceneData, ro: torch.Tensor, rd: torch.Tensor,
         if rand_override is not None:
             rr_rand, u_rand, th_rand, fr_rand = rand_override[h]
         else:
-            rr_rand, u_rand, th_rand, fr_rand = rng_cuda.uniform(
-                rng.fold_in(key, h), (4, n), dev)
+            rr_rand, u_rand, th_rand, fr_rand = _draw(
+                rng.fold_in(key, h), (4,), n, dev, frame)
 
         # ---- Russian roulette (from the max_depth-th hit on) ----
         if h >= max_depth - 1:
@@ -533,7 +548,8 @@ def render_samples(scene: SceneData, ro, rd, total, samples: int,
                    base_key: rng.Key, counter0: int, n_steps: int,
                    max_depth: int, backend: str = "auto", dispersion=False,
                    reorder: object = "auto", jitter_cam=None,
-                   chunks: int = 1):
+                   chunks: int = 1, fold_device: Optional[int] = None,
+                   frame: Optional[tuple] = None):
     """``n_steps`` progressive samples; sample ``i`` traces under
     ``k_i = rng.fold_in(base_key, counter0 + i)``, the JAX package's
     schedule and that of repeated :func:`render_sample` calls.
@@ -558,6 +574,13 @@ def render_samples(scene: SceneData, ro, rd, total, samples: int,
     rays differ per sample. Chunks and jitter together are refused, as in
     the JAX package.
 
+    ``fold_device`` (a mesh index, ``parallel/tiling.py``) folds into
+    every sample's key after the sample fold, ``k_i = fold_in(fold_in(
+    base_key, counter0 + i), fold_device)``, before the chunk and jitter
+    folds (JAX ``parallel/tiling.py:137-146``). ``frame=(offset, width)``
+    cuts every draw, the jitter offsets' too, from a ``width``-ray frame's
+    (see :func:`trace_radiance`); not with chunks.
+
     ``total`` is accumulated IN PLACE (the JAX version donates it), one
     chunk's rows at a time, and returned. Returns (total, samples', out,
     rays_traced): ``rays_traced`` is a 0-d int64 tensor where the JAX
@@ -569,13 +592,20 @@ def render_samples(scene: SceneData, ro, rd, total, samples: int,
             raise ValueError("chunks > 1 does not support jitter_cam yet")
         if n % chunks:
             raise ValueError(f"chunks={chunks} must divide the ray count {n}")
+        if frame is not None:
+            raise ValueError("chunks > 1 does not support frame")
     _check_reorder(reorder)
     dev = ro.device
     prep = _prepare(scene, backend, reorder, dispersion)
     primary0 = _primary(prep, ro, rd) if jitter_cam is None else None
     trace = functools.partial(trace_radiance, scene, max_depth=max_depth,
                               backend=backend, dispersion=dispersion,
-                              reorder=reorder, _prep=prep)
+                              reorder=reorder, _prep=prep, frame=frame)
+
+    def sample_key(i):
+        k = rng.fold_in(base_key, counter0 + i)
+        return k if fold_device is None else rng.fold_in(k, fold_device)
+
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     if chunks > 1:
         # each chunk's rows of the hoisted hit and columns of the hoisted
@@ -588,7 +618,7 @@ def render_samples(scene: SceneData, ro, rd, total, samples: int,
                           + (primary0[5][:, s].contiguous(),)))
         del primary0
         for i in range(n_steps):
-            k = rng.fold_in(base_key, counter0 + i)
+            k = sample_key(i)
             for c, (s, prim) in enumerate(parts):
                 res = trace(ro[s], rd[s], rng.fold_in(k, CHUNK_FOLD + c),
                             primary0=prim)
@@ -596,14 +626,13 @@ def render_samples(scene: SceneData, ro, rd, total, samples: int,
                 rays = rays + res.rays_traced
     else:
         for i in range(n_steps):
-            k = rng.fold_in(base_key, counter0 + i)
+            k = sample_key(i)
             rd_i = rd
             if jitter_cam is not None:
                 kx, ky = rng.split(rng.fold_in(k, JITTER_FOLD))
                 nj = jitter_cam.px.shape[0]
-                rd_i = jittered_dirs(jitter_cam,
-                                     rng_cuda.uniform(kx, (nj,), dev),
-                                     rng_cuda.uniform(ky, (nj,), dev))
+                rd_i = jittered_dirs(jitter_cam, _draw(kx, (), nj, dev, frame),
+                                     _draw(ky, (), nj, dev, frame))
             res = trace(ro, rd_i, k, primary0=primary0)
             total.add_(res.radiance)
             rays = rays + res.rays_traced

@@ -1,8 +1,9 @@
 """Progressive render session: the host-side state machine.
 
-Port of ``pathtracing_spectrum_tpu/render.py::RenderSession`` without
-sharding (ROADMAP Queue 1 item 9). The session runs on the card unless it
-is built with ``device="cpu"``:
+Port of ``pathtracing_spectrum_tpu/render.py::RenderSession``. The session
+runs on the card unless it is built with ``device="cpu"``, or on a device
+mesh with ``sharding=`` (``parallel.TileSharding`` or
+``parallel.SppAllreduce``; its device is then the mesh's first):
 
 * ``start()``   — (re)compiles the scene onto the device when it changed,
   makes the primary rays in 32x32 tile order, and resets the accumulator
@@ -19,7 +20,9 @@ is built with ``device="cpu"``:
   stopped by ``stop()``;
 * ``save_checkpoint``/``load_checkpoint`` — the JAX session's npz file:
   the same fields, dtypes and refusals, so a checkpoint that either
-  package writes resumes exactly in the other;
+  package writes resumes exactly in the other; the port's file also
+  records the sharding, the mesh size and the device fold, and a resume
+  under others is refused;
 * ``result()``/``result_srgb()`` — the running mean as spectra, or as
   sRGB through the device epilogue.
 
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from .device import DEFAULT_DEVICE, resolve_device
-from .engine import render_samples, resolve_backend
+from .engine import JITTER_FOLD, render_samples, resolve_backend
 from .models.camera import camera_rays, jitter_cam_arrays, tile_order
 from .ops import rng
 from .scene import Scene, SceneData
@@ -53,6 +56,12 @@ MAX_TARGET_SPP = 65535  # reference GUI clamp (main.cpp:1662-1669)
 # from another schedule would resume with another random sequence, so
 # load_checkpoint refuses it.
 KEY_SCHEDULE_VERSION = 1
+
+
+def _each(fn, x):
+    """``fn`` of a tensor, or of each device's tensor of a sharded one (a
+    ``TileSharding`` list)."""
+    return [fn(t) for t in x] if isinstance(x, list) else fn(x)
 
 
 class RenderStatus(enum.Enum):
@@ -71,12 +80,15 @@ class RenderSession:
                  jitter: bool = False, auto_backend_threshold: int = 4096,
                  resolution: Optional[tuple] = None, sharding=None,
                  tile_ordering: bool = True, chunks: int = 1):
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharding is not ported yet (ROADMAP Queue 1 item 9)")
         if chunks > 1 and jitter:
             raise ValueError("chunks > 1 (bounded-width wavefront) "
                              "does not support jitter (yet)")
+        if (chunks > 1 and sharding is not None
+                and not sharding.supports_chunks):
+            raise ValueError("chunks > 1 composes only with a sharding "
+                             "that supports it (TileSharding does; "
+                             "SppAllreduce renders full frames per device "
+                             "and does not)")
         if auto_backend_threshold != 4096:
             # the JAX session's signature; there too it changes nothing
             raise ValueError(
@@ -84,7 +96,9 @@ class RenderSession:
                 "effect: backend='auto' resolves by the engine's per-device "
                 "triangle counts (engine.resolve_backend)")
         self.scene = scene
-        self.device = resolve_device(device)
+        self._sharding = sharding
+        self.device = (sharding.mesh.devices[0] if sharding is not None
+                       else resolve_device(device))
         self.seed = int(seed)
         self.backend = backend   # handed to the engine; "auto" resolves there
         self.dispersion = dispersion
@@ -148,19 +162,27 @@ class RenderSession:
             self._inv_perm_dev = None
             perm_t = torch.from_numpy(self._perm.astype(np.int64))
             ro, rd = ro[perm_t], rd[perm_t]
-        self._ro, self._rd = ro.to(self.device), rd.to(self.device)
+        sh = self._sharding
+        self._ro, self._rd = (sh.shard_rays(ro, rd) if sh is not None
+                              else (ro.to(self.device), rd.to(self.device)))
         self._jitter_cam = (jitter_cam_arrays(cam, w, h, self._perm,
                                               self.device)
                             if self.jitter else None)
+        if self._jitter_cam is not None and sh is not None \
+                and sh.supports_jitter_cam:
+            self._jitter_cam = sh.shard_jitter_cam(self._jitter_cam)
         self._dirty = False
         self._reset_accumulator()
 
     def _reset_accumulator(self) -> None:
         w, h = self.resolution
         nw = len(self.scene.wavelengths)
-        self._total = torch.zeros((w * h, nw), dtype=torch.float32,
-                                  device=self.device)
-        self._out = torch.zeros_like(self._total)
+        if self._sharding is not None:
+            self._total = self._sharding.zeros_accumulator(w * h, nw)
+        else:
+            self._total = torch.zeros((w * h, nw), dtype=torch.float32,
+                                      device=self.device)
+        self._out = _each(torch.zeros_like, self._total)
         self._samples = 0
         self._sample_counter = 0
         self.elapsed = 0.0
@@ -201,20 +223,49 @@ class RenderSession:
     # -- rendering ---------------------------------------------------------------
     def step(self, n_samples: int = 1, readback: bool = True):
         """Render ``n_samples`` progressive samples in one
-        ``render_samples`` call; returns the running mean as [H, W, nw]
-        (or None with ``readback=False``)."""
+        ``render_samples`` call (the sharding's, with one); returns the
+        running mean as [H, W, nw] (or None with ``readback=False``).
+
+        A sharding without batched jitter (``SppAllreduce``) renders a
+        jittered session one ``render_sample`` at a time, as the JAX
+        session does: sample ``i`` under ``k = fold_in(key, i)``, its rays
+        through ``camera_rays(..., key=fold_in(k, 0xC0FFEE), jitter=True)``
+        (made on the host, as :meth:`_sync` makes them) and the device fold
+        inside the sharding."""
         if self.status != RenderStatus.RENDERING:
             self.start()
         t0 = time.perf_counter()
-        if n_samples >= 1:
-            self._total, self._samples, self._out, rays = render_samples(
+        sh = self._sharding
+        if n_samples >= 1 and (sh is None or sh.supports_jitter_cam
+                               or not self.jitter):
+            step_fn = sh.render_samples if sh is not None else render_samples
+            kw = {"jitter_cam": self._jitter_cam} if self.jitter else {}
+            if self.chunks > 1:
+                kw["chunks"] = self.chunks
+            self._total, self._samples, self._out, rays = step_fn(
                 self._scene_data, self._ro, self._rd, self._total,
                 self._samples, self._key, self._sample_counter,
                 n_steps=n_samples, max_depth=self.scene.trace_depth,
-                backend=self.backend, dispersion=self.dispersion,
-                jitter_cam=self._jitter_cam, chunks=self.chunks)
+                backend=self.backend, dispersion=self.dispersion, **kw)
             self._sample_counter += n_samples
             self.rays_traced += int(rays)   # waits for the device
+        else:
+            w, h = self.resolution
+            for _ in range(n_samples):
+                key = rng.fold_in(self._key, self._sample_counter)
+                ro, rd = camera_rays(self.scene.camera(), w, h, "cpu",
+                                     key=rng.fold_in(key, JITTER_FOLD),
+                                     jitter=True)
+                if self._perm is not None:
+                    perm_t = torch.from_numpy(self._perm.astype(np.int64))
+                    ro, rd = ro[perm_t], rd[perm_t]
+                ro, rd = sh.shard_rays(ro, rd)
+                self._total, self._samples, self._out, rays = sh.render_sample(
+                    self._scene_data, ro, rd, self._total, self._samples, key,
+                    max_depth=self.scene.trace_depth, backend=self.backend,
+                    dispersion=self.dispersion)
+                self._sample_counter += 1
+                self.rays_traced += int(rays)
         dt = time.perf_counter() - t0
         self.elapsed += dt
         self.last_sample_time = dt / max(n_samples, 1)
@@ -290,10 +341,15 @@ class RenderSession:
         nw = len(self.scene.wavelengths)
         if self._out is None:
             return np.zeros((h, w, nw), np.float32)
-        out = self._out.cpu().numpy()
+        out = self._gathered(self._out).cpu().numpy()
         if self._inv_perm is not None:
             out = out[self._inv_perm]
         return out.reshape(h, w, nw)
+
+    def _gathered(self, x) -> torch.Tensor:
+        """The whole [N, nw] frame of an accumulator-shaped value, on the
+        session's device (the mesh's first, gathered by the sharding)."""
+        return self._sharding.gather(x) if self._sharding is not None else x
 
     def result_srgb(self, exposure: float = 0.0) -> np.ndarray:
         """Running mean as uint8 sRGB [H, W, 3] through the device epilogue
@@ -312,7 +368,8 @@ class RenderSession:
                                            self.scene.wavelengths,
                                            exposure=exposure)
         srgb = viewer.spectral_to_srgb_device(
-            self._out, self.scene.wavelengths, exposure=exposure)
+            self._gathered(self._out), self.scene.wavelengths,
+            exposure=exposure)
         if self._inv_perm is not None:
             if self._inv_perm_dev is None:
                 self._inv_perm_dev = torch.from_numpy(
@@ -337,14 +394,24 @@ class RenderSession:
         }
 
     # -- checkpoint/resume --------------------------------------------------------
+    def _sharding_record(self) -> tuple:
+        """(strategy, mesh size, device fold) of this session's sample
+        stream: ``("none", 1, False)`` without a sharding."""
+        sh = self._sharding
+        if sh is None:
+            return "none", 1, False
+        return (sh.name, sh.mesh.size,
+                sh.folds_device(self.resolved_backend(), self.chunks))
+
     def save_checkpoint(self, path: str) -> None:
         """Write the accumulator (in scanline order), the sample count and
         counter, the seed and what the resume must match, as the JAX
         session's npz (``samples`` a 0-d int32, so the JAX session loads
-        it too)."""
+        it too), plus the sharding, mesh size and device fold (which the
+        JAX package does not record, and ignores)."""
         if self._total is None:
             raise RuntimeError("nothing to save: start() the session first")
-        total = self._total.cpu().numpy()
+        total = self._gathered(self._total).cpu().numpy()
         if self._inv_perm is not None:
             total = total[self._inv_perm]   # persist in scanline order
         np.savez(path,
@@ -358,12 +425,17 @@ class RenderSession:
                  backend=self.resolved_backend(),
                  jitter=self.jitter,
                  chunks=self.chunks,
-                 key_schedule=KEY_SCHEDULE_VERSION)
+                 key_schedule=KEY_SCHEDULE_VERSION,
+                 **dict(zip(("sharding", "mesh_size", "device_fold"),
+                            self._sharding_record())))
 
     def load_checkpoint(self, path: str) -> None:
         """Resume from a checkpoint either package wrote, refusing one whose
-        resolution, wavelength count, scene, key schedule, jitter or chunks
-        differ from this session's; the session is then PAUSED."""
+        resolution, wavelength count, scene, key schedule, jitter, chunks,
+        sharding, mesh size or device fold differ from this session's; the
+        session is then PAUSED. A file without the sharding fields (every
+        JAX file) resumes into an unsharded session, and into a sharded one
+        with a warning."""
         data = np.load(path)
         if tuple(data["resolution"]) != tuple(self.resolution):
             raise ValueError("checkpoint resolution mismatch")
@@ -411,13 +483,33 @@ class RenderSession:
                 f"fold differs, resume would not be exact")
         if self._dirty:
             self._sync()
+        # after the sync: the device fold follows the resolved backend
+        mine = self._sharding_record()
+        if "sharding" in data.files:
+            theirs = (str(data["sharding"]), int(data["mesh_size"]),
+                      bool(data["device_fold"]))
+            if theirs != mine:
+                raise ValueError(
+                    f"checkpoint was rendered with sharding={theirs[0]} on "
+                    f"{theirs[1]} devices (device fold {theirs[2]}), this "
+                    f"session has sharding={mine[0]} on {mine[1]} devices "
+                    f"(device fold {mine[2]}) — the per-device key folds "
+                    f"differ, resume would not be exact")
+        elif self._sharding is not None:
+            warnings.warn("checkpoint without a sharding record (written by "
+                          "the JAX package) — cannot verify it was rendered "
+                          f"with sharding={mine[0]} on {mine[1]} devices",
+                          stacklevel=2)
         total = data["total"]
         if self._perm is not None:
             total = total[self._perm]
-        self._total = torch.tensor(total, dtype=torch.float32,
-                                   device=self.device)
+        total = torch.tensor(total, dtype=torch.float32)
+        self._total = (self._sharding.shard_accumulator(total)
+                       if self._sharding is not None
+                       else total.to(self.device))
         self._samples = int(data["samples"])
-        self._out = self._total / float(max(self._samples, 1))
+        self._out = _each(lambda t: t / float(max(self._samples, 1)),
+                          self._total)
         self._sample_counter = int(data["sample_counter"])
         self.seed = int(data["seed"])
         self._key = rng.key(self.seed)

@@ -5,6 +5,7 @@ through ``cli.main``, plus the card default, the commands that are not
 ported yet, the preview and profile outputs, and one run as a module in a
 subprocess."""
 
+import io
 import json
 import os
 import subprocess
@@ -19,6 +20,8 @@ from pathtracing_spectrum_tpu.utils import scene_io as jio  # noqa: E402
 import pathtracing_spectrum_tpu_torch as pt  # noqa: E402
 from pathtracing_spectrum_tpu_torch import cli, viewer  # noqa: E402
 from pathtracing_spectrum_tpu_torch.utils import scene_io, spectral_io  # noqa: E402,E501
+from pathtracing_spectrum_tpu_torch.parallel import (  # noqa: E402
+    SppAllreduce, TileSharding, make_mesh)
 from pathtracing_spectrum_tpu_torch.utils.image import load_rgba  # noqa: E402,E501
 
 from test_torch_scene import REPO, port_cornell  # noqa: E402
@@ -178,10 +181,10 @@ def test_cli_preview_and_profile(tmp_path, scene_file):
 
 
 def test_cli_refusals(tmp_path, scene_file):
-    """The card is the default: without --device cpu the render and the
-    preview raise the device RuntimeError here (no CPU fallback); sharding,
-    the benchmark and the shell are not ported and raise naming their
-    ROADMAP items."""
+    """The card is the default: without --device cpu the render (sharded
+    too), the preview and the shell raise the device RuntimeError here (no
+    CPU fallback); the benchmark is not ported and raises naming its
+    ROADMAP item."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     out = str(tmp_path / "o.txt")
@@ -192,12 +195,52 @@ def test_cli_refusals(tmp_path, scene_file):
         cli.main(["preview", scene_file, "--out", str(tmp_path / "p.png")])
     assert not os.path.exists(out)
     for shard in ("tiles", "spp"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            render(scene_file, "--spp", "1", "--out", out, "--shard", shard)
+        with pytest.raises(RuntimeError, match="torch sees no CUDA device"):
+            cli.main(["render", scene_file, "--spp", "1", "--out", out,
+                      "--quiet", "--shard", shard])
     with pytest.raises(NotImplementedError, match="item 5"):
         cli.main(["bench"])
-    with pytest.raises(NotImplementedError, match="item 8f"):
+    with pytest.raises(RuntimeError, match="torch sees no CUDA device"):
         cli.main(["shell", scene_file])
+
+
+@pytest.mark.parametrize("shard", ["tiles", "spp"])
+def test_cli_render_sharded(tmp_path, scene_file, capsys, shard):
+    """``--shard tiles|spp --device cpu``: the strategy on a one-entry CPU
+    mesh, its record in the checkpoint, the export the session's image
+    (tiles on the dense backend: the unsharded image itself)."""
+    out, ck = str(tmp_path / "o.txt"), str(tmp_path / "ck.npz")
+    assert render(scene_file, "--spp", "2", "--res", "8x8", "--out", out,
+                  "--checkpoint", ck, "--shard", shard,
+                  "--backend", "dense") == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["samples"] == 2 and stats["device"] == "cpu"
+    data = np.load(ck)
+    assert (str(data["sharding"]), int(data["mesh_size"]),
+            bool(data["device_fold"])) == (shard, 1, shard == "spp")
+    mesh = make_mesh(["cpu"])
+    sess = pt.RenderSession(
+        scene_io.load_scene(scene_file), "cpu", backend="dense",
+        resolution=(8, 8),
+        sharding=TileSharding(mesh) if shard == "tiles"
+        else SppAllreduce(mesh))
+    img = sess.run(2, batch=8)
+    assert open(out).read() == spectral_io.format_spectrum(img)
+    if shard == "tiles":
+        base = pt.RenderSession(scene_io.load_scene(scene_file), "cpu",
+                                backend="dense", resolution=(8, 8))
+        np.testing.assert_array_equal(img, base.run(2, batch=8))
+
+
+def test_cli_shell_scripted(tmp_path, scene_file, capsys, monkeypatch):
+    """``shell scene --device cpu`` reads its commands from stdin."""
+    png = str(tmp_path / "p.png")
+    monkeypatch.setattr("sys.stdin", io.StringIO(
+        f"info\ndepth 1\npreview {png} gray\nquit\nn\n"))
+    assert cli.main(["shell", scene_file, "--device", "cpu"]) == 0
+    said = capsys.readouterr().out
+    assert "opened" in said and f"wrote {png}" in said
+    assert load_rgba(png).shape == (16, 16, 4)
 
 
 def test_python_m_render_runs_as_a_module(tmp_path, scene_file):

@@ -3,8 +3,9 @@ K1 (dense sweep), K2 (attribute fetch), K3 (BVH walk), K4
 (cluster-culled sweep) and the threefry draw, the wrappers' refusals,
 whole traces against the CPU (shared variates, and one key for the
 spectral modes, textures, grids and jitter), chunked sampling against its
-per-chunk truth, a checkpoint round trip, and sessions counted through
-their kernels.
+per-chunk truth, a checkpoint round trip, sessions counted through
+their kernels, sharded sessions (tiles on 3 entries of the card, padding
+included; spp-allreduce on 2) and the shell.
 
 Every test here needs a CUDA device and skips without one. The module
 imports neither jax nor the JAX package, so it also runs where jax is not
@@ -252,6 +253,82 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
     b.load_checkpoint(path)
     assert b.samples == 2 and b._total.device.type == "cuda"
     np.testing.assert_array_equal(b.run(4, batch=2), full)
+
+
+def test_tile_sharding_on_card_equals_per_tile_replay(dev):
+    """A ``TileSharding`` session on 3 entries of the card: 4,096 rays in
+    tiles of 1,366, the last ending in 2 zero-direction padding rays, each
+    tile one K1 call hoisted and 5 a sample; bitwise each tile's
+    ``render_samples(fold_device=g)`` replay, put together without the
+    padding."""
+    from pathtracing_spectrum_tpu_torch.models.camera import tile_order
+    from pathtracing_spectrum_tpu_torch.parallel import (TileSharding,
+                                                         make_mesh)
+    depth, spp = 3, 2
+    sc = cornell(64, depth)
+    sess = pt.RenderSession(sc, seed=2,
+                            sharding=TileSharding(make_mesh([dev] * 3)))
+    sess.start()
+    assert [t.shape[0] for t in sess._ro] == [1366] * 3
+    assert not sess._rd[-1][-2:].any()
+    k1 = intersect_cuda.intersect_dense.launches
+    img = sess.run(spp, batch=spp)
+    assert (intersect_cuda.intersect_dense.launches - k1
+            == 3 * (1 + spp * (2 * depth - 1)))
+    ro, rd = pt.camera_rays(sc.camera(), 64, 64, "cpu")
+    perm, inv = tile_order(64, 64)
+    perm = torch.from_numpy(perm.astype(np.int64))
+    ro, rd = (torch.cat([a[perm], torch.zeros((2, 3))]) for a in (ro, rd))
+    tiles = []
+    for g in range(3):
+        s = slice(1366 * g, 1366 * (g + 1))
+        total = torch.zeros((1366, 4), device=dev)
+        engine.render_samples(sess._scene_data, ro[s].to(dev), rd[s].to(dev),
+                              total, 0, rng.key(2), 0, n_steps=spp,
+                              max_depth=depth, fold_device=g)
+        tiles.append(total)
+    want = (torch.cat(tiles)[:4096] / spp).cpu().numpy()[inv]
+    np.testing.assert_array_equal(img, want.reshape(64, 64, 4))
+
+
+def test_spp_allreduce_on_card_is_the_device_order_sum(dev):
+    """``SppAllreduce`` on 2 entries of the card: one step is 2 samples,
+    the per-device traces under ``fold_in(key, dev)`` summed in device
+    order, bitwise."""
+    from pathtracing_spectrum_tpu_torch.parallel import (SppAllreduce,
+                                                         make_mesh)
+    sc = cornell(32, 3)
+    scene = sc.compile(dev)
+    ro, rd = pt.camera_rays(sc.camera(), 32, 32, dev)
+    sa = SppAllreduce(make_mesh([dev] * 2))
+    o, r = sa.shard_rays(ro, rd)
+    _, s, out, _ = sa.render_sample(scene, o, r, sa.zeros_accumulator(
+        1024, 4), 0, rng.key(3), max_depth=3)
+    parts = [engine.trace_radiance(scene, ro, rd, rng.fold_in(rng.key(3), g),
+                                   3, "dense").radiance for g in range(2)]
+    assert s == 2 and torch.equal(out, (parts[0] + parts[1]) / 2)
+
+
+def test_shell_renders_and_previews_on_card(dev, tmp_path):
+    """A scripted shell on the card: ``render 2`` on the async loop (one
+    hoisted and 5 looped K1 calls a sample), then ``preview`` (one more)."""
+    import io
+    import time
+    from pathtracing_spectrum_tpu_torch.shell import SpectrumShell
+    sh = SpectrumShell(stdin=io.StringIO(""), stdout=io.StringIO(),
+                       device=dev)
+    sh.scene = cornell(32, 3)
+    k1 = intersect_cuda.intersect_dense.launches
+    sh.onecmd("render 2")
+    deadline = time.monotonic() + 60
+    while sh.session.status.value != "paused" and time.monotonic() < deadline:
+        time.sleep(0.01)
+    sh.onecmd(f"preview {tmp_path / 'p.png'}")
+    sh.onecmd("stop")
+    assert sh.session.samples == 2 and sh.session.device.type == "cuda"
+    assert intersect_cuda.intersect_dense.launches - k1 == 2 * 6 + 1
+    assert (tmp_path / "p.png").exists()
+    assert not sh.session._thread.is_alive()
 
 
 def test_jitter_on_card_matches_cpu(dev):

@@ -201,6 +201,18 @@ with tempfile.TemporaryDirectory() as tmp:
     viewer.save_png(img, 0, png)
 assert preview.preview_render(sc, 8, 8, device="cpu").shape == (8, 8)
 assert preview.pick(sc, 8, 8, 4, 4, device="cpu")[0] == 0
+# multi-device rendering and the shell
+import io
+from pathtracing_spectrum_tpu_torch.parallel import TileSharding, make_mesh
+from pathtracing_spectrum_tpu_torch.shell import SpectrumShell
+tiles = RenderSession(sc, seed=1, sharding=TileSharding(make_mesh(["cpu"] * 3)))
+assert np.isfinite(tiles.run(2, batch=2)).all()
+with tempfile.TemporaryDirectory() as tmp:
+    out = io.StringIO()
+    sh = SpectrumShell(stdin=io.StringIO(""), stdout=out, device="cpu")
+    sh.scene = sc
+    sh.onecmd("preview " + os.path.join(tmp, "p.png"))
+    assert "wrote" in out.getvalue(), out.getvalue()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "PIL"))
 assert not bad, bad
 print("ok")

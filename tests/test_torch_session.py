@@ -26,6 +26,8 @@ import pathtracing_spectrum_tpu_torch as pt  # noqa: E402
 from pathtracing_spectrum_tpu_torch import engine  # noqa: E402
 from pathtracing_spectrum_tpu_torch import render as render_mod  # noqa: E402
 from pathtracing_spectrum_tpu_torch.ops import rng  # noqa: E402
+from pathtracing_spectrum_tpu_torch.parallel import (  # noqa: E402
+    SppAllreduce, make_mesh)
 
 from scene_helpers import ASSETS, cornell_scene  # noqa: E402
 from test_torch_scene import to_port_scene  # noqa: E402
@@ -451,8 +453,8 @@ def test_restart_when_dirty_resyncs():
 def test_session_refusals():
     with pytest.raises(ValueError, match="jitter"):
         small_session(chunks=2, jitter=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        small_session(sharding=object())
+    with pytest.raises(ValueError, match="SppAllreduce .* does not"):
+        small_session(chunks=2, sharding=SppAllreduce(make_mesh(["cpu"] * 2)))
     with pytest.raises(ValueError, match="must divide the ray count 64"):
         small_session(chunks=3).run(1)
     with pytest.raises(RuntimeError, match="start"):
@@ -517,7 +519,8 @@ def test_port_checkpoint_resumes_in_jax(mode, tmp_path):
 
 
 def test_checkpoint_fields_match_the_jax_files(tmp_path):
-    """Both packages write the same npz fields with the same dtypes."""
+    """Both packages write the same npz fields with the same dtypes; the
+    port's file adds its sharding record (an unsharded session's here)."""
     pj, pp = str(tmp_path / "j.npz"), str(tmp_path / "p.npz")
     j = jax_session(seed=2)
     j.run(target_spp=1)
@@ -526,7 +529,9 @@ def test_checkpoint_fields_match_the_jax_files(tmp_path):
     s.run(target_spp=1)
     s.save_checkpoint(pp)
     dj, dp = np.load(pj), np.load(pp)
-    assert sorted(dj.files) == sorted(dp.files)
+    record = {"sharding": "none", "mesh_size": 1, "device_fold": False}
+    assert sorted(dj.files) == sorted(set(dp.files) - set(record))
+    assert {f: dp[f].item() for f in record} == record
     for f in dj.files:
         assert (dj[f].dtype, dj[f].shape) == (dp[f].dtype, dp[f].shape), f
     for f in ("samples", "sample_counter", "seed", "resolution", "n_waves",
