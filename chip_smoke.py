@@ -51,6 +51,18 @@ through its kernels and made a healthy image:
   bitwise its per-tile ``render_samples(fold_device=g)`` replay, the
   kernels held on the padded tile, and the unsharded, one-device and
   3-entry sessions timed in turns;
+- the host's file readers and writers: the committed texture fixtures
+  (``tests/torch_data/``: JPEG, BMP, TGA, PNM, 16-bit and Adam7 PNG)
+  decoded and held to the digests of PIL's decode, the 2048x2048
+  progressive JPEG's decode timed; the textured sphere at 1920x1080 with
+  that JPEG as its roughness map and a 1024x1024 JPEG as its normal map,
+  16 samples through ``"hier"`` (K3, K2, threefry), its texture table on
+  the card bitwise the host decode, timed in turns against the checker
+  session; the 52k and 200k terrains parsed by the native OBJ parser and
+  by the plain Python one, bitwise equal, both timed, the 52k one
+  rendered through ``"hier"``; a 512x512x4 crop of the 4K session's
+  result exported through the native writer and held byte for byte to
+  ``format_spectrum``, then the whole 4K result exported and timed;
 - the shell: a scripted ``SpectrumShell`` on the card opens the box's
   ``.pts``, renders 4 samples on its async loop, exports, previews and
   autopreviews.
@@ -89,6 +101,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
 import importlib.util
 import json
 import os
@@ -130,9 +143,20 @@ SURFACE_SPP, PREVIEW_FRAMES, SRGB_TURNS = 16, 20, 3
 # "hier" on the 3-entry mesh, 4; then the rates in turns, once each way
 MULTI_SPP, MULTI_TERRAIN_SPP, MULTI_RAGGED, MULTI_RATE_TURNS = 16, 4, 3, 1
 SHELL_SPP = 4            # the scripted shell's render
+# the host's file readers and writers: the committed texture fixtures
+# (tools/make_torch_fixtures.py) held by digest, the 2048x2048 JPEG's
+# decode timed (median of 5); the textured 1080p session with the JPEG maps
+# (16 samples, then 4 a step against the checker session in turns); the
+# terrains parsed natively and in Python, the 52k one rendered through
+# "hier" (4 samples); a 512x512x4 export held to the formatter, the 4K one
+# timed
+FILES_DIR = os.path.join(HERE, "tests", "torch_data")
+FILES_DECODES, FILES_RATE_SPP, FILES_TERRAIN_SPP = 5, 4, 4
+FILES_EXPORT_RES = 512
 # make_terrain arguments of the repo's terrain assets (make_assets.py)
 TERRAINS = {"10k": dict(grid=64, n_rocks=8, rock_sub=8),
-            "52k": dict(grid=128, n_rocks=36, rock_sub=12)}
+            "52k": dict(grid=128, n_rocks=36, rock_sub=12),
+            "200k": dict(grid=224, n_rocks=96, rock_sub=20)}
 # jax.random (JAX 0.9.0, threefry, partitionable) values for key 5, which
 # tests/test_torch_rng.py asserts against jax on the CPU: three folds, the
 # first uniforms of each row of the per-bounce [4, 262144] draw under
@@ -356,11 +380,13 @@ def cornell_nw_scene(pt, res, nw: int, depth: int = DEPTH):
     return sc
 
 
-def textured_sphere_scene(pt, res, grid_path: str = ""):
+def textured_sphere_scene(pt, res, grid_path: str = "", roughness: str = "",
+                          normal: str = ""):
     """``bench_suite.textured_sphere_scene``: a glossy UV sphere with the
     checker roughness map inside the Cornell box (2,244 triangles); with
     ``grid_path`` the box's back wall also carries that temperature
-    grid."""
+    grid; ``roughness`` replaces the checker map, ``normal`` gives the
+    sphere a normal map."""
     assets = os.path.join(HERE, "assets")
     sc = pt.Scene()
     sc.wavelengths = [500.0, 1000.0, 1500.0, 2000.0]
@@ -373,7 +399,9 @@ def textured_sphere_scene(pt, res, grid_path: str = ""):
     sc.set_material(0, 0, pt.Material(
         type=pt.MaterialType.GLOSSY, spectrum_mat_id=0, temperature=80.0,
         roughness=0.4,
-        roughness_tex_file=os.path.join(assets, "checker.png")))
+        roughness_tex_file=roughness or os.path.join(assets, "checker.png")))
+    if normal:
+        sc.set_normal_texture(0, 0, normal)
     obj.set_location([0.0, 0.0, 3.0])
     box = sc.load_object(os.path.join(assets, "cornell_box.obj"))
     for i, el in enumerate(box.elements):
@@ -1101,6 +1129,164 @@ def surface_phase(torch, pt, dev, card, counts, zero_counts, cornell,
         errs[kname] = max(errs.get(kname, 0.0), err)
     srgb_epilogue(torch, pt, card, sess_4k)
     return launches, errs
+
+
+def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
+                res=TEX_RES, spp=TEX_SPP, rate_spp=FILES_RATE_SPP,
+                terrains=("52k", "200k"), terrain_res=RES,
+                terrain_spp=FILES_TERRAIN_SPP, export_res=FILES_EXPORT_RES,
+                decodes=FILES_DECODES):
+    """The host's file readers and writers, driven on the card's machine:
+
+    - every fixture of ``tests/torch_data/`` decoded and held to the
+      digest of PIL's decode (for the 16-bit grey PNG, of its high bytes),
+      the 2048x2048 progressive JPEG's decode timed (median of ``decodes``);
+    - ``textured_sphere_scene`` at ``res`` with that JPEG as its roughness
+      map and the 1024x1024 baseline JPEG as its normal map, through
+      ``"hier"``: the texture table on the card bitwise the host decode,
+      ``spp`` samples counted through K3, K2 and threefry, then ms per
+      sample in turns against the checker-map session;
+    - the terrains parsed by the native parser and by the plain Python
+      one, bitwise equal, both timed; the first rendered through
+      ``"hier"`` (``terrain_spp`` samples, counted);
+    - a ``export_res``-square crop of the 4K session's result exported
+      through the native writer and held byte for byte to
+      ``format_spectrum`` (both timed), then the whole 4K result exported
+      and timed; the Python writer's 4K time is reckoned from the crop's
+      rate rather than run.
+
+    Returns the launches of each kernel over the driven sessions."""
+    from pathtracing_spectrum_tpu_torch.utils import (image, obj_loader,
+                                                      spectral_io)
+    with open(os.path.join(FILES_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    for name, want in sorted(digests.items()):
+        rgba = image.load_rgba8(os.path.join(FILES_DIR, name))
+        same = (list(rgba.shape) == want["shape"] and hashlib.sha256(
+            rgba.tobytes()).hexdigest() == want["rgba_sha256"])
+        say("files", fixture=name, shape=list(rgba.shape),
+            digest_of=want["of"], digest_equal=same)
+        check(same, f"{name}: the decode is not its recorded digest")
+    rough = os.path.join(FILES_DIR, "roughness_2048_prog420.jpg")
+    normal = os.path.join(FILES_DIR, "normal_1024_444.jpg")
+    secs = []
+    for _ in range(decodes):
+        t0 = time.perf_counter()
+        image.load_rgba8(rough)
+        secs.append(time.perf_counter() - t0)
+    say("files", jpeg_decode=os.path.basename(rough), runs=decodes,
+        ms=[1e3 * t for t in secs],
+        median_ms=1e3 * sorted(secs)[len(secs) // 2], clock="host")
+
+    # the textured session with the JPEG maps
+    sc_j = textured_sphere_scene(pt, res, roughness=rough, normal=normal)
+    data_j = sc_j.compile(dev)
+    table = data_j.textures
+    same = tuple(table.shape) == (2, 2048, 2048, 4)
+    for i, path in enumerate((normal, rough)):    # normal maps come first
+        host = torch.from_numpy(image.load_rgba(path))
+        h, w = host.shape[:2]
+        same = same and torch.equal(table[i, :h, :w].cpu(), host)
+    say("files", texture_table=list(table.shape),
+        table_equals_host_decode=same)
+    check(same, "the texture table on the card is not the host decode")
+    del data_j, table
+    warm = pt.RenderSession(sc_j, dev, seed=1)
+    warm.run(1, batch=1)
+    del warm
+    sess_j = pt.RenderSession(sc_j, dev, seed=0)
+    img_j, got = drive(torch, sess_j, spp, counts, zero_counts)
+    st = sess_j.stats()
+    want = want_counts(spp, DEPTH, route="intersect_bvh", sorts=spp)
+    say("files", session=f"textured-jpeg {res[0]}x{res[1]}", spp=spp,
+        backend=st["backend"], launches=json.dumps(got),
+        expected=json.dumps(want), mean=float(img_j.mean()))
+    check(st["backend"] == "hier", f"textured-jpeg resolved {st['backend']}")
+    check(got == want, f"textured-jpeg launches {got}, expected {want}")
+    check(img_j.shape == (res[1], res[0], 4), f"image shape {img_j.shape}")
+    healthy(img_j, "textured-jpeg")
+    launches = dict(got)
+    sess_c = pt.RenderSession(textured_sphere_scene(pt, res), dev, seed=0)
+    sess_c.run(1, batch=1)
+    rates = {"checker": [], "jpeg": []}
+    for sess, name in ((sess_c, "checker"), (sess_j, "jpeg"),
+                       (sess_j, "jpeg"), (sess_c, "checker")):
+        rates[name].append(timed_step(torch, sess, rate_spp))
+    for name, vals in rates.items():
+        say("files", session=f"textured-{name}", spp_per_step=rate_spp,
+            mrays_per_s=[v[0] for v in vals],
+            ms_per_sample=[v[1] for v in vals], card=repr(card))
+    del sess_j, sess_c, img_j
+
+    # the OBJ parse, native and plain, then the 52k terrain rendered
+    paths = {}
+    for which in terrains:
+        paths[which] = make_terrain(which)
+        t0 = time.perf_counter()
+        mesh = obj_loader.load_obj(paths[which])
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = obj_loader._load_obj_py(paths[which])
+        python_s = time.perf_counter() - t0
+        same = all(np.array_equal(getattr(mesh, k).view(np.int32),
+                                  getattr(plain, k).view(np.int32))
+                   for k in ("vertices", "texcoords", "normals"))
+        same = same and [(s.name, s.v_idx.tobytes(), s.vt_idx.tobytes(),
+                          s.vn_idx.tobytes(), s.smoothing.tobytes())
+                         for s in mesh.shapes] == [
+            (s.name, s.v_idx.tobytes(), s.vt_idx.tobytes(),
+             s.vn_idx.tobytes(), s.smoothing.tobytes())
+            for s in plain.shapes]
+        tris = sum(s.v_idx.shape[0] for s in mesh.shapes)
+        say("files", obj=f"terrain_{which}", triangles=tris,
+            native_s=native_s, python_s=python_s, bitwise_equal=same,
+            clock="host")
+        check(same, f"terrain_{which}: the native and Python parses differ")
+    sc_t = terrain_scene(pt, paths[terrains[0]], terrain_res)
+    sess_t = pt.RenderSession(sc_t, dev, seed=0)
+    img_t, got = drive(torch, sess_t, terrain_spp, counts, zero_counts)
+    st = sess_t.stats()
+    want = want_counts(terrain_spp, DEPTH, route="intersect_bvh",
+                       sorts=terrain_spp * (2 * DEPTH - 1))
+    say("files", session=f"terrain_{terrains[0]} {terrain_res}x{terrain_res}",
+        spp=terrain_spp, backend=st["backend"], launches=json.dumps(got),
+        expected=json.dumps(want), mean=float(img_t.mean()))
+    check(st["backend"] == "hier", f"terrain resolved {st['backend']}")
+    check(got == want, f"terrain launches {got}, expected {want}")
+    healthy(img_t, f"terrain_{terrains[0]}")
+    for k, n in got.items():
+        launches[k] += n
+    del sess_t, img_t
+
+    # the export: a crop held to the formatter, then the 4K result timed
+    result = sess_4k.result()
+    crop = np.ascontiguousarray(result[:export_res, :export_res])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "crop.txt")
+        t0 = time.perf_counter()
+        spectral_io.export_spectrum(path, crop)
+        native_crop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        text = spectral_io.format_spectrum(crop)
+        python_crop_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            same = f.read() == text.encode()
+        del text
+        path = os.path.join(tmp, "4k.txt")
+        t0 = time.perf_counter()
+        spectral_io.export_spectrum(path, result)
+        native_4k_s = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+    h, w, nw = result.shape
+    say("files", export=f"{export_res}x{export_res}x{nw}",
+        bytes_equal_format_spectrum=same, native_s=native_crop_s,
+        python_s=python_crop_s, clock="host")
+    say("files", export=f"{w}x{h}x{nw}", values=int(result.size),
+        native_s=native_4k_s, mb=mb,
+        python_s_reckoned=python_crop_s * result.size / crop.size,
+        clock="host")
+    check(same, "the native export differs from format_spectrum")
+    return launches
 
 
 def free_port() -> int:
@@ -2216,8 +2402,12 @@ def main() -> int:
     surf_launches, surf_errs = surface_phase(
         torch, pt, dev, card, counts, zero_counts, (sc, scene),
         (sc52, scene52), sess_4k)
-    del sess_4k
     phase_done("surface", t_phase)
+    t_phase = time.perf_counter()
+    files_launches = files_phase(torch, pt, dev, card, counts, zero_counts,
+                                 sess_4k)
+    del sess_4k
+    phase_done("files", t_phase)
     t_phase = time.perf_counter()
     multi_launches, multi_errs = multi_phase(torch, pt, dev, card, counts,
                                              zero_counts, sc, sc52)
@@ -2287,6 +2477,9 @@ def main() -> int:
         k["launches_surface"] = surf_launches[k["name"]]
         # the multi phase's driven sessions (tiles on 1 and 3, spp on NCCL)
         k["launches_multi"] = multi_launches[k["name"]]
+        # the files phase's sessions (textured 1080p from the JPEG maps,
+        # the natively parsed 52k terrain)
+        k["launches_files"] = files_launches[k["name"]]
     finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,11 +28,13 @@ PNGs written without PIL), the headlight preview and pick through K1/K3
 (``preview.py``), the interactive shell (``shell.py``), multi-device
 rendering (``parallel/``: ``TileSharding`` and ``SppAllreduce`` over a
 device mesh, across processes through ``torch.distributed``, NCCL between
-cards and gloo between CPU processes) and the command line (``python -m
-pathtracing_spectrum_tpu_torch``). Not ported yet (ROADMAP Queue 1): the
+cards and gloo between CPU processes), the command line (``python -m
+pathtracing_spectrum_tpu_torch``) and the host's file readers and writers
+(the host library built from ``csrc/``: the native OBJ parser and
+spectral writer, and the JPEG decoder beside the numpy PNG, BMP, TGA and
+PNM decoders of ``utils/image.py``). Not ported yet (ROADMAP Queue 1): the
 port's benchmark (item 5; ``cli bench`` raises ``NotImplementedError``
-naming it), textures other than PNG (item 11), the native OBJ parser
-(item 12) and the native spectral writer (item 13).
+naming it).
 """
 
 from .constants import (BIG, EPS, INF, SCENE_FILE_HEADER, SCENE_FILE_VERSION,

@@ -6,8 +6,10 @@ Two shared libraries, each built into ``build/`` next to this file
 - the CUDA kernels under ``csrc/*.cu`` (with the shared header
   ``csrc/tri_hit.cuh``), by nvcc, one object per source compiled in
   parallel, then linked; only the machine with the card builds it;
-- the host BVH builder ``csrc/bvh_build.cpp``, by the host C++ compiler,
-  on any machine that compiles a BVH-ordered scene (the CPU tests too).
+- the host library, by the host C++ compiler, on any machine that uses
+  it (the CPU tests too): the BVH builder ``csrc/bvh_build.cpp``, the OBJ
+  parser and spectral writer ``csrc/host_io.cpp`` and the JPEG decoder
+  ``csrc/jpeg_decode.cpp``.
 
 Each file name carries a hash of its sources and flags, so a changed source
 is always rebuilt and a stale library is never loaded. Nothing here runs at
@@ -34,16 +36,18 @@ SOURCES = (_CSRC / "intersect_dense.cu", _CSRC / "fetch_rows.cu",
            _CSRC / "intersect_bvh.cu", _CSRC / "intersect_cluster.cu",
            _CSRC / "threefry.cu")
 HEADERS = (_CSRC / "tri_hit.cuh",)
-HOST_SOURCES = (_CSRC / "bvh_build.cpp",)
+HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
+                _CSRC / "jpeg_decode.cpp")
 BUILD_DIR = _HERE / "build"
 
 # sm_90a (Hopper); --fmad=false keeps every multiply and add separately
 # rounded, as the plain torch versions compute them.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
-# the flags the JAX package builds its native builder with
+# the flags the JAX package builds its native library with
 # (pathtracing_spectrum_tpu/native/__init__.py), so that both compile the
-# same SAH arithmetic and build the same tree
+# same SAH arithmetic (the same tree), the same strtof (the same OBJ
+# coordinates) and the same to_chars (the same export text)
 HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-march=native")
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
@@ -58,11 +62,24 @@ _SIGNATURES = {
                              + [_V] * 5 + [_V],
     "pts_threefry_uniform": [_U32, _U32, _I64, _V, _V],
 }
+_S = ctypes.c_char_p
 _HOST_SIGNATURES = {
     "pts_bvh_build": ([_V, _V, _I64, _I32], _V),
     "pts_bvh_node_count": ([_V], _I32),
     "pts_bvh_export": ([_V] * 7, None),
     "pts_bvh_free": ([_V], None),
+    "pts_obj_load": ([_S], _V),
+    "pts_obj_counts": ([_V] * 5, None),
+    "pts_obj_copy_attribs": ([_V] * 4, None),
+    "pts_obj_shape_faces": ([_V, _I32], _I32),
+    "pts_obj_shape_name": ([_V, _I32, _S, _I32], _I32),
+    "pts_obj_shape_indices": ([_V, _I32] + [_V] * 4, None),
+    "pts_obj_free": ([_V], None),
+    "pts_export_spectrum": ([_S, _V, _I32, _I32, _I32], _I32),
+    "pts_jpeg_decode": ([_V, _I64, _V, _S, _I32], _V),
+    "pts_jpeg_size": ([_V, _V, _V], None),
+    "pts_jpeg_copy": ([_V, _V], None),
+    "pts_jpeg_free": ([_V], None),
 }
 
 
@@ -87,7 +104,7 @@ def host_compiler() -> str:
         if found:
             return found
     raise RuntimeError("no host C++ compiler (set CXX or put c++ on PATH); "
-                       "the BVH builder is built at first use")
+                       "the host library is built at first use")
 
 
 def _hashed(stem: str, flags, files) -> Path:
@@ -171,8 +188,10 @@ def load() -> ctypes.CDLL:
 
 
 def load_host() -> ctypes.CDLL:
-    """Build (when the hashed library is missing) and load the host BVH
-    builder. Raises when it cannot be built: there is no fallback."""
+    """Build (when the hashed library is missing) and load the host
+    library: the BVH builder, the OBJ parser, the spectral writer and the
+    JPEG decoder. Raises with the compiler's output when it cannot be
+    built: none of them has a fallback."""
     if _Library.host is not None:
         return _Library.host
     path = host_library_path()

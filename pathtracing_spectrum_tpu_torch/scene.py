@@ -15,9 +15,12 @@ moves them to the device in one pass. The BVH is the binned-SAH tree of
 the intersection tables, the cluster boxes and the shading table are built
 from them.
 
-Textures are decoded by ``utils/image.py`` (PNG only, no PIL: another
-format raises ``NotImplementedError``; a missing file binds nothing, as in
-the reference) and temperature grids by ``utils/tempdata.py``.
+Meshes are parsed by ``utils/obj_loader.py`` (the native parser, as the
+JAX package parses them). Textures are decoded by ``utils/image.py``
+without PIL (PNG, JPEG, BMP, TGA and binary PNM, equal to PIL's decode; a
+format it does not decode raises ``NotImplementedError`` naming the file,
+and a missing or broken file binds nothing, as in the reference and the
+JAX package) and temperature grids by ``utils/tempdata.py``.
 :func:`scene_data_from_numpy` carries any JAX ``SceneData`` across.
 """
 

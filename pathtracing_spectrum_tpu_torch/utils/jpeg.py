@@ -1,0 +1,50 @@
+"""JPEG decoding for the port's textures: the binding of the host
+library's decoder ``csrc/jpeg_decode.cpp``.
+
+The decoder computes what libjpeg-turbo computes with PIL's settings (the
+islow IDCT, fancy upsampling, integer YCbCr -> RGB), so
+:func:`decode_rgba` equals the JAX package's PIL decode bit for bit; its
+module comment lists what it reads and what it refuses. It is host C++
+(Huffman decoding is bit-serial; in Python a 2048x2048 texture would take
+minutes) and has no Python fallback: when the host library cannot be
+built, the call raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from .. import _build
+
+
+class BrokenJpeg(ValueError):
+    """The file is a JPEG, but broken (PIL raises on it too)."""
+
+
+def decode_rgba(data: bytes) -> np.ndarray:
+    """[H, W, 4] uint8 RGBA of a JPEG file's bytes, row 0 = image top.
+
+    Raises :class:`BrokenJpeg` for a broken file and
+    ``NotImplementedError`` (with the reason) for a flavour the decoder
+    does not read."""
+    lib = _build.load_host()
+    buf = np.frombuffer(data, np.uint8)
+    status = ctypes.c_int32(0)
+    msg = ctypes.create_string_buffer(256)
+    handle = lib.pts_jpeg_decode(buf.ctypes.data, buf.size,
+                                 ctypes.byref(status), msg, len(msg))
+    if not handle:
+        what = msg.value.decode(errors="replace")
+        if status.value == 2:
+            raise NotImplementedError(what)
+        raise BrokenJpeg(what)
+    try:
+        w, h = ctypes.c_int32(0), ctypes.c_int32(0)
+        lib.pts_jpeg_size(handle, ctypes.byref(w), ctypes.byref(h))
+        out = np.empty((h.value, w.value, 4), np.uint8)
+        lib.pts_jpeg_copy(handle, out.ctypes.data)
+    finally:
+        lib.pts_jpeg_free(handle)
+    return out

@@ -12,18 +12,30 @@ matters for parity:
 * negative (relative) indices are supported,
 * per-face smoothing-group ids from ``s`` statements (``off``/``0`` -> 0).
 
-Jax-free copy of ``pathtracing_spectrum_tpu/utils/obj_loader.py``: the
-pure-Python parser only. The native ctypes fast path stays in the JAX
-package; its output equals this parser's on the repo's assets.
+Jax-free copy of ``pathtracing_spectrum_tpu/utils/obj_loader.py``.
+:func:`load_obj` parses with the host library's native parser
+(``csrc/host_io.cpp``, a copy of the JAX package's), which the JAX package
+also takes whenever its library loads. The native parser reads each
+coordinate with ``std::strtof``, one rounding from the decimal to
+float32; :func:`_load_obj_py`, the plain version the tests hold it
+against, rounds twice (Python's ``float()``, then a float32 cast), and on
+a coordinate written with 9 or more significant digits the two can give
+other bits (``1.0000000596046447753906250001`` parses as ``1.0000001``
+natively and as ``1.0`` in Python). So the native parser is the one on the
+path, and there is no fallback: when the host library cannot be built,
+:func:`load_obj` raises with the compiler's output.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 from typing import List
 
 import numpy as np
+
+from .. import _build
 
 
 @dataclasses.dataclass
@@ -51,10 +63,48 @@ def _resolve(idx: int, count: int) -> int:
 
 
 def load_obj(path: str) -> ObjMesh:
-    """Parse an OBJ file. Raises OSError if unreadable; skips malformed lines
-    fail-soft like tinyobj."""
+    """Parse an OBJ file with the native parser. Raises
+    ``FileNotFoundError`` for a missing file and ``OSError`` for an
+    unreadable one; skips malformed lines fail-soft like tinyobj."""
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
+    lib = _build.load_host()
+    handle = lib.pts_obj_load(os.fsencode(path))
+    if not handle:
+        raise OSError(f"cannot read {path}")
+    try:
+        counts = [ctypes.c_int32() for _ in range(4)]
+        lib.pts_obj_counts(handle, *(ctypes.byref(c) for c in counts))
+        nv, nt, nn, ns = (c.value for c in counts)
+        mesh = ObjMesh(vertices=np.zeros((nv, 3), np.float32),
+                       texcoords=np.zeros((nt, 2), np.float32),
+                       normals=np.zeros((nn, 3), np.float32), shapes=[])
+        lib.pts_obj_copy_attribs(handle, mesh.vertices.ctypes.data,
+                                 mesh.texcoords.ctypes.data,
+                                 mesh.normals.ctypes.data)
+        name = ctypes.create_string_buffer(4096)
+        for i in range(ns):
+            f = lib.pts_obj_shape_faces(handle, i)
+            lib.pts_obj_shape_name(handle, i, name, len(name))
+            shape = ObjShape(name=name.value.decode(errors="replace"),
+                             v_idx=np.zeros((f, 3), np.int32),
+                             vt_idx=np.zeros((f, 3), np.int32),
+                             vn_idx=np.zeros((f, 3), np.int32),
+                             smoothing=np.zeros((f,), np.uint32))
+            lib.pts_obj_shape_indices(handle, i, shape.v_idx.ctypes.data,
+                                      shape.vt_idx.ctypes.data,
+                                      shape.vn_idx.ctypes.data,
+                                      shape.smoothing.ctypes.data)
+            mesh.shapes.append(shape)
+    finally:
+        lib.pts_obj_free(handle)
+    return mesh
+
+
+def _load_obj_py(path: str) -> ObjMesh:
+    """Pure-Python OBJ parser: the plain version of the native one, equal
+    to it but where Python's double rounding of a coordinate differs from
+    ``strtof`` (see the module docstring)."""
     vertices: List[List[float]] = []
     texcoords: List[List[float]] = []
     normals: List[List[float]] = []

@@ -41,6 +41,7 @@ from torch_cases import (chain_bvh, cluster_tie_case,  # noqa: E402
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_data")
 AGREE_GATE = 0.998   # hit agreement on hardware (bench_suite.AGREE_GATE_PCT)
 
 pytestmark = pytest.mark.cuda
@@ -784,6 +785,40 @@ def test_spectral_trace_on_card_matches_cpu_under_one_key(dev, case,
     assert int(on_dev.rays_traced) == int(cpu.rays_traced)
     torch.testing.assert_close(on_dev.radiance.cpu(), cpu.radiance,
                                rtol=1e-4, atol=1e-6)
+
+
+def test_jpeg_textured_trace_on_card_matches_cpu(dev):
+    """The textured sphere with the fixtures of
+    ``tools/make_torch_fixtures.py`` as its maps (the 2048x2048
+    progressive 4:2:0 JPEG for roughness, the 1024x1024 baseline 4:4:4 JPEG
+    as a normal map), on the card against the CPU at 64x64 under one key:
+    the card's texture table is the host decode bit for bit, and the
+    radiance agrees to rtol 1e-4 / atol 1e-6 on all but at most 0.2% of
+    the pixels (a ray within an ulp of an edge two triangles share may
+    pick the other one on the card)."""
+    from pathtracing_spectrum_tpu_torch.utils import image
+    rough = os.path.join(DATA, "roughness_2048_prog420.jpg")
+    normal = os.path.join(DATA, "normal_1024_444.jpg")
+    sc = textured_sphere(64)
+    sc.objects[0].elements[0].material.roughness_tex_file = rough
+    sc.set_normal_texture(0, 0, normal)
+    on_card = sc.compile(dev)
+    table = on_card.textures.cpu()
+    assert tuple(table.shape) == (2, 2048, 2048, 4)
+    assert torch.equal(table[0, :1024, :1024],
+                       torch.from_numpy(image.load_rgba(normal)))
+    assert torch.equal(table[1], torch.from_numpy(image.load_rgba(rough)))
+    ro, rd = pt.camera_rays(sc.camera(), 64, 64, "cpu")
+    key = rng.fold_in(rng.key(9), 3)
+    cpu = engine.trace_radiance(sc.compile("cpu"), ro, rd, key, 3,
+                                backend="dense")
+    got = engine.trace_radiance(on_card, ro.to(dev), rd.to(dev), key, 3,
+                                backend="dense")
+    torch.cuda.synchronize()
+    close = torch.isclose(got.radiance.cpu(), cpu.radiance, rtol=1e-4,
+                          atol=1e-6).all(-1)
+    assert int((~close).sum()) <= 0.002 * close.numel()
+    assert cpu.radiance.max() > 0
 
 
 def test_dispersion_session_goes_through_its_kernels(dev):

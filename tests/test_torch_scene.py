@@ -127,21 +127,25 @@ def test_scene_data_from_numpy_carries_bvh_ordered_scene():
 
 
 def test_texture_binding_raises(tmp_path):
-    """A texture the port cannot decode (not a PNG) fails the compile,
-    naming the file, instead of rendering without it; a missing file binds
-    nothing, as in the reference and the JAX package."""
+    """A texture the port does not decode (a GIF) fails the compile,
+    naming the file, instead of rendering without it. A broken BMP (the
+    64-byte ``BM`` file, once refused as a non-PNG) and a missing file
+    bind nothing, as in the reference and the JAX package."""
     jsc, sc = port_cornell()
-    rough = tmp_path / "rough.bmp"
-    rough.write_bytes(b"BM" + bytes(64))
+    rough = tmp_path / "rough.gif"
+    rough.write_bytes(b"GIF89a" + bytes(64))
     sc.objects[0].elements[0].material.roughness_tex_file = str(rough)
-    with pytest.raises(NotImplementedError, match="rough.bmp"):
+    with pytest.raises(NotImplementedError, match="rough.gif"):
         sc.compile("cpu")
-    for scene in (jsc, sc):
-        scene.objects[0].elements[0].material.roughness_tex_file = str(
-            tmp_path / "missing.png")
-    got = sc.compile("cpu", build_bvh=False)
-    assert got.textures.shape[0] == 0
-    assert_fields_equal(jsc.compile(build_bvh=False), got)
+    broken = tmp_path / "rough.bmp"
+    broken.write_bytes(b"BM" + bytes(64))
+    for missing in (broken, tmp_path / "missing.png"):
+        for scene in (jsc, sc):
+            scene.objects[0].elements[0].material.roughness_tex_file = str(
+                missing)
+        got = sc.compile("cpu", build_bvh=False)
+        assert got.textures.shape[0] == 0
+        assert_fields_equal(jsc.compile(build_bvh=False), got)
 
 
 _NO_JAX = r"""
@@ -213,6 +217,18 @@ with tempfile.TemporaryDirectory() as tmp:
     sh.scene = sc
     sh.onecmd("preview " + os.path.join(tmp, "p.png"))
     assert "wrote" in out.getvalue(), out.getvalue()
+# the host library: a JPEG texture, the native OBJ parser and writer
+from pathtracing_spectrum_tpu_torch.utils import image, obj_loader
+data = os.path.join(sys.argv[1], "tests", "torch_data")
+tex = image.load_rgba(os.path.join(data, "normal_1024_444.jpg"))
+assert tex.shape == (1024, 1024, 4) and tex.dtype == np.float32
+mesh = obj_loader.load_obj(os.path.join(sys.argv[1], "assets", "sphere.obj"))
+assert mesh.vertices.shape[0] > 0 and mesh.shapes
+with tempfile.TemporaryDirectory() as tmp:
+    spec = np.linspace(-1.0, 1.0, 2 * 3 * 4, dtype=np.float32).reshape(2, 3, 4)
+    spectral_io.export_spectrum(os.path.join(tmp, "e.txt"), spec)
+    with open(os.path.join(tmp, "e.txt")) as f:
+        assert f.read() == spectral_io.format_spectrum(spec)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "PIL"))
 assert not bad, bad
 print("ok")

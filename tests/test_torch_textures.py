@@ -1,5 +1,5 @@
 """Textures and temperature grids in the port: the PIL-free PNG decoder
-against PIL, nearest sampling and texture tables against the JAX
+against PIL (the other formats are ``tests/test_torch_formats.py``), nearest sampling and texture tables against the JAX
 package, the ASCII grid reader, ``Scene.compile`` with maps and grids
 field by field, the object transforms and texture setters, traces of the
 three scenes of ``tests/test_textures.py`` against JAX under one key, and
@@ -33,6 +33,7 @@ import pathtracing_spectrum_tpu_torch as pt  # noqa: E402
 from pathtracing_spectrum_tpu_torch.ops import texturing  # noqa: E402
 from pathtracing_spectrum_tpu_torch.utils import image, tempdata  # noqa: E402
 
+import torch_images  # noqa: E402
 from scene_helpers import ASSETS, cornell_scene  # noqa: E402
 from test_torch_scene import REPO, assert_fields_equal, to_port_scene  # noqa: E402,E501
 from test_torch_spectral import ATOL, RTOL, assert_same, trace_both  # noqa: E402,E501
@@ -148,20 +149,40 @@ def test_every_png_filter_decodes_as_pil(colour, tmp_path):
 
 @pytest.mark.parametrize("what", ["16-bit", "interlaced"])
 def test_unsupported_png_flavours_raise_naming_the_file(what, tmp_path):
+    """The two PNG flavours the decoder once refused now decode: Adam7 as
+    PIL does; 16-bit grey keeps each sample's high byte, the named
+    deviation from PIL (which clips at 255; ``tests/test_torch_formats.py``
+    holds both). A format still not decoded raises naming the file."""
+    rng = np.random.default_rng(3)
     path = str(tmp_path / f"{what}.png")
     if what == "16-bit":
-        write_png(path, np.zeros((4, 8), np.uint8), 0, (0,), depth=16)
+        samples = rng.integers(0, 1 << 16, (4, 8, 1))
+        with open(path, "wb") as f:
+            f.write(torch_images.png_bytes(samples, 0, 16))
+        want = np.full((4, 8, 4), 255, np.uint8)
+        want[..., :3] = (samples >> 8).astype(np.uint8)
+        assert_bitwise(image.load_rgba(path), want.astype(np.float32) / 255)
     else:
-        write_png(path, np.zeros((4, 4), np.uint8), 0, (0,), interlace=1)
-    with pytest.raises(NotImplementedError, match=what):
-        image.load_rgba(path)
+        samples = rng.integers(0, 256, (4, 4, 1))
+        with open(path, "wb") as f:
+            f.write(torch_images.png_bytes(samples, 0, 8, interlace=1))
+        assert_bitwise(image.load_rgba(path), pil_rgba(path))
+    gif = str(tmp_path / f"{what}.gif")
+    Image.fromarray(np.zeros((4, 4), np.uint8)).save(gif)
+    with pytest.raises(NotImplementedError, match=f"{what}.gif"):
+        image.load_rgba(gif)
 
 
 def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
+    """A JPEG, once refused, decodes as PIL does; a GIF still raises naming
+    the file; a missing or broken file is None in both packages."""
     jpg = str(tmp_path / "tex.jpg")
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(jpg)
-    with pytest.raises(NotImplementedError, match="tex.jpg"):
-        image.load_rgba(jpg)
+    assert_bitwise(image.load_rgba(jpg), jimage.load_rgba(jpg))
+    gif = str(tmp_path / "tex.gif")
+    Image.fromarray(np.zeros((4, 4), np.uint8)).save(gif)
+    with pytest.raises(NotImplementedError, match="tex.gif"):
+        image.load_rgba(gif)
     assert image.load_rgba(str(tmp_path / "missing.png")) is None
     assert image.load_rgba("") is None
     broken = tmp_path / "broken.png"
