@@ -52,13 +52,18 @@ through its kernels and made a healthy image:
   kernels held on the padded tile, and the unsharded, one-device and
   3-entry sessions timed in turns;
 - the host's file readers and writers: the committed texture fixtures
-  (``tests/torch_data/``: JPEG, BMP, TGA, PNM, 16-bit and Adam7 PNG)
-  decoded and held to the digests of PIL's decode, the 2048x2048
-  progressive JPEG's decode timed; the textured sphere at 1920x1080 with
-  that JPEG as its roughness map and a 1024x1024 JPEG as its normal map,
-  16 samples through ``"hier"`` (K3, K2, threefry), its texture table on
-  the card bitwise the host decode, timed in turns against the checker
-  session; the 52k and 200k terrains parsed by the native OBJ parser and
+  (``tests/torch_data/``: JPEG, BMP, TGA, PNM, 16-bit and Adam7 PNG, GIF,
+  TIFF, PSD) decoded and held to the digests of PIL's decode, the
+  2048x2048 progressive JPEG's and Deflate TIFF's decodes timed; the
+  textured sphere at 1920x1080 with that JPEG as its roughness map and a
+  1024x1024 JPEG as its normal map, then with the TIFF and a 512x512
+  16-bit LZW TIFF, 16 samples each through ``"hier"`` (K3, K2,
+  threefry), each texture table on the card bitwise the host decode,
+  timed in turns against the checker session; ``write_image``'s JPEG,
+  BMP, DIB, TIFF, PPM and TGA files of a 37x29 and a 3840x2160 image held
+  to the digests of PIL's, the 4K JPEG encode timed, and a preview
+  written as ``v.jpg`` by ``python -m pathtracing_spectrum_tpu_torch``
+  read back; the 52k and 200k terrains parsed by the native OBJ parser and
   by the plain Python one, bitwise equal, both timed, the 52k one
   rendered through ``"hier"``; a 512x512x4 crop of the 4K session's
   result exported through the native writer and held byte for byte to
@@ -144,12 +149,13 @@ SURFACE_SPP, PREVIEW_FRAMES, SRGB_TURNS = 16, 20, 3
 MULTI_SPP, MULTI_TERRAIN_SPP, MULTI_RAGGED, MULTI_RATE_TURNS = 16, 4, 3, 1
 SHELL_SPP = 4            # the scripted shell's render
 # the host's file readers and writers: the committed texture fixtures
-# (tools/make_torch_fixtures.py) held by digest, the 2048x2048 JPEG's
-# decode timed (median of 5); the textured 1080p session with the JPEG maps
-# (16 samples, then 4 a step against the checker session in turns); the
-# terrains parsed natively and in Python, the 52k one rendered through
-# "hier" (4 samples); a 512x512x4 export held to the formatter, the 4K one
-# timed
+# (tools/make_torch_fixtures.py) held by digest, the 2048x2048 JPEG's and
+# TIFF's decodes timed (median of 5); the textured 1080p sessions with the
+# JPEG maps and the TIFF maps (16 samples each, then 4 a step against the
+# checker session in turns); the writers held to PIL's digests, the 4K JPEG
+# encode timed (median of 5); the terrains parsed natively and in Python,
+# the 52k one rendered through "hier" (4 samples); a 512x512x4 export held
+# to the formatter, the 4K one timed
 FILES_DIR = os.path.join(HERE, "tests", "torch_data")
 FILES_DECODES, FILES_RATE_SPP, FILES_TERRAIN_SPP = 5, 4, 4
 FILES_EXPORT_RES = 512
@@ -1139,13 +1145,23 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     """The host's file readers and writers, driven on the card's machine:
 
     - every fixture of ``tests/torch_data/`` decoded and held to the
-      digest of PIL's decode (for the 16-bit grey PNG, of its high bytes),
-      the 2048x2048 progressive JPEG's decode timed (median of ``decodes``);
+      digest of PIL's decode (for the 16-bit grey PNG and TIFF, of their
+      high bytes), the 2048x2048 progressive JPEG's and Deflate TIFF's
+      decodes timed (median of ``decodes``);
     - ``textured_sphere_scene`` at ``res`` with that JPEG as its roughness
-      map and the 1024x1024 baseline JPEG as its normal map, through
-      ``"hier"``: the texture table on the card bitwise the host decode,
-      ``spp`` samples counted through K3, K2 and threefry, then ms per
-      sample in turns against the checker-map session;
+      map and the 1024x1024 baseline JPEG as its normal map, then with the
+      TIFF as its roughness map and the 512x512 16-bit LZW TIFF as its
+      normal map, through ``"hier"``: the texture table on the card
+      bitwise the host decode, ``spp`` samples counted through K3, K2 and
+      threefry, then ms per sample in turns against the checker-map
+      session;
+    - ``write_image`` of the 37x29 fixture image and a procedural
+      3840x2160 one, as L and RGB, under every extension written byte for
+      byte, each file held to the digest of PIL's
+      (``tests/torch_data/write_digests.json``); the 4K JPEG encode timed
+      (median of ``decodes``); ``python -m pathtracing_spectrum_tpu_torch
+      preview ... --out v.jpg --device cuda`` read back by the port's JPEG
+      decoder;
     - the terrains parsed by the native parser and by the plain Python
       one, bitwise equal, both timed; the first rendered through
       ``"hier"`` (``terrain_spp`` samples, counted);
@@ -1156,7 +1172,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       rate rather than run.
 
     Returns the launches of each kernel over the driven sessions."""
-    from pathtracing_spectrum_tpu_torch.utils import (image, obj_loader,
+    from pathtracing_spectrum_tpu_torch.utils import (image, jpeg,
+                                                      obj_loader, scene_io,
                                                       spectral_io)
     with open(os.path.join(FILES_DIR, "digests.json")) as f:
         digests = json.load(f)
@@ -1167,56 +1184,125 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         say("files", fixture=name, shape=list(rgba.shape),
             digest_of=want["of"], digest_equal=same)
         check(same, f"{name}: the decode is not its recorded digest")
-    rough = os.path.join(FILES_DIR, "roughness_2048_prog420.jpg")
-    normal = os.path.join(FILES_DIR, "normal_1024_444.jpg")
-    secs = []
-    for _ in range(decodes):
-        t0 = time.perf_counter()
-        image.load_rgba8(rough)
-        secs.append(time.perf_counter() - t0)
-    say("files", jpeg_decode=os.path.basename(rough), runs=decodes,
-        ms=[1e3 * t for t in secs],
-        median_ms=1e3 * sorted(secs)[len(secs) // 2], clock="host")
+    def median_ms(fn, runs=decodes):
+        secs = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t0)
+        return [1e3 * t for t in secs], 1e3 * sorted(secs)[len(secs) // 2]
 
-    # the textured session with the JPEG maps
-    sc_j = textured_sphere_scene(pt, res, roughness=rough, normal=normal)
-    data_j = sc_j.compile(dev)
-    table = data_j.textures
-    same = tuple(table.shape) == (2, 2048, 2048, 4)
-    for i, path in enumerate((normal, rough)):    # normal maps come first
-        host = torch.from_numpy(image.load_rgba(path))
-        h, w = host.shape[:2]
-        same = same and torch.equal(table[i, :h, :w].cpu(), host)
-    say("files", texture_table=list(table.shape),
-        table_equals_host_decode=same)
-    check(same, "the texture table on the card is not the host decode")
-    del data_j, table
-    warm = pt.RenderSession(sc_j, dev, seed=1)
-    warm.run(1, batch=1)
-    del warm
-    sess_j = pt.RenderSession(sc_j, dev, seed=0)
-    img_j, got = drive(torch, sess_j, spp, counts, zero_counts)
-    st = sess_j.stats()
-    want = want_counts(spp, DEPTH, route="intersect_bvh", sorts=spp)
-    say("files", session=f"textured-jpeg {res[0]}x{res[1]}", spp=spp,
-        backend=st["backend"], launches=json.dumps(got),
-        expected=json.dumps(want), mean=float(img_j.mean()))
-    check(st["backend"] == "hier", f"textured-jpeg resolved {st['backend']}")
-    check(got == want, f"textured-jpeg launches {got}, expected {want}")
-    check(img_j.shape == (res[1], res[0], 4), f"image shape {img_j.shape}")
-    healthy(img_j, "textured-jpeg")
-    launches = dict(got)
-    sess_c = pt.RenderSession(textured_sphere_scene(pt, res), dev, seed=0)
-    sess_c.run(1, batch=1)
-    rates = {"checker": [], "jpeg": []}
-    for sess, name in ((sess_c, "checker"), (sess_j, "jpeg"),
-                       (sess_j, "jpeg"), (sess_c, "checker")):
-        rates[name].append(timed_step(torch, sess, rate_spp))
+    maps = {"jpeg": ("roughness_2048_prog420.jpg", "normal_1024_444.jpg"),
+            "tiff": ("roughness_2048_deflate.tif", "normal_512_lzw16.tif")}
+    for kind, (rough, _) in maps.items():
+        path = os.path.join(FILES_DIR, rough)
+        ms, med = median_ms(lambda: image.load_rgba8(path))
+        say("files", decode=rough, runs=decodes, ms=ms, median_ms=med,
+            clock="host")
+
+    # the textured sessions with the JPEG maps and the TIFF maps (16-bit
+    # LZW normals), each counted through K3, K2 and threefry
+    launches = {}
+    sessions = {}
+    for kind, (rough, normal) in maps.items():
+        rough = os.path.join(FILES_DIR, rough)
+        normal = os.path.join(FILES_DIR, normal)
+        sc_m = textured_sphere_scene(pt, res, roughness=rough, normal=normal)
+        data_m = sc_m.compile(dev)
+        table = data_m.textures
+        same = tuple(table.shape) == (2, 2048, 2048, 4)  # padded to 2048²
+        for i, path in enumerate((normal, rough)):  # normal maps come first
+            host = torch.from_numpy(image.load_rgba(path))
+            h, w = host.shape[:2]
+            same = same and torch.equal(table[i, :h, :w].cpu(), host)
+        say("files", maps=kind, texture_table=list(table.shape),
+            table_equals_host_decode=same)
+        check(same, f"{kind} maps: the texture table on the card is not "
+              "the host decode")
+        del data_m, table
+        warm = pt.RenderSession(sc_m, dev, seed=1)
+        warm.run(1, batch=1)
+        del warm
+        sess_m = pt.RenderSession(sc_m, dev, seed=0)
+        img_m, got = drive(torch, sess_m, spp, counts, zero_counts)
+        st = sess_m.stats()
+        want = want_counts(spp, DEPTH, route="intersect_bvh", sorts=spp)
+        say("files", session=f"textured-{kind} {res[0]}x{res[1]}", spp=spp,
+            backend=st["backend"], launches=json.dumps(got),
+            expected=json.dumps(want), mean=float(img_m.mean()))
+        check(st["backend"] == "hier", f"textured-{kind} resolved "
+              f"{st['backend']}")
+        check(got == want, f"textured-{kind} launches {got}, expected {want}")
+        check(img_m.shape == (res[1], res[0], 4), f"image shape {img_m.shape}")
+        healthy(img_m, f"textured-{kind}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        sessions[kind] = sess_m
+        del img_m
+    sessions["checker"] = pt.RenderSession(textured_sphere_scene(pt, res),
+                                           dev, seed=0)
+    sessions["checker"].run(1, batch=1)
+    turns = ("checker", "jpeg", "tiff", "tiff", "jpeg", "checker")
+    rates = {name: [] for name in turns}
+    for name in turns:
+        rates[name].append(timed_step(torch, sessions[name], rate_spp))
     for name, vals in rates.items():
         say("files", session=f"textured-{name}", spp_per_step=rate_spp,
             mrays_per_s=[v[0] for v in vals],
             ms_per_sample=[v[1] for v in vals], card=repr(card))
-    del sess_j, sess_c, img_j
+    del sessions
+
+    # the writers: two images as L and RGB under every extension written
+    # byte for byte, held to the digests of PIL's files; the 4K JPEG
+    # encode timed; a preview written as a JPEG by the module's CLI
+    fixtures = load_by_path("make_torch_fixtures", os.path.join(
+        HERE, "tools", "make_torch_fixtures.py"))
+    with open(os.path.join(FILES_DIR, "write_digests.json")) as f:
+        write_digests = json.load(f)
+    images = fixtures.writer_images()
+    check(sorted(images) == sorted(write_digests), "write_digests.json "
+          "names other images than make_torch_fixtures.writer_images")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, modes in sorted(images.items()):
+            for mode, px in sorted(modes.items()):
+                wanted = write_digests[name][mode]
+                same = []
+                for ext in fixtures.WRITE_EXTENSIONS:
+                    path = os.path.join(tmp, "x" + ext)
+                    image.write_image(path, px)
+                    with open(path, "rb") as f:
+                        digest = hashlib.sha256(f.read()).hexdigest()
+                    os.remove(path)
+                    same.append(digest == wanted[ext])
+                say("files", write=name, mode=mode,
+                    extensions=len(same), digests_equal=sum(same))
+                check(all(same), f"{name} {mode}: a written file is not "
+                      "PIL's")
+        rgb4k = images["procedural_3840x2160"]["RGB"]
+        ms, med = median_ms(lambda: jpeg.encode(rgb4k))
+        say("files", jpeg_encode="3840x2160 RGB", runs=decodes, ms=ms,
+            median_ms=med, clock="host")
+        scene_path = os.path.join(tmp, "textured.pts")
+        out = os.path.join(tmp, "v.jpg")
+        scene_io.save_scene(textured_sphere_scene(
+            pt, (640, 360), roughness=os.path.join(
+                FILES_DIR, "roughness_2048_deflate.tif")), scene_path)
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "preview", scene_path, "--out", out,
+             "--device", "cuda"], cwd=HERE, capture_output=True, text=True,
+            timeout=300)
+        head = b""
+        if proc.returncode == 0:
+            with open(out, "rb") as f:
+                head = f.read(3)
+        view = image.load_rgba8(out) if head == b"\xff\xd8\xff" else None
+        say("files", module_preview="v.jpg", rc=proc.returncode,
+            jpeg=head == b"\xff\xd8\xff",
+            shape=None if view is None else list(view.shape))
+        check(proc.returncode == 0, f"module preview failed: {proc.stderr}")
+        check(view is not None and view.shape == (360, 640, 4)
+              and view[..., :3].max() > 0,
+              "the module's preview is not a JPEG the port decodes")
 
     # the OBJ parse, native and plain, then the 52k terrain rendered
     paths = {}
@@ -2477,8 +2563,8 @@ def main() -> int:
         k["launches_surface"] = surf_launches[k["name"]]
         # the multi phase's driven sessions (tiles on 1 and 3, spp on NCCL)
         k["launches_multi"] = multi_launches[k["name"]]
-        # the files phase's sessions (textured 1080p from the JPEG maps,
-        # the natively parsed 52k terrain)
+        # the files phase's sessions (textured 1080p from the JPEG maps
+        # and from the TIFF maps, the natively parsed 52k terrain)
         k["launches_files"] = files_launches[k["name"]]
     finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)

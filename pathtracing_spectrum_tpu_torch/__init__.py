@@ -11,8 +11,8 @@ it equal to the JAX package, array for array and byte for byte.
 
 The port covers the main path, the large-scene path, the spectral path,
 the user's session and the user's surface: BVH-ordered scene compilation
-(the binned-SAH builder, host C++) with normal and roughness maps (PNG,
-decoded without PIL) and temperature grids, the closest-hit kernels K1
+(the binned-SAH builder, host C++) with normal and roughness maps (image
+files decoded without PIL) and temperature grids, the closest-hit kernels K1
 (dense sweep), K3 (BVH walk, the ``hier`` backend) and K4 (cluster-culled
 sweep), the attribute fetch K2 and the threefry draw of ``jax.random``
 (hand-written CUDA kernels under ``csrc/``), the bounce loop in every
@@ -24,15 +24,16 @@ wavefronts and batched camera jitter, the progressive ``RenderSession``
 either package, ``result_srgb`` through the sRGB epilogue on the card), the
 authoring API of ``Scene``, ``.pts`` scene files (``utils/scene_io.py``)
 and ASCII spectra (``utils/spectral_io.py``), the viewer (``viewer.py``,
-PNGs written without PIL), the headlight preview and pick through K1/K3
-(``preview.py``), the interactive shell (``shell.py``), multi-device
+images written without PIL in the format their extension names), the
+headlight preview and pick through K1/K3 (``preview.py``), the interactive shell (``shell.py``), multi-device
 rendering (``parallel/``: ``TileSharding`` and ``SppAllreduce`` over a
 device mesh, across processes through ``torch.distributed``, NCCL between
 cards and gloo between CPU processes), the command line (``python -m
 pathtracing_spectrum_tpu_torch``) and the host's file readers and writers
 (the host library built from ``csrc/``: the native OBJ parser and
-spectral writer, and the JPEG decoder beside the numpy PNG, BMP, TGA and
-PNM decoders of ``utils/image.py``). Not ported yet (ROADMAP Queue 1): the
+spectral writer, the JPEG decoder and encoder, and the LZW and PackBits
+decoders beside the numpy PNG, BMP, TGA, PNM, GIF, TIFF and PSD code of
+``utils/image.py``). Not ported yet (ROADMAP Queue 1): the
 port's benchmark (item 5; ``cli bench`` raises ``NotImplementedError``
 naming it).
 """

@@ -8,8 +8,9 @@ Two shared libraries, each built into ``build/`` next to this file
   parallel, then linked; only the machine with the card builds it;
 - the host library, by the host C++ compiler, on any machine that uses
   it (the CPU tests too): the BVH builder ``csrc/bvh_build.cpp``, the OBJ
-  parser and spectral writer ``csrc/host_io.cpp`` and the JPEG decoder
-  ``csrc/jpeg_decode.cpp``.
+  parser and spectral writer ``csrc/host_io.cpp``, the JPEG decoder
+  ``csrc/jpeg_decode.cpp`` and encoder ``csrc/jpeg_encode.cpp``, and the
+  LZW and PackBits decoders ``csrc/lzw_decode.cpp``.
 
 Each file name carries a hash of its sources and flags, so a changed source
 is always rebuilt and a stale library is never loaded. Nothing here runs at
@@ -37,7 +38,8 @@ SOURCES = (_CSRC / "intersect_dense.cu", _CSRC / "fetch_rows.cu",
            _CSRC / "threefry.cu")
 HEADERS = (_CSRC / "tri_hit.cuh",)
 HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
-                _CSRC / "jpeg_decode.cpp")
+                _CSRC / "jpeg_decode.cpp", _CSRC / "jpeg_encode.cpp",
+                _CSRC / "lzw_decode.cpp")
 BUILD_DIR = _HERE / "build"
 
 # sm_90a (Hopper); --fmad=false keeps every multiply and add separately
@@ -80,6 +82,13 @@ _HOST_SIGNATURES = {
     "pts_jpeg_size": ([_V, _V, _V], None),
     "pts_jpeg_copy": ([_V, _V], None),
     "pts_jpeg_free": ([_V], None),
+    "pts_jpeg_encode": ([_V, _I32, _I32, _I32], _V),
+    "pts_buffer_size": ([_V], _I64),
+    "pts_buffer_copy": ([_V, _V], None),
+    "pts_buffer_free": ([_V], None),
+    "pts_gif_lzw_decode": ([_V, _I64, _I32, _V, _I64, _V], _I32),
+    "pts_tiff_lzw_decode": ([_V, _I64, _V, _I64], _I32),
+    "pts_packbits_decode": ([_V, _I64, _V, _I64, _I64], _I32),
 }
 
 
@@ -189,8 +198,8 @@ def load() -> ctypes.CDLL:
 
 def load_host() -> ctypes.CDLL:
     """Build (when the hashed library is missing) and load the host
-    library: the BVH builder, the OBJ parser, the spectral writer and the
-    JPEG decoder. Raises with the compiler's output when it cannot be
+    library: the BVH builder, the OBJ parser, the spectral writer, the
+    JPEG decoder and encoder and the LZW and PackBits decoders. Raises with the compiler's output when it cannot be
     built: none of them has a fallback."""
     if _Library.host is not None:
         return _Library.host

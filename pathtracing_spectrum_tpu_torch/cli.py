@@ -16,7 +16,11 @@ Commands:
 asked for ``cpu``); ``render --shard tiles|spp`` renders on a mesh of the
 ``--device``'s cards (every card for ``cuda``, one device otherwise).
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace,
-``DIR/trace.json``, and PNGs go through ``utils/image.py::write_png``.
+``DIR/trace.json``. Images (``--png``, ``--png-srgb``, ``--live-out``,
+``preview --out``) are written by ``utils/image.py::write_image`` in the
+format their extension names, as the JAX package's ``PIL.Image.save``
+picks it (``view.jpg`` is a JPEG; an unknown extension raises
+``ValueError``).
 """
 
 from __future__ import annotations
@@ -175,7 +179,7 @@ def cmd_render(args) -> int:
     from . import viewer
     from .render import RenderSession
     from .utils import scene_io, spectral_io
-    from .utils.image import write_png
+    from .utils.image import write_image
 
     redirects = {}
     for item in args.redirect:
@@ -234,7 +238,7 @@ def cmd_render(args) -> int:
                                 live_path)
                 if args.png_srgb:
                     # device sRGB epilogue: only uint8 is read back
-                    write_png(args.png_srgb, session.result_srgb())
+                    write_image(args.png_srgb, session.result_srgb())
                 if args.ascii:
                     print("\n" + viewer.ascii_preview(session.result(),
                                                       max(args.channel, 0)))
@@ -271,7 +275,7 @@ def cmd_render(args) -> int:
             for p in viewer.save_all_channels_png(img, args.png):
                 print(f"wrote {p}")
     if args.png_srgb:
-        write_png(args.png_srgb, session.result_srgb())
+        write_image(args.png_srgb, session.result_srgb())
         print(f"wrote {args.png_srgb}")
     if args.checkpoint:
         session.save_checkpoint(args.checkpoint)
@@ -338,11 +342,11 @@ def cmd_new(args) -> int:
 def cmd_preview(args) -> int:
     from .preview import preview_render
     from .utils import scene_io
-    from .utils.image import write_png
+    from .utils.image import write_image
 
     scene = scene_io.load_scene(args.scene)
     w, h = _parse_res(args.res) if args.res else scene.resolution
-    write_png(args.out, preview_render(scene, w, h, device=args.device))
+    write_image(args.out, preview_render(scene, w, h, device=args.device))
     print(f"wrote {args.out}")
     return 0
 

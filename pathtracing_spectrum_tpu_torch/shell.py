@@ -17,8 +17,9 @@ GUI panels would call:
   the save-changes dialog; pass a stream to the constructor to script it.
 
 Renders and previews run on the shell's ``device``, the card unless it
-is built with ``device="cpu"``; the preview PNG is written by
-``utils/image.py::write_png`` (grey or RGB), not PIL.
+is built with ``device="cpu"``; images are written by
+``utils/image.py::write_image`` (grey or RGB) in the format their
+extension names, as the JAX shell's ``PIL.Image.save`` does, not PIL.
 
 Run via ``python -m pathtracing_spectrum_tpu_torch shell [scene.pts]
 [--device cpu]``.
@@ -476,9 +477,9 @@ class SpectrumShell(cmd.Cmd):
 
     def _write_preview(self, out: str, gray: bool = False) -> None:
         from .preview import preview_render
-        from .utils.image import write_png
+        from .utils.image import write_image
         w, h = self.scene.resolution
-        write_png(out, preview_render(self.scene, w, h, rgb=not gray,
+        write_image(out, preview_render(self.scene, w, h, rgb=not gray,
                                       device=self.device))
         self._view_key = self._view_state()
 

@@ -1,5 +1,6 @@
-"""JPEG decoding for the port's textures: the binding of the host
-library's decoder ``csrc/jpeg_decode.cpp``.
+"""JPEG for the port's textures and image files: the binding of the host
+library's decoder ``csrc/jpeg_decode.cpp`` and encoder
+``csrc/jpeg_encode.cpp``.
 
 The decoder computes what libjpeg-turbo computes with PIL's settings (the
 islow IDCT, fancy upsampling, integer YCbCr -> RGB), so
@@ -7,7 +8,8 @@ islow IDCT, fancy upsampling, integer YCbCr -> RGB), so
 module comment lists what it reads and what it refuses. It is host C++
 (Huffman decoding is bit-serial; in Python a 2048x2048 texture would take
 minutes) and has no Python fallback: when the host library cannot be
-built, the call raises with the compiler's output.
+built, the call raises with the compiler's output. :func:`encode` writes
+the file PIL's ``Image.save`` writes at its defaults, byte for byte.
 """
 
 from __future__ import annotations
@@ -48,3 +50,24 @@ def decode_rgba(data: bytes) -> np.ndarray:
     finally:
         lib.pts_jpeg_free(handle)
     return out
+
+
+def encode(pixels: np.ndarray) -> bytes:
+    """The JPEG file PIL's ``Image.save`` writes at its defaults for uint8
+    ``pixels``, [H, W] grey or [H, W, 3] RGB (row 0 = image top), byte for
+    byte: ``csrc/jpeg_encode.cpp`` lists what it computes."""
+    lib = _build.load_host()
+    img = np.ascontiguousarray(pixels, np.uint8)
+    h, w = img.shape[:2]
+    if max(h, w) > 65500:         # libjpeg's JPEG_MAX_DIMENSION
+        raise ValueError(f"image too large for JPEG: {w}x{h}")
+    handle = lib.pts_jpeg_encode(img.ctypes.data, w, h,
+                                 1 if img.ndim == 2 else 3)
+    if not handle:
+        raise MemoryError("JPEG encoder: out of memory")
+    try:
+        out = np.empty(lib.pts_buffer_size(handle), np.uint8)
+        lib.pts_buffer_copy(handle, out.ctypes.data)
+    finally:
+        lib.pts_buffer_free(handle)
+    return out.tobytes()

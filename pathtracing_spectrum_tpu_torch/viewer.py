@@ -8,8 +8,9 @@ conversion, PNG export and a terminal ASCII preview, values clamped to
 and :func:`spectral_to_srgb_device` (torch, float32, on the accumulator's
 device) map the spectrum through the CIE 1931 observer to sRGB.
 
-PNGs are written by ``utils/image.py::write_png`` (the JAX package saves
-through PIL, which the port does not import).
+Images are written by ``utils/image.py::write_image`` in the format their
+extension names (the JAX package saves through PIL, which the port does
+not import); the ``*_ch{k}.png`` names built here are PNG.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import math
 import numpy as np
 import torch
 
-from .utils.image import write_png
+from .utils.image import write_image
 
 
 def to_grayscale(image: np.ndarray, channel: int,
@@ -45,8 +46,8 @@ def normalized_grayscale(image: np.ndarray, channel: int) -> np.ndarray:
 
 def save_png(image: np.ndarray, channel: int, path: str,
              normalize: bool = True) -> None:
-    write_png(path, normalized_grayscale(image, channel) if normalize
-              else to_grayscale(image, channel))
+    write_image(path, normalized_grayscale(image, channel) if normalize
+                else to_grayscale(image, channel))
 
 
 def save_all_channels_png(image: np.ndarray, path_prefix: str,
@@ -174,15 +175,16 @@ def spectral_to_srgb_device(image: torch.Tensor, wavenumbers,
 
 def save_srgb_png(image, wavenumbers, path: str,
                   exposure: float = 0.0) -> None:
-    """Write the sRGB PNG of a [H, W, nw] image: a ``torch.Tensor`` goes
-    through the device epilogue and only uint8 is read back; anything else
-    through the host path."""
+    """Write the sRGB image of a [H, W, nw] image (in the format the
+    extension names): a ``torch.Tensor`` goes through the device epilogue
+    and only uint8 is read back; anything else through the host path."""
     if isinstance(image, torch.Tensor):
-        write_png(path, spectral_to_srgb_device(image, wavenumbers,
-                                                exposure=exposure)
-                  .cpu().numpy())
+        write_image(path, spectral_to_srgb_device(image, wavenumbers,
+                                                  exposure=exposure)
+                    .cpu().numpy())
         return
-    write_png(path, spectral_to_srgb(image, wavenumbers, exposure=exposure))
+    write_image(path, spectral_to_srgb(image, wavenumbers,
+                                       exposure=exposure))
 
 
 _ASCII_RAMP = " .:-=+*#%@"

@@ -338,7 +338,9 @@ def test_decoder_follows_the_leading_bytes_not_the_name(tmp_path):
         held(tmp_path, name, data)
 
 
-@pytest.mark.parametrize("fmt", ["png", "jpeg", "bmp", "tga", "pnm"])
+@pytest.mark.parametrize("fmt", ["png", "jpeg", "bmp", "tga", "pnm", "gif",
+                                 "tiff-lzw", "tiff-raw", "tiff-deflate",
+                                 "tiff-packbits", "psd-raw", "psd-rle"])
 def test_broken_file_is_none_as_in_jax(fmt, tmp_path):
     """A truncated file of a format decoded here returns None, as PIL's
     exception does in the JAX package."""
@@ -347,9 +349,297 @@ def test_broken_file_is_none_as_in_jax(fmt, tmp_path):
             "jpeg": ti.jpeg_bytes(x, progressive=True),
             "bmp": ti.bmp_bytes(20, 12, 24, [r.tobytes() for r in x]),
             "tga": ti.tga_bytes(20, 12, 10, 24, x.tobytes()),
-            "pnm": b"P6 20 12 255\n" + x.tobytes()}[fmt]
+            "pnm": b"P6 20 12 255\n" + x.tobytes(),
+            "gif": ti.gif_bytes(x[..., 0] >> 4, global_palette=bytes(48)),
+            "tiff-lzw": ti.tiff_bytes(x, compression=5),
+            "tiff-raw": ti.tiff_bytes(x, rows_per_strip=3),
+            "tiff-deflate": ti.tiff_bytes(x, compression=8),
+            "tiff-packbits": ti.tiff_bytes(x, compression=32773),
+            "psd-raw": ti.psd_bytes(np.moveaxis(x, -1, 0), 3),
+            "psd-rle": ti.psd_bytes(np.moveaxis(x, -1, 0), 3, rle=True)}[fmt]
     path = tmp_path / f"broken.{fmt}"
     path.write_bytes(data[:len(data) * 2 // 3])
+    assert jimage.load_rgba(str(path)) is None
+    assert image.load_rgba(str(path)) is None
+
+
+# ---- GIF -------------------------------------------------------------------
+
+def _palette(rng, n):
+    return rng.integers(0, 256, 3 * n, np.uint8).tobytes()
+
+
+GREY4 = bytes(v for i in range(4) for v in (i, i, i))
+
+
+def _pil_gif(img, **save):
+    out = __import__("io").BytesIO()
+    img.save(out, "GIF", **save)
+    return out.getvalue()
+
+
+def _gif_cases():
+    rng = np.random.default_rng(11)
+    cases = {}
+    for w, h in ((1, 1), (5, 3), (17, 9), (37, 29)):
+        idx = rng.integers(0, 16, (h, w)).astype(np.uint8)
+        pal = _palette(rng, 16)
+        for version in (b"GIF87a", b"GIF89a"):
+            v = version[3:].decode()
+            cases[f"global-{v}-{w}x{h}"] = ti.gif_bytes(
+                idx, global_palette=pal, version=version)
+        cases[f"local-{w}x{h}"] = ti.gif_bytes(idx, local_palette=pal)
+        cases[f"interlaced-{w}x{h}"] = ti.gif_bytes(
+            idx, global_palette=pal, interlace=True)
+        cases[f"transparent-{w}x{h}"] = ti.gif_bytes(
+            idx, global_palette=pal, transparency=int(idx[0, 0]))
+    idx = rng.integers(0, 4, (9, 7)).astype(np.uint8)
+    pal4, pal16 = _palette(rng, 4), _palette(rng, 16)
+    idx8 = rng.integers(0, 8, (9, 7)).astype(np.uint8)
+    cases.update({
+        "local-over-global": ti.gif_bytes(idx, global_palette=pal16,
+                                          local_palette=pal4),
+        "grey-local-over-global": ti.gif_bytes(idx, global_palette=pal16,
+                                               local_palette=GREY4),
+        "grey-ramp-table": ti.gif_bytes(idx, global_palette=GREY4),
+        "no-table": ti.gif_bytes(idx8),
+        "no-table-transparent": ti.gif_bytes(idx8, transparency=3),
+        "indices-past-the-table": ti.gif_bytes(idx8, global_palette=pal4),
+        "frame-inside-screen": ti.gif_bytes(idx, screen=(12, 14),
+                                            offset=(3, 4),
+                                            global_palette=pal4),
+        "frame-inside-screen-transparent": ti.gif_bytes(
+            idx, screen=(12, 14), offset=(3, 4), global_palette=pal4,
+            transparency=2),
+        "frame-past-screen": ti.gif_bytes(idx, screen=(5, 5), offset=(2, 1),
+                                          local_palette=pal4),
+        "interlaced-offset-transparent": ti.gif_bytes(
+            rng.integers(0, 4, (21, 6)).astype(np.uint8), screen=(9, 30),
+            offset=(1, 5), global_palette=pal4, interlace=True,
+            transparency=1),
+        "no-end-code": ti.gif_bytes(idx, global_palette=pal4, lzw=ti.gif_lzw(
+            idx.reshape(-1), 2, end=False)),
+        "wide-code-size": ti.gif_bytes(idx, global_palette=pal4, bits=8),
+    })
+    noise = rng.integers(0, 256, (90, 101)).astype(np.uint8)
+    pal256 = _palette(rng, 256)
+    cases["full-table-cleared"] = ti.gif_bytes(noise, global_palette=pal256)
+    cases["full-table-without-clear"] = ti.gif_bytes(
+        noise, global_palette=pal256,
+        lzw=ti.gif_lzw(noise.reshape(-1), 8, clear_when_full=False))
+    x = ti.smooth_rgb(12, 37, 29)
+    img = Image.fromarray(x)
+    cases.update({
+        "pil-rgb": _pil_gif(img),
+        "pil-rgb-not-interlaced": _pil_gif(img, interlace=0),
+        "pil-grey": _pil_gif(img.convert("L")),
+        "pil-p-transparent": _pil_gif(img.quantize(7), transparency=3),
+        "pil-1": _pil_gif(img.convert("1")),
+    })
+    return cases
+
+
+@pytest.mark.parametrize("case", list(_gif_cases()))
+def test_gif_decodes_as_jax(case, tmp_path):
+    held(tmp_path, "tex.gif", _gif_cases()[case])
+
+
+# ---- TIFF ------------------------------------------------------------------
+
+def _cmap(rng, bits):
+    return rng.integers(0, 65536, 3 * (1 << bits)).tolist()
+
+
+def _pil_tiff(img, **save):
+    out = __import__("io").BytesIO()
+    img.save(out, "TIFF", **save)
+    return out.getvalue()
+
+
+def _tiff_cases():
+    rng = np.random.default_rng(12)
+    cases = {}
+    comps = {"raw": 1, "lzw": 5, "deflate": 8, "zip": 32946,
+             "packbits": 32773}
+    for order, o in (("<", "II"), (">", "MM")):
+        for cname, comp in comps.items():
+            x = ti.smooth_rgb(len(cases), 37, 29)
+            cases[f"rgb-{cname}-{o}"] = ti.tiff_bytes(
+                x, compression=comp, order=order, rows_per_strip=5)
+            for bits in (1, 2, 4, 8):
+                g = rng.integers(0, 1 << bits, (9, 17, 1))
+                for photo in (0, 1):
+                    cases[f"grey{bits}-photo{photo}-{cname}-{o}"] = \
+                        ti.tiff_bytes(g, bits, photometric=photo,
+                                      compression=comp, order=order,
+                                      rows_per_strip=4)
+                cases[f"palette{bits}-{cname}-{o}"] = ti.tiff_bytes(
+                    g, bits, photometric=3, compression=comp, order=order,
+                    colormap=_cmap(rng, bits))
+        for comp in (5, 8):
+            cname = {5: "lzw", 8: "deflate"}[comp]
+            x8 = ti.smooth_rgb(3, 23, 11)
+            x16 = rng.integers(0, 1 << 16, (11, 23, 3))
+            g16 = rng.integers(0, 1 << 16, (11, 23, 4))
+            cases[f"rgb8-predictor-{cname}-{o}"] = ti.tiff_bytes(
+                x8, compression=comp, predictor=2, order=order,
+                rows_per_strip=3)
+            cases[f"rgb16-predictor-{cname}-{o}"] = ti.tiff_bytes(
+                x16, 16, compression=comp, predictor=2, order=order)
+            cases[f"grey8-predictor-{cname}-{o}"] = ti.tiff_bytes(
+                x8[..., :1], compression=comp, predictor=2, order=order)
+            for ex in (0, 1, 2):
+                cases[f"rgba16-extra{ex}-{cname}-{o}"] = ti.tiff_bytes(
+                    g16, 16, compression=comp, extra=[ex], order=order,
+                    predictor=2)
+            cases[f"tiled-rgb8-{cname}-{o}"] = ti.tiff_bytes(
+                ti.smooth_rgb(4, 37, 29), compression=comp, tile=(16, 16),
+                order=order, predictor=2)
+            cases[f"tiled-planar-rgb16-{cname}-{o}"] = ti.tiff_bytes(
+                x16, 16, compression=comp, tile=(16, 16), planar=2,
+                order=order)
+            cases[f"planar-rgba8-{cname}-{o}"] = ti.tiff_bytes(
+                g16 >> 8, compression=comp, planar=2, extra=[2],
+                order=order, rows_per_strip=4)
+        rgba = rng.integers(0, 256, (7, 13, 4))
+        rgba[0, :4, 3] = (0, 255, 1, 128)
+        for ex in ((0,), (1,), (2,), (999,), None, (0, 0), (1, 0),
+                   (2, 0, 0)):
+            px = rgba if ex is None or len(ex) == 1 else np.concatenate(
+                [rgba] + [rgba[..., :1]] * (len(ex) - 1), -1)
+            cases[f"rgba8-extra{'-'.join(map(str, ex or ()))}-{o}"] = \
+                ti.tiff_bytes(px, extra=ex, order=order)
+        cases[f"grey-alpha-{o}"] = ti.tiff_bytes(rgba[..., :2], extra=[2],
+                                                 order=order)
+        cases[f"palette-alpha-{o}"] = ti.tiff_bytes(
+            rgba[..., :2], photometric=3, extra=[2], order=order,
+            colormap=_cmap(rng, 8))
+        cases[f"palette-extra0-{o}"] = ti.tiff_bytes(
+            rgba[..., :2], photometric=3, extra=[0], order=order,
+            colormap=_cmap(rng, 8))
+        f = (rng.standard_normal((5, 9, 1)) * 150 + 100).astype(np.float32)
+        f[0, :4, 0] = (np.nan, np.inf, -np.inf, 255.5)
+        for photo in (0, 1):
+            cases[f"float32-photo{photo}-{o}"] = ti.tiff_bytes(
+                f, 32, sample_format=3, photometric=photo, order=order)
+        if order == "<":
+            cases["float32-lzw-II"] = ti.tiff_bytes(
+                f, 32, sample_format=3, compression=5, order=order)
+        cases[f"planar-raw-rgb8-{o}"] = ti.tiff_bytes(
+            ti.smooth_rgb(5, 13, 7), planar=2, order=order,
+            rows_per_strip=3)
+        cases[f"tiled-raw-grey8-{o}"] = ti.tiff_bytes(
+            rng.integers(0, 256, (20, 35, 1)), tile=(16, 16), order=order)
+        cases[f"fill-order2-grey8-{o}"] = ti.tiff_bytes(
+            rng.integers(0, 256, (5, 7, 1)), fill_order=2, order=order)
+        cases[f"fill-order2-grey1-lzw-{o}"] = ti.tiff_bytes(
+            rng.integers(0, 2, (5, 19, 1)), 1, fill_order=2, compression=5,
+            order=order)
+    for w, h in ((1, 1), (17, 9), (37, 29)):
+        x = ti.smooth_rgb(w * h, w, h)
+        cases[f"rgb-lzw-{w}x{h}"] = ti.tiff_bytes(x, compression=5,
+                                                  predictor=2)
+    img = Image.fromarray(ti.smooth_rgb(13, 37, 29))
+    for mode in ("1", "L", "RGB", "RGBA", "P", "LA"):
+        im = img.quantize(9) if mode == "P" else img.convert(mode)
+        for comp in ("raw", "tiff_lzw", "tiff_deflate", "packbits"):
+            cases[f"pil-{mode}-{comp}"] = _pil_tiff(im, compression=comp)
+    return cases
+
+
+@pytest.mark.parametrize("case", list(_tiff_cases()))
+def test_tiff_decodes_as_jax(case, tmp_path):
+    held(tmp_path, "tex.tif", _tiff_cases()[case])
+
+
+@pytest.mark.parametrize("order", ["<", ">"])
+@pytest.mark.parametrize("compression", [1, 5])
+def test_16bit_grey_tiff_is_the_named_deviation(compression, order,
+                                                tmp_path):
+    """The 16-bit grey TIFF takes the 16-bit grey PNG's deviation: each
+    sample keeps its high byte, where PIL opens mode I;16 and
+    ``convert("RGBA")`` clips at 255."""
+    samples = np.array([[0, 250, 500, 750, 6211, 55745, 65535]])[..., None]
+    path = tmp_path / "grey16.tif"
+    path.write_bytes(ti.tiff_bytes(samples, 16, compression=compression,
+                                   order=order))
+    got = image.load_rgba8(str(path))
+    np.testing.assert_array_equal(got[0, :, 0], [0, 0, 1, 2, 24, 217, 255])
+    assert (got[..., 1:3] == got[..., :1]).all() and (got[..., 3] == 255).all()
+    pil = np.round(jimage.load_rgba(str(path)) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(pil[0, :, 0],
+                                  [0, 250, 255, 255, 255, 255, 255])
+
+
+def test_tiff_modes_are_pils(tmp_path):
+    """The port's table of the TIFF keys PIL opens (``_tiff_mode``) names
+    the mode PIL's OPEN_INFO gives every key, and no other key."""
+    from PIL import TiffImagePlugin as T
+    for key, (mode, _) in T.OPEN_INFO.items():
+        order = "<" if key[0] == T.II else ">"
+        assert image._tiff_mode(order, *key[1:]) == mode, key
+    keys = set(T.OPEN_INFO)
+    for prefix, order in ((T.II, "<"), (T.MM, ">")):
+        for photo in range(10):
+            for sf in ((1,), (2,), (3,)):
+                for fill in (1, 2):
+                    for bps in ((1,), (2,), (4,), (8,), (12,), (16,), (32,),
+                                (8, 8), (8,) * 3, (8,) * 4, (8,) * 5,
+                                (8,) * 6, (16,) * 3, (16,) * 4):
+                        for extra in ((), (0,), (1,), (2,), (0, 0), (1, 0),
+                                      (2, 0), (999,), (2, 0, 0)):
+                            key = (prefix, photo, sf, fill, bps, extra)
+                            got = image._tiff_mode(order, photo, sf, fill,
+                                                   bps, extra)
+                            assert (got is not None) == (key in keys), key
+
+
+# ---- PSD -------------------------------------------------------------------
+
+def _psd_cases():
+    rng = np.random.default_rng(13)
+    cases = {}
+    for w, h in ((1, 1), (5, 3), (37, 29)):
+        for rle in (False, True):
+            r = "rle" if rle else "raw"
+            ch = lambda n: rng.integers(0, 256, (n, h, w))   # noqa: E731
+            runs = ch(4)
+            runs[:, :, : w // 2] = 77                        # runs for RLE
+            cases[f"rgb-{r}-{w}x{h}"] = ti.psd_bytes(runs[:3], 3, rle=rle)
+            cases[f"rgba-{r}-{w}x{h}"] = ti.psd_bytes(runs, 3, rle=rle)
+            cases[f"grey-{r}-{w}x{h}"] = ti.psd_bytes(ch(1), 1, rle=rle)
+            cases[f"cmyk-{r}-{w}x{h}"] = ti.psd_bytes(ch(4), 4, rle=rle)
+            cases[f"indexed-{r}-{w}x{h}"] = ti.psd_bytes(
+                ch(1), 2, rle=rle, palette=_palette(rng, 256))
+            cases[f"bitmap-{r}-{w}x{h}"] = ti.psd_bytes(
+                rng.integers(0, 2, (1, h, w)), 0, depth=1, rle=rle)
+    ch = rng.integers(0, 256, (5, 6, 9))
+    cases.update({
+        "rgb-five-channels": ti.psd_bytes(ch, 3, rle=True),
+        "cmyk-five-channels": ti.psd_bytes(ch, 4),
+        "grey-two-channels": ti.psd_bytes(ch[:2], 1, rle=True),
+        "bitmap-mode-8bit": ti.psd_bytes(ch[:1], 0),
+        "multichannel": ti.psd_bytes(ch[:3], 7),
+        "duotone": ti.psd_bytes(ch[:1], 8, palette=bytes(20)),
+        "indexed-without-palette": ti.psd_bytes(ch[:1], 2),
+        "rgb-with-layers": ti.psd_bytes(ch[:3], 3, rle=True,
+                                        layers=bytes(range(40))),
+    })
+    return cases
+
+
+@pytest.mark.parametrize("case", list(_psd_cases()))
+def test_psd_decodes_as_jax(case, tmp_path):
+    held(tmp_path, "tex.psd", _psd_cases()[case])
+
+
+@pytest.mark.parametrize("case", ["16-bit", "version-2"])
+def test_psd_pil_refuses_is_none_as_in_jax(case, tmp_path):
+    ch = np.random.default_rng(3).integers(0, 256, (3, 4, 5))
+    data = ti.psd_bytes(ch, 3, depth=16) if case == "16-bit" else (
+        ti.psd_bytes(ch, 3)[:4] + b"\0\x02" + ti.psd_bytes(ch, 3)[6:])
+    path = tmp_path / "x.psd"
+    path.write_bytes(data)
     assert jimage.load_rgba(str(path)) is None
     assert image.load_rgba(str(path)) is None
 
@@ -367,8 +657,10 @@ def _refused():
     base = ti.jpeg_bytes(x)
     prog = ti.jpeg_bytes(ti.smooth_rgb(5, 64, 48), progressive=True)
     return {
-        "GIF": pil("GIF"), "TIFF": pil("TIFF"), "WebP": pil("WEBP"),
-        "PSD": b"8BPS\x00\x01" + bytes(40),
+        "JPEG-in-TIFF": pil("TIFF", compression="jpeg"),
+        "CMYK TIFF": pil("TIFF", "CMYK"), "WebP": pil("WEBP"),
+        "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),
+        "GIF writer": ".gif", "WebP writer": ".webp",
         "CMYK JPEG": pil("JPEG", "CMYK"),
         "12-bit JPEG": ti.patch_frame(base, precision=12),
         "arithmetic-coded JPEG": ti.patch_frame(base, kind=0xC9),
@@ -383,8 +675,16 @@ def _refused():
 
 @pytest.mark.parametrize("fmt", list(_refused()))
 def test_formats_not_decoded_raise_naming_the_file(fmt, tmp_path):
+    """Files the port does not decode, and (an extension in place of the
+    bytes) formats ``write_image`` does not write."""
+    case = _refused()[fmt]
+    if isinstance(case, str):
+        with pytest.raises(NotImplementedError, match="my_texture"):
+            image.write_image(str(tmp_path / f"my_texture{case}"),
+                              np.zeros((2, 3), np.uint8))
+        return
     path = tmp_path / "my_texture.bin"
-    path.write_bytes(_refused()[fmt])
+    path.write_bytes(case)
     with pytest.raises(NotImplementedError, match="my_texture.bin"):
         image.load_rgba(str(path))
 
@@ -400,7 +700,8 @@ def test_fixture_digests_equal_pil_and_the_port(name):
     """``tests/torch_data/digests.json`` (written by
     ``tools/make_torch_fixtures.py``) holds PIL's decode of each fixture,
     which ``chip_smoke.py`` holds the card machine's decode to; the 16-bit
-    grey PNG's holds the high-byte image of the named deviation."""
+    grey PNG's and TIFF's hold the high-byte image of the named
+    deviation."""
     path = os.path.join(DATA, name)
     port = image.load_rgba8(path)
     assert list(port.shape) == DIGESTS[name]["shape"]
@@ -408,7 +709,8 @@ def test_fixture_digests_equal_pil_and_the_port(name):
             == DIGESTS[name]["rgba_sha256"])
     with Image.open(path) as im:
         pil = np.asarray(im.convert("RGBA"), np.uint8)
-    assert np.array_equal(pil, port) == (name != "grey16.png")
+    assert np.array_equal(pil, port) == (name not in ("grey16.png",
+                                                      "grey16.tif"))
 
 
 # ---- scenes ----------------------------------------------------------------
@@ -457,6 +759,51 @@ def test_jpeg_and_bmp_mapped_trace_matches_jax_under_one_key(dispersion,
     jsc.set_roughness_texture(0, 0, rough)
     jsc.set_normal_texture(0, 0, normal)
     assert jsc.objects[0].elements[0].material.type == MaterialType.GLOSSY
+    got, want = trace_both(jsc, jsc.trace_depth, 3, dispersion)
+    assert_same(got, want)
+    assert np.asarray(want.radiance).max() > 0
+
+
+def tiff_and_gif(tmp_path):
+    """Paths of a 16-bit RGB LZW TIFF with predictor 2 and an interlaced
+    GIF with a 256-entry table."""
+    rough = tmp_path / "rough.tif"
+    rng = np.random.default_rng(14)
+    deep = ti.smooth_rgb(13, 61, 47).astype(np.int64) * 257 \
+        + rng.integers(0, 257, (47, 61, 3))
+    rough.write_bytes(ti.tiff_bytes(deep, 16, compression=5, predictor=2,
+                                    rows_per_strip=8))
+    normal = tmp_path / "normal.gif"
+    idx = (ti.smooth_rgb(14, 31, 23)[..., 0] // 16).astype(np.uint8)
+    pal = np.concatenate([ti.smooth_rgb(15, 16, 1)[0],
+                          np.zeros((240, 3), np.uint8)]).tobytes()
+    normal.write_bytes(ti.gif_bytes(idx, global_palette=pal, interlace=True))
+    return str(rough), str(normal)
+
+
+@pytest.mark.parametrize("build_bvh", [False, True])
+def test_compile_with_tiff_and_gif_maps_equals_jax(build_bvh, tmp_path):
+    rough, normal = tiff_and_gif(tmp_path)
+    jsc = cornell_scene(depth=2, res=(16, 16),
+                        block_types=(MaterialType.GLOSSY, MaterialType.GLOSSY))
+    jsc.set_roughness_texture(0, 6, rough)
+    jsc.set_roughness_texture(0, 7, rough)
+    jsc.set_normal_texture(0, 3, normal)
+    got = to_port_scene(jsc).compile("cpu", build_bvh=build_bvh)
+    assert got.textures.shape == (2, 47, 61, 4)
+    assert_fields_equal(jsc.compile(build_bvh=build_bvh), got)
+
+
+@pytest.mark.parametrize("dispersion", [False, "hero"])
+def test_tiff_and_gif_mapped_trace_matches_jax_under_one_key(dispersion,
+                                                             tmp_path):
+    """``test_jpeg_and_bmp_mapped_trace_matches_jax_under_one_key`` with
+    the TIFF roughness map and the GIF normal map (rtol 1e-4 / atol
+    1e-6)."""
+    rough, normal = tiff_and_gif(tmp_path)
+    jsc = normal_mapped_wall(tmp_path)
+    jsc.set_roughness_texture(0, 0, rough)
+    jsc.set_normal_texture(0, 0, normal)
     got, want = trace_both(jsc, jsc.trace_depth, 3, dispersion)
     assert_same(got, want)
     assert np.asarray(want.radiance).max() > 0

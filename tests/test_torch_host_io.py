@@ -211,7 +211,8 @@ def test_export_failure_raises(tmp_path):
 
 def test_host_library_is_built_from_the_port_sources_with_jax_flags():
     sources = {p.name for p in _build.HOST_SOURCES}
-    assert sources == {"bvh_build.cpp", "host_io.cpp", "jpeg_decode.cpp"}
+    assert sources == {"bvh_build.cpp", "host_io.cpp", "jpeg_decode.cpp",
+                       "jpeg_encode.cpp", "lzw_decode.cpp"}
     jax_compile = inspect.getsource(native._compile)
     for flag in _build.HOST_FLAGS:
         assert f'"{flag}"' in jax_compile, flag
@@ -220,7 +221,8 @@ def test_host_library_is_built_from_the_port_sources_with_jax_flags():
     assert path.exists() and path.parent == _build.BUILD_DIR
 
 
-@pytest.mark.parametrize("call", ["load_obj", "export_spectrum", "jpeg"])
+@pytest.mark.parametrize("call", ["load_obj", "export_spectrum", "jpeg",
+                                  "jpeg_encode", "tiff_lzw"])
 def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
                                                               monkeypatch):
     def no_library():
@@ -233,8 +235,12 @@ def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
         elif call == "export_spectrum":
             spectral_io.export_spectrum(str(tmp_path / "x.txt"),
                                         np.ones((1, 1, 1), np.float32))
+        elif call == "jpeg_encode":
+            image.write_image(str(tmp_path / "x.jpg"),
+                              np.zeros((2, 3), np.uint8))
         else:
-            image.load_rgba(os.path.join(os.path.dirname(__file__),
-                                         "torch_data",
-                                         "normal_1024_444.jpg"))
+            image.load_rgba(os.path.join(
+                os.path.dirname(__file__), "torch_data",
+                "normal_1024_444.jpg" if call == "jpeg"
+                else "normal_512_lzw16.tif"))
     assert jpeg.BrokenJpeg is not RuntimeError

@@ -1,0 +1,235 @@
+"""The port's image writer (``utils/image.py::write_image``) against PIL
+12.1's ``Image.save``, which the JAX package saves through: the format
+comes from the file name's extension, JPEG (the host library's encoder),
+BMP, DIB, TIFF, PPM and TGA files are PIL's byte for byte, PNG decodes to
+the same pixels, the other extensions PIL registers raise
+``NotImplementedError`` naming the path, and an unknown one raises PIL's
+``ValueError``. Then both command lines, the shell and the viewer against
+each other on the same ``.pts`` scene: the same bytes under ``.jpg``,
+``.bmp``, ``.tif`` and ``.ppm`` names (before the repair the port wrote
+PNG bytes under every name), and ``ValueError`` for ``.xyz`` in both.
+"""
+
+import io
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from PIL import Image  # noqa: E402
+
+from pathtracing_spectrum_tpu import cli as jcli  # noqa: E402
+from pathtracing_spectrum_tpu import viewer as jviewer  # noqa: E402
+from pathtracing_spectrum_tpu.shell import SpectrumShell as JShell  # noqa: E402,E501
+from pathtracing_spectrum_tpu.utils import scene_io as jio  # noqa: E402
+from pathtracing_spectrum_tpu_torch import cli, viewer  # noqa: E402
+from pathtracing_spectrum_tpu_torch.shell import SpectrumShell  # noqa: E402
+from pathtracing_spectrum_tpu_torch.utils import image, jpeg  # noqa: E402
+
+import torch_images as ti  # noqa: E402
+from scene_helpers import cornell_scene  # noqa: E402
+
+BYTE_EQUAL = [ext for ext, fmt in sorted(image.EXTENSIONS.items())
+              if fmt in ("JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA")]
+# 1x1, odd sizes, and several 16x16 MCU rows with partial MCUs
+SIZES = [(1, 1), (17, 9), (37, 29), (45, 53)]
+
+
+def pixels(seed: int, w: int, h: int, mode: str) -> np.ndarray:
+    x = ti.smooth_rgb(seed, w, h, noise=60)
+    return x[..., 1] if mode == "L" else x
+
+
+def pil_bytes(img: np.ndarray, ext: str, tmp_path) -> bytes:
+    path = tmp_path / f"pil{ext}"
+    Image.fromarray(img).save(path)
+    return path.read_bytes()
+
+
+def test_pil_registers_the_extensions_the_port_knows():
+    """The port's copy of PIL 12.1's extension table is PIL's."""
+    Image.init()
+    assert image.EXTENSIONS == Image.registered_extensions()
+
+
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("mode", ["L", "RGB"])
+@pytest.mark.parametrize("ext", BYTE_EQUAL)
+def test_write_image_is_pils_file_byte_for_byte(ext, mode, size, tmp_path):
+    w, h = size
+    img = pixels(w * h + len(ext), w, h, mode)
+    path = tmp_path / f"port{ext}"
+    image.write_image(str(path), img)
+    assert path.read_bytes() == pil_bytes(img, ext, tmp_path)
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB"])
+def test_extension_case_is_ignored_as_in_pil(mode, tmp_path):
+    img = pixels(3, 21, 11, mode)
+    for ext in (".JPG", ".Tif", ".BMP"):
+        path = tmp_path / f"port{ext}"
+        image.write_image(path, img)
+        assert path.read_bytes() == pil_bytes(img, ext, tmp_path)
+
+
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("mode", ["L", "RGB"])
+@pytest.mark.parametrize("ext", [".png", ".apng"])
+def test_png_names_decode_to_the_pixels_in_pil(ext, mode, size, tmp_path):
+    w, h = size
+    img = pixels(w + h, w, h, mode)
+    path = tmp_path / f"port{ext}"
+    image.write_image(str(path), img)
+    with Image.open(path) as im:
+        assert im.format == "PNG" and im.mode == mode
+        np.testing.assert_array_equal(np.asarray(im), img)
+
+
+@pytest.mark.parametrize("content", ["noise", "flat", "extremes"])
+def test_jpeg_encoder_is_pils_on_hard_content(content, tmp_path):
+    """Noise (every AC coefficient, long Huffman codes, 0xFF stuffing),
+    flat blocks (EOB only) and 0/255 checkers (the largest coefficients and
+    the quantiser's rounding of negative values), at a size whose last
+    MCU row and column are partial."""
+    rng = np.random.default_rng(5)
+    shape = (43, 61, 3)
+    img = {"noise": rng.integers(0, 256, shape, np.uint8),
+           "flat": np.full(shape, 77, np.uint8),
+           "extremes": (np.indices(shape).sum(0) % 2 * 255).astype(
+               np.uint8)}[content]
+    for x in (img, img[..., 0]):
+        assert jpeg.encode(x) == pil_bytes(x, ".jpg", tmp_path)
+
+
+def test_written_jpeg_decodes_in_the_port_as_in_pil(tmp_path):
+    img = pixels(8, 40, 24, "RGB")
+    path = tmp_path / "x.jpg"
+    image.write_image(str(path), img)
+    got = image.load_rgba8(str(path))
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(got, np.asarray(im.convert("RGBA")))
+
+
+OTHER_FORMATS = sorted({fmt for fmt in image.EXTENSIONS.values()}
+                       - {"PNG", "JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA"})
+
+
+@pytest.mark.parametrize("fmt", OTHER_FORMATS)
+def test_other_registered_extensions_raise_naming_the_path(fmt, tmp_path):
+    for ext in (e for e, f in image.EXTENSIONS.items() if f == fmt):
+        path = tmp_path / f"out{ext}"
+        with pytest.raises(NotImplementedError, match=f"out\\{ext}"):
+            image.write_image(str(path), np.zeros((2, 3), np.uint8))
+        assert not path.exists()
+
+
+@pytest.mark.parametrize("name", ["out.xyz", "out", "out.png.bak"])
+def test_unknown_extension_is_pils_value_error(name, tmp_path):
+    path = str(tmp_path / name)
+    img = np.zeros((2, 3), np.uint8)
+    with pytest.raises(ValueError) as pil_error:
+        Image.fromarray(img).save(path)
+    with pytest.raises(ValueError) as port_error:
+        image.write_image(path, img)
+    assert str(port_error.value) == str(pil_error.value)
+    assert not os.path.exists(path)
+
+
+def test_write_image_refuses_other_pixels(tmp_path):
+    with pytest.raises(ValueError):
+        image.write_image(str(tmp_path / "x.bmp"), np.zeros((2, 3, 4),
+                                                           np.uint8))
+    with pytest.raises(ValueError):
+        image.write_image(str(tmp_path / "x.tif"), np.zeros((2, 3),
+                                                           np.float32))
+
+
+# ---- both packages on the same scene ---------------------------------------
+
+@pytest.fixture(scope="module")
+def scene_file(tmp_path_factory):
+    p = str(tmp_path_factory.mktemp("scene") / "scene.pts")
+    jio.save_scene(cornell_scene(depth=2, res=(24, 16)), p)
+    return p
+
+
+@pytest.mark.parametrize("ext", [".jpg", ".bmp", ".tif", ".ppm"])
+def test_cli_preview_writes_the_format_jax_writes(ext, scene_file, tmp_path):
+    """``preview --out v.<ext>``: the JAX command (PIL) and the port's
+    write the same file, byte for byte."""
+    want, got = tmp_path / f"jax{ext}", tmp_path / f"port{ext}"
+    assert jcli.main(["preview", scene_file, "--out", str(want)]) == 0
+    assert cli.main(["preview", scene_file, "--out", str(got),
+                     "--device", "cpu"]) == 0
+    assert got.read_bytes() == want.read_bytes()
+    with Image.open(got) as im:
+        assert im.format == Image.registered_extensions()[ext]
+
+
+def test_cli_preview_unknown_extension_raises_in_both(scene_file, tmp_path):
+    out = str(tmp_path / "v.xyz")
+    with pytest.raises(ValueError, match="unknown file extension"):
+        jcli.main(["preview", scene_file, "--out", out])
+    with pytest.raises(ValueError, match="unknown file extension"):
+        cli.main(["preview", scene_file, "--out", out, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("ext", [".tga", ".jpeg"])
+def test_shell_preview_writes_the_format_jax_writes(ext, scene_file,
+                                                    tmp_path):
+    paths = []
+    for name, shell, kw in (("jax", JShell, {}),
+                            ("port", SpectrumShell, {"device": "cpu"})):
+        out = str(tmp_path / f"{name}{ext}")
+        sh = shell(stdin=io.StringIO(""), stdout=io.StringIO(), **kw)
+        sh.onecmd(f"open {scene_file}")
+        sh.onecmd(f"preview {out}")
+        paths.append(out)
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("ext", [".dib", ".pgm", ".jpg"])
+def test_viewer_saves_write_the_format_jax_writes(ext, tmp_path):
+    """``save_png`` (grey) and ``save_srgb_png`` (RGB, host path) under a
+    name that is not PNG: the same file as the JAX viewer's."""
+    img = np.random.default_rng(1).uniform(0, 1, (9, 13, 3)).astype(
+        np.float32)
+    wn = [1e7 / 450, 1e7 / 550, 1e7 / 650]
+    for save, args in ((viewer.save_png, (img, 1)),
+                       (viewer.save_srgb_png, (img, wn))):
+        jsave = getattr(jviewer, save.__name__)
+        port, jax = tmp_path / f"port{ext}", tmp_path / f"jax{ext}"
+        save(*args, str(port))
+        jsave(*args, str(jax))
+        assert port.read_bytes() == jax.read_bytes()
+
+
+def test_write_digests_are_pils_and_the_ports(tmp_path):
+    """``tests/torch_data/write_digests.json`` (written by
+    ``tools/make_torch_fixtures.py``, which ``chip_smoke.py`` holds the
+    card machine's writes to) records PIL's file for the 37x29 image under
+    every extension; the port writes the same bytes (the 3840x2160 image
+    is held on the card's machine)."""
+    import hashlib
+    import importlib.util
+    import json
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures",
+        os.path.join(here, "..", "tools", "make_torch_fixtures.py"))
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    with open(os.path.join(here, "torch_data", "write_digests.json")) as f:
+        recorded = json.load(f)
+    assert sorted(recorded) == sorted(fx.writer_images())
+    for mode, px in fx.writer_images()["small_37x29"].items():
+        assert sorted(recorded["small_37x29"][mode]) == sorted(
+            fx.WRITE_EXTENSIONS)
+        for ext, want in recorded["small_37x29"][mode].items():
+            port = tmp_path / f"port{ext}"
+            image.write_image(str(port), px)
+            assert hashlib.sha256(port.read_bytes()).hexdigest() == want
+            assert pil_bytes(px, ext, tmp_path) == port.read_bytes()

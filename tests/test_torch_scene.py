@@ -127,19 +127,22 @@ def test_scene_data_from_numpy_carries_bvh_ordered_scene():
 
 
 def test_texture_binding_raises(tmp_path):
-    """A texture the port does not decode (a GIF) fails the compile,
-    naming the file, instead of rendering without it. A broken BMP (the
-    64-byte ``BM`` file, once refused as a non-PNG) and a missing file
-    bind nothing, as in the reference and the JAX package."""
+    """A texture the port does not decode (a WebP) fails the compile,
+    naming the file, instead of rendering without it. A broken BMP and a
+    broken GIF (the 64-byte ``BM`` and ``GIF89a`` files, once refused as
+    formats not decoded) and a missing file bind nothing, as in the
+    reference and the JAX package."""
     jsc, sc = port_cornell()
-    rough = tmp_path / "rough.gif"
-    rough.write_bytes(b"GIF89a" + bytes(64))
+    rough = tmp_path / "rough.webp"
+    rough.write_bytes(b"RIFF" + bytes(4) + b"WEBP" + bytes(64))
     sc.objects[0].elements[0].material.roughness_tex_file = str(rough)
-    with pytest.raises(NotImplementedError, match="rough.gif"):
+    with pytest.raises(NotImplementedError, match="rough.webp"):
         sc.compile("cpu")
     broken = tmp_path / "rough.bmp"
     broken.write_bytes(b"BM" + bytes(64))
-    for missing in (broken, tmp_path / "missing.png"):
+    broken_gif = tmp_path / "rough.gif"
+    broken_gif.write_bytes(b"GIF89a" + bytes(64))
+    for missing in (broken, broken_gif, tmp_path / "missing.png"):
         for scene in (jsc, sc):
             scene.objects[0].elements[0].material.roughness_tex_file = str(
                 missing)

@@ -1,10 +1,14 @@
 """Image files made by hand or by PIL for the port's texture decoders:
 PNG (any colour type and bit depth, plain or Adam7-interlaced, every row
-filter), BMP, TGA (raw and run-length), and JPEG files from PIL, rewritten
+filter), BMP, TGA (raw and run-length), JPEG files from PIL, rewritten
 marker by marker into the flavours PIL does not write (4:4:0 and other
 sampling factors, SOF1, RGB by component ids, other precisions and frame
-types). Shared by ``tests/test_torch_formats.py``,
-``tests/test_torch_textures.py``, ``tests/test_torch_scene.py`` and
+types), GIF (LZW, colour tables, transparency, interlace, frames inside
+or past the screen), TIFF (both byte orders, LZW, Deflate, PackBits,
+predictor 2, strips and tiles, both planar configurations) and PSD (raw
+and RLE, every 8-bit colour mode PIL reads; PIL writes no PSD). Shared by
+``tests/test_torch_formats.py``, ``tests/test_torch_textures.py``,
+``tests/test_torch_scene.py``, ``tests/test_torch_image_write.py`` and
 ``tools/make_torch_fixtures.py``; jax-free, and PIL is imported only by the
 functions that need it.
 """
@@ -267,3 +271,341 @@ def drop_last_scan(data: bytes) -> bytes:
     luma AC refinement), ended by EOI: its coefficients stay incomplete,
     and libjpeg smooths the blocks."""
     return data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"
+
+
+# ---- GIF ------------------------------------------------------------------
+
+class _BitsLSB:
+    def __init__(self):
+        self.acc, self.n, self.out = 0, 0, bytearray()
+
+    def put(self, code: int, width: int):
+        self.acc |= code << self.n
+        self.n += width
+        while self.n >= 8:
+            self.out.append(self.acc & 0xFF)
+            self.acc >>= 8
+            self.n -= 8
+
+    def done(self) -> bytes:
+        if self.n:
+            self.out.append(self.acc & 0xFF)
+        return bytes(self.out)
+
+
+def gif_lzw(indices, bits: int, clear_when_full: bool = True,
+            end: bool = True) -> bytes:
+    """LSB-first GIF LZW of ``indices`` at minimum code size ``bits``:
+    a clear code first; at 4096 entries a clear, or (``clear_when_full``
+    false) 12-bit codes with no new entries; the end code unless
+    ``end`` is false."""
+    clear = 1 << bits
+    out = _BitsLSB()
+    table, nxt = {}, clear + 2
+
+    def width():
+        return min(12, max(bits + 1, (nxt - 1).bit_length()))
+
+    out.put(clear, bits + 1)
+    w = None
+    for k in (int(v) for v in indices):
+        if w is None:
+            w = k
+            continue
+        if (w, k) in table:
+            w = table[(w, k)]
+            continue
+        out.put(w, width())
+        if nxt < 4096:
+            table[(w, k)] = nxt
+            nxt += 1
+        elif clear_when_full:
+            out.put(clear, 12)
+            table, nxt = {}, clear + 2
+        w = k
+    if w is not None:
+        out.put(w, width())
+        nxt = min(nxt + 1, 4096)
+    if end:
+        out.put(clear + 1, width())
+    return out.done()
+
+
+def sub_blocks(data: bytes, size: int = 255) -> bytes:
+    out = b"".join(bytes([len(data[i:i + size])]) + data[i:i + size]
+                   for i in range(0, len(data), size))
+    return out + b"\0"
+
+
+INTERLACE_PASSES = ((0, 8), (4, 8), (2, 4), (1, 2))
+
+
+def gif_bytes(indices: np.ndarray, screen=None, offset=(0, 0),
+              global_palette=None, local_palette=None, transparency=None,
+              interlace=False, version=b"GIF89a", bits=None,
+              lzw=None) -> bytes:
+    """A one-frame GIF of ``indices`` [h, w] at ``offset`` on a logical
+    screen of ``screen`` (w, h; the frame's size by default). Palettes are
+    bytes of 3 * 2**n; ``lzw`` replaces the coded image data."""
+    h, w = indices.shape
+    sw, sh = screen or (w, h)
+
+    def table_bits(pal):
+        n = len(pal) // 3
+        return max(0, (n - 1).bit_length() - 1)
+
+    flags = 0
+    if global_palette is not None:
+        flags = 0x80 | 0x70 | table_bits(global_palette)
+    out = version + struct.pack("<HHBBB", sw, sh, flags, 0, 0)
+    if global_palette is not None:
+        out += global_palette
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + struct.pack("<BHB", 1, 0, transparency)
+        out += b"\0"
+    lflags = (0x40 if interlace else 0)
+    if local_palette is not None:
+        lflags |= 0x80 | table_bits(local_palette)
+    out += b"," + struct.pack("<HHHHB", offset[0], offset[1], w, h, lflags)
+    if local_palette is not None:
+        out += local_palette
+    rows = indices
+    if interlace:
+        rows = np.concatenate([indices[s::d] for s, d in INTERLACE_PASSES])
+    if bits is None:
+        bits = max(2, int(indices.max(initial=0)).bit_length())
+    data = lzw if lzw is not None else gif_lzw(rows.reshape(-1), bits)
+    return out + bytes([bits]) + sub_blocks(data) + b";"
+
+
+# ---- TIFF -----------------------------------------------------------------
+
+class _BitsMSB:
+    def __init__(self):
+        self.acc, self.n, self.out = 0, 0, bytearray()
+
+    def put(self, code: int, width: int):
+        self.acc = (self.acc << width) | code
+        self.n += width
+        while self.n >= 8:
+            self.out.append((self.acc >> (self.n - 8)) & 0xFF)
+            self.n -= 8
+        self.acc &= (1 << self.n) - 1
+
+    def done(self) -> bytes:
+        if self.n:
+            self.out.append((self.acc << (8 - self.n)) & 0xFF)
+        return bytes(self.out)
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """MSB-first TIFF LZW with the early change, a clear code first and
+    whenever the table reaches 4094 entries, and the end code."""
+    out = _BitsMSB()
+    table, nxt = {}, 258
+
+    def width():
+        return 9 if nxt < 512 else 10 if nxt < 1024 else 11 if nxt < 2048 \
+            else 12
+
+    out.put(256, 9)
+    w = None
+    for k in data:
+        if w is None:
+            w = k
+            continue
+        if (w, k) in table:
+            w = table[(w, k)]
+            continue
+        out.put(w, width())
+        table[(w, k)] = nxt
+        nxt += 1
+        if nxt == 4094:
+            out.put(256, 12)
+            table, nxt = {}, 258
+        w = k
+    if w is not None:
+        out.put(w, width())
+        nxt += 1
+    out.put(257, width())
+    return out.done()
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 to 128 equal bytes, literals of up to 128."""
+    out, i, lit = bytearray(), 0, bytearray()
+
+    def flush():
+        while lit:
+            chunk = lit[:128]
+            out.append(len(chunk) - 1)
+            out.extend(chunk)
+            del lit[:128]
+
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out.extend([257 - (j - i), data[i]])
+            i = j
+        else:
+            lit.append(data[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def predict(rows: np.ndarray, spp: int) -> np.ndarray:
+    """Horizontal differencing (predictor 2) of [rows, w * spp] samples."""
+    h = rows.shape[0]
+    px = rows.reshape(h, -1, spp)
+    out = px.copy()
+    out[:, 1:] = px[:, 1:] - px[:, :-1]      # wraps in the unsigned dtype
+    return out.reshape(rows.shape)
+
+
+def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = None,
+               compression: int = 1, predictor: int = 1, order: str = "<",
+               planar: int = 1, rows_per_strip: int = None, tile=None,
+               extra=None, sample_format: int = None, colormap=None,
+               extra_tags=(), fill_order: int = None) -> bytes:
+    """A one-IFD TIFF of ``samples`` [h, w, spp] (integers below
+    ``2**bits``, or float32 with ``sample_format`` 3), in byte order
+    ``order`` ('<' II, '>' MM), strips of ``rows_per_strip`` rows or
+    tiles of ``tile`` (w, h), compression 1, 5, 8, 32946 or 32773."""
+    h, w, spp = samples.shape
+    if photometric is None:
+        photometric = 1 if spp in (1, 2) else 2
+    dtype = {8: np.uint8, 16: np.dtype(order + "u2"),
+             32: np.dtype(order + ("f4" if sample_format == 3 else "u4"))}
+
+    def pack(block: np.ndarray) -> bytes:
+        """[rows, cols, n] samples -> stored bytes, rows byte-aligned."""
+        r, c, n = block.shape
+        if bits >= 8:
+            b = block.astype(dtype[bits])
+            if predictor == 2:
+                b = predict(b.reshape(r, c * n).astype(
+                    b.dtype.newbyteorder("=")), n).astype(dtype[bits])
+            return b.tobytes()
+        rows = []
+        for row in block.reshape(r, c * n):
+            bitsarr = np.unpackbits(row.astype(np.uint8)[:, None],
+                                    axis=1)[:, 8 - bits:].reshape(-1)
+            rows.append(np.packbits(bitsarr).tobytes())
+        return b"".join(rows)
+
+    def compress(raw: bytes) -> bytes:
+        if compression == 5:
+            return tiff_lzw(raw)
+        if compression in (8, 32946):
+            return zlib.compress(raw, 6)
+        if compression == 32773:
+            return packbits(raw)
+        return raw
+
+    if fill_order == 2:               # the stored bits of each byte reversed
+        rev = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+        plain = compress
+        compress = lambda raw: plain(raw).translate(rev)   # noqa: E731
+    planes = [samples] if planar == 1 else [samples[..., i:i + 1]
+                                              for i in range(spp)]
+    chunks = []
+    if tile is None:
+        rps = rows_per_strip or h
+        for plane in planes:
+            for y in range(0, h, rps):
+                chunks.append(compress(pack(plane[y:y + rps])))
+    else:
+        tw, th = tile
+        for plane in planes:
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    t = np.zeros((th, tw, plane.shape[2]), plane.dtype)
+                    part = plane[y:y + th, x:x + tw]
+                    t[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(compress(pack(t)))
+    S, L, R = 3, 4, 5
+    tags = {256: (L, [w]), 257: (L, [h]), 258: (S, [bits] * spp),
+            259: (S, [compression]), 262: (S, [photometric]),
+            277: (S, [spp]), 284: (S, [planar])}
+    if tile is None:
+        tags[278] = (L, [rows_per_strip or h])
+    else:
+        tags[322] = (L, [tile[0]])
+        tags[323] = (L, [tile[1]])
+    if predictor != 1:
+        tags[317] = (S, [predictor])
+    if extra is not None:
+        tags[338] = (S, list(extra))
+    if sample_format is not None:
+        tags[339] = (S, [sample_format] * spp)
+    if colormap is not None:
+        tags[320] = (S, list(colormap))
+    if fill_order is not None:
+        tags[266] = (S, [fill_order])
+    tags[282] = (R, [72, 1])
+    tags[283] = (R, [72, 1])
+    for tag, kind, values in extra_tags:
+        tags[tag] = (kind, values)
+    off_tag, cnt_tag = (273, 279) if tile is None else (324, 325)
+    tags[off_tag] = (L, [0] * len(chunks))
+    tags[cnt_tag] = (L, [len(c) for c in chunks])
+    fmt = {S: "H", L: "I", R: "I"}
+    ifd_at = 8
+    aux_at = ifd_at + 2 + 12 * len(tags) + 4
+
+    def layout(data_at):
+        entries, aux = b"", b""
+        for tag in sorted(tags):
+            kind, values = tags[tag]
+            if tag == off_tag:
+                pos, values = data_at, []
+                for c in chunks:
+                    values.append(pos)
+                    pos += len(c)
+            data = struct.pack(order + fmt[kind] * len(values), *values)
+            count = len(values) // (2 if kind == R else 1)
+            if len(data) <= 4:
+                value = data.ljust(4, b"\0")
+            else:
+                value = struct.pack(order + "I", aux_at + len(aux))
+                aux += data + b"\0" * (len(data) & 1)
+            entries += struct.pack(order + "HHI", tag, kind, count) + value
+        return entries, aux
+
+    entries, aux = layout(0)
+    entries, aux = layout(aux_at + len(aux))
+    head = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(
+        order + "I", ifd_at)
+    return (head + struct.pack(order + "H", len(tags)) + entries
+            + b"\0" * 4 + aux + b"".join(chunks))
+
+
+# ---- PSD ------------------------------------------------------------------
+
+def psd_bytes(channels: np.ndarray, mode: int, depth: int = 8,
+              rle: bool = False, palette: bytes = b"",
+              layers: bytes = b"") -> bytes:
+    """A PSD of ``channels`` [n, h, w] (the merged image), colour mode
+    ``mode`` (0 bitmap, 1 grey, 2 indexed, 3 RGB, 4 CMYK), raw or RLE
+    (PackBits rows after a table of their byte counts); ``layers`` is the
+    layer-and-mask section's body, which readers skip by its length."""
+    n, h, w = channels.shape
+    out = b"8BPS" + struct.pack(">H6xHIIHH", 1, n, h, w, depth, mode)
+    out += struct.pack(">I", len(palette)) + palette
+    out += struct.pack(">I", 0)                     # image resources
+    out += struct.pack(">I", len(layers)) + layers
+    if depth == 1:
+        rows = [np.packbits(r).tobytes() for c in channels for r in c]
+    else:
+        dt = ">u2" if depth == 16 else np.uint8
+        rows = [r.astype(dt).tobytes() for c in channels for r in c]
+    if not rle:
+        return out + struct.pack(">H", 0) + b"".join(rows)
+    packed = [packbits(r) for r in rows]
+    return (out + struct.pack(">H", 1)
+            + b"".join(struct.pack(">H", len(p)) for p in packed)
+            + b"".join(packed))

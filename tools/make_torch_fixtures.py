@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
-"""Write the texture fixtures of the PyTorch port into ``tests/torch_data/``.
+"""Write the image fixtures of the PyTorch port into ``tests/torch_data/``.
 
 The machine with the card has no PIL, so ``chip_smoke.py`` holds the
-port's decodes there by digest: this script makes each fixture with PIL
-(or by hand, for the PNG flavours PIL does not write) and records, in
-``tests/torch_data/digests.json``, the sha256 of PIL's ``convert("RGBA")``
-bytes of each. For the 16-bit grey PNG it records the high-byte image
-instead: the port's one named deviation from PIL, which clips that mode
-at 255. ``tests/test_torch_formats.py`` checks the digests against PIL's
-decode on every run.
+port's decodes and writes there by digest. This script makes each fixture
+with PIL (or by hand, for the PNG, TIFF, GIF and PSD flavours PIL does not
+write) and records, in ``tests/torch_data/digests.json``, the sha256 of
+PIL's ``convert("RGBA")`` bytes of each. For the 16-bit grey PNG and TIFF
+it records the high-byte image instead: the port's named deviation from
+PIL, which clips that mode at 255. ``tests/test_torch_formats.py`` checks
+the digests against PIL's decode on every run.
+
+It also records, in ``tests/torch_data/write_digests.json``, the sha256
+of the file PIL's ``Image.save`` writes for two images (the 37x29 fixture
+image and a 3840x2160 one made procedurally, in integers only, by
+:func:`writer_images`) as L and RGB under each extension the port writes
+byte for byte; no image is committed for these. ``chip_smoke.py`` imports
+:func:`writer_images` from this file (PIL is imported only where it is
+used).
 
 Fixtures (all content procedural, from fixed seeds):
 
@@ -19,7 +27,18 @@ Fixtures (all content procedural, from fixed seeds):
   field of bumps encoded as tangent-space normals (its normal map);
 - ``small.bmp`` (24-bit), ``small.tga`` (run-length RGBA), ``small.ppm``
   (P6), ``grey16.png`` (16-bit grey) and ``adam7.png`` (8-bit RGB,
-  Adam7-interlaced), 37x29 each.
+  Adam7-interlaced), 37x29 each;
+- ``roughness_2048_deflate.tif``: 2048x2048 8-bit grey, Deflate with
+  predictor 2, written by libtiff through PIL (the first channel of the
+  JPEG roughness map's content);
+- ``normal_512_lzw16.tif``: 512x512 16-bit RGB tangent-space normals at
+  10-bit precision, LZW with predictor 2, 16-row strips (by hand: PIL
+  holds no 16-bit RGB);
+- ``interlaced.gif`` (37x29, interlaced, a transparency index),
+  ``tiled_planar.tif`` (37x29 8-bit RGB, 16x16 tiles, separate planes,
+  LZW), ``grey16.tif`` (37x29 16-bit grey, its digest the high-byte
+  image), ``rle.psd`` (37x29 RGBA, RLE) and ``assoc_alpha.tif`` (37x29
+  RGBA with associated alpha, PackBits).
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -32,7 +51,6 @@ import os
 import sys
 
 import numpy as np
-from PIL import Image
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "tests", "torch_data")
@@ -66,8 +84,73 @@ def normal_map(n: int = 1024, bumps: int = 8) -> np.ndarray:
     return ((nrm * 0.5 + 0.5) * 255).round().astype(np.uint8)
 
 
+def normal_map16(n: int = 512, bumps: int = 4) -> np.ndarray:
+    """:func:`normal_map`'s normals at 10-bit precision in 16-bit samples
+    (float64, so the committed file does not depend on float32 sin)."""
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float64) * (bumps / n)
+    dx = 0.6 * np.cos(6.2831853 * xx) * np.sin(6.2831853 * yy)
+    dy = 0.6 * np.sin(6.2831853 * xx) * np.cos(6.2831853 * yy)
+    nrm = np.stack([-dx, -dy, np.ones_like(dx)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    return ((nrm * 0.5 + 0.5) * 1023).round().astype(np.int64) * 64
+
+
+def procedural_rgb(w: int, h: int, seed: int) -> np.ndarray:
+    """[h, w, 3] uint8 of ramps, stripes and hashed noise, in integer
+    arithmetic only, so every machine makes the same bytes."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.int64)
+    hsh = (x * 73856093) ^ (y * 19349663) ^ (seed * 83492791)
+    hsh = ((hsh ^ (hsh >> 13)) * 1274126177) & 0xFFFFFFFF
+    noise = (hsh >> 24) & 63
+    r = x * 255 // max(w - 1, 1)
+    g = (y * 3 + (x // 17) * 40) % 256
+    b = ((x // 64 + y // 64) % 2) * 160 + noise
+    return np.clip(np.stack([r + noise // 4, g, b], -1), 0, 255).astype(
+        np.uint8)
+
+
+# the extensions the port writes byte for byte as PIL (JPEG, BMP, DIB,
+# TIFF, PPM and TGA, PIL 12.1's names for each)
+WRITE_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif", ".bmp", ".dib",
+                    ".tif", ".tiff", ".pbm", ".pgm", ".ppm", ".pnm", ".pfm",
+                    ".tga", ".icb", ".vda", ".vst")
+
+
+def writer_images() -> dict:
+    """{name: {"L": [H, W] uint8, "RGB": [H, W, 3] uint8}}: the 37x29
+    fixture image (the content of ``small.bmp``) and a procedural
+    3840x2160 one; L is the green channel."""
+    ti = _images_module()
+    h, w = SMALL
+    out = {}
+    for name, rgb in (("small_37x29", ti.smooth_rgb(9, w, h)),
+                      ("procedural_3840x2160",
+                       procedural_rgb(3840, 2160, 10))):
+        out[name] = {"L": np.ascontiguousarray(rgb[..., 1]), "RGB": rgb}
+    return out
+
+
+def write_digests() -> dict:
+    """{image: {mode: {extension: sha256 of PIL's file}}}."""
+    import tempfile
+    from PIL import Image
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, modes in writer_images().items():
+            for mode, px in modes.items():
+                for ext in WRITE_EXTENSIONS:
+                    path = os.path.join(tmp, "x" + ext)
+                    Image.fromarray(px).save(path)
+                    with open(path, "rb") as f:
+                        digest = hashlib.sha256(f.read()).hexdigest()
+                    out.setdefault(name, {}).setdefault(mode, {})[ext] = \
+                        digest
+    return out
+
+
 def fixtures():
     """{name: (file bytes, RGBA8 the port must decode, how it was got)}."""
+    from PIL import Image
     ti = _images_module()
     rng = np.random.default_rng(9)
     h, w = SMALL
@@ -90,6 +173,23 @@ def fixtures():
             [small, alpha], -1), "RGBA"), "TGA", compression="tga_rle"),
         "small.ppm": pil_file(Image.fromarray(small), "PPM"),
         "adam7.png": ti.png_bytes(small, 2, 8, interlace=1),
+        "roughness_2048_deflate.tif": pil_file(
+            Image.fromarray(roughness_map()[..., 0]), "TIFF",
+            compression="tiff_adobe_deflate", tiffinfo={317: 2}),
+        "normal_512_lzw16.tif": ti.tiff_bytes(
+            normal_map16(), 16, compression=5, predictor=2,
+            rows_per_strip=16),
+        "interlaced.gif": ti.gif_bytes(
+            (small[..., 0] // 16).astype(np.uint8),
+            global_palette=ti.smooth_rgb(10, 16, 1)[0].tobytes(),
+            interlace=True, transparency=3),
+        "tiled_planar.tif": ti.tiff_bytes(small, compression=5,
+                                          tile=(16, 16), planar=2),
+        "rle.psd": ti.psd_bytes(np.moveaxis(np.concatenate(
+            [small, alpha], -1), -1, 0), 3, rle=True),
+        "assoc_alpha.tif": ti.tiff_bytes(
+            np.concatenate([small // 2, alpha], -1), extra=[1],
+            compression=32773),
     }
     out = {}
     for name, data in files.items():
@@ -97,9 +197,10 @@ def fixtures():
     grey = rng.integers(0, 1 << 16, (h, w, 1))
     high = np.full((h, w, 4), 255, np.uint8)
     high[..., :3] = (grey >> 8).astype(np.uint8)
-    out["grey16.png"] = (ti.png_bytes(grey, 0, 16), high,
-                         "the high byte of each 16-bit sample (the port's "
-                         "named deviation: PIL clips mode I;16 at 255)")
+    how = ("the high byte of each 16-bit sample (the port's named "
+           "deviation: PIL clips mode I;16 at 255)")
+    out["grey16.png"] = (ti.png_bytes(grey, 0, 16), high, how)
+    out["grey16.tif"] = (ti.tiff_bytes(grey, 16), high, how)
     return out
 
 
@@ -115,6 +216,9 @@ def main() -> int:
         print(f"{name}: {len(data)} bytes, {rgba.shape[1]}x{rgba.shape[0]}")
     with open(os.path.join(OUT, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    with open(os.path.join(OUT, "write_digests.json"), "w") as f:
+        json.dump(write_digests(), f, indent=1, sort_keys=True)
         f.write("\n")
     return 0
 
