@@ -51,15 +51,18 @@ through its kernels and made a healthy image:
   bitwise its per-tile ``render_samples(fold_device=g)`` replay, the
   kernels held on the padded tile, and the unsharded, one-device and
   3-entry sessions timed in turns;
-- the host's file readers and writers: the committed texture fixtures
-  (``tests/torch_data/``: JPEG, BMP, TGA, PNM, 16-bit and Adam7 PNG, GIF,
-  TIFF, PSD) decoded and held to the digests of PIL's decode, the
-  2048x2048 progressive JPEG's and Deflate TIFF's decodes timed; the
-  textured sphere at 1920x1080 with that JPEG as its roughness map and a
-  1024x1024 JPEG as its normal map, then with the TIFF and a 512x512
-  16-bit LZW TIFF, 16 samples each through ``"hier"`` (K3, K2,
-  threefry), each texture table on the card bitwise the host decode,
-  timed in turns against the checker session; ``write_image``'s JPEG,
+- the host's file readers and writers: files that are no image read as
+  None and the extensions PIL cannot save raising PIL's exceptions; the
+  committed texture fixtures (``tests/torch_data/``: JPEG, BMP, TGA, PNM,
+  16-bit and Adam7 PNG, GIF, TIFF, PSD, WebP) decoded and held to the
+  digests of PIL's decode, the 2048x2048 progressive JPEG's, Deflate
+  TIFF's and lossy WebP's and the 1024x1024 lossless WebP's decodes
+  timed; the textured sphere at 1920x1080 with that JPEG as its
+  roughness map and a 1024x1024 JPEG as its normal map, then with the
+  TIFF and a 512x512 16-bit LZW TIFF, then with the two WebPs, 16
+  samples each through ``"hier"`` (K3, K2, threefry), each texture table
+  on the card bitwise the host decode, timed in turns against the
+  checker session; ``write_image``'s JPEG,
   BMP, DIB, TIFF, PPM and TGA files of a 37x29 and a 3840x2160 image held
   to the digests of PIL's, the 4K JPEG encode timed, and a preview
   written as ``v.jpg`` by ``python -m pathtracing_spectrum_tpu_torch``
@@ -1144,14 +1147,19 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                 decodes=FILES_DECODES):
     """The host's file readers and writers, driven on the card's machine:
 
+    - four files that are no image (an HTML page, zeros, noise, a RIFF
+      WAVE header) read as None, and ``write_image`` under extensions PIL
+      cannot save an L image under raising PIL's exception types;
     - every fixture of ``tests/torch_data/`` decoded and held to the
       digest of PIL's decode (for the 16-bit grey PNG and TIFF, of their
-      high bytes), the 2048x2048 progressive JPEG's and Deflate TIFF's
-      decodes timed (median of ``decodes``);
+      high bytes), the 2048x2048 progressive JPEG's, Deflate TIFF's and
+      lossy WebP's and the 1024x1024 lossless WebP's decodes timed (median
+      of ``decodes``);
     - ``textured_sphere_scene`` at ``res`` with that JPEG as its roughness
       map and the 1024x1024 baseline JPEG as its normal map, then with the
       TIFF as its roughness map and the 512x512 16-bit LZW TIFF as its
-      normal map, through ``"hier"``: the texture table on the card
+      normal map, then with the two WebPs, through ``"hier"``: the texture
+      table on the card
       bitwise the host decode, ``spp`` samples counted through K3, K2 and
       threefry, then ms per sample in turns against the checker-map
       session;
@@ -1175,6 +1183,36 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     from pathtracing_spectrum_tpu_torch.utils import (image, jpeg,
                                                       obj_loader, scene_io,
                                                       spectral_io)
+    # files that are no image give None; the extensions PIL cannot save
+    # an L or RGB image under raise PIL's exception, writing nothing
+    with tempfile.TemporaryDirectory() as tmp:
+        none = {}
+        for name, data in (("page.png", b"<!DOCTYPE html>\n<html></html>\n"),
+                           ("zeros.png", bytes(64)),
+                           ("noise.jpg", np.random.default_rng(1).integers(
+                               0, 256, 4096, np.uint8).tobytes()),
+                           ("sound.webp", b"RIFF" + bytes(4) + b"WAVEfmt ")):
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            none[name] = image.load_rgba(path) is None
+        raised = {}
+        grey = np.zeros((2, 3), np.uint8)
+        for ext, want in ((".psd", KeyError), (".xpm", KeyError),
+                          (".bufr", OSError), (".msp", OSError),
+                          (".blp", ValueError), (".qoi", ValueError),
+                          (".webp", NotImplementedError)):
+            path = os.path.join(tmp, "out" + ext)
+            try:
+                image.write_image(path, grey)
+                got = None
+            except Exception as e:  # noqa: BLE001 (the type is the check)
+                got = type(e)
+            raised[ext] = got is want and not os.path.exists(path)
+        say("files", not_images_none=json.dumps(none),
+            write_raises_pils=json.dumps(raised))
+        check(all(none.values()), f"a file that is no image: {none}")
+        check(all(raised.values()), f"write refusals: {raised}")
     with open(os.path.join(FILES_DIR, "digests.json")) as f:
         digests = json.load(f)
     for name, want in sorted(digests.items()):
@@ -1193,15 +1231,17 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         return [1e3 * t for t in secs], 1e3 * sorted(secs)[len(secs) // 2]
 
     maps = {"jpeg": ("roughness_2048_prog420.jpg", "normal_1024_444.jpg"),
-            "tiff": ("roughness_2048_deflate.tif", "normal_512_lzw16.tif")}
-    for kind, (rough, _) in maps.items():
-        path = os.path.join(FILES_DIR, rough)
+            "tiff": ("roughness_2048_deflate.tif", "normal_512_lzw16.tif"),
+            "webp": ("roughness_2048_lossy.webp", "normal_1024_lossless.webp")}
+    for name in [rough for rough, _ in maps.values()] + [maps["webp"][1]]:
+        path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
-        say("files", decode=rough, runs=decodes, ms=ms, median_ms=med,
+        say("files", decode=name, runs=decodes, ms=ms, median_ms=med,
             clock="host")
 
-    # the textured sessions with the JPEG maps and the TIFF maps (16-bit
-    # LZW normals), each counted through K3, K2 and threefry
+    # the textured sessions with the JPEG maps, the TIFF maps (16-bit LZW
+    # normals) and the WebP maps (lossy roughness, lossless normals with
+    # alpha), each counted through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1242,7 +1282,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     sessions["checker"] = pt.RenderSession(textured_sphere_scene(pt, res),
                                            dev, seed=0)
     sessions["checker"].run(1, batch=1)
-    turns = ("checker", "jpeg", "tiff", "tiff", "jpeg", "checker")
+    turns = ("checker", "jpeg", "tiff", "webp", "webp", "tiff", "jpeg",
+             "checker")
     rates = {name: [] for name in turns}
     for name in turns:
         rates[name].append(timed_step(torch, sessions[name], rate_spp))

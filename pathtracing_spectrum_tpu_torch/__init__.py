@@ -31,9 +31,9 @@ device mesh, across processes through ``torch.distributed``, NCCL between
 cards and gloo between CPU processes), the command line (``python -m
 pathtracing_spectrum_tpu_torch``) and the host's file readers and writers
 (the host library built from ``csrc/``: the native OBJ parser and
-spectral writer, the JPEG decoder and encoder, and the LZW and PackBits
-decoders beside the numpy PNG, BMP, TGA, PNM, GIF, TIFF and PSD code of
-``utils/image.py``). Not ported yet (ROADMAP Queue 1): the
+spectral writer, the JPEG decoder and encoder, the LZW and PackBits
+decoders and the WebP decoder beside the numpy PNG, BMP, TGA, PNM, GIF,
+TIFF and PSD code of ``utils/image.py``). Not ported yet (ROADMAP Queue 1): the
 port's benchmark (item 5; ``cli bench`` raises ``NotImplementedError``
 naming it).
 """

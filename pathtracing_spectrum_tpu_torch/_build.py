@@ -9,8 +9,9 @@ Two shared libraries, each built into ``build/`` next to this file
 - the host library, by the host C++ compiler, on any machine that uses
   it (the CPU tests too): the BVH builder ``csrc/bvh_build.cpp``, the OBJ
   parser and spectral writer ``csrc/host_io.cpp``, the JPEG decoder
-  ``csrc/jpeg_decode.cpp`` and encoder ``csrc/jpeg_encode.cpp``, and the
-  LZW and PackBits decoders ``csrc/lzw_decode.cpp``.
+  ``csrc/jpeg_decode.cpp`` and encoder ``csrc/jpeg_encode.cpp``, the
+  LZW and PackBits decoders ``csrc/lzw_decode.cpp`` and the WebP decoder
+  ``csrc/webp_decode.cpp``.
 
 Each file name carries a hash of its sources and flags, so a changed source
 is always rebuilt and a stale library is never loaded. Nothing here runs at
@@ -39,7 +40,8 @@ SOURCES = (_CSRC / "intersect_dense.cu", _CSRC / "fetch_rows.cu",
 HEADERS = (_CSRC / "tri_hit.cuh",)
 HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
                 _CSRC / "jpeg_decode.cpp", _CSRC / "jpeg_encode.cpp",
-                _CSRC / "lzw_decode.cpp")
+                _CSRC / "lzw_decode.cpp", _CSRC / "webp_decode.cpp")
+HOST_HEADERS = (_CSRC / "jpeg_std_tables.h",)
 BUILD_DIR = _HERE / "build"
 
 # sm_90a (Hopper); --fmad=false keeps every multiply and add separately
@@ -89,6 +91,10 @@ _HOST_SIGNATURES = {
     "pts_gif_lzw_decode": ([_V, _I64, _I32, _V, _I64, _V], _I32),
     "pts_tiff_lzw_decode": ([_V, _I64, _V, _I64], _I32),
     "pts_packbits_decode": ([_V, _I64, _V, _I64, _I64], _I32),
+    "pts_webp_decode": ([_V, _I64, _V, _S, _I32], _V),
+    "pts_webp_size": ([_V, _V, _V], None),
+    "pts_webp_copy": ([_V, _V], None),
+    "pts_webp_free": ([_V], None),
 }
 
 
@@ -129,7 +135,8 @@ def library_path() -> Path:
 
 
 def host_library_path() -> Path:
-    return _hashed("libpts_torch_host", HOST_FLAGS, HOST_SOURCES)
+    return _hashed("libpts_torch_host", HOST_FLAGS,
+                   HOST_SOURCES + HOST_HEADERS)
 
 
 def _run_all(cmds) -> None:
@@ -199,8 +206,9 @@ def load() -> ctypes.CDLL:
 def load_host() -> ctypes.CDLL:
     """Build (when the hashed library is missing) and load the host
     library: the BVH builder, the OBJ parser, the spectral writer, the
-    JPEG decoder and encoder and the LZW and PackBits decoders. Raises with the compiler's output when it cannot be
-    built: none of them has a fallback."""
+    JPEG decoder and encoder, the LZW and PackBits decoders and the WebP
+    decoder. Raises with the compiler's output when it cannot be built:
+    none of them has a fallback."""
     if _Library.host is not None:
         return _Library.host
     path = host_library_path()

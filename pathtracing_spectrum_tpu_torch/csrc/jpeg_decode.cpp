@@ -13,23 +13,34 @@
 //  * any integral sampling factors (4:4:4, 4:2:2, 4:4:0, 4:2:0, ...);
 //  * restart intervals (DRI/RSTn), byte stuffing, padding FF bytes, and
 //    zero bits fed past a marker as libjpeg feeds them;
-//  * the islow integer IDCT (jidctint.c) with its descale and its
-//    1024-entry range-limit table (jdmaster.c);
+//  * the islow integer IDCT (jidctint.c) as libjpeg-turbo's SIMD code
+//    computes it on x86-64 (16-bit dequantisation, wrapping sums and
+//    saturating passes; see idct_islow);
 //  * fancy upsampling (jdsample.c): the h2v1, h1v2 and h2v2 triangle
 //    filters with their alternating biases and edge columns, box
 //    replication where libjpeg uses it (a downsampled width of 2 or less,
 //    other integral factors), edge rows replicated as jdmainct.c does;
 //  * integer YCbCr -> RGB (jdcolor.c: 16-bit fixed-point tables, ONE_HALF).
 //
+// A damaged file is read as PIL reads it: PIL's own walk of the markers
+// up to the first scan (pil_open), then libjpeg's (read_markers): its
+// checks of each segment, read byte by byte (a segment cut by the end of
+// the data suspends), its standard Huffman tables for a sequential file
+// that leaves table 0 or 1 undefined, the bit buffer refilled to 57 bits
+// on its fast and slow paths as PIL feeds the data (64 KiB at a time), a
+// single-scan file ending with its scan (the markers after it read as far
+// as they go, a second scan an error) and a multi-scan file read to EOI.
+//
 // Integer arithmetic only, so the result does not depend on the host's
 // floating-point unit or on -march. Refused (status 2, with a reason):
-// 12-bit and 16-bit samples, lossless, hierarchical and arithmetic-coded
-// frames, 2 or 4 components (CMYK, YCCK), non-integral sampling factors,
-// and a progressive file whose scans leave the first coefficients
-// incomplete (libjpeg would smooth its blocks). A file that breaks the
-// format (truncated, no frame, a scan that names an unknown table) is
-// status 1: PIL raises on it, and the loader returns None as the JAX
-// package does.
+// 12-bit and 16-bit samples (PIL's plugin opens neither, so the JAX
+// package gives None there: a named deviation), lossless and
+// arithmetic-coded frames, 4 components (CMYK, YCCK), and a
+// progressive file whose scans leave the first coefficients incomplete
+// (libjpeg would smooth its blocks). A file that breaks the format
+// (truncated, no frame, a scan that names an unknown table, hierarchical
+// frames, fractional sampling factors) is status 1: PIL raises on it, and
+// the loader returns None as the JAX package does.
 //
 // Built with the host compiler into the port's build/ directory at first
 // use; plain C ABI.
@@ -40,6 +51,8 @@
 #include <new>
 #include <string>
 #include <vector>
+
+#include "jpeg_std_tables.h"
 
 namespace {
 
@@ -61,7 +74,10 @@ struct Error {
 [[noreturn]] void refuse(const std::string& what) { throw Error{2, what}; }
 
 struct Huffman {
-  bool defined = false;
+  bool defined = false;  // by a DHT segment or libjpeg's standard table
+  bool built = false;    // checked and derived since it was defined
+  uint8_t counts[16] = {};
+  int nvals = 0;
   int32_t mincode[17] = {};
   int32_t maxcode[18] = {};  // -1: no code of this length
   int32_t valptr[17] = {};
@@ -70,8 +86,19 @@ struct Huffman {
   uint8_t look_len[256] = {};
   uint8_t look_sym[256] = {};
 
-  void build(const uint8_t* counts, const uint8_t* symbols, int n) {
+  void define(const uint8_t* c, const uint8_t* symbols, int n) {
+    std::memcpy(counts, c, 16);
     std::memcpy(vals, symbols, static_cast<size_t>(n));
+    nvals = n;
+    defined = true;
+    built = false;
+  }
+
+  // jdhuff.c jpeg_make_d_derived_tbl, run when a scan first uses the
+  // table (a broken table no scan uses is no error)
+  void build(bool dc) {
+    if (!defined) broken("undefined Huffman table");
+    if (built) return;
     std::memset(look_len, 0, sizeof(look_len));
     int32_t code = 0;
     int k = 0;
@@ -81,11 +108,14 @@ struct Huffman {
       code += counts[l - 1];
       k += counts[l - 1];
       maxcode[l] = counts[l - 1] ? code - 1 : -1;
-      // no code may be all ones (jdhuff.c jpeg_make_d_derived_tbl)
+      // no code may be all ones
       if (counts[l - 1] && code >= (1 << l)) broken("bad Huffman table");
       code <<= 1;
     }
     maxcode[17] = 0x7FFFFFFF;
+    if (dc)
+      for (int i = 0; i < nvals; ++i)
+        if (vals[i] > 15) broken("bad Huffman table (DC symbol)");
     k = 0;
     code = 0;
     for (int l = 1; l <= 8; ++l) {
@@ -98,7 +128,7 @@ struct Huffman {
       }
       code <<= 1;
     }
-    defined = true;
+    built = true;
   }
 };
 
@@ -133,70 +163,136 @@ size_t find_marker(const uint8_t* d, size_t n, size_t p) {
   }
 }
 
+// libjpeg stops for more data (suspends) where the bytes PIL has handed
+// it run out: PIL feeds the file 64 KiB at a time, and at its end a
+// suspension is a truncated file
+struct Suspend {};
+
 class BitReader {
  public:
   BitReader(const uint8_t* data, size_t size, size_t pos)
-      : d_(data), n_(size), pos_(pos) {}
+      : d_(data), n_(size), avail_(size), pos_(pos) {}
 
-  // libjpeg's jpeg_fill_bit_buffer: FF 00 is an FF data byte, padding FFs
-  // before a marker are skipped, and past a marker the decoder reads zero
-  // bits; taking one of those marks the segment short of data
-  void fill(int need) {
-    while (bits_ < need) {
-      uint32_t c = 0;
-      if (!marker_) {
-        if (pos_ >= n_) broken("premature end of JPEG data");
-        c = d_[pos_++];
-        if (c == 0xFF) {
-          size_t p = pos_;
-          uint32_t c2;
-          do {
-            if (p >= n_) broken("premature end of JPEG data");
-            c2 = d_[p++];
-          } while (c2 == 0xFF);
-          if (c2 == 0) {
-            pos_ = p;
-          } else {
-            marker_ = true;
-            marker_pos_ = p - 2;  // the FF before the marker code
-            c = 0;
-          }
+  // PIL's feeding of a single-scan sequential file, whose refill points
+  // decide whether the end of the data is ever met: the first 64 KiB, one
+  // more block at each suspension
+  void feed_as_pil() { avail_ = std::min(n_, size_t(65536)); }
+  bool feed_more() {
+    if (avail_ >= n_) return false;
+    avail_ = std::min(n_, avail_ + 65536);
+    return true;
+  }
+  size_t buffered() const { return avail_ - pos_; }
+  bool at_marker() const { return marker_; }
+
+  struct State {
+    size_t pos;
+    uint64_t buf;
+    int bits, fake;
+    bool marker, insufficient;
+    size_t marker_pos;
+  };
+  State save() const {
+    return {pos_, buf_, bits_, fake_, marker_, insufficient, marker_pos_};
+  }
+  void restore(const State& st) {
+    pos_ = st.pos;
+    buf_ = st.buf;
+    bits_ = st.bits;
+    fake_ = st.fake;
+    marker_ = st.marker;
+    insufficient = st.insufficient;
+    marker_pos_ = st.marker_pos;
+  }
+
+  // jdhuff.c decode_mcu_fast's FILL_BIT_BUFFER_FAST: at 16 bits or fewer,
+  // six bytes; a marker leaves zero bytes and makes libjpeg decode the
+  // MCU again on its slow path (fast_marker)
+  void fill_fast() {
+    if (bits_ > 16) return;
+    for (int i = 0; i < 6; ++i) {
+      uint32_t c0 = d_[pos_++], c1 = d_[pos_];
+      buf_ = (buf_ << 8) | c0;
+      bits_ += 8;
+      if (c0 == 0xFF) {
+        ++pos_;
+        if (c1 != 0) {
+          fast_marker = true;
+          pos_ -= 2;
+          buf_ &= ~uint64_t(0xFF);
         }
       }
-      if (marker_) fake_ += 8;
+    }
+  }
+  bool fast = false, fast_marker = false;
+
+  // libjpeg's jpeg_fill_bit_buffer: wanting more bits than it holds, it
+  // loads bytes up to 57 bits (MIN_GET_BITS on a 64-bit host); FF 00 is an
+  // FF data byte, padding FFs before a marker are skipped, and past a
+  // marker the decoder reads zero bits; taking one of those marks the
+  // segment short of data
+  void fill(int need) {
+    if (bits_ >= need) return;
+    while (!marker_ && bits_ < 57) {
+      uint32_t c = next_byte(pos_);
+      if (c == 0xFF) {
+        size_t p = pos_;
+        uint32_t c2;
+        do {
+          c2 = next_byte(p);
+        } while (c2 == 0xFF);
+        if (c2 != 0) {
+          marker_ = true;
+          marker_pos_ = p - 2;  // the FF before the marker code
+          break;
+        }
+        pos_ = p;
+      }
       buf_ = (buf_ << 8) | c;
+      bits_ += 8;
+    }
+    while (bits_ < need) {  // past a marker: zero bits
+      fake_ += 8;
+      buf_ <<= 8;
       bits_ += 8;
     }
   }
   int get(int n) {
     if (n == 0) return 0;
-    fill(n);
+    if (!fast) fill(n);
     bits_ -= n;
     taken();
     return static_cast<int>((buf_ >> bits_) & ((1u << n) - 1));
   }
   int bit() { return get(1); }
 
+  // HUFF_DECODE (slow: refill below 8 bits, and below each bit of a long
+  // code) or HUFF_DECODE_FAST (one fast fill first)
   int decode(const Huffman& t) {
-    fill(8);
-    int look = static_cast<int>((buf_ >> (bits_ - 8)) & 0xFF);
-    int l = t.look_len[look];
-    if (l) {
-      bits_ -= l;
-      taken();
-      return t.look_sym[look];
+    if (fast) fill_fast();
+    else fill(8);
+    if (bits_ >= 8) {
+      int look = static_cast<int>((buf_ >> (bits_ - 8)) & 0xFF);
+      int l = t.look_len[look];
+      if (l) {
+        bits_ -= l;
+        taken();
+        return t.look_sym[look];
+      }
     }
     // jpeg_huff_decode: codes longer than 8 bits
-    int32_t code = get(8);
-    l = 8;
+    int l = 9;
+    int32_t code = get(9);
     while (code > t.maxcode[l]) {
       code = (code << 1) | get(1);
-      if (++l > 16) return 0;  // corrupt: libjpeg warns and takes 0
+      ++l;
     }
+    if (l > 16) return 0;  // corrupt: libjpeg warns and takes 0
     return t.vals[t.valptr[l] + code - t.mincode[l]];
   }
   int extend(int s) {  // HUFF_EXTEND of the next s bits
     if (s == 0) return 0;
+    if (fast) fill_fast();
     int r = get(s);
     return r < (1 << (s - 1)) ? r + (-(1 << s) + 1) : r;
   }
@@ -206,6 +302,16 @@ class BitReader {
   size_t next_marker() {
     if (marker_) return marker_pos_;
     return find_marker(d_, n_, pos_);
+  }
+  // the same after a scan, or the end of the data where no marker follows
+  // (jpeg_finish_decompress suspends there)
+  size_t next_marker_or_end() {
+    if (marker_) return marker_pos_;
+    try {
+      return find_marker(d_, n_, pos_);
+    } catch (const Error&) {
+      return n_;
+    }
   }
   // restart reading at pos (a restart marker's end, or a marker left
   // for the segment to run into)
@@ -219,6 +325,13 @@ class BitReader {
   bool insufficient = false;  // libjpeg's insufficient_data
 
  private:
+  uint32_t next_byte(size_t& p) {
+    if (p >= avail_) {
+      if (p >= n_) broken("premature end of JPEG data");
+      throw Suspend{};
+    }
+    return d_[p++];
+  }
   void taken() {
     if (bits_ < fake_) {
       insufficient = true;
@@ -226,7 +339,7 @@ class BitReader {
     }
   }
   const uint8_t* d_;
-  size_t n_;
+  size_t n_, avail_;
   size_t pos_;
   uint64_t buf_ = 0;
   int bits_ = 0;
@@ -235,144 +348,89 @@ class BitReader {
   size_t marker_pos_ = 0;
 };
 
-// ---- jidctint.c: jpeg_idct_islow, 8-bit samples ---------------------------
+// ---- jpeg_idct_islow as libjpeg-turbo's SIMD code computes it -------------
+//
+// jidctint.c's arithmetic in the order jidctint-sse2.asm / -avx2.asm do
+// it (both bit-exact to each other), which PIL's libjpeg-turbo runs on an
+// x86-64 host: the coefficients are dequantised in 16 bits (pmullw, the
+// quantisation table held as short), the sums in0 +- in4 and the odd
+// part's z3 = in7 + in3 and z4 = in5 + in1 wrap at 16 bits (paddw), the
+// rotations are exact in 32 bits (pmaddwd), each pass's output saturates
+// to 16 bits (packssdw) and the samples to 8 (packsswb, then + 128). A
+// block whose rows 1-7 are all zero takes the SIMD code's shortcut: every
+// row is row 0's dequantised value shifted left by two bits, in 16 bits.
+// For coefficients whose products fit in 16 bits this is jidctint.c's
+// result; past that (a corrupt or an unusual quantisation table) it is
+// what PIL decodes.
 
 constexpr int kConstBits = 13;
 constexpr int kPass1Bits = 2;
-constexpr int64_t F_0_298631336 = 2446, F_0_390180644 = 3196,
+constexpr int32_t F_0_298631336 = 2446, F_0_390180644 = 3196,
                   F_0_541196100 = 4433, F_0_765366865 = 6270,
                   F_0_899976223 = 7373, F_1_175875602 = 9633,
                   F_1_501321110 = 12299, F_1_847759065 = 15137,
                   F_1_961570560 = 16069, F_2_053119869 = 16819,
                   F_2_562915447 = 20995, F_3_072711026 = 25172;
 
-inline int64_t descale(int64_t x, int n) {
-  return (x + (int64_t(1) << (n - 1))) >> n;
+inline int16_t wrap16(int32_t x) { return static_cast<int16_t>(x); }
+
+inline int32_t sat16(int64_t x) {
+  return static_cast<int32_t>(std::min<int64_t>(32767, std::max<int64_t>(-32768, x)));
 }
 
-// jdmaster.c prepare_range_limit_table, from the post-IDCT entry: index
-// (x & 1023) of the descaled output x gives its sample
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      if (i < 128) t[i] = static_cast<uint8_t>(i + 128);
-      else if (i < 512) t[i] = 255;
-      else if (i < 896) t[i] = 0;
-      else t[i] = static_cast<uint8_t>(i - 896);
-    }
-  }
-};
-const RangeLimit kRange;
+// one 8-point pass over in[0], in[step], ..., in[7 * step] (int16
+// values); out gets the 8 outputs, (x + 2^(n-1)) >> n saturated to 16 bits
+void idct_1d(const int32_t* in, int step, int n, int32_t* out) {
+  auto at = [&](int k) { return static_cast<int64_t>(in[k * step]); };
+  // even part
+  const int64_t z2 = at(2), z3 = at(6);
+  const int64_t tmp3e = z2 * (F_0_541196100 + F_0_765366865) + z3 * F_0_541196100;
+  const int64_t tmp2e = z2 * F_0_541196100 + z3 * (F_0_541196100 - F_1_847759065);
+  const int64_t tmp0e = wrap16(static_cast<int32_t>(at(0) + at(4))) * (int64_t(1) << kConstBits);
+  const int64_t tmp1e = wrap16(static_cast<int32_t>(at(0) - at(4))) * (int64_t(1) << kConstBits);
+  const int64_t tmp10 = tmp0e + tmp3e, tmp13 = tmp0e - tmp3e;
+  const int64_t tmp11 = tmp1e + tmp2e, tmp12 = tmp1e - tmp2e;
+  // odd part
+  const int64_t t0 = at(7), t1 = at(5), t2 = at(3), t3 = at(1);
+  const int64_t z3o = wrap16(static_cast<int32_t>(t0 + t2));
+  const int64_t z4o = wrap16(static_cast<int32_t>(t1 + t3));
+  const int64_t r3 = z3o * (F_1_175875602 - F_1_961570560) + z4o * F_1_175875602;
+  const int64_t r4 = z3o * F_1_175875602 + z4o * (F_1_175875602 - F_0_390180644);
+  const int64_t tmp0 = t0 * (F_0_298631336 - F_0_899976223) + t3 * -F_0_899976223 + r3;
+  const int64_t tmp1 = t1 * (F_2_053119869 - F_2_562915447) + t2 * -F_2_562915447 + r4;
+  const int64_t tmp2 = t1 * -F_2_562915447 + t2 * (F_3_072711026 - F_2_562915447) + r3;
+  const int64_t tmp3 = t0 * -F_0_899976223 + t3 * (F_1_501321110 - F_0_899976223) + r4;
+  const int64_t round = int64_t(1) << (n - 1);
+  out[0] = sat16((tmp10 + tmp3 + round) >> n);
+  out[7] = sat16((tmp10 - tmp3 + round) >> n);
+  out[1] = sat16((tmp11 + tmp2 + round) >> n);
+  out[6] = sat16((tmp11 - tmp2 + round) >> n);
+  out[2] = sat16((tmp12 + tmp1 + round) >> n);
+  out[5] = sat16((tmp12 - tmp1 + round) >> n);
+  out[3] = sat16((tmp13 + tmp0 + round) >> n);
+  out[4] = sat16((tmp13 - tmp0 + round) >> n);
+}
 
 void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out,
                 int stride) {
-  int ws[64];
+  int32_t deq[64], ws[64], col[8];
+  for (int k = 0; k < 64; ++k)
+    deq[k] = wrap16(static_cast<int32_t>(in[k]) * wrap16(q[k]));
+  bool ac_rows_zero = true;
+  for (int k = 8; k < 64 && ac_rows_zero; ++k) ac_rows_zero = in[k] == 0;
   for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const int32_t* qp = q + c;
-    int* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
-        ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-      int dc = static_cast<int>(
-          static_cast<int64_t>(ip[0] * qp[0]) * (1 << kPass1Bits));
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+    if (ac_rows_zero) {
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = wrap16(deq[c] * (1 << kPass1Bits));
       continue;
     }
-    int64_t z2 = ip[16] * qp[16];
-    int64_t z3 = ip[48] * qp[48];
-    int64_t z1 = (z2 + z3) * F_0_541196100;
-    int64_t tmp2 = z1 + z3 * -F_1_847759065;
-    int64_t tmp3 = z1 + z2 * F_0_765366865;
-    z2 = ip[0] * qp[0];
-    z3 = ip[32] * qp[32];
-    int64_t tmp0 = (z2 + z3) * (1 << kConstBits);
-    int64_t tmp1 = (z2 - z3) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-
-    tmp0 = ip[56] * qp[56];
-    tmp1 = ip[40] * qp[40];
-    tmp2 = ip[24] * qp[24];
-    tmp3 = ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F_1_175875602;
-    tmp0 *= F_0_298631336;
-    tmp1 *= F_2_053119869;
-    tmp2 *= F_3_072711026;
-    tmp3 *= F_1_501321110;
-    z1 *= -F_0_899976223;
-    z2 *= -F_2_562915447;
-    z3 *= -F_1_961570560;
-    z4 *= -F_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int n = kConstBits - kPass1Bits;
-    wp[0] = static_cast<int>(descale(tmp10 + tmp3, n));
-    wp[56] = static_cast<int>(descale(tmp10 - tmp3, n));
-    wp[8] = static_cast<int>(descale(tmp11 + tmp2, n));
-    wp[48] = static_cast<int>(descale(tmp11 - tmp2, n));
-    wp[16] = static_cast<int>(descale(tmp12 + tmp1, n));
-    wp[40] = static_cast<int>(descale(tmp12 - tmp1, n));
-    wp[24] = static_cast<int>(descale(tmp13 + tmp0, n));
-    wp[32] = static_cast<int>(descale(tmp13 - tmp0, n));
+    idct_1d(deq + c, 8, kConstBits - kPass1Bits, col);
+    for (int r = 0; r < 8; ++r) ws[8 * r + c] = col[r];
   }
   for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + 8 * r;
+    idct_1d(ws + 8 * r, 1, kConstBits + kPass1Bits + 3, col);
     uint8_t* op = out + static_cast<size_t>(r) * stride;
-    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 &&
-        wp[5] == 0 && wp[6] == 0 && wp[7] == 0) {
-      uint8_t dc = kRange.t[descale(wp[0], kPass1Bits + 3) & 1023];
-      for (int c = 0; c < 8; ++c) op[c] = dc;
-      continue;
-    }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * F_0_541196100;
-    int64_t tmp2 = z1 + z3 * -F_1_847759065;
-    int64_t tmp3 = z1 + z2 * F_0_765366865;
-    int64_t tmp0 = (static_cast<int64_t>(wp[0]) + wp[4]) * (1 << kConstBits);
-    int64_t tmp1 = (static_cast<int64_t>(wp[0]) - wp[4]) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F_1_175875602;
-    tmp0 *= F_0_298631336;
-    tmp1 *= F_2_053119869;
-    tmp2 *= F_3_072711026;
-    tmp3 *= F_1_501321110;
-    z1 *= -F_0_899976223;
-    z2 *= -F_2_562915447;
-    z3 *= -F_1_961570560;
-    z4 *= -F_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int n = kConstBits + kPass1Bits + 3;
-    op[0] = kRange.t[descale(tmp10 + tmp3, n) & 1023];
-    op[7] = kRange.t[descale(tmp10 - tmp3, n) & 1023];
-    op[1] = kRange.t[descale(tmp11 + tmp2, n) & 1023];
-    op[6] = kRange.t[descale(tmp11 - tmp2, n) & 1023];
-    op[2] = kRange.t[descale(tmp12 + tmp1, n) & 1023];
-    op[5] = kRange.t[descale(tmp12 - tmp1, n) & 1023];
-    op[3] = kRange.t[descale(tmp13 + tmp0, n) & 1023];
-    op[4] = kRange.t[descale(tmp13 - tmp0, n) & 1023];
+    for (int c = 0; c < 8; ++c)
+      op[c] = static_cast<uint8_t>(std::min(127, std::max(-128, col[c])) + 128);
   }
 }
 
@@ -493,19 +551,28 @@ struct Decoder {
   Huffman dc[4], ac[4];
   std::vector<Component> comp;
   int eobrun = 0;
+  bool scanned = false, multi_scan = false;
+  bool icc_short = false;
 
   Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
 
-  int u16(size_t p) const {
-    if (p + 2 > n) broken("premature end of JPEG data");
-    return (d[p] << 8) | d[p + 1];
+  // libjpeg reads a marker segment byte by byte, checking each field as
+  // it comes: past the end of the data it suspends (Suspend) instead
+  uint8_t at(size_t p) const {
+    if (p >= n) throw Suspend{};
+    return d[p];
   }
+  int u16(size_t p) const { return (at(p) << 8) | at(p + 1); }
 
+  // jdmarker.c get_dqt: a high nibble other than 0 means 16-bit values;
+  // each table has all 64 (libjpeg-turbo reads them past a segment cut
+  // short, then fails on its length)
   void read_dqt(size_t p, size_t end) {
     while (p < end) {
-      int pq = d[p] >> 4, tq = d[p] & 15;
+      int pq = at(p) >> 4, tq = d[p] & 15;
       ++p;
-      if (tq > 3 || pq > 1) broken("bad DQT");
+      if (tq > 3) broken("bad DQT index");
+      at(p + (pq ? 127 : 63));
       if (p + (pq ? 128 : 64) > end) broken("bad DQT length");
       for (int k = 0; k < 64; ++k) {
         int v = pq ? u16(p + 2 * k) : d[p + k];
@@ -516,18 +583,37 @@ struct Decoder {
     }
   }
 
+  // jdmarker.c get_dht: the tables are checked when a scan uses them
   void read_dht(size_t p, size_t end) {
-    while (p < end) {
-      if (p + 17 > end) broken("bad DHT length");
-      int tc = d[p] >> 4, th = d[p] & 15;
-      if (tc > 1 || th > 3) broken("bad DHT");
+    while (end - p > 16) {
+      at(p + 16);  // the index and the 16 counts
+      int index = d[p];
       const uint8_t* counts = d + p + 1;
       int total = 0;
       for (int i = 0; i < 16; ++i) total += counts[i];
-      if (total > 256 || p + 17 + total > end) broken("bad DHT counts");
-      (tc ? ac[th] : dc[th]).build(counts, d + p + 17, total);
-      p += 17 + total;
+      if (total > 256 || static_cast<size_t>(total) > end - p - 17)
+        broken("bad Huffman table");
+      if (total) at(p + 16 + static_cast<size_t>(total));
+      bool is_ac = index & 0x10;
+      index &= ~0x10;
+      if (index > 3) broken("bad DHT index");
+      (is_ac ? ac[index] : dc[index]).define(counts, d + p + 17, total);
+      p += 17 + static_cast<size_t>(total);
     }
+    if (p != end) broken("bad DHT length");
+  }
+
+  // jdmarker.c get_dac: arithmetic conditioning values, checked and
+  // dropped (only an arithmetic frame would use them)
+  void read_dac(size_t p, size_t end) {
+    while (end - p >= 2) {
+      at(p + 1);
+      int index = d[p], val = d[p + 1];
+      if (index >= 32) broken("bad DAC index");
+      if (index < 16 && (val & 15) > (val >> 4)) broken("bad DAC value");
+      p += 2;
+    }
+    if (p != end) broken("bad DAC length");
   }
 
   void read_sof(size_t p, size_t end, int marker) {
@@ -537,24 +623,22 @@ struct Decoder {
     H = u16(p + 1);
     W = u16(p + 3);
     ncomp = d[p + 5];
-    if (precision != 8)
-      refuse(std::to_string(precision) + "-bit samples");
-    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2) {
-      const char* kind = (marker == 0xC3) ? "lossless"
-                         : (marker >= 0xC9) ? "arithmetic-coded"
-                                            : "hierarchical";
-      refuse(std::string(kind) + " JPEG (SOF" +
-             std::to_string(marker - 0xC0) + ")");
-    }
+    if (W == 0 || H == 0 || ncomp == 0) broken("empty or DNL-sized frame");
+    if (end - p != static_cast<size_t>(6 + 3 * ncomp)) broken("bad SOF length");
+    if (marker == 0xC3 || marker == 0xCB)
+      refuse("lossless JPEG (SOF" + std::to_string(marker - 0xC0) + ")");
+    if (marker == 0xC9 || marker == 0xCA)
+      refuse("arithmetic-coded JPEG (SOF" + std::to_string(marker - 0xC0) +
+             ")");
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2)
+      broken("unsupported frame type (SOF" + std::to_string(marker - 0xC0) +
+             ")");
+    if (precision != 8) broken("bad precision");
     if (ncomp == 4) refuse("4-component (CMYK or YCCK) JPEG");
-    if (ncomp != 1 && ncomp != 3)
-      refuse(std::to_string(ncomp) + "-component JPEG");
-    if (W == 0 || H == 0) broken("empty or DNL-sized frame");
     // PIL refuses more than twice its MAX_IMAGE_PIXELS (a decompression
     // bomb) before decoding
     if (static_cast<int64_t>(W) * H > 2 * int64_t(89478485))
       broken("more pixels than PIL opens");
-    if (end - p < static_cast<size_t>(6 + 3 * ncomp)) broken("bad SOF");
     progressive = marker == 0xC2;
     comp.resize(static_cast<size_t>(ncomp));
     for (int i = 0; i < ncomp; ++i) {
@@ -563,16 +647,18 @@ struct Decoder {
       c.h = d[p + 7 + 3 * i] >> 4;
       c.v = d[p + 7 + 3 * i] & 15;
       c.tq = d[p + 8 + 3 * i];
-      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
         broken("bad sampling factors");
       max_h = std::max(max_h, c.h);
       max_v = std::max(max_v, c.v);
     }
+    if (ncomp != 1 && ncomp != 3)  // (PIL's walk refused it already)
+      broken(std::to_string(ncomp) + "-component JPEG");
     mcux = (W + 8 * max_h - 1) / (8 * max_h);
     mcuy = (H + 8 * max_v - 1) / (8 * max_v);
     for (Component& c : comp) {
-      if (max_h % c.h || max_v % c.v)
-        refuse("non-integral sampling factors");
+      // jdsample.c: libjpeg upsamples integral factors only
+      if (max_h % c.h || max_v % c.v) broken("fractional sampling factors");
       c.dw = static_cast<int>((static_cast<int64_t>(W) * c.h + max_h - 1) /
                               max_h);
       c.dh = static_cast<int>((static_cast<int64_t>(H) * c.v + max_v - 1) /
@@ -591,29 +677,51 @@ struct Decoder {
 
   // one scan: returns the position just past its entropy-coded data (the
   // FF of the marker that ends it)
-  size_t read_scan(size_t p, size_t end) {
-    if (!frame) broken("scan before frame");
-    if (end <= p) broken("bad SOS");
-    int ns = d[p];
-    if (ns < 1 || ns > 4 || end - p < static_cast<size_t>(4 + 2 * ns))
-      broken("bad SOS");
-    std::vector<Component*> sc;
+  // jdmarker.c get_sos: the scan's components (with their table
+  // numbers set), checked as libjpeg checks them, the slot of the
+  // component index (not of the scan position) tested for a component
+  // already named
+  std::vector<Component*> sos_components(size_t p, size_t end) {
+    int ns = at(p);
+    if (ns < 1 || ns > 4 || end - p != static_cast<size_t>(4 + 2 * ns))
+      broken("bad SOS length");
+    std::vector<Component*> sc(4, nullptr);
     for (int i = 0; i < ns; ++i) {
+      at(p + 2 + 2 * i);
       int id = d[p + 1 + 2 * i];
       Component* c = nullptr;
-      for (Component& k : comp)
-        if (k.id == id) c = &k;
+      for (int ci = 0; ci < ncomp && ci < 4 && !c; ++ci)
+        if (comp[static_cast<size_t>(ci)].id == id && !sc[static_cast<size_t>(ci)])
+          c = &comp[static_cast<size_t>(ci)];
       if (!c) broken("scan names an unknown component");
+      for (int j = 0; j < i; ++j)
+        if (sc[static_cast<size_t>(j)] == c) broken("a component twice in a scan");
       c->dc_tbl = d[p + 2 + 2 * i] >> 4;
       c->ac_tbl = d[p + 2 + 2 * i] & 15;
-      if (c->dc_tbl > 3 || c->ac_tbl > 3) broken("bad table index");
-      sc.push_back(c);
+      sc[static_cast<size_t>(i)] = c;
     }
+    sc.resize(static_cast<size_t>(ns));
+    at(end - 1);  // Ss, Se, Ah/Al
+    return sc;
+  }
+
+  size_t read_scan(size_t p, size_t end) {
+    const std::vector<Component*> sc = sos_components(p, end);
+    const int ns = static_cast<int>(sc.size());
+    if (!scanned && !progressive) {
+      // jdhuff.c std_huff_tables: tables 0 and 1 a sequential file leaves
+      // undefined by its first scan are the standard ones
+      if (!dc[0].defined) dc[0].define(kDcLumaBits, kDcVals, 12);
+      if (!dc[1].defined) dc[1].define(kDcChromaBits, kDcVals, 12);
+      if (!ac[0].defined) ac[0].define(kAcLumaBits, kAcLumaVals, 162);
+      if (!ac[1].defined) ac[1].define(kAcChromaBits, kAcChromaVals, 162);
+    }
+    if (!scanned) multi_scan = progressive || ns < ncomp;
     size_t q = p + 1 + 2 * ns;
     int ss = d[q], se = d[q + 1], ah = d[q + 2] >> 4, al = d[q + 2] & 15;
-    if (progressive) {
+    if (progressive) {  // jdphuff.c start_pass_phuff_decoder
       if (ss > se || se > 63 || (ss == 0 && se != 0) ||
-          (ss > 0 && ns != 1) || al > 13)
+          (ss > 0 && ns != 1) || (ah != 0 && al != ah - 1) || al > 13)
         broken("bad progressive scan parameters");
     } else {
       ss = 0;
@@ -623,22 +731,34 @@ struct Decoder {
     for (Component* c : sc) {
       // latch_quant_tables: a component keeps the table of its first scan
       if (!c->latched) {
-        if (!qt_defined[c->tq]) broken("undefined quantization table");
+        if (c->tq > 3 || !qt_defined[c->tq])
+          broken("undefined quantization table");
         // jddctmgr.c: the islow multiplier table is short
         for (int k = 0; k < 64; ++k)
           c->quant[k] = static_cast<int16_t>(qt[c->tq][k]);
         c->latched = true;
       }
-      if (ss == 0 && ah == 0 && !dc[c->dc_tbl].defined) broken("undefined DC table");
-      if (se > 0 && !ac[c->ac_tbl].defined) broken("undefined AC table");
+      // jpeg_make_d_derived_tbl for the tables the scan reads only
+      if (!progressive || (ss == 0 && ah == 0)) {
+        if (c->dc_tbl > 3) broken("bad table index");
+        dc[c->dc_tbl].build(true);
+      }
+      if (!progressive || se > 0) {
+        if (c->ac_tbl > 3) broken("bad table index");
+        ac[c->ac_tbl].build(false);
+      }
       for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
       c->pred = 0;
     }
     eobrun = 0;
 
     BitReader br(d, n, end);
+    const bool pil_feed = !progressive && !multi_scan;
+    if (pil_feed) br.feed_as_pil();
     int mcus_x, mcus_y;
     bool single = ns == 1;
+    int blocks = 0;
+    for (Component* c : sc) blocks += single ? 1 : c->h * c->v;
     if (single) {
       mcus_x = sc[0]->bw;
       mcus_y = sc[0]->bh;
@@ -657,21 +777,55 @@ struct Decoder {
         todo = restart_interval;
       }
       int my = static_cast<int>(m / mcus_x), mx = static_cast<int>(m % mcus_x);
+      // the MCU's blocks, zeroed first on each try of a sequential file
+      auto mcu = [&](bool zero) {
+        for (Component* c : sc) {
+          const int bh = single ? 1 : c->v, bw = single ? 1 : c->h;
+          for (int y = 0; y < bh; ++y)
+            for (int x = 0; x < bw; ++x) {
+              int16_t* b = single ? c->block(my, mx)
+                                  : c->block(my * c->v + y, mx * c->h + x);
+              if (zero) std::fill(b, b + 64, int16_t(0));
+              decode_block(br, *c, b, ss, se, ah, al);
+            }
+        }
+      };
       // out of data: the rest of the segment stays as it is (jdhuff.c)
       if (!br.insufficient) {
-        if (single) {
-          decode_block(br, *sc[0], sc[0]->block(my, mx), ss, se, ah, al);
+        if (!pil_feed) {
+          mcu(false);
         } else {
-          for (Component* c : sc)
-            for (int y = 0; y < c->v; ++y)
-              for (int x = 0; x < c->h; ++x)
-                decode_block(br, *c, c->block(my * c->v + y, mx * c->h + x),
-                             ss, se, ah, al);
+          // jdhuff.c decode_mcu: the fast path while 512 bytes a block
+          // are buffered, the slow one after a marker or a suspension
+          std::vector<int> preds;
+          for (Component* c : sc) preds.push_back(c->pred);
+          for (;;) {
+            const BitReader::State st = br.save();
+            br.fast = !restart_interval && !br.at_marker() &&
+                      br.buffered() >= size_t(512) * blocks;
+            br.fast_marker = false;
+            try {
+              mcu(true);
+              if (br.fast && br.fast_marker) {
+                br.fast = false;
+                br.restore(st);
+                for (size_t i = 0; i < sc.size(); ++i) sc[i]->pred = preds[i];
+                mcu(true);
+              }
+              br.fast = false;
+              break;
+            } catch (const Suspend&) {
+              br.fast = false;
+              br.restore(st);
+              for (size_t i = 0; i < sc.size(); ++i) sc[i]->pred = preds[i];
+              br.feed_more();
+            }
+          }
         }
       }
       if (restart_interval) --todo;
     }
-    return br.next_marker();
+    return br.next_marker_or_end();
   }
 
   // process_restart: read_restart_marker and jpeg_resync_to_restart
@@ -796,53 +950,162 @@ struct Decoder {
     }
   }
 
+  // JpegImagePlugin._open: PIL walks the markers up to the first SOS
+  // itself before libjpeg sees the file, and fails where it fails: a byte
+  // pair FF xx that is no marker (xx from 01 to BF), a segment that runs
+  // past the file, a frame that is not 8 bits or not 1, 3 or 4
+  // components, a short quantisation table, a short JFIF or Adobe header.
+  // It skips bytes other than FF between segments, and the markers it has
+  // no handler for without a length.
+  void pil_open() {
+    size_t p = 3;  // FF D8 FF read
+    int cur = 0xFF;
+    bool sof = false;
+    auto next = [&]() {
+      if (p >= n) broken("no start of scan");
+      return static_cast<int>(d[p++]);
+    };
+    for (;;) {
+      if (cur != 0xFF) {
+        cur = next();
+        continue;
+      }
+      const int code = next();
+      if (code == 0xFF) continue;          // FF padding
+      if (code == 0x00) {
+        cur = next();
+        continue;
+      }
+      if (code < 0xC0) broken("no marker found");
+      const bool is_sof = (code >= 0xC0 && code <= 0xCF && code != 0xC4 &&
+                           code != 0xC8 && code != 0xCC) || code == 0xDE;
+      const bool skipped = code == 0xC4 || code == 0xCC || code == 0xDA ||
+                           code == 0xDC || code == 0xDD || code == 0xDF;
+      if (is_sof || skipped || code == 0xDB || code >= 0xE0) {
+        if (code >= 0xF0 && code != 0xFE) {
+          // JPGn: no handler
+        } else {
+          if (p + 2 > n) broken("truncated marker");
+          const int len = u16(p) - 2;
+          p += 2;
+          const size_t body = p, blen = len > 0 ? static_cast<size_t>(len) : 0;
+          if (body + blen > n) broken("truncated segment");
+          p += blen;
+          const uint8_t* s = d + body;
+          if (is_sof) {
+            if (blen < 6) broken("bad SOF");
+            if (s[0] == 12 || s[0] == 16)
+              refuse(std::to_string(s[0]) + "-bit samples");
+            if (s[0] != 8) broken("bad precision");
+            if (s[5] != 1 && s[5] != 3 && s[5] != 4) broken("bad layers");
+            if ((blen - 6) % 3) broken("bad SOF");
+            if (icc_short) broken("short ICC profile segment");
+            sof = true;
+          } else if (code == 0xDB) {
+            for (size_t k = 0; k < blen;) {
+              const size_t len_q = (s[k] >> 4) ? 129 : 65;
+              if (blen - k < len_q) broken("bad quantization table marker");
+              k += len_q;
+            }
+          } else if (code == 0xE0 && blen >= 4 && !std::memcmp(s, "JFIF", 4)) {
+            if (blen < 7) broken("short JFIF header");
+          } else if (code == 0xEE && blen >= 5 && !std::memcmp(s, "Adobe", 5)) {
+            if (blen < 7) broken("short Adobe header");
+          } else if (code == 0xE2 && blen >= 12 &&
+                     !std::memcmp(s, "ICC_PROFILE\0", 12) && blen < 14) {
+            icc_short = true;
+          }
+        }
+      }
+      if (code == 0xDA) {
+        if (!sof) broken("scan before frame");
+        return;
+      }
+      cur = next();
+    }
+  }
+
+  // jdmarker.c read_markers and the scans, as libjpeg-turbo reads the
+  // file for PIL: a single-scan file ends at its scan (the markers after
+  // it are read as far as the file holds them, as jpeg_finish_decompress
+  // does, and a second SOS is an error); a multi-scan file is read to EOI
   void parse() {
-    if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) broken("not a JPEG file");
+    if (n < 4 || d[0] != 0xFF || d[1] != 0xD8 || d[2] != 0xFF)
+      broken("not a JPEG file");
+    pil_open();
+    bool done_scan = false;  // a single-scan file's scan decoded
+    try {
+      read_markers(done_scan);
+    } catch (const Suspend&) {
+      if (!done_scan) broken("premature end of JPEG file");
+    }
+  }
+
+  void read_markers(bool& done_scan) {
     size_t p = 2;
-    bool scanned = false;
     for (;;) {
       // next_marker: skip garbage and FF padding
       while (p < n && d[p] != 0xFF) ++p;
       while (p < n && d[p] == 0xFF) ++p;
-      if (p >= n) {
-        if (scanned) return;  // no EOI after the scans
-        broken("premature end of JPEG file");
-      }
-      int m = d[p++];
+      int m = at(p++);
+      if (m == 0x00) continue;  // FF 00 outside a scan: garbage
       if (m == 0xD9) {
         if (!scanned) broken("no image data");
         return;
       }
-      if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-      int len = u16(p);
-      if (len < 2 || p + static_cast<size_t>(len) > n)
-        broken("premature end of JPEG file");
-      size_t body = p + 2, end = p + static_cast<size_t>(len);
+      if (m == 0xD8) broken("duplicate SOI");
+      if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      const bool known = (m >= 0xC0 && m <= 0xCF) || m == 0xDA ||
+                         m == 0xDB || m == 0xDC || m == 0xDD || m >= 0xE0;
+      if (!known || (m >= 0xF0 && m <= 0xFD)) broken("unknown JPEG marker");
+      // errors libjpeg raises from the marker alone, before its length
+      const bool is_sof = m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC;
+      if (is_sof && frame) broken("two frames");
+      if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xC8 || m == 0xCD ||
+          m == 0xCE || m == 0xCF)
+        broken("unsupported frame type");
+      if (m == 0xDA && !frame) broken("scan before frame");
+      const int len = u16(p);
+      const size_t body = p + 2, end = p + static_cast<size_t>(std::max(len, 2));
+      if (m >= 0xE0 || m == 0xDC) {  // APPn, COM, DNL: skipped
+        if (len < 2) {
+          p += 2;
+          continue;
+        }
+        at(end - 1);
+        if (m == 0xE0 && len - 2 >= 14 && !std::memcmp(d + body, "JFIF\0", 5))
+          jfif = true;
+        if (m == 0xEE && len - 2 >= 12 && !std::memcmp(d + body, "Adobe", 5)) {
+          adobe = true;
+          adobe_transform = d[body + 11];
+        }
+        p = end;
+        continue;
+      }
+      if (len < 2) broken("bad marker length");
+      size_t next = end;
       if (m == 0xDB) {
         read_dqt(body, end);
       } else if (m == 0xC4) {
         read_dht(body, end);
-      } else if (m == 0xDD) {
-        if (len < 4) broken("bad DRI");
-        restart_interval = u16(body);
       } else if (m == 0xCC) {
-        refuse("arithmetic-coded JPEG (DAC)");
-      } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8) {
-        read_sof(body, end, m);
+        read_dac(body, end);
+      } else if (m == 0xDD) {
+        if (len != 4) broken("bad DRI");
+        restart_interval = u16(body);
       } else if (m == 0xDA) {
-        end = read_scan(body, end);
-        scanned = true;
-      } else if (m == 0xE0) {
-        if (len >= 7 && std::memcmp(d + body, "JFIF\0", 5) == 0) jfif = true;
-      } else if (m == 0xEE) {
-        if (len >= 14 && std::memcmp(d + body, "Adobe", 5) == 0) {
-          adobe = true;
-          adobe_transform = d[body + 11];
+        if (done_scan) {  // jdinput.c consume_markers
+          sos_components(body, end);
+          broken("a second scan in a single-scan file");
         }
-      } else if (m == 0xDC) {
-        refuse("JPEG with a DNL marker");
+        next = read_scan(body, end);
+        scanned = true;
+        done_scan = !multi_scan;
+      } else {
+        at(end - 1);
+        read_sof(body, end, m);
       }
-      p = end;
+      p = next;
     }
   }
 

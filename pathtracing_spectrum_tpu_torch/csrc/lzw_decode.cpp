@@ -8,8 +8,8 @@
 //    holds 4096 (a full table without a clear keeps its width); decoding
 //    stops at the end code or when every pixel of the frame is written;
 //  * TIFF LZW as libtiff's LZWDecode: MSB-first, 9 to 12 bits with the
-//    early change, clear 256 and end 257; the strip or tile must be
-//    filled, as libtiff requires;
+//    early change, clear 256 and end 257, a clear code first; the strip or
+//    tile must be filled, as libtiff requires;
 //  * PackBits as libtiff's PackBitsDecode (a run past the buffer is cut
 //    short, running out of data before it is full fails) or, row by row,
 //    as PIL's PackDecode.c, which PIL's PSD plugin runs (what a packet
@@ -128,6 +128,7 @@ int32_t pts_tiff_lzw_decode(const uint8_t* data, int64_t size, uint8_t* out,
   }
   const int kClear = 256, kEnd = 257;
   int next = 258, width = 9, old = -1;
+  bool pos_first = true;
   uint64_t acc = 0;
   int nacc = 0;
   int64_t pos = 0, n = 0;
@@ -139,6 +140,8 @@ int32_t pts_tiff_lzw_decode(const uint8_t* data, int64_t size, uint8_t* out,
     }
     int c = static_cast<int>((acc >> (nacc - width)) & ((1u << width) - 1));
     nacc -= width;
+    if (pos_first && c != kClear) return 1;  // libtiff: a clear code first
+    pos_first = false;
     if (c == kClear) {
       next = 258;
       width = 9;

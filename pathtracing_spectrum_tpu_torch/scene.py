@@ -17,9 +17,9 @@ from them.
 
 Meshes are parsed by ``utils/obj_loader.py`` (the native parser, as the
 JAX package parses them). Textures are decoded by ``utils/image.py``
-without PIL (PNG, JPEG, BMP, TGA, binary PNM, GIF, TIFF and PSD, equal to
-PIL's decode but for the 16-bit grey deviation; a
-format it does not decode raises ``NotImplementedError`` naming the file,
+without PIL (PNG, JPEG, BMP, TGA, binary PNM, GIF, TIFF, PSD and WebP,
+equal to PIL's decode but for the 16-bit grey deviation; a format it does
+not decode raises ``NotImplementedError`` naming the file,
 and a missing or broken file binds nothing, as in the reference and the
 JAX package) and temperature grids by ``utils/tempdata.py``.
 :func:`scene_data_from_numpy` carries any JAX ``SceneData`` across.

@@ -1,0 +1,145 @@
+"""Damaged image files: the port's loader against the JAX package's (PIL
+12.1), on every committed fixture and ``assets/checker.png`` cut short and
+with single bits flipped. Both must give None (PIL raises), or the same
+image bit for bit. One test per fixture and kind of damage, looping over
+its cases; a small file gets a case for nearly every byte, a large one a
+few dozen, most in its headers.
+
+Deviations named here and in ``utils/image.py``'s docstring:
+
+- a flavour the port refuses raises ``NotImplementedError`` first, so it
+  raises where PIL would go on to fail on the damaged file too (a 12- or
+  16-bit or arithmetic JPEG frame made by a flipped bit, BigTIFF magic);
+- 16-bit grey PNG and TIFF keep the high byte (the fixtures ``grey16.*``):
+  there both must decode or both fail, with no pixel compared;
+- a TIFF damaged inside its directory (the entries and the values they
+  point to): PIL's and libtiff's checks of each entry are copied only in
+  part (``_tiff_ifd``), so these flips are not held; cuts, and flips of
+  the header and of the strips and tiles, are.
+
+Cases whose damaged header gives a picture of more than 16 megapixels are
+skipped: both packages read the size from the same fields, and the decode
+would only cost memory.
+"""
+
+import io
+import json
+import os
+import struct
+import warnings
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+from PIL import Image  # noqa: E402
+
+from pathtracing_spectrum_tpu.utils import image as jimage  # noqa: E402
+from pathtracing_spectrum_tpu_torch.utils import image  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(HERE, "torch_data")
+with open(os.path.join(DATA, "digests.json")) as _f:
+    FIXTURES = sorted(json.load(_f))
+FILES = [os.path.join(DATA, n) for n in FIXTURES] + [
+    os.path.join(os.path.dirname(HERE), "assets", "checker.png")]
+SMALL = 8192          # bytes: a case for nearly every byte below this
+MAX_PIXELS = 16 << 20
+
+
+def _tiff_directory(data: bytes):
+    """[start, end) of a TIFF's first IFD with the values it points to:
+    up to the first strip or tile."""
+    order = "<" if data[:2] == b"II" else ">"
+    at = struct.unpack_from(order + "I", data, 4)[0]
+    n = struct.unpack_from(order + "H", data, at)[0]
+    first = len(data)
+    for i in range(n):
+        tag, kind, count, value = struct.unpack_from(order + "HHI4s", data,
+                                                     at + 2 + 12 * i)
+        if tag in (273, 324):
+            size = {3: 2, 4: 4}[kind] * count
+            fmt = order + f"{count}{'H' if kind == 3 else 'I'}"
+            offs = struct.unpack_from(fmt, value if size <= 4 else data,
+                                      0 if size <= 4 else struct.unpack(
+                                          order + "I", value)[0])
+            first = min(offs)
+    return 8, max(first, at + 2 + 12 * n + 4)
+
+
+def cases(path: str, kind: str):
+    data = open(path, "rb").read()
+    n = len(data)
+    step = 1 if n <= 2048 else 2
+    if kind == "cut":
+        where = (list(range(min(n, 64))) + list(range(64, n, 3 * step))
+                 if n <= SMALL else sorted(set(
+                     list(range(0, 24, 2)) + list(np.linspace(24, n - 1, 8,
+                                                              dtype=int)))))
+        for k in where:
+            yield k, data[:k]
+        return
+    where = (range(0, n, step) if n <= SMALL else sorted(set(
+        list(range(0, min(n, 1024), 96)) + list(np.linspace(1024, n - 1, 4,
+                                                           dtype=int)))))
+    for i in where:
+        bit = (i * 5) % 8
+        out = bytearray(data)
+        out[i] ^= 1 << bit
+        yield i, bytes(out)
+
+
+def pil_size(data: bytes):
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with Image.open(io.BytesIO(data)) as im:
+                return im.size[0] * im.size[1]
+    except Exception:  # noqa: BLE001 (PIL's exceptions, as load_rgba)
+        return 0
+
+
+def held(path: str, kind: str, tmp_path):
+    """Run the cases; return the number checked."""
+    name = os.path.basename(path)
+    ext = os.path.splitext(name)[1]
+    grey16 = name.startswith("grey16")
+    exempt = None
+    if ext == ".tif" and kind == "flip":
+        exempt = _tiff_directory(open(path, "rb").read())
+    target = str(tmp_path / f"damaged{ext}")
+    checked = 0
+    for where, data in cases(path, kind):
+        if pil_size(data) > MAX_PIXELS:
+            continue
+        with open(target, "wb") as f:
+            f.write(data)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = jimage.load_rgba(target)
+        try:
+            got = image.load_rgba(target)
+        except NotImplementedError:
+            continue                        # a refused flavour (see above)
+        checked += 1
+        if exempt and exempt[0] <= where < exempt[1]:
+            continue
+        assert (got is None) == (want is None), (name, kind, where)
+        if got is not None:
+            assert got.shape == want.shape, (name, kind, where)
+            if not grey16:
+                np.testing.assert_array_equal(
+                    got.view(np.int32), want.view(np.int32),
+                    err_msg=f"{name} {kind} at {where}")
+    return checked
+
+
+@pytest.mark.parametrize("path", FILES, ids=os.path.basename)
+def test_cut_files_agree_with_jax(path, tmp_path):
+    assert held(path, "cut", tmp_path) > 10
+
+
+@pytest.mark.parametrize("path", FILES, ids=os.path.basename)
+def test_flipped_files_agree_with_jax(path, tmp_path):
+    assert held(path, "flip", tmp_path) > 10

@@ -9,7 +9,10 @@ case is held bit for bit (tolerance 0) except the one named deviation, a
 the committed fixtures' digests, ``Scene.compile`` with a JPEG roughness
 map and a BMP normal map field by field, and a 16x16 trace of that scene
 under one key (rtol 1e-4 / atol 1e-6, as ``tests/test_torch_spectral.py``
-states it).
+states it). Last, ROADMAP Queue 3's faults: files that are no image
+(None in both), the format named as PIL's plugin order names it, and
+damaged PNG, TIFF, TGA and JPEG files as PIL reads them (the sweeps over
+every fixture are ``tests/test_torch_damage.py``).
 """
 
 import hashlib
@@ -658,7 +661,7 @@ def _refused():
     prog = ti.jpeg_bytes(ti.smooth_rgb(5, 64, 48), progressive=True)
     return {
         "JPEG-in-TIFF": pil("TIFF", compression="jpeg"),
-        "CMYK TIFF": pil("TIFF", "CMYK"), "WebP": pil("WEBP"),
+        "CMYK TIFF": pil("TIFF", "CMYK"),
         "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),
         "GIF writer": ".gif", "WebP writer": ".webp",
         "CMYK JPEG": pil("JPEG", "CMYK"),
@@ -807,3 +810,222 @@ def test_tiff_and_gif_mapped_trace_matches_jax_under_one_key(dispersion,
     got, want = trace_both(jsc, jsc.trace_depth, 3, dispersion)
     assert_same(got, want)
     assert np.asarray(want.radiance).max() > 0
+
+
+# ---- files that are no image, and damaged ones (ROADMAP Queue 3) --------
+
+def both_none(tmp_path, name: str, data: bytes) -> None:
+    """The port and the JAX package both give None for ``data``."""
+    path = tmp_path / name
+    path.write_bytes(data)
+    assert jimage.load_rgba(str(path)) is None
+    assert image.load_rgba(str(path)) is None
+
+
+CHECKER = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "checker.png")
+
+
+def _not_images():
+    rng = np.random.default_rng(21)
+    return {
+        "html-as-png": ("t.png", b"<!DOCTYPE html>\n<html><head><title>404 "
+                                 b"Not Found</title></head></html>\n"),
+        "zeros": ("t.png", bytes(64)),
+        "random": ("t.jpg", rng.integers(0, 256, 4096, np.uint8).tobytes()),
+        "riff-wave": ("t.webp", b"RIFF" + struct.pack("<I", 36) + b"WAVEfmt "
+                      + struct.pack("<IHHIIHH", 16, 1, 1, 8000, 8000, 1, 8)
+                      + b"data" + bytes(4)),
+        "riff-webp-without-image": ("t.webp", b"RIFF" + struct.pack("<I", 12)
+                                    + b"WEBPALPH" + bytes(4)),
+        "text": ("t.tif", b"width 37\nheight 29\n"),
+        "empty": ("t.png", b""),
+    }
+
+
+@pytest.mark.parametrize("case", list(_not_images()))
+def test_files_that_are_no_image_are_none_as_in_jax(case, tmp_path):
+    """Bytes no PIL plugin opens give None, as PIL's exception does in the
+    JAX package (before the repair the port raised NotImplementedError on
+    all of them)."""
+    both_none(tmp_path, *_not_images()[case])
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS) + ["checker.png"])
+def test_files_cut_inside_their_magic_are_none_as_in_jax(name, tmp_path):
+    path = CHECKER if name == "checker.png" else os.path.join(DATA, name)
+    data = open(path, "rb").read()
+    for n in range(1, 12):
+        both_none(tmp_path, name, data[:n])
+
+
+def _pil_written():
+    """{PIL's format: a small file of it PIL writes} for every format PIL
+    12.1 writes (as RGB, else L)."""
+    out = {}
+    Image.init()
+    rgb = ti.smooth_rgb(22, 16, 8)
+    # (SpiderImagePlugin registers the extension of the name it saves
+    # under, "" for a buffer: put PIL's table back after)
+    extensions = dict(Image.EXTENSION)
+    for fmt in sorted(Image.SAVE):
+        for img in (Image.fromarray(rgb), Image.fromarray(rgb[..., 0]),
+                    Image.fromarray(rgb[..., 0] > 128)):
+            buf = __import__("io").BytesIO()
+            try:
+                img.save(buf, fmt)
+            except Exception:  # noqa: BLE001 (no handler, or not this mode)
+                continue
+            try:                          # (PIL writes PDF, but opens no
+                Image.open(buf).load()    # PDF, Palm or these ICOs)
+            except Exception:  # noqa: BLE001
+                break
+            out[fmt] = buf.getvalue()
+            break
+    Image.EXTENSION.clear()
+    Image.EXTENSION.update(extensions)
+    return out
+
+
+PIL_WRITTEN = _pil_written()
+
+
+@pytest.mark.parametrize("fmt", sorted(PIL_WRITTEN))
+def test_the_port_names_the_format_pil_opens(fmt):
+    """For a file of every format PIL writes, the port's sniffing (PIL's
+    plugin tests, in PIL's order) names the format PIL opens it as."""
+    data = PIL_WRITTEN[fmt]
+    with Image.open(__import__("io").BytesIO(data)) as im:
+        want = im.format
+    assert image._sniff(data) == want
+
+
+def test_the_port_lists_pils_plugins_in_pils_order():
+    """The port's table holds PIL 12.1's 43 opening plugins: Image.preinit's
+    first, then the rest in the order Image.init registers them."""
+    Image.init()
+    names = [name for name, _ in image._PIL_OPENS]
+    assert sorted(names) == sorted(Image.OPEN)
+    preinit = ["BMP", "DIB", "GIF", "JPEG", "PPM", "PNG"]
+    assert names[:6] == preinit
+    assert names[6:] == [n for n in Image.ID if n not in preinit]
+
+
+def test_formats_pil_opens_and_the_port_does_not_raise(tmp_path):
+    """Every format PIL writes and the port does not decode raises
+    NotImplementedError naming the file (never None)."""
+    decoded = {"PNG", "JPEG", "BMP", "TGA", "PPM", "GIF", "TIFF", "PSD",
+               "WEBP"}
+    for fmt, data in PIL_WRITTEN.items():
+        if Image.open(__import__("io").BytesIO(data)).format in decoded:
+            continue
+        path = tmp_path / f"my_{fmt}.bin"
+        path.write_bytes(data)
+        with pytest.raises(NotImplementedError, match=f"my_{fmt}.bin"):
+            image.load_rgba(str(path))
+
+
+def _png_without(data: bytes, kind: bytes) -> bytes:
+    out, pos = data[:8], 8
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        if data[pos + 4:pos + 8] != kind:
+            out += data[pos:pos + 12 + n]
+        pos += 12 + n
+    return out
+
+
+@pytest.mark.parametrize("damage", ["no-IEND", "IDAT-CRC", "IEND-CRC",
+                                    "IHDR-CRC"])
+def test_png_crcs_and_iend_as_pil_reads_them(damage, tmp_path):
+    """PIL checks the CRC of the chunks before the image data and of none
+    after, and needs no IEND; the port copies it (before the repair it
+    checked every CRC and needed IEND)."""
+    data = bytearray(open(CHECKER, "rb").read())
+    if damage == "no-IEND":
+        data = bytearray(_png_without(bytes(data), b"IEND"))
+    else:
+        kind = damage.split("-")[0].encode()
+        at = bytes(data).find(kind) - 4
+        n = struct.unpack(">I", data[at:at + 4])[0]
+        data[at + 8 + n] ^= 0x40          # the chunk's CRC
+    if damage == "IHDR-CRC":
+        both_none(tmp_path, "t.png", bytes(data))
+    else:
+        held(tmp_path, "t.png", bytes(data))
+
+
+def test_tiff_entry_count_past_the_file_reads_the_entries_that_fit(
+        tmp_path):
+    """PIL reads the IFD entries that fit in the file (before the repair
+    the port gave None)."""
+    px = ti.smooth_rgb(23, 9, 7)[..., 0].tobytes()
+    entries = [(256, 3, 1, 9), (257, 3, 1, 7), (258, 3, 1, 8),
+               (259, 3, 1, 1), (262, 3, 1, 1), (273, 4, 1, 8),
+               (277, 3, 1, 1), (278, 3, 1, 7), (279, 4, 1, len(px))]
+    ifd = struct.pack("<H", len(entries) + 300) + b"".join(
+        struct.pack("<HHI", t, k, n) + struct.pack("<H" if k == 3 else "<I",
+                                                   v).ljust(4, b"\0")
+        for t, k, n, v in entries)                # the IFD last, cut short
+    data = b"II*\0" + struct.pack("<I", 8 + len(px)) + px + ifd
+    held(tmp_path, "t.tif", data)
+
+
+@pytest.mark.parametrize("packet", ["run-across-rows", "run-past-the-end",
+                                    "raw-across-rows"])
+def test_tga_packets_as_pil_reads_them(packet, tmp_path):
+    """PIL's TGA decoder overruns on a run packet that crosses a row (the
+    image's end included) and returns None in the JAX package; a raw
+    packet may cross rows (before the repair the port decoded both)."""
+    px = bytes([10, 20, 30, 40])
+    if packet == "run-across-rows":       # 4x2: one run of 8 pixels
+        body = bytes([0x80 | 7]) + px
+    elif packet == "run-past-the-end":    # a row, then a run of 5 for 4
+        body = bytes([3]) + px * 4 + bytes([0x80 | 4]) + px
+    else:                                 # one raw packet of all 8
+        body = bytes([7]) + bytes(range(32))
+    head = struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, 4, 2, 32,
+                       0x08)
+    data = head + body
+    if packet == "raw-across-rows":
+        held(tmp_path, "t.tga", data)
+    else:
+        both_none(tmp_path, "t.tga", data)
+
+
+def test_jpeg_with_a_large_quantiser_decodes_as_jax(tmp_path):
+    """A DQT value of 8 raised to 136: the dequantised coefficients leave
+    16 bits, where libjpeg-turbo's SIMD IDCT wraps (the port copies it;
+    before the repair 8 pixels differed)."""
+    data = bytearray(ti.jpeg_bytes(ti.smooth_rgb(5, 56, 40)))
+    at = bytes(data).find(b"\xff\xdb") + 5
+    k = next(i for i in range(64) if data[at + i] == 8)
+    data[at + k] = 136
+    held(tmp_path, "t.jpg", bytes(data))
+
+
+@pytest.mark.parametrize("kind", ["cut", "flip"])
+def test_damaged_baseline_jpeg_agrees_with_jax(kind, tmp_path):
+    """Every cut, and a flipped bit of every byte, of a 56x40 baseline
+    JPEG: None in both packages or the same image, except the named
+    deviation (a flip making a 12- or 16-bit frame: the port refuses the
+    flavour first)."""
+    data = ti.jpeg_bytes(ti.smooth_rgb(5, 56, 40))
+    path = tmp_path / "t.jpg"
+    for i in range(len(data)):
+        if kind == "cut":
+            case = data[:i]
+        else:
+            case = bytearray(data)
+            case[i] ^= 1 << (i * 3 % 8)
+        path.write_bytes(bytes(case))
+        want = jimage.load_rgba(str(path))
+        try:
+            got = image.load_rgba(str(path))
+        except NotImplementedError as e:
+            assert "-bit samples" in str(e)
+            continue
+        assert (got is None) == (want is None), (kind, i)
+        if got is not None:
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32))

@@ -212,7 +212,8 @@ def test_export_failure_raises(tmp_path):
 def test_host_library_is_built_from_the_port_sources_with_jax_flags():
     sources = {p.name for p in _build.HOST_SOURCES}
     assert sources == {"bvh_build.cpp", "host_io.cpp", "jpeg_decode.cpp",
-                       "jpeg_encode.cpp", "lzw_decode.cpp"}
+                       "jpeg_encode.cpp", "lzw_decode.cpp", "webp_decode.cpp"}
+    assert {p.name for p in _build.HOST_HEADERS} == {"jpeg_std_tables.h"}
     jax_compile = inspect.getsource(native._compile)
     for flag in _build.HOST_FLAGS:
         assert f'"{flag}"' in jax_compile, flag
@@ -222,7 +223,7 @@ def test_host_library_is_built_from_the_port_sources_with_jax_flags():
 
 
 @pytest.mark.parametrize("call", ["load_obj", "export_spectrum", "jpeg",
-                                  "jpeg_encode", "tiff_lzw"])
+                                  "jpeg_encode", "tiff_lzw", "webp"])
 def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
                                                               monkeypatch):
     def no_library():
@@ -241,6 +242,7 @@ def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
         else:
             image.load_rgba(os.path.join(
                 os.path.dirname(__file__), "torch_data",
-                "normal_1024_444.jpg" if call == "jpeg"
-                else "normal_512_lzw16.tif"))
+                {"jpeg": "normal_1024_444.jpg", "tiff_lzw":
+                 "normal_512_lzw16.tif", "webp": "normal_1024_lossless.webp"}[
+                    call]))
     assert jpeg.BrokenJpeg is not RuntimeError

@@ -2,7 +2,8 @@
 12.1's ``Image.save``, which the JAX package saves through: the format
 comes from the file name's extension, JPEG (the host library's encoder),
 BMP, DIB, TIFF, PPM and TGA files are PIL's byte for byte, PNG decodes to
-the same pixels, the other extensions PIL registers raise
+the same pixels, the extensions PIL cannot save as L or RGB raise PIL's own
+exception, the other extensions PIL registers raise
 ``NotImplementedError`` naming the path, and an unknown one raises PIL's
 ``ValueError``. Then both command lines, the shell and the viewer against
 each other on the same ``.pts`` scene: the same bytes under ``.jpg``,
@@ -112,16 +113,64 @@ def test_written_jpeg_decodes_in_the_port_as_in_pil(tmp_path):
         np.testing.assert_array_equal(got, np.asarray(im.convert("RGBA")))
 
 
-OTHER_FORMATS = sorted({fmt for fmt in image.EXTENSIONS.values()}
-                       - {"PNG", "JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA"})
+WRITTEN = {"PNG", "JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA"}
+# the formats PIL 12.1 saves as L or RGB and the port does not write yet
+# (ROADMAP Queue 1 item 11c-d: 24 extensions)
+OTHER_FORMATS = sorted({fmt for fmt in image.EXTENSIONS.values()} - WRITTEN
+                       - set(image._PIL_CANNOT_SAVE))
+
+
+def pil_save_error(img: np.ndarray, ext: str):
+    """What PIL's ``Image.save`` raises writing ``img`` under ``ext``, or
+    None where it writes the file."""
+    try:
+        Image.fromarray(img).save(io.BytesIO(),
+                                  format=Image.registered_extensions()[ext])
+    except Exception as e:  # noqa: BLE001 (any of PIL's exceptions)
+        return e
+    return None
 
 
 @pytest.mark.parametrize("fmt", OTHER_FORMATS)
 def test_other_registered_extensions_raise_naming_the_path(fmt, tmp_path):
+    """Where PIL writes the file and the port does not, the port raises
+    ``NotImplementedError`` naming the path (both modes; QOI only as RGB,
+    PIL refuses L)."""
     for ext in (e for e, f in image.EXTENSIONS.items() if f == fmt):
-        path = tmp_path / f"out{ext}"
-        with pytest.raises(NotImplementedError, match=f"out\\{ext}"):
-            image.write_image(str(path), np.zeros((2, 3), np.uint8))
+        for img in (np.zeros((2, 3), np.uint8), np.zeros((2, 3, 3), np.uint8)):
+            if pil_save_error(img, ext) is not None:
+                continue
+            path = tmp_path / f"out{ext}"
+            with pytest.raises(NotImplementedError, match=f"out\\{ext}"):
+                image.write_image(str(path), img)
+            assert not path.exists()
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB"])
+@pytest.mark.parametrize("ext", sorted(image.EXTENSIONS))
+def test_every_extension_writes_or_raises_as_pil(ext, mode, tmp_path):
+    """For every extension PIL 12.1 registers: where PIL cannot save an L
+    or RGB image (no save handler, a handler not installed, a mode it
+    refuses: 27 extensions, and QOI for L), the port raises PIL's
+    exception with PIL's message and writes nothing; where PIL writes it,
+    the port writes it or, for the formats not written yet, raises
+    ``NotImplementedError``."""
+    img = pixels(3, 5, 4, mode)
+    want = pil_save_error(img, ext)
+    path = tmp_path / f"out{ext}"
+    try:
+        image.write_image(str(path), img)
+        got = None
+    except NotImplementedError:
+        assert want is None and image.EXTENSIONS[ext] not in WRITTEN
+        assert not path.exists()
+        return
+    except Exception as e:  # noqa: BLE001
+        got = e
+    if want is None:
+        assert got is None and path.exists()
+    else:
+        assert type(got) is type(want) and str(got) == str(want)
         assert not path.exists()
 
 

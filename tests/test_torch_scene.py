@@ -127,16 +127,17 @@ def test_scene_data_from_numpy_carries_bvh_ordered_scene():
 
 
 def test_texture_binding_raises(tmp_path):
-    """A texture the port does not decode (a WebP) fails the compile,
+    """A texture the port does not decode (a 1x1 QOI) fails the compile,
     naming the file, instead of rendering without it. A broken BMP and a
     broken GIF (the 64-byte ``BM`` and ``GIF89a`` files, once refused as
     formats not decoded) and a missing file bind nothing, as in the
     reference and the JAX package."""
     jsc, sc = port_cornell()
-    rough = tmp_path / "rough.webp"
-    rough.write_bytes(b"RIFF" + bytes(4) + b"WEBP" + bytes(64))
+    rough = tmp_path / "rough.qoi"
+    rough.write_bytes(b"qoif" + (1).to_bytes(4, "big") * 2 + b"\3\0"
+                      + b"\xfe\x10\x20\x30" + bytes(7) + b"\1")
     sc.objects[0].elements[0].material.roughness_tex_file = str(rough)
-    with pytest.raises(NotImplementedError, match="rough.webp"):
+    with pytest.raises(NotImplementedError, match="rough.qoi"):
         sc.compile("cpu")
     broken = tmp_path / "rough.bmp"
     broken.write_bytes(b"BM" + bytes(64))
@@ -220,11 +221,14 @@ with tempfile.TemporaryDirectory() as tmp:
     sh.scene = sc
     sh.onecmd("preview " + os.path.join(tmp, "p.png"))
     assert "wrote" in out.getvalue(), out.getvalue()
-# the host library: a JPEG texture, the native OBJ parser and writer
+# the host library: JPEG and WebP textures, the native OBJ parser and
+# writer
 from pathtracing_spectrum_tpu_torch.utils import image, obj_loader
 data = os.path.join(sys.argv[1], "tests", "torch_data")
 tex = image.load_rgba(os.path.join(data, "normal_1024_444.jpg"))
 assert tex.shape == (1024, 1024, 4) and tex.dtype == np.float32
+tex = image.load_rgba(os.path.join(data, "small_lossy_alpha.webp"))
+assert tex.shape == (29, 37, 4) and tex[..., 3].min() < 1.0
 mesh = obj_loader.load_obj(os.path.join(sys.argv[1], "assets", "sphere.obj"))
 assert mesh.vertices.shape[0] > 0 and mesh.shapes
 with tempfile.TemporaryDirectory() as tmp:

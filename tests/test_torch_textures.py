@@ -167,15 +167,15 @@ def test_unsupported_png_flavours_raise_naming_the_file(what, tmp_path):
         with open(path, "wb") as f:
             f.write(torch_images.png_bytes(samples, 0, 8, interlace=1))
         assert_bitwise(image.load_rgba(path), pil_rgba(path))
-    webp = str(tmp_path / f"{what}.webp")
-    Image.fromarray(np.zeros((4, 4), np.uint8)).save(webp)
-    with pytest.raises(NotImplementedError, match=f"{what}.webp"):
-        image.load_rgba(webp)
+    qoi = str(tmp_path / f"{what}.qoi")
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(qoi)
+    with pytest.raises(NotImplementedError, match=f"{what}.qoi"):
+        image.load_rgba(qoi)
 
 
 def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
-    """A JPEG and a GIF, once refused, decode as PIL does; a WebP still
-    raises naming the file; a missing or broken file is None in both
+    """A JPEG, a GIF and a WebP, once refused, decode as PIL does; a QOI
+    still raises naming the file; a missing or broken file is None in both
     packages."""
     jpg = str(tmp_path / "tex.jpg")
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(jpg)
@@ -185,8 +185,11 @@ def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
     assert_bitwise(image.load_rgba(gif), jimage.load_rgba(gif))
     webp = str(tmp_path / "tex.webp")
     Image.fromarray(np.zeros((4, 4), np.uint8)).save(webp)
-    with pytest.raises(NotImplementedError, match="tex.webp"):
-        image.load_rgba(webp)
+    assert_bitwise(image.load_rgba(webp), jimage.load_rgba(webp))
+    qoi = str(tmp_path / "tex.qoi")
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(qoi)
+    with pytest.raises(NotImplementedError, match="tex.qoi"):
+        image.load_rgba(qoi)
     assert image.load_rgba(str(tmp_path / "missing.png")) is None
     assert image.load_rgba("") is None
     broken = tmp_path / "broken.png"

@@ -6,7 +6,9 @@ sampling factors, SOF1, RGB by component ids, other precisions and frame
 types), GIF (LZW, colour tables, transparency, interlace, frames inside
 or past the screen), TIFF (both byte orders, LZW, Deflate, PackBits,
 predictor 2, strips and tiles, both planar configurations) and PSD (raw
-and RLE, every 8-bit colour mode PIL reads; PIL writes no PSD). Shared by
+and RLE, every 8-bit colour mode PIL reads; PIL writes no PSD) and WebP
+(PIL's encoder, libwebp's own for the settings PIL does not pass, and
+ALPH chunks rewritten by hand). Shared by
 ``tests/test_torch_formats.py``, ``tests/test_torch_textures.py``,
 ``tests/test_torch_scene.py``, ``tests/test_torch_image_write.py`` and
 ``tools/make_torch_fixtures.py``; jax-free, and PIL is imported only by the
@@ -609,3 +611,134 @@ def psd_bytes(channels: np.ndarray, mode: int, depth: int = 8,
     return (out + struct.pack(">H", 1)
             + b"".join(struct.pack(">H", len(p)) for p in packed)
             + b"".join(packed))
+
+
+# ---- WebP -------------------------------------------------------------------
+
+def webp_bytes(pixels: np.ndarray, **save) -> bytes:
+    """PIL's WebP file of uint8 [H, W, 3 or 4] ``pixels`` (``save``:
+    ``lossless``, ``quality``, ``method``, ``exact``, ``alpha_quality``;
+    ``append_images`` with ``save_all`` for an animation)."""
+    from PIL import Image
+    out = io.BytesIO()
+    Image.fromarray(pixels).save(out, "WEBP", **save)
+    return out.getvalue()
+
+
+def webp_image(pixels: np.ndarray):
+    """A PIL image of uint8 pixels (a later frame of an animation)."""
+    from PIL import Image
+    return Image.fromarray(pixels)
+
+
+def libwebp_encode(pixels: np.ndarray, quality: float = 75.0,
+                   **config) -> bytes:
+    """The WebP file libwebp's ``WebPEncode`` writes for uint8 [H, W, 3 or
+    4] ``pixels`` with the ``WebPConfig`` fields PIL does not pass
+    (``filter_type``, ``filter_sharpness``, ``filter_strength``,
+    ``segments``, ``partitions``, ``alpha_compression``,
+    ``alpha_filtering``, ...): the libwebp PIL 12.1 bundles, through
+    ctypes. The structs are libwebp 1.x's ``encode.h`` (encoder ABI
+    0x02xx), padded past their ends."""
+    import ctypes as C
+    import glob
+    import os
+
+    import PIL
+    from PIL import _webp  # noqa: F401  (loads libwebp's own dependencies)
+    found = glob.glob(os.path.join(os.path.dirname(PIL.__file__), "..",
+                                   "pillow.libs", "libwebp-*.so*"))
+    lib = C.CDLL(found[0])
+    i, f, p = C.c_int, C.c_float, C.c_void_p
+
+    class Config(C.Structure):
+        _fields_ = [(n, i) for n in ("lossless",)] + [("quality", f)] + [
+            (n, i) for n in ("method", "image_hint", "target_size")] + [
+            ("target_PSNR", f)] + [(n, i) for n in (
+                "segments", "sns_strength", "filter_strength",
+                "filter_sharpness", "filter_type", "autofilter",
+                "alpha_compression", "alpha_filtering", "alpha_quality",
+                "pass_", "show_compressed", "preprocessing", "partitions",
+                "partition_limit", "emulate_jpeg_size", "thread_level",
+                "low_memory", "near_lossless", "exact", "use_delta_palette",
+                "use_sharp_yuv", "qmin", "qmax")] + [("pad", C.c_uint32 * 32)]
+
+    class Picture(C.Structure):
+        _fields_ = [("use_argb", i), ("colorspace", i), ("width", i),
+                    ("height", i), ("y", p), ("u", p), ("v", p),
+                    ("y_stride", i), ("uv_stride", i), ("a", p),
+                    ("a_stride", i), ("pad1", C.c_uint32 * 2), ("argb", p),
+                    ("argb_stride", i), ("pad2", C.c_uint32 * 3),
+                    ("writer", p), ("custom_ptr", p),
+                    ("spare", C.c_uint8 * 512)]
+
+    class Writer(C.Structure):
+        _fields_ = [("mem", p), ("size", C.c_size_t),
+                    ("max_size", C.c_size_t), ("pad", C.c_uint32 * 8)]
+
+    img = np.ascontiguousarray(pixels, np.uint8)
+    h, w, ch = img.shape
+    cfg = Config()
+    assert lib.WebPConfigInitInternal(C.byref(cfg), 0, f(quality), 0x0200)
+    for k, v in config.items():
+        setattr(cfg, k, v)
+    assert lib.WebPValidateConfig(C.byref(cfg)), config
+    pic = Picture()
+    assert lib.WebPPictureInitInternal(C.byref(pic), 0x0200)
+    pic.width, pic.height, pic.use_argb = w, h, cfg.lossless
+    load = lib.WebPPictureImportRGBA if ch == 4 else lib.WebPPictureImportRGB
+    assert load(C.byref(pic), img.ctypes.data_as(p), w * ch)
+    out = Writer()
+    lib.WebPMemoryWriterInit(C.byref(out))
+    pic.writer = C.cast(lib.WebPMemoryWrite, p).value
+    pic.custom_ptr = C.addressof(out)
+    ok = lib.WebPEncode(C.byref(cfg), C.byref(pic))
+    lib.WebPPictureFree(C.byref(pic))
+    data = C.string_at(out.mem, out.size)
+    lib.WebPMemoryWriterClear(C.byref(out))
+    assert ok, "WebPEncode failed"
+    return data
+
+
+def riff_chunks(data: bytes) -> list:
+    """[(tag, payload)] of a WebP file's top-level chunks."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        tag, n = data[pos:pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((tag, data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def riff(chunks) -> bytes:
+    """A WebP file of [(tag, payload)] chunks."""
+    body = b"WEBP" + b"".join(
+        tag + struct.pack("<I", len(c)) + c + b"\0" * (len(c) & 1)
+        for tag, c in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def raw_alpha(data: bytes, alpha: np.ndarray, method: int) -> bytes:
+    """A lossy WebP with alpha whose ALPH chunk is replaced by ``alpha``
+    stored uncompressed under filtering ``method`` (0 none, 1 horizontal,
+    2 vertical, 3 gradient), filtered as libwebp's filters.c does."""
+    a = alpha.astype(np.int32)
+    h, w = a.shape
+    res = np.zeros_like(a)
+    for y in range(h):
+        for x in range(w):
+            if method == 0:
+                pred = 0
+            elif y == 0:
+                pred = a[0, x - 1] if x else 0
+            elif method == 1 or (x == 0 and method == 3):
+                pred = a[y, x - 1] if x else a[y - 1, 0]
+            elif method == 2:
+                pred = a[y - 1, x]
+            else:
+                g = a[y, x - 1] + a[y - 1, x] - a[y - 1, x - 1]
+                pred = min(max(g, 0), 255)
+            res[y, x] = (a[y, x] - pred) & 0xFF
+    alph = bytes([method << 2]) + res.astype(np.uint8).tobytes()
+    return riff([(t, alph if t == b"ALPH" else c)
+                 for t, c in riff_chunks(data)])

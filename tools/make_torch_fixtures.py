@@ -38,7 +38,14 @@ Fixtures (all content procedural, from fixed seeds):
   ``tiled_planar.tif`` (37x29 8-bit RGB, 16x16 tiles, separate planes,
   LZW), ``grey16.tif`` (37x29 16-bit grey, its digest the high-byte
   image), ``rle.psd`` (37x29 RGBA, RLE) and ``assoc_alpha.tif`` (37x29
-  RGBA with associated alpha, PackBits).
+  RGBA with associated alpha, PackBits);
+- ``roughness_2048_lossy.webp`` (the roughness map's content as a lossy
+  WebP, quality 80), ``normal_1024_lossless.webp`` (the normal map as a
+  lossless WebP whose alpha is the bump height), and 37x29
+  ``small_lossy.webp`` (VP8), ``small_lossy_alpha.webp`` (VP8X with an
+  ALPH chunk), ``small_palette.webp`` (VP8L colour indexing, five
+  colours) and ``small_anim.webp`` (two frames, the first cropped to a
+  window at an offset).
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -93,6 +100,24 @@ def normal_map16(n: int = 512, bumps: int = 4) -> np.ndarray:
     nrm = np.stack([-dx, -dy, np.ones_like(dx)], -1)
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     return ((nrm * 0.5 + 0.5) * 1023).round().astype(np.int64) * 64
+
+
+def bump_height(n: int = 1024, bumps: int = 8) -> np.ndarray:
+    """[n, n, 1] uint8: the height whose normals :func:`normal_map` holds
+    (the alpha plane of the lossless WebP normal map)."""
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) * (bumps / n)
+    h = np.sin(6.2831853 * xx) * np.sin(6.2831853 * yy)
+    return ((h * 0.5 + 0.5) * 255).round().astype(np.uint8)[..., None]
+
+
+def first_frame(small: np.ndarray, alpha: np.ndarray) -> np.ndarray:
+    """The first frame of the animated WebP: the small image with alpha in
+    a 20x16 window, transparent black around it (libwebp's encoder crops
+    the key frame to the window, at an offset)."""
+    frame = np.zeros(small.shape[:2] + (4,), np.uint8)
+    frame[4:20, 6:26] = np.concatenate([small, alpha], -1)[4:20, 6:26]
+    frame[4:20, 6:26, 3] |= 1
+    return frame
 
 
 def procedural_rgb(w: int, h: int, seed: int) -> np.ndarray:
@@ -190,6 +215,20 @@ def fixtures():
         "assoc_alpha.tif": ti.tiff_bytes(
             np.concatenate([small // 2, alpha], -1), extra=[1],
             compression=32773),
+        "roughness_2048_lossy.webp": ti.webp_bytes(roughness_map(),
+                                                   quality=80),
+        "normal_1024_lossless.webp": ti.webp_bytes(np.concatenate(
+            [normal_map(), bump_height()], -1), lossless=True),
+        "small_lossy.webp": ti.webp_bytes(small, quality=70),
+        "small_lossy_alpha.webp": ti.webp_bytes(np.concatenate(
+            [small, alpha], -1), quality=70, alpha_quality=60),
+        "small_palette.webp": ti.webp_bytes(
+            ti.smooth_rgb(10, 5, 1)[0][(small[..., 0] // 52).clip(0, 4)],
+            lossless=True),
+        "small_anim.webp": ti.webp_bytes(
+            first_frame(small, alpha), quality=70, save_all=True,
+            duration=100, append_images=[ti.webp_image(np.concatenate(
+                [small, alpha], -1))]),
     }
     out = {}
     for name, data in files.items():
