@@ -53,12 +53,14 @@ through its kernels and made a healthy image:
   3-entry sessions timed in turns;
 - the host's file readers and writers: files that are no image read as
   None and the extensions PIL cannot save raising PIL's exceptions; the
-  committed texture fixtures (``tests/torch_data/``: JPEG, BMP, TGA, PNM,
-  16-bit and Adam7 PNG, GIF, TIFF, PSD, WebP) decoded and held to the
-  digests of PIL's decode, the 2048x2048 progressive JPEG's, Deflate
-  TIFF's and lossy WebP's and the 1024x1024 lossless WebP's decodes
-  timed; the textured sphere at 1920x1080 with that JPEG as its
-  roughness map and a 1024x1024 JPEG as its normal map, then with the
+  committed texture fixtures (``tests/torch_data/``: JPEG, CMYK, YCCK and
+  arithmetic-coded JPEG, BMP, TGA, PNM, 16-bit and Adam7 PNG, GIF, TIFF,
+  PSD, WebP) decoded and held to the digests of PIL's decode, the
+  2048x2048 progressive JPEG's, YCCK arithmetic progressive JPEG's,
+  Deflate TIFF's and lossy WebP's and the 1024x1024 CMYK arithmetic
+  JPEG's and lossless WebP's decodes timed; the textured sphere at
+  1920x1080 with that JPEG as its roughness map and a 1024x1024 JPEG as
+  its normal map, then with the two arithmetic-coded JPEGs, then with the
   TIFF and a 512x512 16-bit LZW TIFF, then with the two WebPs, 16
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
@@ -1152,12 +1154,14 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       cannot save an L image under raising PIL's exception types;
     - every fixture of ``tests/torch_data/`` decoded and held to the
       digest of PIL's decode (for the 16-bit grey PNG and TIFF, of their
-      high bytes), the 2048x2048 progressive JPEG's, Deflate TIFF's and
-      lossy WebP's and the 1024x1024 lossless WebP's decodes timed (median
-      of ``decodes``);
+      high bytes), the 2048x2048 progressive JPEG's, YCCK arithmetic
+      progressive JPEG's, Deflate TIFF's and lossy WebP's and the
+      1024x1024 CMYK arithmetic JPEG's and lossless WebP's decodes timed
+      (median of ``decodes``);
     - ``textured_sphere_scene`` at ``res`` with that JPEG as its roughness
       map and the 1024x1024 baseline JPEG as its normal map, then with the
-      TIFF as its roughness map and the 512x512 16-bit LZW TIFF as its
+      YCCK and CMYK arithmetic-coded JPEGs (``jpeg-flavours``), then with
+      the TIFF as its roughness map and the 512x512 16-bit LZW TIFF as its
       normal map, then with the two WebPs, through ``"hier"``: the texture
       table on the card
       bitwise the host decode, ``spp`` samples counted through K3, K2 and
@@ -1231,17 +1235,21 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         return [1e3 * t for t in secs], 1e3 * sorted(secs)[len(secs) // 2]
 
     maps = {"jpeg": ("roughness_2048_prog420.jpg", "normal_1024_444.jpg"),
+            "jpeg-flavours": ("roughness_2048_ycck_arith_prog.jpg",
+                              "normal_1024_cmyk_arith.jpg"),
             "tiff": ("roughness_2048_deflate.tif", "normal_512_lzw16.tif"),
             "webp": ("roughness_2048_lossy.webp", "normal_1024_lossless.webp")}
-    for name in [rough for rough, _ in maps.values()] + [maps["webp"][1]]:
+    for name in [rough for rough, _ in maps.values()] + [
+            maps["jpeg-flavours"][1], maps["webp"][1]]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
         say("files", decode=name, runs=decodes, ms=ms, median_ms=med,
             clock="host")
 
-    # the textured sessions with the JPEG maps, the TIFF maps (16-bit LZW
-    # normals) and the WebP maps (lossy roughness, lossless normals with
-    # alpha), each counted through K3, K2 and threefry
+    # the textured sessions with the JPEG maps, the arithmetic-coded YCCK
+    # and CMYK JPEG maps, the TIFF maps (16-bit LZW normals) and the WebP
+    # maps (lossy roughness, lossless normals with alpha), each counted
+    # through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1282,8 +1290,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     sessions["checker"] = pt.RenderSession(textured_sphere_scene(pt, res),
                                            dev, seed=0)
     sessions["checker"].run(1, batch=1)
-    turns = ("checker", "jpeg", "tiff", "webp", "webp", "tiff", "jpeg",
-             "checker")
+    turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "webp",
+             "tiff", "jpeg-flavours", "jpeg", "checker")
     rates = {name: [] for name in turns}
     for name in turns:
         rates[name].append(timed_step(torch, sessions[name], rate_spp))
@@ -2604,8 +2612,9 @@ def main() -> int:
         k["launches_surface"] = surf_launches[k["name"]]
         # the multi phase's driven sessions (tiles on 1 and 3, spp on NCCL)
         k["launches_multi"] = multi_launches[k["name"]]
-        # the files phase's sessions (textured 1080p from the JPEG maps
-        # and from the TIFF maps, the natively parsed 52k terrain)
+        # the files phase's sessions (textured 1080p from the JPEG, the
+        # arithmetic-coded JPEG, the TIFF and the WebP maps, the natively
+        # parsed 52k terrain)
         k["launches_files"] = files_launches[k["name"]]
     finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)

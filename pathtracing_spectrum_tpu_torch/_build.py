@@ -81,7 +81,7 @@ _HOST_SIGNATURES = {
     "pts_obj_free": ([_V], None),
     "pts_export_spectrum": ([_S, _V, _I32, _I32, _I32], _I32),
     "pts_jpeg_decode": ([_V, _I64, _V, _S, _I32], _V),
-    "pts_jpeg_size": ([_V, _V, _V], None),
+    "pts_jpeg_size": ([_V, _V, _V, _V], None),
     "pts_jpeg_copy": ([_V, _V], None),
     "pts_jpeg_free": ([_V], None),
     "pts_jpeg_encode": ([_V, _I32, _I32, _I32], _V),

@@ -5,11 +5,16 @@
 // textures equal the JAX package's (PIL's convert("RGBA")) bit for bit:
 //
 //  * baseline (SOF0), extended Huffman (SOF1) and progressive (SOF2)
-//    frames with 8-bit samples: spectral selection, successive
+//    frames, and arithmetic-coded sequential (SOF9) and progressive
+//    (SOF10) ones (jdarith.c: the T.81 Annex D decoder with libjpeg's
+//    registers and state table, DAC conditioning values, statistics reset
+//    at each restart), with 8-bit samples: spectral selection, successive
 //    approximation, AC refinement with end-of-band runs;
-//  * 1 component (grey) or 3 (YCbCr, or RGB as libjpeg decides it: an
+//  * 1 component (grey), 3 (YCbCr, or RGB as libjpeg decides it: an
 //    Adobe APP14 marker with transform 0, or component ids 'R', 'G', 'B'
-//    without a JFIF or Adobe marker);
+//    without a JFIF or Adobe marker) or 4 (CMYK, or YCCK where an Adobe
+//    marker has a transform other than 0, converted as ycck_cmyk_convert
+//    does; handed over as CMYK samples, which PIL reads inverted);
 //  * any integral sampling factors (4:4:4, 4:2:2, 4:4:0, 4:2:0, ...);
 //  * restart intervals (DRI/RSTn), byte stuffing, padding FF bytes, and
 //    zero bits fed past a marker as libjpeg feeds them;
@@ -30,17 +35,21 @@
 // on its fast and slow paths as PIL feeds the data (64 KiB at a time), a
 // single-scan file ending with its scan (the markers after it read as far
 // as they go, a second scan an error) and a multi-scan file read to EOI.
+// The arithmetic decoder cannot wait for more data: a scan that needs a
+// byte past those PIL has fed libjpeg fails, a bad code decodes the rest
+// of the scan up to a restart as nothing, and a marker met in the data
+// feeds zero bytes.
 //
 // Integer arithmetic only, so the result does not depend on the host's
 // floating-point unit or on -march. Refused (status 2, with a reason):
-// 12-bit and 16-bit samples (PIL's plugin opens neither, so the JAX
-// package gives None there: a named deviation), lossless and
-// arithmetic-coded frames, 4 components (CMYK, YCCK), and a
-// progressive file whose scans leave the first coefficients incomplete
-// (libjpeg would smooth its blocks). A file that breaks the format
-// (truncated, no frame, a scan that names an unknown table, hierarchical
-// frames, fractional sampling factors) is status 1: PIL raises on it, and
-// the loader returns None as the JAX package does.
+// lossless Huffman frames (SOF3), and a progressive file whose scans
+// leave the first coefficients incomplete (libjpeg would smooth its
+// blocks). A file that breaks the format (truncated, no frame, a frame of
+// other than 8 bits, which PIL's plugin does not open, a scan that names
+// an unknown table, hierarchical frames, lossless arithmetic frames,
+// which libjpeg-turbo does not decode, fractional sampling factors) is
+// status 1: PIL raises on it, and the loader returns None as the JAX
+// package does.
 //
 // Built with the host compiler into the port's build/ directory at first
 // use; plain C ABI.
@@ -139,6 +148,7 @@ struct Component {
   int bw_alloc = 0, bh_alloc = 0;  // rounded up to whole MCUs
   int dc_tbl = 0, ac_tbl = 0;
   int pred = 0;
+  int dc_context = 0;  // arithmetic: the DC statistics' conditioning
   bool latched = false;
   int32_t quant[64] = {};  // natural order, latched at its first scan
   int coef_bits[64];       // progressive: the Al known, -1 = none yet
@@ -151,7 +161,7 @@ struct Component {
 
 // the position of the FF of the first marker at or after p (libjpeg's
 // next_marker: bytes that are not a marker are skipped, FF 00 and FF
-// padding too)
+// padding too), reading no byte at or past n
 size_t find_marker(const uint8_t* d, size_t n, size_t p) {
   for (;;) {
     while (p < n && d[p] != 0xFF) ++p;
@@ -160,6 +170,14 @@ size_t find_marker(const uint8_t* d, size_t n, size_t p) {
     if (q >= n) broken("premature end of JPEG data");
     if (d[q] != 0) return q - 1;
     p = q + 1;
+  }
+}
+
+size_t find_marker_or_end(const uint8_t* d, size_t n, size_t p) {
+  try {
+    return find_marker(d, n, p);
+  } catch (const Error&) {
+    return n;
   }
 }
 
@@ -306,12 +324,7 @@ class BitReader {
   // the same after a scan, or the end of the data where no marker follows
   // (jpeg_finish_decompress suspends there)
   size_t next_marker_or_end() {
-    if (marker_) return marker_pos_;
-    try {
-      return find_marker(d_, n_, pos_);
-    } catch (const Error&) {
-      return n_;
-    }
+    return marker_ ? marker_pos_ : find_marker_or_end(d_, n_, pos_);
   }
   // restart reading at pos (a restart marker's end, or a marker left
   // for the segment to run into)
@@ -344,6 +357,155 @@ class BitReader {
   uint64_t buf_ = 0;
   int bits_ = 0;
   int fake_ = 0;  // zero bits at the bottom of buf_ that no byte gave
+  bool marker_ = false;
+  size_t marker_pos_ = 0;
+};
+
+// ---- jdarith.c: the arithmetic decoder (ITU T.81 Annex D) -----------------
+
+// jaricom.c's jpeg_aritab, T.81 Table D.2: per state its Qe (bits 16-31),
+// Next_Index_MPS (bits 8-15), Switch_MPS (bit 7) and Next_Index_LPS (bits
+// 0-6); state 113 is the fixed probability 0.5 of T.851
+constexpr int32_t V(int32_t qe, int32_t nlps, int32_t nmps, int32_t sw) {
+  return (qe << 16) | (nmps << 8) | (sw << 7) | nlps;
+}
+const int32_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0),    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),    V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0),   V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),   V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0),   V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),   V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0),   V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),   V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0),   V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),   V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0),   V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),   V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0),   V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),   V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0),   V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),   V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+
+// jdarith.c's registers: C and A, and the bit counter ct (-16: the two
+// first bytes still to read; -1: a bad code was met, and the rest of the
+// scan up to a restart decodes as nothing). Once a marker is reached it
+// reads zero bytes, as libjpeg does with its unread_marker set. PIL hands
+// libjpeg the file 64 KiB at a time, and this decoder, unlike the Huffman
+// one, cannot suspend for more (JERR_CANT_SUSPEND): a byte at or past
+// `fed` is an error.
+class ArithDecoder {
+ public:
+  ArithDecoder(const uint8_t* data, size_t fed, size_t pos)
+      : d_(data), fed_(fed), pos_(pos) {}
+
+  int ct = -16;
+  void reset() {
+    c_ = a_ = 0;
+    ct = -16;
+  }
+
+  // arith_decode: one binary decision with the statistics bin *st
+  int decode(uint8_t* st) {
+    while (a_ < 0x8000) {  // renormalisation and data input (D.2.6)
+      if (--ct < 0) {
+        int data = 0;
+        if (!marker_) {
+          data = byte();
+          if (data == 0xFF) {  // a stuffed zero or a marker
+            do data = byte();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker_ = true;
+              marker_pos_ = pos_ - 2;
+              data = 0;
+            }
+          }
+        }
+        c_ = (c_ << 8) | data;
+        if ((ct += 8) < 0 && ++ct == 0) a_ = 0x8000;  // the first 2 bytes
+      }
+      a_ <<= 1;
+    }
+    const int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a_ - qe;
+    a_ = temp;
+    temp <<= ct;
+    int bit = sv >> 7;
+    if (c_ >= temp) {
+      c_ -= temp;
+      if (a_ < qe) {  // conditional LPS exchange
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        bit ^= 1;
+      }
+    } else if (a_ < 0x8000) {  // conditional MPS exchange
+      if (a_ < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        bit ^= 1;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return bit;
+  }
+
+  // the position of the FF of the marker that ends the data: for
+  // read_restart_marker, bound by the bytes fed; after a scan, where
+  // libjpeg's marker reader may suspend, the end of the data if none
+  size_t next_marker() {
+    return marker_ ? marker_pos_ : find_marker(d_, fed_, pos_);
+  }
+  size_t next_marker_or_end(size_t n) {
+    return marker_ ? marker_pos_ : find_marker_or_end(d_, n, pos_);
+  }
+  void seek(size_t pos) {
+    pos_ = pos;
+    marker_ = false;
+  }
+  size_t fed() const { return fed_; }
+
+ private:
+  int byte() {
+    if (pos_ >= fed_)
+      broken("arithmetic-coded data past the bytes PIL has fed libjpeg");
+    return d_[pos_++];
+  }
+  const uint8_t* d_;
+  size_t fed_, pos_;
+  int64_t c_ = 0, a_ = 0;
   bool marker_ = false;
   size_t marker_pos_ = 0;
 };
@@ -535,6 +697,14 @@ inline uint8_t clamp255(int v) {
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
+// one pixel's Y, Cb, Cr to R, G, B
+inline void ycc_rgb(int y, int cb, int cr, uint8_t* rgb) {
+  rgb[0] = clamp255(y + kYcc.cr_r[cr]);
+  rgb[1] = clamp255(
+      y + static_cast<int>((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+  rgb[2] = clamp255(y + kYcc.cb_b[cb]);
+}
+
 // ---- the decoder ----------------------------------------------------------
 
 struct Decoder {
@@ -542,7 +712,7 @@ struct Decoder {
   size_t n;
   int W = 0, H = 0, ncomp = 0, max_h = 1, max_v = 1;
   int mcux = 0, mcuy = 0;
-  bool progressive = false, frame = false;
+  bool progressive = false, arith = false, frame = false;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   int restart_interval = 0;
@@ -553,8 +723,19 @@ struct Decoder {
   int eobrun = 0;
   bool scanned = false, multi_scan = false;
   bool icc_short = false;
+  // arithmetic coding: the DAC conditioning values per table (get_soi's
+  // defaults L = 0, U = 1, K = 5), the statistics bins, the bin of the
+  // fixed probability 0.5, and the bytes PIL has fed libjpeg so far
+  uint8_t dc_L[16], dc_U[16], ac_K[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed_bin = 113;
+  size_t fed = 65536;
 
-  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {}
+  Decoder(const uint8_t* data, size_t size) : d(data), n(size) {
+    std::memset(dc_L, 0, sizeof(dc_L));
+    std::memset(dc_U, 1, sizeof(dc_U));
+    std::memset(ac_K, 5, sizeof(ac_K));
+  }
 
   // libjpeg reads a marker segment byte by byte, checking each field as
   // it comes: past the end of the data it suspends (Suspend) instead
@@ -603,14 +784,19 @@ struct Decoder {
     if (p != end) broken("bad DHT length");
   }
 
-  // jdmarker.c get_dac: arithmetic conditioning values, checked and
-  // dropped (only an arithmetic frame would use them)
+  // jdmarker.c get_dac: arithmetic conditioning values, kept per table
   void read_dac(size_t p, size_t end) {
     while (end - p >= 2) {
       at(p + 1);
       int index = d[p], val = d[p + 1];
       if (index >= 32) broken("bad DAC index");
-      if (index < 16 && (val & 15) > (val >> 4)) broken("bad DAC value");
+      if (index >= 16) {
+        ac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_L[index] = static_cast<uint8_t>(val & 15);
+        dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if ((val & 15) > (val >> 4)) broken("bad DAC value");
+      }
       p += 2;
     }
     if (p != end) broken("bad DAC length");
@@ -625,21 +811,22 @@ struct Decoder {
     ncomp = d[p + 5];
     if (W == 0 || H == 0 || ncomp == 0) broken("empty or DNL-sized frame");
     if (end - p != static_cast<size_t>(6 + 3 * ncomp)) broken("bad SOF length");
-    if (marker == 0xC3 || marker == 0xCB)
-      refuse("lossless JPEG (SOF" + std::to_string(marker - 0xC0) + ")");
-    if (marker == 0xC9 || marker == 0xCA)
-      refuse("arithmetic-coded JPEG (SOF" + std::to_string(marker - 0xC0) +
-             ")");
-    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2)
+    if (marker == 0xC3)
+      refuse("lossless JPEG (SOF3)");
+    // libjpeg-turbo has no arithmetic decoder for lossless frames
+    if (marker == 0xCB)
+      broken("arithmetic-coded lossless JPEG (SOF11)");
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2 &&
+        marker != 0xC9 && marker != 0xCA)
       broken("unsupported frame type (SOF" + std::to_string(marker - 0xC0) +
              ")");
     if (precision != 8) broken("bad precision");
-    if (ncomp == 4) refuse("4-component (CMYK or YCCK) JPEG");
     // PIL refuses more than twice its MAX_IMAGE_PIXELS (a decompression
     // bomb) before decoding
     if (static_cast<int64_t>(W) * H > 2 * int64_t(89478485))
       broken("more pixels than PIL opens");
-    progressive = marker == 0xC2;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker == 0xC9 || marker == 0xCA;
     comp.resize(static_cast<size_t>(ncomp));
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[static_cast<size_t>(i)];
@@ -652,7 +839,7 @@ struct Decoder {
       max_h = std::max(max_h, c.h);
       max_v = std::max(max_v, c.v);
     }
-    if (ncomp != 1 && ncomp != 3)  // (PIL's walk refused it already)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)  // (PIL's walk refused it)
       broken(std::to_string(ncomp) + "-component JPEG");
     mcux = (W + 8 * max_h - 1) / (8 * max_h);
     mcuy = (H + 8 * max_v - 1) / (8 * max_v);
@@ -708,7 +895,11 @@ struct Decoder {
   size_t read_scan(size_t p, size_t end) {
     const std::vector<Component*> sc = sos_components(p, end);
     const int ns = static_cast<int>(sc.size());
-    if (!scanned && !progressive) {
+    // jdinput.c per_scan_setup: libjpeg's MCU holds 10 blocks at most
+    int blocks = 0;
+    for (Component* c : sc) blocks += ns == 1 ? 1 : c->h * c->v;
+    if (blocks > 10) broken("too many blocks in an MCU");
+    if (!scanned && !progressive && !arith) {
       // jdhuff.c std_huff_tables: tables 0 and 1 a sequential file leaves
       // undefined by its first scan are the standard ones
       if (!dc[0].defined) dc[0].define(kDcLumaBits, kDcVals, 12);
@@ -738,12 +929,13 @@ struct Decoder {
           c->quant[k] = static_cast<int16_t>(qt[c->tq][k]);
         c->latched = true;
       }
-      // jpeg_make_d_derived_tbl for the tables the scan reads only
-      if (!progressive || (ss == 0 && ah == 0)) {
+      // jpeg_make_d_derived_tbl for the tables the scan reads only (an
+      // arithmetic scan may name any of its 16 tables)
+      if (!arith && (!progressive || (ss == 0 && ah == 0))) {
         if (c->dc_tbl > 3) broken("bad table index");
         dc[c->dc_tbl].build(true);
       }
-      if (!progressive || se > 0) {
+      if (!arith && (!progressive || se > 0)) {
         if (c->ac_tbl > 3) broken("bad table index");
         ac[c->ac_tbl].build(false);
       }
@@ -751,14 +943,13 @@ struct Decoder {
       c->pred = 0;
     }
     eobrun = 0;
+    if (arith) return arith_scan(sc, end, ss, se, ah, al);
 
     BitReader br(d, n, end);
     const bool pil_feed = !progressive && !multi_scan;
     if (pil_feed) br.feed_as_pil();
     int mcus_x, mcus_y;
     bool single = ns == 1;
-    int blocks = 0;
-    for (Component* c : sc) blocks += single ? 1 : c->h * c->v;
     if (single) {
       mcus_x = sc[0]->bw;
       mcus_y = sc[0]->bh;
@@ -828,10 +1019,18 @@ struct Decoder {
     return br.next_marker_or_end();
   }
 
-  // process_restart: read_restart_marker and jpeg_resync_to_restart
+  // process_restart (jdhuff.c)
   void restart(BitReader& br, int want) {
-    size_t mp = br.next_marker();
-    bool consumed = false;
+    bool consumed;
+    br.seek(resync(br.next_marker(), n, want, &consumed));
+    if (consumed) br.insufficient = false;
+  }
+
+  // read_restart_marker and jpeg_resync_to_restart from the marker whose FF
+  // is at mp, reading no byte at or past limit: the position to read on
+  // from, and whether the restart marker wanted was taken
+  size_t resync(size_t mp, size_t limit, int want, bool* consumed) {
+    *consumed = false;
     for (;;) {
       int mk = d[mp + 1];
       int action;  // 1: take it, 2: skip to the next marker, 3: leave it
@@ -844,15 +1043,200 @@ struct Decoder {
         action = 2;
       else action = 1;
       if (action == 1) {
-        mp += 2;
-        consumed = true;
-        break;
+        *consumed = true;
+        return mp + 2;
       }
-      if (action == 3) break;
-      mp = find_marker(d, n, mp + 2);
+      if (action == 3) return mp;
+      mp = find_marker(d, limit, mp + 2);
     }
-    br.seek(mp);
-    if (consumed) br.insufficient = false;
+  }
+
+  // ---- arithmetic-coded scans (jdarith.c) ----
+
+  // start_pass and process_restart: the statistics of the tables the scan
+  // reads zeroed, with the DC predictions and their conditioning
+  void arith_reset(const std::vector<Component*>& sc, int ss, int ah) {
+    for (Component* c : sc) {
+      if (!progressive || (ss == 0 && ah == 0)) {
+        std::memset(dc_stats[c->dc_tbl], 0, sizeof(dc_stats[0]));
+        c->pred = 0;
+        c->dc_context = 0;
+      }
+      if (!progressive || ss)
+        std::memset(ac_stats[c->ac_tbl], 0, sizeof(ac_stats[0]));
+    }
+  }
+
+  // one scan, from start (just past its header) to the position of the FF
+  // of the marker after its data, as read_scan
+  size_t arith_scan(const std::vector<Component*>& sc, size_t start, int ss,
+                    int se, int ah, int al) {
+    // libjpeg's marker reader suspends where the data fed runs out, and PIL
+    // feeds another 64 KiB, until the scan's header is in
+    while (fed < start) fed += 65536;
+    fed = std::min(fed, n);
+    arith_reset(sc, ss, ah);
+    ArithDecoder ad(d, fed, start);
+    const bool single = sc.size() == 1;
+    const int mcus_x = single ? sc[0]->bw : mcux;
+    const int mcus_y = single ? sc[0]->bh : mcuy;
+    const int64_t total = static_cast<int64_t>(mcus_x) * mcus_y;
+    int todo = restart_interval, next_rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval) {
+        if (todo == 0) {
+          bool consumed;
+          ad.seek(resync(ad.next_marker(), ad.fed(), next_rst, &consumed));
+          next_rst = (next_rst + 1) & 7;
+          arith_reset(sc, ss, ah);
+          ad.reset();
+          todo = restart_interval;
+        }
+        --todo;
+      }
+      if (ad.ct == -1) continue;  // after a bad code: nothing
+      const int my = static_cast<int>(m / mcus_x);
+      const int mx = static_cast<int>(m % mcus_x);
+      bool ok = true;
+      for (Component* c : sc) {
+        const int bh = single ? 1 : c->v, bw = single ? 1 : c->h;
+        for (int y = 0; y < bh && ok; ++y)
+          for (int x = 0; x < bw && ok; ++x)
+            ok = arith_block(ad, *c, single ? c->block(my, mx)
+                                            : c->block(my * c->v + y,
+                                                       mx * c->h + x),
+                             ss, se, ah, al);
+        if (!ok) break;
+      }
+    }
+    return ad.next_marker_or_end(n);
+  }
+
+  // Figures F.19-F.24: a DC difference added to c.pred (modulo 2^16);
+  // false after a bad code
+  bool arith_dc(ArithDecoder& ad, Component& c) {
+    const int tbl = c.dc_tbl;
+    uint8_t* st = dc_stats[tbl] + c.dc_context;
+    if (ad.decode(st) == 0) {
+      c.dc_context = 0;
+      return true;
+    }
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int m = ad.decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;  // X1
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) {  // magnitude overflow
+          ad.ct = -1;
+          return false;
+        }
+        ++st;
+      }
+    }
+    // F.1.4.4.1.2: the conditioning category of the next difference
+    if (m < ((1 << dc_L[tbl]) >> 1))
+      c.dc_context = 0;
+    else if (m > ((1 << dc_U[tbl]) >> 1))
+      c.dc_context = 12 + sign * 4;
+    else
+      c.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    c.pred = (c.pred + v) & 0xFFFF;
+    return true;
+  }
+
+  // Figures F.21-F.24 for the AC coefficient k, its statistics at st (its
+  // S0 + 1 bin), into *v; false after a bad code
+  bool arith_ac(ArithDecoder& ad, int tbl, uint8_t* st, int k, int* v) {
+    const int sign = ad.decode(&fixed_bin);
+    st += 2;
+    int m = ad.decode(st);
+    if (m != 0 && ad.decode(st)) {
+      m <<= 1;
+      st = ac_stats[tbl] + (k <= ac_K[tbl] ? 189 : 217);
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) {  // magnitude overflow
+          ad.ct = -1;
+          return false;
+        }
+        ++st;
+      }
+    }
+    int x = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) x |= m;
+    x += 1;
+    *v = sign ? -x : x;
+    return true;
+  }
+
+  // decode_mcu, decode_mcu_DC_first/_DC_refine/_AC_first/_AC_refine for
+  // one block; false after a bad code (the rest of the MCU is left)
+  bool arith_block(ArithDecoder& ad, Component& c, int16_t* b, int ss,
+                   int se, int ah, int al) {
+    if (progressive && ss == 0 && ah != 0) {  // DC refine: one raw bit
+      if (ad.decode(&fixed_bin))
+        b[0] = static_cast<int16_t>(b[0] | (1 << al));
+      return true;
+    }
+    if (ss == 0) {
+      if (!arith_dc(ad, c)) return false;
+      b[0] = static_cast<int16_t>(static_cast<unsigned>(c.pred) << al);
+      if (progressive) return true;
+      ss = 1;  // sequential: the AC coefficients follow
+    }
+    const int tbl = c.ac_tbl;
+    if (ah == 0) {  // sequential, or AC first
+      for (int k = ss; k <= se; ++k) {
+        uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+        if (ad.decode(st)) break;  // end of block
+        while (ad.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > se) {  // spectral overflow
+            ad.ct = -1;
+            return false;
+          }
+        }
+        int v;
+        if (!arith_ac(ad, tbl, st, k, &v)) return false;
+        b[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+      }
+      return true;
+    }
+    // AC refine
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int kex = se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (b[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && ad.decode(st)) break;  // end of block
+      for (;;) {
+        int16_t& coef = b[kNatural[k]];
+        if (coef) {  // previously nonzero: a correction bit
+          if (ad.decode(st + 2))
+            coef = static_cast<int16_t>(coef + (coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ad.decode(st + 1)) {  // newly nonzero
+          coef = static_cast<int16_t>(ad.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {  // spectral overflow
+          ad.ct = -1;
+          return false;
+        }
+      }
+    }
+    return true;
   }
 
   void decode_block(BitReader& br, Component& c, int16_t* b, int ss, int se,
@@ -994,9 +1378,8 @@ struct Decoder {
           const uint8_t* s = d + body;
           if (is_sof) {
             if (blen < 6) broken("bad SOF");
-            if (s[0] == 12 || s[0] == 16)
-              refuse(std::to_string(s[0]) + "-bit samples");
-            if (s[0] != 8) broken("bad precision");
+            // "cannot handle 12-bit layers": PIL opens only 8-bit frames
+            if (s[0] != 8) broken(std::to_string(s[0]) + "-bit samples");
             if (s[5] != 1 && s[5] != 3 && s[5] != 4) broken("bad layers");
             if ((blen - 6) % 3) broken("bad SOF");
             if (icc_short) broken("short ICC profile segment");
@@ -1109,12 +1492,15 @@ struct Decoder {
     }
   }
 
-  // jdapimin.c default_decompress_parms: is a 3-component file RGB?
+  // jdapimin.c default_decompress_parms: is a 3-component file RGB, and a
+  // 4-component one YCCK (not CMYK: an Adobe marker with a transform
+  // other than 0, libjpeg warning on one other than 2)?
   bool is_rgb() const {
     if (jfif) return false;
     if (adobe) return adobe_transform == 0;
     return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
   }
+  bool is_ycck() const { return adobe && adobe_transform != 0; }
 
   void check_smoothing() const {
     // jdcoefct.c smoothing_ok: with the DC known and any of the first 9
@@ -1132,7 +1518,12 @@ struct Decoder {
       refuse("progressive JPEG whose scans leave coefficients incomplete");
   }
 
-  void decode(uint8_t* rgba) {
+  // The image as libjpeg hands it to PIL, 4 bytes a pixel: RGBA for 1
+  // component (grey) or 3 (YCbCr or RGB), and for 4 the CMYK samples of
+  // out_color_space JCS_CMYK (ycck_cmyk_convert: C, M and Y are 255 minus
+  // the R, G and B of the YCbCr conversion, K passes through), which PIL
+  // reads as inverted CMYK ("CMYK;I").
+  void decode(uint8_t* out) {
     check_smoothing();
     std::vector<std::vector<uint8_t>> full(static_cast<size_t>(ncomp));
     for (int i = 0; i < ncomp; ++i) {
@@ -1149,38 +1540,51 @@ struct Decoder {
       c.plane.clear();
       c.plane.shrink_to_fit();
     }
-    size_t np = static_cast<size_t>(W) * H;
+    const size_t np = static_cast<size_t>(W) * H;
+    const uint8_t* s0 = full[0].data();
     if (ncomp == 1) {
-      const uint8_t* g = full[0].data();
       for (size_t i = 0; i < np; ++i) {
-        rgba[4 * i] = rgba[4 * i + 1] = rgba[4 * i + 2] = g[i];
-        rgba[4 * i + 3] = 255;
+        out[4 * i] = out[4 * i + 1] = out[4 * i + 2] = s0[i];
+        out[4 * i + 3] = 255;
       }
       return;
     }
-    const uint8_t *y = full[0].data(), *cb = full[1].data(),
-                  *cr = full[2].data();
-    bool rgb = is_rgb();
-    for (size_t i = 0; i < np; ++i) {
-      if (rgb) {
-        rgba[4 * i] = y[i];
-        rgba[4 * i + 1] = cb[i];
-        rgba[4 * i + 2] = cr[i];
-      } else {
-        int yy = y[i];
-        rgba[4 * i] = clamp255(yy + kYcc.cr_r[cr[i]]);
-        rgba[4 * i + 1] = clamp255(
-            yy + static_cast<int>((kYcc.cb_g[cb[i]] + kYcc.cr_g[cr[i]]) >> 16));
-        rgba[4 * i + 2] = clamp255(yy + kYcc.cb_b[cb[i]]);
+    const uint8_t *s1 = full[1].data(), *s2 = full[2].data();
+    if (ncomp == 4) {
+      const uint8_t* s3 = full[3].data();
+      const bool ycck = is_ycck();
+      for (size_t i = 0; i < np; ++i) {
+        uint8_t* o = out + 4 * i;
+        if (ycck) {
+          ycc_rgb(s0[i], s1[i], s2[i], o);
+          for (int k = 0; k < 3; ++k) o[k] = static_cast<uint8_t>(255 - o[k]);
+        } else {
+          o[0] = s0[i];
+          o[1] = s1[i];
+          o[2] = s2[i];
+        }
+        o[3] = s3[i];
       }
-      rgba[4 * i + 3] = 255;
+      return;
+    }
+    const bool rgb = is_rgb();
+    for (size_t i = 0; i < np; ++i) {
+      uint8_t* o = out + 4 * i;
+      if (rgb) {
+        o[0] = s0[i];
+        o[1] = s1[i];
+        o[2] = s2[i];
+      } else {
+        ycc_rgb(s0[i], s1[i], s2[i], o);
+      }
+      o[3] = 255;
     }
   }
 };
 
 struct JpegImage {
-  int32_t width = 0, height = 0;
-  std::vector<uint8_t> rgba;
+  int32_t width = 0, height = 0, components = 0;
+  std::vector<uint8_t> pixels;  // Decoder::decode's 4 bytes a pixel
 };
 
 void set_message(char* msg, int32_t cap, const std::string& what) {
@@ -1196,8 +1600,9 @@ extern "C" {
 
 // Decode a JPEG file's bytes. Returns a handle (nullptr on failure, with
 // *status 1 for a broken file and 2 for one the port does not decode, and
-// the reason in msg); pts_jpeg_size and pts_jpeg_copy read the RGBA8
-// result, pts_jpeg_free releases it.
+// the reason in msg); pts_jpeg_size gives the size and the number of
+// components, pts_jpeg_copy the pixels (4 bytes each: RGBA for 1 or 3
+// components, libjpeg's CMYK for 4), pts_jpeg_free releases it.
 void* pts_jpeg_decode(const uint8_t* data, int64_t size, int32_t* status,
                       char* msg, int32_t cap) {
   try {
@@ -1207,9 +1612,10 @@ void* pts_jpeg_decode(const uint8_t* data, int64_t size, int32_t* status,
     JpegImage* img = new JpegImage();
     img->width = dec.W;
     img->height = dec.H;
-    img->rgba.resize(static_cast<size_t>(dec.W) * dec.H * 4);
+    img->components = dec.ncomp;
+    img->pixels.resize(static_cast<size_t>(dec.W) * dec.H * 4);
     try {
-      dec.decode(img->rgba.data());
+      dec.decode(img->pixels.data());
     } catch (...) {
       delete img;
       throw;
@@ -1226,15 +1632,17 @@ void* pts_jpeg_decode(const uint8_t* data, int64_t size, int32_t* status,
   return nullptr;
 }
 
-void pts_jpeg_size(void* handle, int32_t* width, int32_t* height) {
+void pts_jpeg_size(void* handle, int32_t* width, int32_t* height,
+                   int32_t* components) {
   const JpegImage* img = static_cast<const JpegImage*>(handle);
   *width = img->width;
   *height = img->height;
+  *components = img->components;
 }
 
 void pts_jpeg_copy(void* handle, uint8_t* out) {
   const JpegImage* img = static_cast<const JpegImage*>(handle);
-  std::memcpy(out, img->rgba.data(), img->rgba.size());
+  std::memcpy(out, img->pixels.data(), img->pixels.size());
 }
 
 void pts_jpeg_free(void* handle) { delete static_cast<JpegImage*>(handle); }

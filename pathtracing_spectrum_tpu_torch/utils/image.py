@@ -22,13 +22,18 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   it before stopping);
 - JPEG through the host library's decoder (``utils/jpeg.py``,
   ``csrc/jpeg_decode.cpp``): baseline, extended and progressive Huffman
-  frames with 8-bit samples, grey, YCbCr or RGB, any integral sampling
-  factors, restart intervals, with libjpeg-turbo's arithmetic (its SIMD
-  IDCT's 16-bit wrapping included); damaged as PIL reads it: PIL's own
-  walk of the markers before the first scan, libjpeg's checks of each
-  segment, its standard Huffman tables where a sequential file leaves one
-  undefined, and its end of data (a single-scan file may end without EOI
-  where libjpeg's bit buffer, fed as PIL feeds it, never runs dry);
+  frames and sequential and progressive arithmetic-coded ones with 8-bit
+  samples, grey, YCbCr, RGB, CMYK or YCCK (a 4-component file as PIL's
+  mode ``CMYK``, its samples inverted), any integral sampling factors,
+  restart intervals, computed as libjpeg-turbo computes them (its SIMD
+  IDCT's 16-bit wrapping included); damaged as PIL reads it: PIL's own walk of
+  the markers before the first scan (a frame of other than 8 bits is
+  None), libjpeg's checks of each segment, its standard Huffman tables
+  where a sequential file leaves one undefined, and its end of data (a
+  single-scan file may end without EOI where libjpeg's bit buffer, fed as
+  PIL feeds it, never runs dry; an arithmetic-coded scan that needs a
+  byte past the 64 KiB blocks PIL has fed is None, as libjpeg's
+  arithmetic decoder cannot wait for more);
 - WebP through the host library's decoder (``utils/webp.py``,
   ``csrc/webp_decode.cpp``): VP8L, VP8 key frames, ALPH and an
   animation's first frame on its canvas, as libwebp's ``WebPAnimDecoder``
@@ -81,8 +86,8 @@ than PIL's decompression-bomb limit) return ``None``, as PIL's exception
 does in the JAX package and as the reference's ``Image`` fails soft to
 black (image.cpp:48-49). A format PIL opens and the port does not (ICO,
 QOI, JPEG 2000, ... : the other 34 plugins) or a flavour of one decoded
-here that it does not take (CMYK/YCCK, 12-bit, arithmetic-coded and
-lossless JPEG, RLE BMP, 16-bit PNM, JPEG-in-TIFF, CCITT, CMYK, YCbCr and
+here that it does not take (lossless and block-smoothed progressive
+JPEG, RLE BMP, 16-bit PNM, JPEG-in-TIFF, CCITT, CMYK, YCbCr and
 CIELab TIFF, old-style LZW, BigTIFF, CIELab PSD, ...) raises
 ``NotImplementedError`` naming the file and the flavour: a texture is
 never dropped quietly.
@@ -91,9 +96,8 @@ Named deviations on damaged or odd files (``tests/test_torch_damage.py``
 and ``tests/test_torch_formats.py`` hold the rest):
 
 - a refused flavour raises first, also where PIL would then fail on the
-  file: a 12- or 16-bit JPEG frame (PIL's plugin refuses both, so such a
-  file is None in the JAX package), an arithmetic or lossless frame made
-  by a damaged marker, BigTIFF magic on a classic file;
+  file: a lossless frame made by a damaged marker, BigTIFF magic on a
+  classic file;
 - where a plugin's prefix test passes and its ``_open`` then fails, PIL
   goes on to the next plugin; the port follows it only for the first
   checks of CUR, ICO, PCX, GBR, WMF and MCIDAS (``_OPEN_CHECKS``: a TGA
@@ -1443,11 +1447,8 @@ def _decode_psd(data: bytes) -> np.ndarray:
         if palette is not None:   # else PIL's empty palette: black
             lut[:, :3] = np.frombuffer(palette, np.uint8).reshape(3, 256).T
         out = lut[px[..., 0]]
-    elif mode == "CMYK":          # stored inverted; PIL's cmyk2rgb
-        cmyk = 255 - px[..., :4].astype(np.int32)
-        nk = 255 - cmyk[..., 3:]
-        t = cmyk[..., :3] * nk + 128
-        out[..., :3] = np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
+    elif mode == "CMYK":          # stored inverted, as JPEG's
+        out = jpeg.inverted_cmyk_rgba(px)
     else:
         out[..., :n] = px[..., :n]
     return out

@@ -3,9 +3,12 @@ library's decoder ``csrc/jpeg_decode.cpp`` and encoder
 ``csrc/jpeg_encode.cpp``.
 
 The decoder computes what libjpeg-turbo computes with PIL's settings (the
-islow IDCT, fancy upsampling, integer YCbCr -> RGB), so
-:func:`decode_rgba` equals the JAX package's PIL decode bit for bit; its
-module comment lists what it reads and what it refuses. It is host C++
+islow IDCT, fancy upsampling, integer YCbCr -> RGB, YCCK -> CMYK), so
+:func:`decode_rgba` equals the JAX package's PIL decode bit for bit: 1, 3
+or 4 components (grey, YCbCr or RGB, CMYK or YCCK), Huffman or
+arithmetic coding, sequential or progressive. Its module comment lists
+what it reads and what it refuses (lossless Huffman frames, progressive
+files that libjpeg would smooth). It is host C++
 (Huffman decoding is bit-serial; in Python a 2048x2048 texture would take
 minutes) and has no Python fallback: when the host library cannot be
 built, the call raises with the compiler's output. :func:`encode` writes
@@ -26,7 +29,9 @@ class BrokenJpeg(ValueError):
 
 
 def decode_rgba(data: bytes) -> np.ndarray:
-    """[H, W, 4] uint8 RGBA of a JPEG file's bytes, row 0 = image top.
+    """[H, W, 4] uint8 RGBA of a JPEG file's bytes, row 0 = image top: PIL's
+    ``convert("RGBA")`` of the image it opens (a 4-component file as mode
+    ``CMYK``, through :func:`inverted_cmyk_rgba`).
 
     Raises :class:`BrokenJpeg` for a broken file and
     ``NotImplementedError`` (with the reason) for a flavour the decoder
@@ -43,12 +48,38 @@ def decode_rgba(data: bytes) -> np.ndarray:
             raise NotImplementedError(what)
         raise BrokenJpeg(what)
     try:
-        w, h = ctypes.c_int32(0), ctypes.c_int32(0)
-        lib.pts_jpeg_size(handle, ctypes.byref(w), ctypes.byref(h))
+        w, h, n = (ctypes.c_int32(0) for _ in range(3))
+        lib.pts_jpeg_size(handle, ctypes.byref(w), ctypes.byref(h),
+                          ctypes.byref(n))
         out = np.empty((h.value, w.value, 4), np.uint8)
         lib.pts_jpeg_copy(handle, out.ctypes.data)
     finally:
         lib.pts_jpeg_free(handle)
+    return inverted_cmyk_rgba(out) if n.value == 4 else out
+
+
+def _cmyk2rgb_table() -> np.ndarray:
+    """[stored C, M or Y sample, stored K sample] -> R, G or B: PIL's
+    ``cmyk2rgb`` of samples stored inverted (``c = 255 - sample``), each
+    channel ``nk - c * nk / 255`` with ``nk = 255 - k``, rounded as its
+    ``MULDIV255``."""
+    s = np.arange(256, dtype=np.int32)
+    c, nk = 255 - s[:, None], s[None, :]
+    t = c * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+_CMYK2RGB = _cmyk2rgb_table().reshape(-1)
+
+
+def inverted_cmyk_rgba(samples: np.ndarray) -> np.ndarray:
+    """[..., 4] uint8 RGBA of CMYK samples stored inverted, as PIL reads
+    them (rawmode ``CMYK;I``: JPEG's Adobe convention, and PSD) and
+    converts them to RGBA."""
+    out = np.empty(samples.shape[:-1] + (4,), np.uint8)
+    idx = samples[..., :3].astype(np.uint16) << 8 | samples[..., 3:]
+    out[..., :3] = _CMYK2RGB[idx]
+    out[..., 3] = 255
     return out
 
 

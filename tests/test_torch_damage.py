@@ -8,8 +8,9 @@ few dozen, most in its headers.
 Deviations named here and in ``utils/image.py``'s docstring:
 
 - a flavour the port refuses raises ``NotImplementedError`` first, so it
-  raises where PIL would go on to fail on the damaged file too (a 12- or
-  16-bit or arithmetic JPEG frame made by a flipped bit, BigTIFF magic);
+  raises where PIL would go on to fail on the damaged file too (a
+  lossless JPEG frame made by a damaged marker, a progressive JPEG whose
+  damage leaves coefficients incomplete, BigTIFF magic);
 - 16-bit grey PNG and TIFF keep the high byte (the fixtures ``grey16.*``):
   there both must decode or both fail, with no pixel compared;
 - a TIFF damaged inside its directory (the entries and the values they

@@ -8,13 +8,17 @@ or past the screen), TIFF (both byte orders, LZW, Deflate, PackBits,
 predictor 2, strips and tiles, both planar configurations) and PSD (raw
 and RLE, every 8-bit colour mode PIL reads; PIL writes no PSD) and WebP
 (PIL's encoder, libwebp's own for the settings PIL does not pass, and
-ALPH chunks rewritten by hand). Shared by
+ALPH chunks rewritten by hand), and JPEG files from PIL's own libjpeg for
+what PIL's encoder does not write (CMYK and YCCK, arithmetic coding,
+sampling per component, DAC values, lossless: ``libjpeg_bytes``, its C
+source ``tests/libjpeg_write.c``). Shared by
 ``tests/test_torch_formats.py``, ``tests/test_torch_textures.py``,
 ``tests/test_torch_scene.py``, ``tests/test_torch_image_write.py`` and
 ``tools/make_torch_fixtures.py``; jax-free, and PIL is imported only by the
 functions that need it.
 """
 
+import functools
 import io
 import struct
 import zlib
@@ -742,3 +746,86 @@ def raw_alpha(data: bytes, alpha: np.ndarray, method: int) -> bytes:
     alph = bytes([method << 2]) + res.astype(np.uint8).tobytes()
     return riff([(t, alph if t == b"ALPH" else c)
                  for t, c in riff_chunks(data)])
+
+
+# ---- JPEG through libjpeg itself --------------------------------------------
+
+# J_COLOR_SPACE values: the colour space a file is written in, and that of
+# the pixels given
+_JCS = {"grey": 1, "rgb": 2, "ycbcr": 3, "cmyk": 4, "ycck": 5}
+_JCS_IN = {"grey": 1, "rgb": 2, "ycbcr": 2, "cmyk": 4, "ycck": 4}
+
+
+@functools.cache
+def _libjpeg_write():
+    """``tests/libjpeg_write.c`` built with ``gcc`` against the system's
+    ``jpeglib.h`` and linked to PIL's bundled libjpeg-turbo (which has the
+    arithmetic encoder), once per process: into a temporary directory of
+    this process, renamed into place, so that parallel test workers never
+    load a half-written library (the directory goes once it is loaded)."""
+    import ctypes as C
+    import glob
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    import PIL
+    libs = os.path.realpath(os.path.join(os.path.dirname(PIL.__file__), "..",
+                                         "pillow.libs"))
+    libjpeg = os.path.basename(
+        glob.glob(os.path.join(libs, "libjpeg-*.so*"))[0])
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "libjpeg_write.c")
+    tmp = tempfile.mkdtemp(prefix="libjpeg_write-")
+    part, so = os.path.join(tmp, "part.so"), os.path.join(tmp, "write.so")
+    subprocess.run(["gcc", "-O1", "-shared", "-fPIC", "-o", part, src,
+                    "-L" + libs, "-l:" + libjpeg, "-Wl,-rpath," + libs],
+                   check=True, capture_output=True)
+    os.replace(part, so)
+    lib = C.CDLL(so)
+    shutil.rmtree(tmp)
+    lib.pts_write.restype = C.c_ulong
+    lib.pts_write.argtypes = [C.c_void_p] + [C.c_int] * 10 + [
+        C.POINTER(C.c_int), C.POINTER(C.c_int), C.POINTER(C.c_void_p)]
+    lib.pts_free.argtypes = [C.c_void_p]
+    return lib
+
+
+def libjpeg_bytes(pixels: np.ndarray, colorspace: str = "ycbcr",
+                  arith: bool = False, progressive: bool = False,
+                  restart: int = 0, sampling=None, dac=None,
+                  quality: int = 90, lossless: bool = False) -> bytes:
+    """The JPEG file libjpeg writes for uint8 ``pixels`` ([H, W] grey,
+    [H, W, 3] RGB, [H, W, 4] CMYK as libjpeg takes it) in ``colorspace``
+    ("grey", "rgb", "ycbcr", "cmyk": an Adobe marker with transform 0,
+    "ycck": transform 2), with arithmetic coding (SOF9, or SOF10 with
+    ``progressive``), ``jpeg_simple_progression``, a restart interval of
+    ``restart`` MCUs, ``sampling`` [(h, v)] per component (libjpeg's
+    defaults: 2x2 on the first of YCbCr and YCCK, and on the fourth of
+    YCCK), ``dac`` {table: (L, U, K)} and ``lossless`` (SOF3, predictor
+    1): settings PIL's encoder does not pass, through PIL's own
+    libjpeg-turbo."""
+    import ctypes as C
+    lib = _libjpeg_write()
+    img = np.ascontiguousarray(pixels, np.uint8)
+    h, w = img.shape[:2]
+    ncomp = 1 if img.ndim == 2 else img.shape[2]
+    if sampling is None:
+        sampling = {"ycbcr": [(2, 2), (1, 1), (1, 1)],
+                    "ycck": [(2, 2), (1, 1), (1, 1), (2, 2)]}.get(
+                        colorspace, [(1, 1)] * ncomp)
+    hv = (C.c_int * 8)(*[f for s in sampling for f in s])
+    d = (C.c_int * 6)(*[-1] * 6)
+    for t, (lo, up, k) in (dac or {}).items():
+        d[3 * t:3 * t + 3] = [lo, up, k]
+    out = C.c_void_p()
+    size = lib.pts_write(img.ctypes.data, w, h, ncomp, _JCS_IN[colorspace],
+                         _JCS[colorspace], quality, int(arith),
+                         int(progressive), int(lossless), restart, hv, d,
+                         C.byref(out))
+    if not size:
+        raise RuntimeError("libjpeg could not write the file")
+    data = C.string_at(out, size)
+    lib.pts_free(out)
+    return data

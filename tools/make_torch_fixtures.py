@@ -25,6 +25,19 @@ Fixtures (all content procedural, from fixed seeds):
   roughness map);
 - ``normal_1024_444.jpg``: 1024x1024 baseline 4:4:4 JPEG, quality 90, a
   field of bumps encoded as tangent-space normals (its normal map);
+- ``roughness_2048_ycck_arith_prog.jpg``: 2048x2048 YCCK (an Adobe marker
+  with transform 2), arithmetic-coded progressive (SOF10), Y and K at
+  2x2, quality 75, four fields varying over half a period (libjpeg
+  itself writes it: PIL writes neither YCCK nor arithmetic coding), and
+  ``normal_1024_cmyk_arith.jpg``: 1024x1024 CMYK (transform 0),
+  arithmetic-coded sequential (SOF9) at 4:4:4, a restart interval of a
+  row of MCUs, DAC conditioning L=1, U=4, K=12, quality 75, the normal
+  map's content with two bumps a side; both under 64 KiB, the most
+  of an arithmetic-coded file PIL decodes (the textured sessions' maps of
+  ``chip_smoke.py``'s ``jpeg-flavours`` turn);
+- ``small_cmyk.jpg`` (PIL's CMYK save), ``small_ycck_prog.jpg`` (libjpeg's
+  Huffman progressive YCCK) and ``small_grey_arith.jpg`` (grey SOF9),
+  37x29;
 - ``small.bmp`` (24-bit), ``small.tga`` (run-length RGBA), ``small.ppm``
   (P6), ``grey16.png`` (16-bit grey) and ``adam7.png`` (8-bit RGB,
   Adam7-interlaced), 37x29 each;
@@ -100,6 +113,19 @@ def normal_map16(n: int = 512, bumps: int = 4) -> np.ndarray:
     nrm = np.stack([-dx, -dy, np.ones_like(dx)], -1)
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     return ((nrm * 0.5 + 0.5) * 1023).round().astype(np.int64) * 64
+
+
+def roughness_cmyk(n: int = 2048) -> np.ndarray:
+    """[n, n, 4] uint8 CMYK samples of four fields that vary over half a
+    period across the map: smooth enough that the arithmetic-coded JPEG
+    stays within the 64 KiB PIL first hands libjpeg, whose arithmetic
+    decoder cannot wait for more (a larger file is None in PIL)."""
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) / n
+    f = [0.5 + 0.4 * np.sin(3.1415927 * (xx + 0.5 * yy)),
+         0.5 + 0.4 * np.cos(3.1415927 * (yy - 0.3 * xx)),
+         0.5 + 0.4 * np.sin(3.1415927 * xx * yy),
+         0.3 + 0.2 * np.cos(3.1415927 * (xx - yy))]
+    return (np.stack(f, -1) * 255).astype(np.uint8)
 
 
 def bump_height(n: int = 1024, bumps: int = 8) -> np.ndarray:
@@ -193,6 +219,21 @@ def fixtures():
             roughness_map(), quality=90, progressive=True, subsampling=2),
         "normal_1024_444.jpg": ti.jpeg_bytes(
             normal_map(), quality=90, subsampling=0),
+        "roughness_2048_ycck_arith_prog.jpg": ti.libjpeg_bytes(
+            roughness_cmyk(), "ycck", arith=True, progressive=True,
+            sampling=[(2, 2), (1, 1), (1, 1), (2, 2)], quality=75),
+        # K stored as 255 (none, inverted), so RGB is the first three
+        "normal_1024_cmyk_arith.jpg": ti.libjpeg_bytes(
+            np.concatenate([normal_map(bumps=2),
+                            np.full((1024, 1024, 1), 255, np.uint8)], -1),
+            "cmyk", arith=True, sampling=[(1, 1)] * 4, restart=128,
+            dac={0: (1, 4, 12)}, quality=75),
+        "small_cmyk.jpg": pil_file(Image.fromarray(np.concatenate(
+            [small, alpha], -1), "CMYK"), "JPEG"),
+        "small_ycck_prog.jpg": ti.libjpeg_bytes(np.concatenate(
+            [small, alpha], -1), "ycck", progressive=True),
+        "small_grey_arith.jpg": ti.libjpeg_bytes(small[..., 1], "grey",
+                                                 arith=True),
         "small.bmp": pil_file(Image.fromarray(small), "BMP"),
         "small.tga": pil_file(Image.fromarray(np.concatenate(
             [small, alpha], -1), "RGBA"), "TGA", compression="tga_rle"),
@@ -232,7 +273,7 @@ def fixtures():
     }
     out = {}
     for name, data in files.items():
-        out[name] = (data, ti.pil_rgba8(data), 'PIL convert("RGBA")')
+        out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     grey = rng.integers(0, 1 << 16, (h, w, 1))
     high = np.full((h, w, 4), 255, np.uint8)
     high[..., :3] = (grey >> 8).astype(np.uint8)
