@@ -1170,10 +1170,11 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     - ``write_image`` of the 37x29 fixture image and a procedural
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
-      (``tests/torch_data/write_digests.json``); the 4K JPEG encode timed
-      (median of ``decodes``); ``python -m pathtracing_spectrum_tpu_torch
-      preview ... --out v.jpg --device cuda`` read back by the port's JPEG
-      decoder;
+      (``tests/torch_data/write_digests.json``); the 4K JPEG and GIF
+      encodes timed (median of ``decodes``); ``python -m
+      pathtracing_spectrum_tpu_torch preview ... --out v.jpg --device
+      cuda`` read back by the port's JPEG decoder, and ``--out v.gif``
+      read back by its GIF decoder, equal to the preview's grey image;
     - the terrains parsed by the native parser and by the plain Python
       one, bitwise equal, both timed; the first rendered through
       ``"hier"`` (``terrain_spp`` samples, counted);
@@ -1184,9 +1185,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       rate rather than run.
 
     Returns the launches of each kernel over the driven sessions."""
-    from pathtracing_spectrum_tpu_torch.utils import (image, jpeg,
+    from pathtracing_spectrum_tpu_torch.utils import (gif, image, jpeg,
                                                       obj_loader, scene_io,
                                                       spectral_io)
+    from pathtracing_spectrum_tpu_torch.preview import preview_render
     # files that are no image give None; the extensions PIL cannot save
     # an L or RGB image under raise PIL's exception, writing nothing
     with tempfile.TemporaryDirectory() as tmp:
@@ -1302,8 +1304,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     del sessions
 
     # the writers: two images as L and RGB under every extension written
-    # byte for byte, held to the digests of PIL's files; the 4K JPEG
-    # encode timed; a preview written as a JPEG by the module's CLI
+    # byte for byte, held to the digests of PIL's files; the 4K JPEG and
+    # GIF encodes timed; a preview written as a JPEG and as a GIF by the
+    # module's CLI
     fixtures = load_by_path("make_torch_fixtures", os.path.join(
         HERE, "tools", "make_torch_fixtures.py"))
     with open(os.path.join(FILES_DIR, "write_digests.json")) as f:
@@ -1331,6 +1334,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         ms, med = median_ms(lambda: jpeg.encode(rgb4k))
         say("files", jpeg_encode="3840x2160 RGB", runs=decodes, ms=ms,
             median_ms=med, clock="host")
+        ms, med = median_ms(lambda: gif.encode(rgb4k))
+        say("files", gif_encode="3840x2160 RGB", runs=decodes, ms=ms,
+            median_ms=med, clock="host", card=repr(card))
         scene_path = os.path.join(tmp, "textured.pts")
         out = os.path.join(tmp, "v.jpg")
         scene_io.save_scene(textured_sphere_scene(
@@ -1352,6 +1358,27 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         check(view is not None and view.shape == (360, 640, 4)
               and view[..., :3].max() > 0,
               "the module's preview is not a JPEG the port decodes")
+        # as a GIF: 256 grey levels or fewer, so the file is lossless
+        out = os.path.join(tmp, "v.gif")
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "preview", scene_path, "--out", out,
+             "--device", "cuda"], cwd=HERE, capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0, f"module GIF preview failed: "
+              f"{proc.stderr}")
+        with open(out, "rb") as f:
+            data = f.read()
+        view = image._decode_gif(data)
+        grey = preview_render(scene_io.load_scene(scene_path), 640, 360,
+                              device=dev)
+        same = view.shape == (360, 640, 4) and bool(
+            (view[..., :3] == grey[..., None]).all()
+            and (view[..., 3] == 255).all())
+        say("files", module_preview="v.gif", rc=proc.returncode,
+            gif=data[:6] == b"GIF87a", shape=list(view.shape),
+            equals_preview_render=same, grey_levels=len(np.unique(grey)))
+        check(same, "the module's GIF preview does not decode to the "
+              "preview's grey image")
 
     # the OBJ parse, native and plain, then the 52k terrain rendered
     paths = {}

@@ -10,8 +10,9 @@ Two shared libraries, each built into ``build/`` next to this file
   it (the CPU tests too): the BVH builder ``csrc/bvh_build.cpp``, the OBJ
   parser and spectral writer ``csrc/host_io.cpp``, the JPEG decoder
   ``csrc/jpeg_decode.cpp`` and encoder ``csrc/jpeg_encode.cpp``, the
-  LZW and PackBits decoders ``csrc/lzw_decode.cpp`` and the WebP decoder
-  ``csrc/webp_decode.cpp``.
+  LZW and PackBits decoders ``csrc/lzw_decode.cpp``, the WebP decoder
+  ``csrc/webp_decode.cpp`` and the GIF quantiser and LZW encoder
+  ``csrc/gif_encode.cpp``.
 
 Each file name carries a hash of its sources and flags, so a changed source
 is always rebuilt and a stale library is never loaded. Nothing here runs at
@@ -40,7 +41,8 @@ SOURCES = (_CSRC / "intersect_dense.cu", _CSRC / "fetch_rows.cu",
 HEADERS = (_CSRC / "tri_hit.cuh",)
 HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
                 _CSRC / "jpeg_decode.cpp", _CSRC / "jpeg_encode.cpp",
-                _CSRC / "lzw_decode.cpp", _CSRC / "webp_decode.cpp")
+                _CSRC / "lzw_decode.cpp", _CSRC / "webp_decode.cpp",
+                _CSRC / "gif_encode.cpp")
 HOST_HEADERS = (_CSRC / "jpeg_std_tables.h",)
 BUILD_DIR = _HERE / "build"
 
@@ -85,6 +87,8 @@ _HOST_SIGNATURES = {
     "pts_jpeg_copy": ([_V, _V], None),
     "pts_jpeg_free": ([_V], None),
     "pts_jpeg_encode": ([_V, _I32, _I32, _I32], _V),
+    "pts_gif_quantize": ([_V, _I64, _V, _V], _I32),
+    "pts_gif_lzw_encode": ([_V, _I32, _I32, _I32, _I64], _V),
     "pts_buffer_size": ([_V], _I64),
     "pts_buffer_copy": ([_V, _V], None),
     "pts_buffer_free": ([_V], None),
@@ -206,8 +210,8 @@ def load() -> ctypes.CDLL:
 def load_host() -> ctypes.CDLL:
     """Build (when the hashed library is missing) and load the host
     library: the BVH builder, the OBJ parser, the spectral writer, the
-    JPEG decoder and encoder, the LZW and PackBits decoders and the WebP
-    decoder. Raises with the compiler's output when it cannot be built:
+    JPEG decoder and encoder, the LZW and PackBits decoders, the WebP
+    decoder and the GIF encoder. Raises with the compiler's output when it cannot be built:
     none of them has a fallback."""
     if _Library.host is not None:
         return _Library.host

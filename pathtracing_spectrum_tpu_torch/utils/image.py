@@ -126,6 +126,16 @@ extension                       what is written
 ``.tif``, ``.tiff``             PIL's uncompressed TIFF byte for byte
 ``.pbm .pgm .ppm .pnm .pfm``    PIL's P5 (L) / P6 (RGB) byte for byte
 ``.tga .icb .vda .vst``         PIL's uncompressed TGA byte for byte
+``.gif``                        PIL's GIF byte for byte (L: the used grey
+                                levels as the palette; RGB: PIL's median
+                                cut; LZW, interlaced from 16 pixels:
+                                ``utils/gif.py``, ``csrc/gif_encode.cpp``)
+``.im``                         PIL's IM byte for byte (the header holds
+                                the file's name, as PIL writes it)
+``.sgi .bw .rgb .rgba``         PIL's uncompressed SGI byte for byte (the
+                                header holds the file's stem)
+``.pcx``                        PIL's PCX byte for byte (RLE rows; L with
+                                the grey palette)
 the 27 extensions PIL cannot    PIL's exception and message: ``KeyError``
 save as L or RGB, and ``.qoi``  without a save handler (``.psd``, ``.xpm``
 for L                           ...), ``OSError`` for a handler not
@@ -149,7 +159,7 @@ import zlib
 
 import numpy as np
 
-from . import codecs, jpeg, webp
+from . import codecs, gif, jpeg, webp
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples per pixel, allowed bit depths)
@@ -1570,10 +1580,87 @@ def _tiff_bytes(img: np.ndarray) -> bytes:
             + aux + img.tobytes())
 
 
+def _im_bytes(img: np.ndarray, path: str) -> bytes:
+    """ImImagePlugin._save: a text header naming the file (its basename,
+    the stem cut to leave the line 100 characters, ASCII or PIL's
+    ``UnicodeEncodeError``), zeros up to byte 511 and ``0x1A``, then the
+    rows bottom-up, each RGB row as its R, G and B runs (``RGB;L``)."""
+    h, w = img.shape[:2]
+    name, ext = os.path.splitext(os.path.basename(path))
+    name = name[:92 - len(ext)] + ext
+    head = (f"Image type: {'Greyscale' if img.ndim == 2 else 'RGB'} "
+            "image\r\n".encode("ascii")
+            + f"Name: {name}\r\n".encode("ascii")
+            + f"Image size (x*y): {w}*{h}\r\n".encode("ascii")
+            + b"File size (no of images): 1\r\n")
+    head += b"\0" * (511 - len(head)) + b"\032"
+    rows = img[::-1] if img.ndim == 2 else img[::-1].transpose(0, 2, 1)
+    return head + np.ascontiguousarray(rows).tobytes()
+
+
+def _sgi_bytes(img: np.ndarray, path: str) -> bytes:
+    """SgiImagePlugin._save: the 512-byte header (magic 474, no RLE, one
+    byte a sample, the stem of the file's basename in ASCII with the rest
+    dropped, cut to 79 bytes), then each channel's rows bottom-up."""
+    h, w = img.shape[:2]
+    z = 1 if img.ndim == 2 else 3
+    dimension = (1 if h == 1 else 2) if z == 1 else 3
+    name = os.path.splitext(os.path.basename(path))[0]
+    if isinstance(name, str):
+        name = name.encode("ascii", "ignore")
+    head = (struct.pack(">hBBHHHHll4s79ss", 474, 0, 1, dimension, w, h, z,
+                        0, 255, b"", name, b"")
+            + struct.pack(">l404s", 0, b""))
+    planes = img[::-1] if z == 1 else np.moveaxis(img[::-1], -1, 0)
+    return head + np.ascontiguousarray(planes).tobytes()
+
+
+def _pcx_bytes(img: np.ndarray) -> bytes:
+    """PcxImagePlugin._save: version 5, 8 bits, one plane (L, then PIL's
+    grey palette after ``0x0C``) or three (RGB); each row's planes run-
+    length coded as PcxEncode.c codes them (runs of up to 63, a single
+    byte under 0xC0 as itself, else ``0xC0 | count`` and the byte), each
+    followed by a zero byte where the width is odd. An RGB image one pixel
+    wide loses its blue plane, as in PcxEncode.c (its loop over the planes
+    ends before the last one-byte plane is written)."""
+    h, w = img.shape[:2]
+    planes = 1 if img.ndim == 2 else 3
+    stride = w + w % 2
+    header = struct.pack("<BBBBHHHHHH24s24sBBHHHH54s", 10, 5, 1, 8, 0, 0,
+                         w - 1, h - 1, 100, 100, b"", b"\xff" * 24, 0,
+                         planes, stride, 1, w, h, b"")
+    lines = img[:, None] if planes == 1 else img.transpose(0, 2, 1)
+    if planes == 3 and w == 1:
+        lines = lines[:, :2]
+    lines = np.ascontiguousarray(lines).reshape(-1, w)
+    flat = lines.ravel()
+    start = np.ones(flat.size, bool)
+    start[1:] = flat[1:] != flat[:-1]
+    start[::w] = True                 # a line starts a run
+    pos = np.flatnonzero(start)
+    run = np.diff(np.append(pos, flat.size))
+    chunks = (run + 62) // 63         # runs of up to 63
+    length = np.full(chunks.sum(), 63, np.int64)
+    length[np.cumsum(chunks) - 1] = run - 63 * (chunks - 1)
+    value = np.repeat(flat[pos], chunks)
+    line = np.repeat(pos // w, chunks)
+    single = (length == 1) & (value < 0xC0)
+    size = np.where(single, 1, 2)
+    at = np.cumsum(size) - size + line * (stride - w)
+    body = np.zeros(int(size.sum()) + len(lines) * (stride - w), np.uint8)
+    body[at] = np.where(single, value, 0xC0 | length)
+    body[at[~single] + 1] = value[~single]
+    grey = b"\x0c" + np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+    return header + body.tobytes() + (grey if planes == 1 else b"")
+
+
 _WRITERS = {
     "PNG": _png_bytes, "JPEG": jpeg.encode,
     "BMP": _bmp_bytes, "DIB": lambda img: _bmp_bytes(img, False),
-    "TIFF": _tiff_bytes, "PPM": _ppm_bytes, "TGA": _tga_bytes}
+    "TIFF": _tiff_bytes, "PPM": _ppm_bytes, "TGA": _tga_bytes,
+    "GIF": gif.encode, "PCX": _pcx_bytes}
+# the writers whose file holds its own name
+_NAMED_WRITERS = {"IM": _im_bytes, "SGI": _sgi_bytes}
 
 # PIL 12.1's Image.registered_extensions(), by format: the format
 # Image.save picks from a file name's lower-cased extension
@@ -1616,8 +1703,10 @@ def write_image(path, pixels: np.ndarray) -> None:
 
     - ``.png``/``.apng``: :func:`write_png` (the decoded pixels equal
       PIL's file; its bytes are not held);
-    - JPEG, BMP, DIB, TIFF, PPM and TGA names: PIL's file at its defaults,
-      byte for byte (JPEG: quality 75, 4:2:0, the host library's encoder);
+    - JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI and PCX names: PIL's
+      file at its defaults, byte for byte (JPEG: quality 75, 4:2:0, the
+      host library's encoder; GIF: the host library's median cut and LZW;
+      IM and SGI write the file's name into their header, as PIL does);
     - an extension PIL registers but cannot save as L or RGB: PIL's
       exception (``KeyError`` without a save handler, ``OSError`` or
       ``ValueError`` where the handler refuses), writing nothing;
@@ -1638,11 +1727,15 @@ def write_image(path, pixels: np.ndarray) -> None:
         raise kind(what.format(mode=mode))
     if fmt == "QOI" and mode == "L":
         raise ValueError("Unsupported QOI image mode")
-    if fmt not in _WRITERS:
+    if fmt in _NAMED_WRITERS:
+        data = _NAMED_WRITERS[fmt](img, path)
+    elif fmt in _WRITERS:
+        data = _WRITERS[fmt](img)
+    else:
         raise NotImplementedError(
             f"{path}: writing {fmt} is not done by the PyTorch port (PNG, "
-            "JPEG, BMP, DIB, TIFF, PPM and TGA are; ROADMAP Queue 1 item 11)")
-    data = _WRITERS[fmt](img)
+            "JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI and PCX are; "
+            "ROADMAP Queue 1 item 11)")
     with open(path, "wb") as f:
         f.write(data)
 

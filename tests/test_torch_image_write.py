@@ -1,14 +1,16 @@
 """The port's image writer (``utils/image.py::write_image``) against PIL
 12.1's ``Image.save``, which the JAX package saves through: the format
 comes from the file name's extension, JPEG (the host library's encoder),
-BMP, DIB, TIFF, PPM and TGA files are PIL's byte for byte, PNG decodes to
+BMP, DIB, TIFF, PPM, TGA, GIF (the host library's quantiser and LZW
+encoder), IM, SGI and PCX files are PIL's byte for byte (IM and SGI hold
+the file's name, so both are written under the same name), PNG decodes to
 the same pixels, the extensions PIL cannot save as L or RGB raise PIL's own
 exception, the other extensions PIL registers raise
 ``NotImplementedError`` naming the path, and an unknown one raises PIL's
 ``ValueError``. Then both command lines, the shell and the viewer against
 each other on the same ``.pts`` scene: the same bytes under ``.jpg``,
-``.bmp``, ``.tif`` and ``.ppm`` names (before the repair the port wrote
-PNG bytes under every name), and ``ValueError`` for ``.xyz`` in both.
+``.bmp``, ``.tif``, ``.ppm`` and ``.gif`` names (before the repair the
+port wrote PNG bytes under every name), and ``ValueError`` for ``.xyz`` in both.
 """
 
 import io
@@ -33,7 +35,8 @@ import torch_images as ti  # noqa: E402
 from scene_helpers import cornell_scene  # noqa: E402
 
 BYTE_EQUAL = [ext for ext, fmt in sorted(image.EXTENSIONS.items())
-              if fmt in ("JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA")]
+              if fmt in ("JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA", "GIF",
+                         "IM", "SGI", "PCX")]
 # 1x1, odd sizes, and several 16x16 MCU rows with partial MCUs
 SIZES = [(1, 1), (17, 9), (37, 29), (45, 53)]
 
@@ -43,8 +46,16 @@ def pixels(seed: int, w: int, h: int, mode: str) -> np.ndarray:
     return x[..., 1] if mode == "L" else x
 
 
-def pil_bytes(img: np.ndarray, ext: str, tmp_path) -> bytes:
-    path = tmp_path / f"pil{ext}"
+def named(tmp_path, who: str, ext: str, stem: str = "x"):
+    """``tmp_path/who/<stem><ext>``: the port's file and PIL's under the
+    same name (IM and SGI write it into the file)."""
+    folder = tmp_path / who
+    folder.mkdir(exist_ok=True)
+    return folder / f"{stem}{ext}"
+
+
+def pil_bytes(img: np.ndarray, ext: str, tmp_path, stem: str = "x") -> bytes:
+    path = named(tmp_path, "pil", ext, stem)
     Image.fromarray(img).save(path)
     return path.read_bytes()
 
@@ -61,16 +72,41 @@ def test_pil_registers_the_extensions_the_port_knows():
 def test_write_image_is_pils_file_byte_for_byte(ext, mode, size, tmp_path):
     w, h = size
     img = pixels(w * h + len(ext), w, h, mode)
-    path = tmp_path / f"port{ext}"
+    path = named(tmp_path, "port", ext)
     image.write_image(str(path), img)
     assert path.read_bytes() == pil_bytes(img, ext, tmp_path)
+
+
+@pytest.mark.parametrize("stem", ["x", "longer_name", "n" * 120, "café",
+                                  "ü-ß"])
+@pytest.mark.parametrize("ext", [".im", ".IM", ".sgi", ".rgba"])
+def test_im_and_sgi_write_the_name_as_pil(ext, stem, tmp_path):
+    """IM writes the basename into its header, its stem cut so the line
+    stays under 100 characters, and raises PIL's ``UnicodeEncodeError`` on
+    a name that is not ASCII (writing nothing); SGI writes the stem with
+    what is not ASCII dropped, cut to 79 bytes."""
+    img = pixels(11, 19, 7, "RGB")
+    port = named(tmp_path, "port", ext, stem)
+    try:
+        want, pil_error = pil_bytes(img, ext, tmp_path, stem), None
+    except UnicodeEncodeError as e:
+        pil_error = e
+    if pil_error is None:
+        image.write_image(str(port), img)
+        assert port.read_bytes() == want
+    else:
+        with pytest.raises(UnicodeEncodeError) as port_error:
+            image.write_image(str(port), img)
+        assert str(port_error.value) == str(pil_error)
+        assert not port.exists()
+        assert not named(tmp_path, "pil", ext, stem).exists()
 
 
 @pytest.mark.parametrize("mode", ["L", "RGB"])
 def test_extension_case_is_ignored_as_in_pil(mode, tmp_path):
     img = pixels(3, 21, 11, mode)
-    for ext in (".JPG", ".Tif", ".BMP"):
-        path = tmp_path / f"port{ext}"
+    for ext in (".JPG", ".Tif", ".BMP", ".GIF", ".Im", ".Rgb", ".PCX"):
+        path = named(tmp_path, "port", ext)
         image.write_image(path, img)
         assert path.read_bytes() == pil_bytes(img, ext, tmp_path)
 
@@ -113,9 +149,10 @@ def test_written_jpeg_decodes_in_the_port_as_in_pil(tmp_path):
         np.testing.assert_array_equal(got, np.asarray(im.convert("RGBA")))
 
 
-WRITTEN = {"PNG", "JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA"}
+WRITTEN = {"PNG", "JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA", "GIF", "IM",
+           "SGI", "PCX"}
 # the formats PIL 12.1 saves as L or RGB and the port does not write yet
-# (ROADMAP Queue 1 item 11c-d: 24 extensions)
+# (ROADMAP Queue 1 item 11c'-d: 17 extensions)
 OTHER_FORMATS = sorted({fmt for fmt in image.EXTENSIONS.values()} - WRITTEN
                        - set(image._PIL_CANNOT_SAVE))
 
@@ -204,7 +241,7 @@ def scene_file(tmp_path_factory):
     return p
 
 
-@pytest.mark.parametrize("ext", [".jpg", ".bmp", ".tif", ".ppm"])
+@pytest.mark.parametrize("ext", [".jpg", ".bmp", ".tif", ".ppm", ".gif"])
 def test_cli_preview_writes_the_format_jax_writes(ext, scene_file, tmp_path):
     """``preview --out v.<ext>``: the JAX command (PIL) and the port's
     write the same file, byte for byte."""
@@ -225,7 +262,7 @@ def test_cli_preview_unknown_extension_raises_in_both(scene_file, tmp_path):
         cli.main(["preview", scene_file, "--out", out, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("ext", [".tga", ".jpeg"])
+@pytest.mark.parametrize("ext", [".tga", ".jpeg", ".gif"])
 def test_shell_preview_writes_the_format_jax_writes(ext, scene_file,
                                                     tmp_path):
     paths = []
@@ -240,10 +277,11 @@ def test_shell_preview_writes_the_format_jax_writes(ext, scene_file,
         assert a.read() == b.read()
 
 
-@pytest.mark.parametrize("ext", [".dib", ".pgm", ".jpg"])
+@pytest.mark.parametrize("ext", [".dib", ".pgm", ".jpg", ".gif"])
 def test_viewer_saves_write_the_format_jax_writes(ext, tmp_path):
     """``save_png`` (grey) and ``save_srgb_png`` (RGB, host path) under a
-    name that is not PNG: the same file as the JAX viewer's."""
+    name that is not PNG: the same file as the JAX viewer's (for ``.gif``
+    the RGB image through PIL's median cut)."""
     img = np.random.default_rng(1).uniform(0, 1, (9, 13, 3)).astype(
         np.float32)
     wn = [1e7 / 450, 1e7 / 550, 1e7 / 650]
@@ -278,7 +316,24 @@ def test_write_digests_are_pils_and_the_ports(tmp_path):
         assert sorted(recorded["small_37x29"][mode]) == sorted(
             fx.WRITE_EXTENSIONS)
         for ext, want in recorded["small_37x29"][mode].items():
-            port = tmp_path / f"port{ext}"
+            port = named(tmp_path, "port", ext)
             image.write_image(str(port), px)
             assert hashlib.sha256(port.read_bytes()).hexdigest() == want
             assert pil_bytes(px, ext, tmp_path) == port.read_bytes()
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB"])
+@pytest.mark.parametrize("ext", [".gif", ".im", ".pcx", ".sgi", ".bw",
+                                 ".rgb", ".rgba"])
+def test_recorded_digests_of_the_new_writers_are_pils(ext, mode, tmp_path):
+    """The GIF, IM, PCX and SGI digests recorded for the 37x29 image (which
+    ``chip_smoke.py`` holds the card machine's writes to) are those of
+    PIL's files under the name ``x``."""
+    import hashlib
+    import json
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "torch_data", "write_digests.json")) as f:
+        want = json.load(f)["small_37x29"][mode][ext]
+    px = ti.smooth_rgb(9, 37, 29)
+    px = np.ascontiguousarray(px[..., 1]) if mode == "L" else px
+    assert hashlib.sha256(pil_bytes(px, ext, tmp_path)).hexdigest() == want

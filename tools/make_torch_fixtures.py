@@ -161,10 +161,12 @@ def procedural_rgb(w: int, h: int, seed: int) -> np.ndarray:
 
 
 # the extensions the port writes byte for byte as PIL (JPEG, BMP, DIB,
-# TIFF, PPM and TGA, PIL 12.1's names for each)
+# TIFF, PPM, TGA, GIF, IM, PCX and SGI, PIL 12.1's names for each); IM and
+# SGI write the file's name, so every file is written as "x" + extension
 WRITE_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif", ".bmp", ".dib",
                     ".tif", ".tiff", ".pbm", ".pgm", ".ppm", ".pnm", ".pfm",
-                    ".tga", ".icb", ".vda", ".vst")
+                    ".tga", ".icb", ".vda", ".vst", ".gif", ".im", ".pcx",
+                    ".sgi", ".bw", ".rgb", ".rgba")
 
 
 def writer_images() -> dict:
