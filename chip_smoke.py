@@ -65,10 +65,11 @@ through its kernels and made a healthy image:
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
   checker session; ``write_image``'s JPEG,
-  BMP, DIB, TIFF, PPM and TGA files of a 37x29 and a 3840x2160 image held
-  to the digests of PIL's, the 4K JPEG encode timed, and a preview
-  written as ``v.jpg`` by ``python -m pathtracing_spectrum_tpu_torch``
-  read back; the 52k and 200k terrains parsed by the native OBJ parser and
+  BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX and WebP files of a 37x29
+  and a 3840x2160 image held to the digests of PIL's, the 4K JPEG, GIF
+  and WebP encodes timed, and a preview written as ``v.jpg``, ``v.gif``
+  and ``v.webp`` by ``python -m pathtracing_spectrum_tpu_torch`` read
+  back (the WebP held to the preview by its PSNR); the 52k and 200k terrains parsed by the native OBJ parser and
   by the plain Python one, bitwise equal, both timed, the 52k one
   rendered through ``"hier"``; a 512x512x4 crop of the 4K session's
   result exported through the native writer and held byte for byte to
@@ -163,6 +164,10 @@ SHELL_SPP = 4            # the scripted shell's render
 # to the formatter, the 4K one timed
 FILES_DIR = os.path.join(HERE, "tests", "torch_data")
 FILES_DECODES, FILES_RATE_SPP, FILES_TERRAIN_SPP = 5, 4, 4
+# the least PSNR the module preview's WebP may have against the grey
+# preview: 5 dB below what the same preview gives on the CPU
+# (python3 tools/webp_preview_psnr.py: 49.625 dB)
+WEBP_PREVIEW_MIN_PSNR = 44.6
 FILES_EXPORT_RES = 512
 # make_terrain arguments of the repo's terrain assets (make_assets.py)
 TERRAINS = {"10k": dict(grid=64, n_rocks=8, rock_sub=8),
@@ -389,6 +394,15 @@ def cornell_nw_scene(pt, res, nw: int, depth: int = DEPTH):
     sc.set_camera([0.0, 0.0, -2.0], [0.0, 0.0, 0.0])
     sc.camera_fovy = 50.0
     return sc
+
+
+def preview_psnr(view: np.ndarray, grey: np.ndarray) -> float:
+    """PSNR in dB of a decoded [H, W, 4] image's colour channels against
+    the [H, W] grey preview it was written from."""
+    d = view[..., :3].astype(np.float64) - grey[..., None]
+    mse = float(np.mean(d * d))
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2
+                                                             / mse))
 
 
 def textured_sphere_scene(pt, res, grid_path: str = "", roughness: str = "",
@@ -1170,11 +1184,13 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     - ``write_image`` of the 37x29 fixture image and a procedural
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
-      (``tests/torch_data/write_digests.json``); the 4K JPEG and GIF
-      encodes timed (median of ``decodes``); ``python -m
+      (``tests/torch_data/write_digests.json``); the 4K JPEG, GIF and
+      WebP encodes timed (median of ``decodes``); ``python -m
       pathtracing_spectrum_tpu_torch preview ... --out v.jpg --device
-      cuda`` read back by the port's JPEG decoder, and ``--out v.gif``
-      read back by its GIF decoder, equal to the preview's grey image;
+      cuda`` read back by the port's JPEG decoder, ``--out v.gif`` read
+      back by its GIF decoder, equal to the preview's grey image, and
+      ``--out v.webp`` read back by its WebP decoder, its PSNR against
+      the grey image at least ``WEBP_PREVIEW_MIN_PSNR``;
     - the terrains parsed by the native parser and by the plain Python
       one, bitwise equal, both timed; the first rendered through
       ``"hier"`` (``terrain_spp`` samples, counted);
@@ -1187,7 +1203,7 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     Returns the launches of each kernel over the driven sessions."""
     from pathtracing_spectrum_tpu_torch.utils import (gif, image, jpeg,
                                                       obj_loader, scene_io,
-                                                      spectral_io)
+                                                      spectral_io, webp)
     from pathtracing_spectrum_tpu_torch.preview import preview_render
     # files that are no image give None; the extensions PIL cannot save
     # an L or RGB image under raise PIL's exception, writing nothing
@@ -1207,7 +1223,7 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         for ext, want in ((".psd", KeyError), (".xpm", KeyError),
                           (".bufr", OSError), (".msp", OSError),
                           (".blp", ValueError), (".qoi", ValueError),
-                          (".webp", NotImplementedError)):
+                          (".dds", NotImplementedError)):
             path = os.path.join(tmp, "out" + ext)
             try:
                 image.write_image(path, grey)
@@ -1304,9 +1320,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     del sessions
 
     # the writers: two images as L and RGB under every extension written
-    # byte for byte, held to the digests of PIL's files; the 4K JPEG and
-    # GIF encodes timed; a preview written as a JPEG and as a GIF by the
-    # module's CLI
+    # byte for byte, held to the digests of PIL's files; the 4K JPEG, GIF
+    # and WebP encodes timed; a preview written as a JPEG, a GIF and a
+    # WebP by the module's CLI
     fixtures = load_by_path("make_torch_fixtures", os.path.join(
         HERE, "tools", "make_torch_fixtures.py"))
     with open(os.path.join(FILES_DIR, "write_digests.json")) as f:
@@ -1336,6 +1352,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             median_ms=med, clock="host")
         ms, med = median_ms(lambda: gif.encode(rgb4k))
         say("files", gif_encode="3840x2160 RGB", runs=decodes, ms=ms,
+            median_ms=med, clock="host", card=repr(card))
+        ms, med = median_ms(lambda: webp.encode(rgb4k))
+        say("files", webp_encode="3840x2160 RGB", runs=decodes, ms=ms,
             median_ms=med, clock="host", card=repr(card))
         scene_path = os.path.join(tmp, "textured.pts")
         out = os.path.join(tmp, "v.jpg")
@@ -1379,6 +1398,27 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             equals_preview_render=same, grey_levels=len(np.unique(grey)))
         check(same, "the module's GIF preview does not decode to the "
               "preview's grey image")
+        # as a WebP: lossy, so held to the grey image by its PSNR
+        out = os.path.join(tmp, "v.webp")
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "preview", scene_path, "--out", out,
+             "--device", "cuda"], cwd=HERE, capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0, f"module WebP preview failed: "
+              f"{proc.stderr}")
+        with open(out, "rb") as f:
+            data = f.read()
+        is_webp = data[:4] == b"RIFF" and data[8:16] == b"WEBPVP8 "
+        view = webp.decode_rgba(data) if is_webp else None
+        psnr = (preview_psnr(view, grey)
+                if view is not None and view.shape == (360, 640, 4) else None)
+        say("files", module_preview="v.webp", rc=proc.returncode,
+            webp=is_webp, bytes=len(data),
+            shape=None if view is None else list(view.shape),
+            psnr_db=psnr, min_psnr_db=WEBP_PREVIEW_MIN_PSNR)
+        check(psnr is not None and psnr >= WEBP_PREVIEW_MIN_PSNR,
+              "the module's WebP preview is not a VP8 file within "
+              f"{WEBP_PREVIEW_MIN_PSNR} dB of the preview's grey image")
 
     # the OBJ parse, native and plain, then the 52k terrain rendered
     paths = {}

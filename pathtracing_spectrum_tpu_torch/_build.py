@@ -11,8 +11,9 @@ Two shared libraries, each built into ``build/`` next to this file
   parser and spectral writer ``csrc/host_io.cpp``, the JPEG decoder
   ``csrc/jpeg_decode.cpp`` and encoder ``csrc/jpeg_encode.cpp``, the
   LZW and PackBits decoders ``csrc/lzw_decode.cpp``, the WebP decoder
-  ``csrc/webp_decode.cpp`` and the GIF quantiser and LZW encoder
-  ``csrc/gif_encode.cpp``.
+  ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (with
+  their shared VP8 tables and transforms ``csrc/vp8_common.h``) and the
+  GIF quantiser and LZW encoder ``csrc/gif_encode.cpp``.
 
 Each file name carries a hash of its sources and flags, so a changed source
 is always rebuilt and a stale library is never loaded. Nothing here runs at
@@ -42,8 +43,8 @@ HEADERS = (_CSRC / "tri_hit.cuh",)
 HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
                 _CSRC / "jpeg_decode.cpp", _CSRC / "jpeg_encode.cpp",
                 _CSRC / "lzw_decode.cpp", _CSRC / "webp_decode.cpp",
-                _CSRC / "gif_encode.cpp")
-HOST_HEADERS = (_CSRC / "jpeg_std_tables.h",)
+                _CSRC / "gif_encode.cpp", _CSRC / "webp_encode.cpp")
+HOST_HEADERS = (_CSRC / "jpeg_std_tables.h", _CSRC / "vp8_common.h")
 BUILD_DIR = _HERE / "build"
 
 # sm_90a (Hopper); --fmad=false keeps every multiply and add separately
@@ -99,6 +100,8 @@ _HOST_SIGNATURES = {
     "pts_webp_size": ([_V, _V, _V], None),
     "pts_webp_copy": ([_V, _V], None),
     "pts_webp_free": ([_V], None),
+    "pts_webp_encode": ([_V, _I32, _I32, _I32, _V], _V),
+    "pts_webp_encode_stages": ([_V, _I32, _I32, _I32] + [_V] * 5, _I32),
 }
 
 
@@ -211,8 +214,8 @@ def load_host() -> ctypes.CDLL:
     """Build (when the hashed library is missing) and load the host
     library: the BVH builder, the OBJ parser, the spectral writer, the
     JPEG decoder and encoder, the LZW and PackBits decoders, the WebP
-    decoder and the GIF encoder. Raises with the compiler's output when it cannot be built:
-    none of them has a fallback."""
+    decoder and encoder and the GIF encoder. Raises with the compiler's
+    output when it cannot be built: none of them has a fallback."""
     if _Library.host is not None:
         return _Library.host
     path = host_library_path()

@@ -136,13 +136,16 @@ extension                       what is written
                                 header holds the file's stem)
 ``.pcx``                        PIL's PCX byte for byte (RLE rows; L with
                                 the grey palette)
+``.webp``                       PIL's WebP byte for byte (libwebp's lossy
+                                VP8 at quality 80, method 4; L as RGB:
+                                ``utils/webp.py``, ``csrc/webp_encode.cpp``)
 the 27 extensions PIL cannot    PIL's exception and message: ``KeyError``
 save as L or RGB, and ``.qoi``  without a save handler (``.psd``, ``.xpm``
 for L                           ...), ``OSError`` for a handler not
                                 installed or a mode refused (``.bufr``,
                                 ``.msp`` ...), ``ValueError`` (``.blp``)
-any other extension PIL knows   ``NotImplementedError`` naming the path
-                                and the format
+the 16 other extensions PIL     ``NotImplementedError`` naming the path
+knows                           and the format
 an unknown extension, or none   ``ValueError("unknown file extension")``
 ==============================  =========================================
 
@@ -1658,7 +1661,7 @@ _WRITERS = {
     "PNG": _png_bytes, "JPEG": jpeg.encode,
     "BMP": _bmp_bytes, "DIB": lambda img: _bmp_bytes(img, False),
     "TIFF": _tiff_bytes, "PPM": _ppm_bytes, "TGA": _tga_bytes,
-    "GIF": gif.encode, "PCX": _pcx_bytes}
+    "GIF": gif.encode, "PCX": _pcx_bytes, "WEBP": webp.encode}
 # the writers whose file holds its own name
 _NAMED_WRITERS = {"IM": _im_bytes, "SGI": _sgi_bytes}
 
@@ -1703,15 +1706,18 @@ def write_image(path, pixels: np.ndarray) -> None:
 
     - ``.png``/``.apng``: :func:`write_png` (the decoded pixels equal
       PIL's file; its bytes are not held);
-    - JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI and PCX names: PIL's
-      file at its defaults, byte for byte (JPEG: quality 75, 4:2:0, the
-      host library's encoder; GIF: the host library's median cut and LZW;
-      IM and SGI write the file's name into their header, as PIL does);
+    - JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX and WebP names:
+      PIL's file at its defaults, byte for byte (JPEG: quality 75, 4:2:0,
+      the host library's encoder; GIF: the host library's median cut and
+      LZW; WebP: the host library's lossy VP8 encoder at quality 80, a
+      side over 16,383 pixels raising PIL's ``ValueError``; IM and SGI
+      write the file's name into their header, as PIL does);
     - an extension PIL registers but cannot save as L or RGB: PIL's
       exception (``KeyError`` without a save handler, ``OSError`` or
       ``ValueError`` where the handler refuses), writing nothing;
-    - any other extension PIL registers: ``NotImplementedError`` naming
-      the path and the format (never PNG bytes under another name);
+    - any of the 16 other extensions PIL registers:
+      ``NotImplementedError`` naming the path and the format (never PNG
+      bytes under another name);
     - an extension PIL does not know, or none: ``ValueError("unknown file
       extension: ...")``, as PIL raises.
     """
@@ -1734,8 +1740,8 @@ def write_image(path, pixels: np.ndarray) -> None:
     else:
         raise NotImplementedError(
             f"{path}: writing {fmt} is not done by the PyTorch port (PNG, "
-            "JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI and PCX are; "
-            "ROADMAP Queue 1 item 11)")
+            "JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX and WebP "
+            "are; ROADMAP Queue 1 item 11)")
     with open(path, "wb") as f:
         f.write(data)
 

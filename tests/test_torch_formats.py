@@ -665,7 +665,7 @@ def _refused():
         "JPEG-in-TIFF": pil("TIFF", compression="jpeg"),
         "CMYK TIFF": pil("TIFF", "CMYK"),
         "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),
-        "ICO writer": ".ico", "WebP writer": ".webp",
+        "ICO writer": ".ico", "DDS writer": ".dds",
         "lossless JPEG": ti.patch_frame(base, kind=0xC3),
         "lossless JPEG by libjpeg": ti.libjpeg_bytes(x, lossless=True),
         "progressive JPEG cut short": ti.drop_last_scan(prog),

@@ -213,8 +213,9 @@ def test_host_library_is_built_from_the_port_sources_with_jax_flags():
     sources = {p.name for p in _build.HOST_SOURCES}
     assert sources == {"bvh_build.cpp", "host_io.cpp", "jpeg_decode.cpp",
                        "jpeg_encode.cpp", "lzw_decode.cpp", "webp_decode.cpp",
-                       "gif_encode.cpp"}
-    assert {p.name for p in _build.HOST_HEADERS} == {"jpeg_std_tables.h"}
+                       "gif_encode.cpp", "webp_encode.cpp"}
+    assert {p.name for p in _build.HOST_HEADERS} == {"jpeg_std_tables.h",
+                                                     "vp8_common.h"}
     jax_compile = inspect.getsource(native._compile)
     for flag in _build.HOST_FLAGS:
         assert f'"{flag}"' in jax_compile, flag
@@ -225,7 +226,7 @@ def test_host_library_is_built_from_the_port_sources_with_jax_flags():
 
 @pytest.mark.parametrize("call", ["load_obj", "export_spectrum", "jpeg",
                                   "jpeg_encode", "tiff_lzw", "webp",
-                                  "gif_encode"])
+                                  "gif_encode", "webp_encode"])
 def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
                                                               monkeypatch):
     def no_library():
@@ -238,8 +239,9 @@ def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
         elif call == "export_spectrum":
             spectral_io.export_spectrum(str(tmp_path / "x.txt"),
                                         np.ones((1, 1, 1), np.float32))
-        elif call in ("jpeg_encode", "gif_encode"):
-            ext = ".jpg" if call == "jpeg_encode" else ".gif"
+        elif call in ("jpeg_encode", "gif_encode", "webp_encode"):
+            ext = {"jpeg_encode": ".jpg", "gif_encode": ".gif",
+                   "webp_encode": ".webp"}[call]
             image.write_image(str(tmp_path / f"x{ext}"),
                               np.zeros((2, 3), np.uint8))
         else:

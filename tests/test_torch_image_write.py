@@ -2,15 +2,18 @@
 12.1's ``Image.save``, which the JAX package saves through: the format
 comes from the file name's extension, JPEG (the host library's encoder),
 BMP, DIB, TIFF, PPM, TGA, GIF (the host library's quantiser and LZW
-encoder), IM, SGI and PCX files are PIL's byte for byte (IM and SGI hold
-the file's name, so both are written under the same name), PNG decodes to
+encoder), IM, SGI, PCX and WebP (the host library's VP8 encoder) files are
+PIL's byte for byte (IM and SGI hold the file's name, so both are written
+under the same name), PNG decodes to
 the same pixels, the extensions PIL cannot save as L or RGB raise PIL's own
 exception, the other extensions PIL registers raise
 ``NotImplementedError`` naming the path, and an unknown one raises PIL's
 ``ValueError``. Then both command lines, the shell and the viewer against
 each other on the same ``.pts`` scene: the same bytes under ``.jpg``,
-``.bmp``, ``.tif``, ``.ppm`` and ``.gif`` names (before the repair the
-port wrote PNG bytes under every name), and ``ValueError`` for ``.xyz`` in both.
+``.bmp``, ``.tif``, ``.ppm``, ``.gif`` and ``.webp`` names (before the
+repair the port wrote PNG bytes under every name), and ``ValueError`` for
+``.xyz`` in both; the port's ``render --png-srgb`` under a ``.webp`` name
+writes PIL's file of the image it writes under a ``.png`` one.
 """
 
 import io
@@ -36,7 +39,7 @@ from scene_helpers import cornell_scene  # noqa: E402
 
 BYTE_EQUAL = [ext for ext, fmt in sorted(image.EXTENSIONS.items())
               if fmt in ("JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA", "GIF",
-                         "IM", "SGI", "PCX")]
+                         "IM", "SGI", "PCX", "WEBP")]
 # 1x1, odd sizes, and several 16x16 MCU rows with partial MCUs
 SIZES = [(1, 1), (17, 9), (37, 29), (45, 53)]
 
@@ -105,7 +108,8 @@ def test_im_and_sgi_write_the_name_as_pil(ext, stem, tmp_path):
 @pytest.mark.parametrize("mode", ["L", "RGB"])
 def test_extension_case_is_ignored_as_in_pil(mode, tmp_path):
     img = pixels(3, 21, 11, mode)
-    for ext in (".JPG", ".Tif", ".BMP", ".GIF", ".Im", ".Rgb", ".PCX"):
+    for ext in (".JPG", ".Tif", ".BMP", ".GIF", ".Im", ".Rgb", ".PCX",
+                ".WebP"):
         path = named(tmp_path, "port", ext)
         image.write_image(path, img)
         assert path.read_bytes() == pil_bytes(img, ext, tmp_path)
@@ -150,9 +154,9 @@ def test_written_jpeg_decodes_in_the_port_as_in_pil(tmp_path):
 
 
 WRITTEN = {"PNG", "JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA", "GIF", "IM",
-           "SGI", "PCX"}
+           "SGI", "PCX", "WEBP"}
 # the formats PIL 12.1 saves as L or RGB and the port does not write yet
-# (ROADMAP Queue 1 item 11c'-d: 17 extensions)
+# (ROADMAP Queue 1 item 11d: 16 extensions)
 OTHER_FORMATS = sorted({fmt for fmt in image.EXTENSIONS.values()} - WRITTEN
                        - set(image._PIL_CANNOT_SAVE))
 
@@ -241,7 +245,8 @@ def scene_file(tmp_path_factory):
     return p
 
 
-@pytest.mark.parametrize("ext", [".jpg", ".bmp", ".tif", ".ppm", ".gif"])
+@pytest.mark.parametrize("ext", [".jpg", ".bmp", ".tif", ".ppm", ".gif",
+                                 ".webp"])
 def test_cli_preview_writes_the_format_jax_writes(ext, scene_file, tmp_path):
     """``preview --out v.<ext>``: the JAX command (PIL) and the port's
     write the same file, byte for byte."""
@@ -262,7 +267,30 @@ def test_cli_preview_unknown_extension_raises_in_both(scene_file, tmp_path):
         cli.main(["preview", scene_file, "--out", out, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("ext", [".tga", ".jpeg", ".gif"])
+def test_cli_render_png_srgb_writes_pils_webp(tmp_path):
+    """``render --png-srgb x.webp``: PIL's WebP of the sRGB image the same
+    render (one seed, on the CPU) writes under ``x.png``, for the Cornell
+    box seen in visible light (a hot light, wavenumbers 15,000-22,000/cm)."""
+    sc = cornell_scene(depth=2, res=(24, 16))
+    sc.wavelengths = [1e7 / 450, 1e7 / 520, 1e7 / 590, 1e7 / 650]
+    for i, el in enumerate(sc.objects[0].elements):
+        if el.name == "light":
+            sc.objects[0].elements[i].material.temperature = 5500.0
+    scene_file = str(tmp_path / "visible.pts")
+    jio.save_scene(sc, scene_file)
+    outs = {}
+    for ext in (".png", ".webp"):
+        outs[ext] = tmp_path / f"srgb{ext}"
+        assert cli.main(["render", scene_file, "--spp", "2", "--out",
+                         str(tmp_path / f"spectrum{ext}.txt"), "--png-srgb",
+                         str(outs[ext]), "--quiet", "--device", "cpu"]) == 0
+    with Image.open(outs[".png"]) as im:
+        srgb = np.asarray(im)
+    assert srgb.ndim == 3 and srgb.max() > 0
+    assert outs[".webp"].read_bytes() == pil_bytes(srgb, ".webp", tmp_path)
+
+
+@pytest.mark.parametrize("ext", [".tga", ".jpeg", ".gif", ".webp"])
 def test_shell_preview_writes_the_format_jax_writes(ext, scene_file,
                                                     tmp_path):
     paths = []
@@ -277,11 +305,12 @@ def test_shell_preview_writes_the_format_jax_writes(ext, scene_file,
         assert a.read() == b.read()
 
 
-@pytest.mark.parametrize("ext", [".dib", ".pgm", ".jpg", ".gif"])
+@pytest.mark.parametrize("ext", [".dib", ".pgm", ".jpg", ".gif", ".webp"])
 def test_viewer_saves_write_the_format_jax_writes(ext, tmp_path):
     """``save_png`` (grey) and ``save_srgb_png`` (RGB, host path) under a
     name that is not PNG: the same file as the JAX viewer's (for ``.gif``
-    the RGB image through PIL's median cut)."""
+    the RGB image through PIL's median cut, for ``.webp`` both through
+    libwebp's lossy encoder)."""
     img = np.random.default_rng(1).uniform(0, 1, (9, 13, 3)).astype(
         np.float32)
     wn = [1e7 / 450, 1e7 / 550, 1e7 / 650]
@@ -324,11 +353,11 @@ def test_write_digests_are_pils_and_the_ports(tmp_path):
 
 @pytest.mark.parametrize("mode", ["L", "RGB"])
 @pytest.mark.parametrize("ext", [".gif", ".im", ".pcx", ".sgi", ".bw",
-                                 ".rgb", ".rgba"])
+                                 ".rgb", ".rgba", ".webp"])
 def test_recorded_digests_of_the_new_writers_are_pils(ext, mode, tmp_path):
-    """The GIF, IM, PCX and SGI digests recorded for the 37x29 image (which
-    ``chip_smoke.py`` holds the card machine's writes to) are those of
-    PIL's files under the name ``x``."""
+    """The GIF, IM, PCX, SGI and WebP digests recorded for the 37x29 image
+    (which ``chip_smoke.py`` holds the card machine's writes to) are those
+    of PIL's files under the name ``x``."""
     import hashlib
     import json
     here = os.path.dirname(os.path.abspath(__file__))

@@ -635,15 +635,11 @@ def webp_image(pixels: np.ndarray):
     return Image.fromarray(pixels)
 
 
-def libwebp_encode(pixels: np.ndarray, quality: float = 75.0,
-                   **config) -> bytes:
-    """The WebP file libwebp's ``WebPEncode`` writes for uint8 [H, W, 3 or
-    4] ``pixels`` with the ``WebPConfig`` fields PIL does not pass
-    (``filter_type``, ``filter_sharpness``, ``filter_strength``,
-    ``segments``, ``partitions``, ``alpha_compression``,
-    ``alpha_filtering``, ...): the libwebp PIL 12.1 bundles, through
-    ctypes. The structs are libwebp 1.x's ``encode.h`` (encoder ABI
-    0x02xx), padded past their ends."""
+@functools.cache
+def _libwebp():
+    """PIL's bundled libwebp through ctypes, and its encoder structs:
+    libwebp 1.x's ``encode.h`` (encoder ABI 0x02xx), padded past their
+    ends."""
     import ctypes as C
     import glob
     import os
@@ -674,34 +670,105 @@ def libwebp_encode(pixels: np.ndarray, quality: float = 75.0,
                     ("a_stride", i), ("pad1", C.c_uint32 * 2), ("argb", p),
                     ("argb_stride", i), ("pad2", C.c_uint32 * 3),
                     ("writer", p), ("custom_ptr", p),
+                    ("extra_info_type", i), ("extra_info", p),
+                    ("stats", p), ("error_code", i),
                     ("spare", C.c_uint8 * 512)]
 
     class Writer(C.Structure):
         _fields_ = [("mem", p), ("size", C.c_size_t),
                     ("max_size", C.c_size_t), ("pad", C.c_uint32 * 8)]
 
+    class AuxStats(C.Structure):
+        _fields_ = [("coded_size", i), ("PSNR", f * 5),
+                    ("block_count", i * 3), ("header_bytes", i * 2),
+                    ("residual_bytes", i * 12), ("segment_size", i * 4),
+                    ("segment_quant", i * 4), ("segment_level", i * 4),
+                    ("spare", C.c_uint32 * 64)]
+
+    return lib, Config, Picture, Writer, AuxStats
+
+
+def _libwebp_picture(pixels: np.ndarray, use_argb: int):
+    """A libwebp picture of uint8 [H, W, 3 or 4] ``pixels``."""
+    import ctypes as C
+    lib, _, Picture, _, _ = _libwebp()
     img = np.ascontiguousarray(pixels, np.uint8)
     h, w, ch = img.shape
+    pic = Picture()
+    assert lib.WebPPictureInitInternal(C.byref(pic), 0x0200)
+    pic.width, pic.height, pic.use_argb = w, h, use_argb
+    load = lib.WebPPictureImportRGBA if ch == 4 else lib.WebPPictureImportRGB
+    assert load(C.byref(pic), img.ctypes.data_as(C.c_void_p), w * ch)
+    return pic
+
+
+def libwebp_encode(pixels: np.ndarray, quality: float = 75.0,
+                   extra_info_type: int = 0, stats=None,
+                   **config) -> bytes:
+    """The WebP file libwebp's ``WebPEncode`` writes for uint8 [H, W, 3 or
+    4] ``pixels`` with the ``WebPConfig`` fields PIL does not pass
+    (``filter_type``, ``filter_sharpness``, ``filter_strength``,
+    ``segments``, ``partitions``, ``alpha_compression``,
+    ``alpha_filtering``, ...): the libwebp PIL 12.1 bundles, through
+    ctypes. With ``extra_info_type`` (1-7, ``encode.h``'s list), the
+    picture is ARGB, as PIL hands it over, and the per-macroblock map
+    libwebp records is appended to ``stats["extra_info"]``; ``stats`` (a
+    dict) also receives ``WebPAuxStats``' ``block_count``,
+    ``segment_quant`` and ``segment_level``."""
+    import ctypes as C
+    lib, Config, _, Writer, AuxStats = _libwebp()
+    h, w = pixels.shape[:2]
     cfg = Config()
-    assert lib.WebPConfigInitInternal(C.byref(cfg), 0, f(quality), 0x0200)
+    assert lib.WebPConfigInitInternal(C.byref(cfg), 0, C.c_float(quality),
+                                      0x0200)
     for k, v in config.items():
         setattr(cfg, k, v)
     assert lib.WebPValidateConfig(C.byref(cfg)), config
-    pic = Picture()
-    assert lib.WebPPictureInitInternal(C.byref(pic), 0x0200)
-    pic.width, pic.height, pic.use_argb = w, h, cfg.lossless
-    load = lib.WebPPictureImportRGBA if ch == 4 else lib.WebPPictureImportRGB
-    assert load(C.byref(pic), img.ctypes.data_as(p), w * ch)
+    pic = _libwebp_picture(pixels, 1 if extra_info_type else cfg.lossless)
+    info = np.zeros(((h + 15) // 16, (w + 15) // 16), np.uint8)
+    aux = AuxStats()
+    if extra_info_type:
+        pic.extra_info_type = extra_info_type
+        pic.extra_info = info.ctypes.data
+    if stats is not None:
+        pic.stats = C.addressof(aux)
     out = Writer()
     lib.WebPMemoryWriterInit(C.byref(out))
-    pic.writer = C.cast(lib.WebPMemoryWrite, p).value
+    pic.writer = C.cast(lib.WebPMemoryWrite, C.c_void_p).value
     pic.custom_ptr = C.addressof(out)
     ok = lib.WebPEncode(C.byref(cfg), C.byref(pic))
     lib.WebPPictureFree(C.byref(pic))
     data = C.string_at(out.mem, out.size)
     lib.WebPMemoryWriterClear(C.byref(out))
     assert ok, "WebPEncode failed"
+    if stats is not None:
+        stats.setdefault("extra_info", []).append(info)
+        for k in ("block_count", "segment_quant", "segment_level"):
+            stats[k] = list(getattr(aux, k))
     return data
+
+
+def libwebp_yuv(pixels: np.ndarray):
+    """(Y, U, V) planes of libwebp's ``WebPPictureARGBToYUVA`` (4:2:0, no
+    dithering) of uint8 [H, W, 3] ``pixels`` imported as ARGB, the
+    conversion ``WebPEncode`` starts with on PIL's picture."""
+    import ctypes as C
+    lib = _libwebp()[0]
+    h, w = pixels.shape[:2]
+    pic = _libwebp_picture(pixels, 1)
+    try:
+        assert lib.WebPPictureARGBToYUVA(C.byref(pic), 0)
+
+        def plane(ptr, stride, ph, pw):
+            raw = C.string_at(ptr, stride * ph)
+            return np.frombuffer(raw, np.uint8).reshape(ph, stride)[:, :pw]
+
+        uh, uw = (h + 1) // 2, (w + 1) // 2
+        return (plane(pic.y, pic.y_stride, h, w).copy(),
+                plane(pic.u, pic.uv_stride, uh, uw).copy(),
+                plane(pic.v, pic.uv_stride, uh, uw).copy())
+    finally:
+        lib.WebPPictureFree(C.byref(pic))
 
 
 def riff_chunks(data: bytes) -> list:

@@ -161,12 +161,13 @@ def procedural_rgb(w: int, h: int, seed: int) -> np.ndarray:
 
 
 # the extensions the port writes byte for byte as PIL (JPEG, BMP, DIB,
-# TIFF, PPM, TGA, GIF, IM, PCX and SGI, PIL 12.1's names for each); IM and
-# SGI write the file's name, so every file is written as "x" + extension
+# TIFF, PPM, TGA, GIF, IM, PCX, SGI and WebP, PIL 12.1's names for each);
+# IM and SGI write the file's name, so every file is written as "x" +
+# extension
 WRITE_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif", ".bmp", ".dib",
                     ".tif", ".tiff", ".pbm", ".pgm", ".ppm", ".pnm", ".pfm",
                     ".tga", ".icb", ".vda", ".vst", ".gif", ".im", ".pcx",
-                    ".sgi", ".bw", ".rgb", ".rgba")
+                    ".sgi", ".bw", ".rgb", ".rgba", ".webp")
 
 
 def writer_images() -> dict:
