@@ -58,15 +58,21 @@ through its kernels and made a healthy image:
   PSD, WebP) decoded and held to the digests of PIL's decode, the
   2048x2048 progressive JPEG's, YCCK arithmetic progressive JPEG's,
   Deflate TIFF's and lossy WebP's and the 1024x1024 CMYK arithmetic
-  JPEG's and lossless WebP's decodes timed; the textured sphere at
+  JPEG's and lossless WebP's decodes timed; a 2048x2048 RLE SGI
+  roughness map and a 1024x1024 PCX normal map made on the machine, each
+  file and its decode held to the digests recorded with PIL, both decodes
+  timed; the textured sphere at
   1920x1080 with that JPEG as its roughness map and a 1024x1024 JPEG as
   its normal map, then with the two arithmetic-coded JPEGs, then with the
-  TIFF and a 512x512 16-bit LZW TIFF, then with the two WebPs, 16
+  TIFF and a 512x512 16-bit LZW TIFF, then with the two WebPs, then with
+  the SGI and PCX maps, 16
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
   checker session; ``write_image``'s JPEG,
   BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX and WebP files of a 37x29
-  and a 3840x2160 image held to the digests of PIL's, the 4K JPEG, GIF
+  and a 3840x2160 image held to the digests of PIL's, the DIB, IM, SGI
+  and PCX ones read back by the port equal to the pixels, the 4K PCX and
+  SGI decodes and the 4K JPEG, GIF
   and WebP encodes timed, and a preview written as ``v.jpg``, ``v.gif``
   and ``v.webp`` by ``python -m pathtracing_spectrum_tpu_torch`` read
   back (the WebP held to the preview by its PSNR); the 52k and 200k terrains parsed by the native OBJ parser and
@@ -164,6 +170,8 @@ SHELL_SPP = 4            # the scripted shell's render
 # to the formatter, the 4K one timed
 FILES_DIR = os.path.join(HERE, "tests", "torch_data")
 FILES_DECODES, FILES_RATE_SPP, FILES_TERRAIN_SPP = 5, 4, 4
+# the extensions whose files the files phase reads back (DIB, IM, SGI, PCX)
+READ_BACK = (".dib", ".im", ".sgi", ".bw", ".rgb", ".rgba", ".pcx")
 # the least PSNR the module preview's WebP may have against the grey
 # preview: 5 dB below what the same preview gives on the CPU
 # (python3 tools/webp_preview_psnr.py: 49.625 dB)
@@ -1172,20 +1180,27 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       progressive JPEG's, Deflate TIFF's and lossy WebP's and the
       1024x1024 CMYK arithmetic JPEG's and lossless WebP's decodes timed
       (median of ``decodes``);
+    - the reader maps of ``tools/make_torch_fixtures.py`` made here: a
+      2048x2048 RGB roughness map as an RLE SGI file (its numpy encoder)
+      and a 1024x1024 RGB normal map as a PCX file (``write_image``), each
+      file and its decode held to the digests recorded with PIL
+      (``tests/torch_data/map_digests.json``), both decodes timed;
     - ``textured_sphere_scene`` at ``res`` with that JPEG as its roughness
       map and the 1024x1024 baseline JPEG as its normal map, then with the
       YCCK and CMYK arithmetic-coded JPEGs (``jpeg-flavours``), then with
       the TIFF as its roughness map and the 512x512 16-bit LZW TIFF as its
-      normal map, then with the two WebPs, through ``"hier"``: the texture
-      table on the card
-      bitwise the host decode, ``spp`` samples counted through K3, K2 and
-      threefry, then ms per sample in turns against the checker-map
+      normal map, then with the two WebPs, then with the RLE SGI and PCX
+      maps (``sgi-pcx``), through ``"hier"``: the texture table on the
+      card bitwise the host decode, ``spp`` samples counted through K3, K2
+      and threefry, then ms per sample in turns against the checker-map
       session;
     - ``write_image`` of the 37x29 fixture image and a procedural
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
-      (``tests/torch_data/write_digests.json``); the 4K JPEG, GIF and
-      WebP encodes timed (median of ``decodes``); ``python -m
+      (``tests/torch_data/write_digests.json``), the DIB, IM, SGI and PCX
+      files (``READ_BACK``) read back by the port equal to the pixels; the
+      4K RGB PCX and SGI decodes and the 4K JPEG, GIF and WebP encodes
+      timed (median of ``decodes``); ``python -m
       pathtracing_spectrum_tpu_torch preview ... --out v.jpg --device
       cuda`` read back by the port's JPEG decoder, ``--out v.gif`` read
       back by its GIF decoder, equal to the preview's grey image, and
@@ -1252,17 +1267,47 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             secs.append(time.perf_counter() - t0)
         return [1e3 * t for t in secs], 1e3 * sorted(secs)[len(secs) // 2]
 
+    # the RLE SGI and PCX maps, made here and held to PIL's digests
+    fixtures = load_by_path("make_torch_fixtures", os.path.join(
+        HERE, "tools", "make_torch_fixtures.py"))
+    with open(os.path.join(FILES_DIR, "map_digests.json")) as f:
+        map_digests = json.load(f)
+    check(sorted(map_digests) == sorted(fixtures.READER_MAPS),
+          "map_digests.json names other maps than READER_MAPS")
+    maps_dir = tempfile.TemporaryDirectory()
+    for name, want in sorted(map_digests.items()):
+        px, data = fixtures.reader_map(name)
+        path = os.path.join(maps_dir.name, name)
+        if data is None:
+            image.write_image(path, px)
+        else:
+            with open(path, "wb") as f:
+                f.write(data)
+        with open(path, "rb") as f:
+            file_same = hashlib.sha256(f.read()).hexdigest() == want[
+                "file_sha256"]
+        rgba = image.load_rgba8(path)
+        same = (list(rgba.shape) == want["shape"] and hashlib.sha256(
+            rgba.tobytes()).hexdigest() == want["rgba_sha256"])
+        say("files", reader_map=name, bytes=os.path.getsize(path),
+            file_digest_equal=file_same, shape=list(rgba.shape),
+            digest_of=want["of"], digest_equal=same)
+        check(file_same, f"{name}: the file is not the one PIL decoded")
+        check(same, f"{name}: the decode is not its recorded digest")
+
     maps = {"jpeg": ("roughness_2048_prog420.jpg", "normal_1024_444.jpg"),
             "jpeg-flavours": ("roughness_2048_ycck_arith_prog.jpg",
                               "normal_1024_cmyk_arith.jpg"),
             "tiff": ("roughness_2048_deflate.tif", "normal_512_lzw16.tif"),
-            "webp": ("roughness_2048_lossy.webp", "normal_1024_lossless.webp")}
+            "webp": ("roughness_2048_lossy.webp", "normal_1024_lossless.webp"),
+            "sgi-pcx": tuple(os.path.join(maps_dir.name, name) for name in (
+                "roughness_2048_rle.sgi", "normal_1024.pcx"))}
     for name in [rough for rough, _ in maps.values()] + [
-            maps["jpeg-flavours"][1], maps["webp"][1]]:
+            maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1]]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
-        say("files", decode=name, runs=decodes, ms=ms, median_ms=med,
-            clock="host")
+        say("files", decode=os.path.basename(name), runs=decodes, ms=ms,
+            median_ms=med, clock="host", card=repr(card))
 
     # the textured sessions with the JPEG maps, the arithmetic-coded YCCK
     # and CMYK JPEG maps, the TIFF maps (16-bit LZW normals) and the WebP
@@ -1308,8 +1353,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     sessions["checker"] = pt.RenderSession(textured_sphere_scene(pt, res),
                                            dev, seed=0)
     sessions["checker"].run(1, batch=1)
-    turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "webp",
-             "tiff", "jpeg-flavours", "jpeg", "checker")
+    turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
+             "sgi-pcx", "webp", "tiff", "jpeg-flavours", "jpeg", "checker")
     rates = {name: [] for name in turns}
     for name in turns:
         rates[name].append(timed_step(torch, sessions[name], rate_spp))
@@ -1318,13 +1363,12 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             mrays_per_s=[v[0] for v in vals],
             ms_per_sample=[v[1] for v in vals], card=repr(card))
     del sessions
+    maps_dir.cleanup()
 
     # the writers: two images as L and RGB under every extension written
     # byte for byte, held to the digests of PIL's files; the 4K JPEG, GIF
     # and WebP encodes timed; a preview written as a JPEG, a GIF and a
     # WebP by the module's CLI
-    fixtures = load_by_path("make_torch_fixtures", os.path.join(
-        HERE, "tools", "make_torch_fixtures.py"))
     with open(os.path.join(FILES_DIR, "write_digests.json")) as f:
         write_digests = json.load(f)
     images = fixtures.writer_images()
@@ -1334,19 +1378,35 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         for name, modes in sorted(images.items()):
             for mode, px in sorted(modes.items()):
                 wanted = write_digests[name][mode]
-                same = []
+                same, back = [], []
+                rgba = np.full(px.shape[:2] + (4,), 255, np.uint8)
+                rgba[..., :3] = px[..., None] if px.ndim == 2 else px
                 for ext in fixtures.WRITE_EXTENSIONS:
                     path = os.path.join(tmp, "x" + ext)
                     image.write_image(path, px)
                     with open(path, "rb") as f:
                         digest = hashlib.sha256(f.read()).hexdigest()
-                    os.remove(path)
                     same.append(digest == wanted[ext])
+                    if ext in READ_BACK:
+                        back.append(np.array_equal(image.load_rgba8(path),
+                                                   rgba))
+                    os.remove(path)
                 say("files", write=name, mode=mode,
-                    extensions=len(same), digests_equal=sum(same))
+                    extensions=len(same), digests_equal=sum(same),
+                    read_back=len(back), read_back_equal=sum(back))
                 check(all(same), f"{name} {mode}: a written file is not "
                       "PIL's")
+                check(len(back) == len(READ_BACK) and all(back),
+                      f"{name} {mode}: a DIB, IM, SGI or PCX file the port "
+                      "wrote does not read back as its pixels")
         rgb4k = images["procedural_3840x2160"]["RGB"]
+        for ext in (".pcx", ".sgi"):
+            path = os.path.join(tmp, "x" + ext)
+            image.write_image(path, rgb4k)
+            ms, med = median_ms(lambda: image.load_rgba8(path))
+            say("files", decode=f"x{ext} 3840x2160 RGB", runs=decodes, ms=ms,
+                median_ms=med, clock="host", card=repr(card))
+            os.remove(path)
         ms, med = median_ms(lambda: jpeg.encode(rgb4k))
         say("files", jpeg_encode="3840x2160 RGB", runs=decodes, ms=ms,
             median_ms=med, clock="host")

@@ -10,8 +10,8 @@ Two shared libraries, each built into ``build/`` next to this file
   it (the CPU tests too): the BVH builder ``csrc/bvh_build.cpp``, the OBJ
   parser and spectral writer ``csrc/host_io.cpp``, the JPEG decoder
   ``csrc/jpeg_decode.cpp`` and encoder ``csrc/jpeg_encode.cpp``, the
-  LZW and PackBits decoders ``csrc/lzw_decode.cpp``, the WebP decoder
-  ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (with
+  LZW, PackBits, SGI RLE and PCX RLE decoders ``csrc/lzw_decode.cpp``,
+  the WebP decoder ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (with
   their shared VP8 tables and transforms ``csrc/vp8_common.h``) and the
   GIF quantiser and LZW encoder ``csrc/gif_encode.cpp``.
 
@@ -96,6 +96,8 @@ _HOST_SIGNATURES = {
     "pts_gif_lzw_decode": ([_V, _I64, _I32, _V, _I64, _V], _I32),
     "pts_tiff_lzw_decode": ([_V, _I64, _V, _I64], _I32),
     "pts_packbits_decode": ([_V, _I64, _V, _I64, _I64], _I32),
+    "pts_sgi_rle_decode": ([_V, _I64, _I32, _I32, _I32, _I32, _V], _I32),
+    "pts_pcx_decode": ([_V, _I64, _I32, _I32, _I64, _I32, _V], _I32),
     "pts_webp_decode": ([_V, _I64, _V, _S, _I32], _V),
     "pts_webp_size": ([_V, _V, _V], None),
     "pts_webp_copy": ([_V, _V], None),
@@ -213,8 +215,8 @@ def load() -> ctypes.CDLL:
 def load_host() -> ctypes.CDLL:
     """Build (when the hashed library is missing) and load the host
     library: the BVH builder, the OBJ parser, the spectral writer, the
-    JPEG decoder and encoder, the LZW and PackBits decoders, the WebP
-    decoder and encoder and the GIF encoder. Raises with the compiler's
+    JPEG decoder and encoder, the LZW, PackBits, SGI RLE and PCX RLE
+    decoders, the WebP decoder and encoder and the GIF encoder. Raises with the compiler's
     output when it cannot be built: none of them has a fallback."""
     if _Library.host is not None:
         return _Library.host

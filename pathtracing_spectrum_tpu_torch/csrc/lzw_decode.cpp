@@ -1,6 +1,6 @@
-// LZW and PackBits decoders of the port's GIF, TIFF and PSD readers
-// (utils/codecs.py binds them). Each computes what the decoder PIL runs
-// computes, and fails where it fails:
+// LZW and run-length decoders of the port's GIF, TIFF, PSD, SGI and PCX
+// readers (utils/codecs.py binds them). Each computes what the decoder PIL
+// runs computes, and fails where it fails:
 //
 //  * GIF LZW as PIL's GifDecode.c: LSB-first codes from the data
 //    sub-blocks, widths from the minimum code size + 1 up to 12 bits,
@@ -13,7 +13,9 @@
 //  * PackBits as libtiff's PackBitsDecode (a run past the buffer is cut
 //    short, running out of data before it is full fails) or, row by row,
 //    as PIL's PackDecode.c, which PIL's PSD plugin runs (what a packet
-//    holds past the end of a row is dropped).
+//    holds past the end of a row is dropped);
+//  * SGI RLE as PIL's SgiRleDecode.c at 1 and 2 bytes a sample;
+//  * PCX RLE as PIL's PcxDecode.c.
 //
 // Every function returns 0 on success, 1 for data PIL or libtiff rejects.
 // Built with the host compiler into the port's build/ directory at first
@@ -215,4 +217,144 @@ int32_t pts_packbits_decode(const uint8_t* data, int64_t size, uint8_t* out,
   return 0;
 }
 
+// SGI RLE, one channel of one row, as SgiRleDecode.c's expandrow (bpc 1)
+// and expandrow2 (bpc 2): up to `n` packets from buf[pos] (n is the row's
+// table length, counted as packets, not bytes), each a count (the low
+// byte of a 16-bit word at bpc 2) whose bit 7 copies that many samples
+// and otherwise repeats the next one; a count of 0 ends the row; the last
+// packet allowed must be that 0, else the decoding stops (1) without an
+// error. Samples go to `dest` every `z` samples. Returns -1 where PIL
+// overruns: a sample past the row, or a read past `last`, the index of
+// the file's last byte (PIL's bounds, the literal copy's one short of it
+// included).
+static int sgi_expand(uint8_t* dest, const uint8_t* buf, int64_t pos,
+                      int n, int z, int xsize, int64_t last, int bpc) {
+  int x = 0;
+  for (; n > 0; n--) {
+    if (pos + (bpc - 1) > last) return -1;
+    const uint8_t pixel = buf[pos + bpc - 1];
+    pos += bpc;
+    if (n == 1 && pixel != 0) return n;
+    int count = pixel & 0x7f;
+    if (!count) return 0;
+    if (x + count > xsize) return -1;
+    x += count;
+    if (pixel & 0x80) {
+      if (pos + bpc * count > last) return -1;
+      while (count--) {
+        std::memcpy(dest, buf + pos, bpc);
+        pos += bpc;
+        dest += z * bpc;
+      }
+    } else {
+      if (pos + (bpc == 1 ? 0 : 2) > last) return -1;
+      while (count--) {
+        std::memcpy(dest, buf + pos, bpc);
+        dest += z * bpc;
+      }
+      pos += bpc;
+    }
+  }
+  return 0;
+}
+
+// SGI RLE image data as PIL's SgiRleDecode.c reads it: `data` is the whole
+// file, `bands` channels of `bpc` bytes. The start and length tables
+// (big-endian, channel-major) follow the 512-byte header; each row's
+// channels are expanded into one row buffer that persists from row to
+// row (a row that ends early keeps the previous row's samples), then
+// copied to `out` row by row in file order (bottom-up), `out` zeroed.
+// A start may lie anywhere past the header (a row of length 0 reads
+// nothing); a length of 2^31 or more is a negative packet count, as in
+// PIL, and leaves the row as it was. Where a row's last packet is not
+// the end, PIL stops there without an error: that row and the rows after
+// it stay zero. Fails (1) on tables past the file, a start before the
+// data, and a row that overruns.
+int32_t pts_sgi_rle_decode(const uint8_t* data, int64_t size, int32_t xsize,
+                           int32_t ysize, int32_t bands, int32_t bpc,
+                           uint8_t* out) {
+  const int64_t kHeader = 512;
+  const int64_t bufsize = size - kHeader;
+  const int64_t tablen = static_cast<int64_t>(bands) * ysize;
+  if (bufsize < 8 * tablen) return 1;
+  const uint8_t* buf = data + kHeader;
+  auto be32 = [](const uint8_t* p) {
+    return static_cast<uint32_t>(p[0]) << 24 | static_cast<uint32_t>(p[1])
+           << 16 | static_cast<uint32_t>(p[2]) << 8 | p[3];
+  };
+  const int64_t row_bytes = static_cast<int64_t>(xsize) * bands * bpc;
+  uint8_t* line = new uint8_t[row_bytes > 0 ? row_bytes : 1]();
+  int32_t err = 0;
+  for (int32_t y = 0; y < ysize; ++y) {
+    int status = 0;
+    for (int32_t c = 0; c < bands && status == 0; ++c) {
+      const int64_t at = y + static_cast<int64_t>(c) * ysize;
+      const uint32_t start = be32(buf + 4 * at);
+      const uint32_t length = be32(buf + 4 * (tablen + at));
+      if (start < kHeader) {
+        status = -1;
+        break;
+      }
+      status = sgi_expand(line + c * bpc, buf, start - kHeader,
+                          static_cast<int32_t>(length), bands, xsize,
+                          bufsize - 1, bpc);
+    }
+    if (status == -1) err = 1;
+    if (status != 0) break;
+    std::memcpy(out + y * row_bytes, line, row_bytes);
+  }
+  delete[] line;
+  return err;
+}
+
+// PCX RLE as PIL's PcxDecode.c: `data` starts at the image data (byte
+// 128); each line of `bytes` bytes (planes x stride) is packets, a byte
+// with both high bits set repeating the next one (its low 6 bits) times,
+// any other byte itself; at a line's end the planes are moved together as
+// PIL moves them before unpacking (`bits` is the rawmode's bits a pixel:
+// at 2 and 4, the 1-bit planes of P;2L and P;4L, to (xsize + 7) / 8
+// apart; else to xsize apart, where the line holds planes wider than
+// that); each line goes to `out` (ysize x bytes). Fails (1) where the data
+// ends before the last line or a run crosses a line's end (PIL's "buffer
+// overrun").
+int32_t pts_pcx_decode(const uint8_t* data, int64_t size, int32_t xsize,
+                       int32_t bits, int64_t bytes, int32_t ysize,
+                       uint8_t* out) {
+  int64_t width = xsize, bands, stride = 0;
+  if (bits == 2 || bits == 4) {
+    width = (xsize + 7) / 8;
+    bands = bits;
+    stride = bytes / bits;
+  } else {
+    bands = bytes / xsize;
+    if (bands != 0) stride = bytes / bands;
+  }
+  int64_t pos = 0;
+  for (int32_t y = 0; y < ysize; ++y) {
+    uint8_t* line = out + y * bytes;
+    int64_t x = 0;
+    while (x < bytes) {
+      if (pos >= size) return 1;
+      const uint8_t b = data[pos];
+      if ((b & 0xC0) == 0xC0) {
+        if (pos + 1 >= size) return 1;
+        const int n = b & 0x3F;
+        if (x + n > bytes) return 1;
+        std::memset(line + x, data[pos + 1], n);
+        x += n;
+        pos += 2;
+      } else {
+        line[x++] = b;
+        pos += 1;
+      }
+    }
+    if (stride > width) {
+      for (int64_t i = 1; i < bands; ++i)
+        std::memmove(line + i * width, line + i * stride, width);
+    }
+  }
+  return 0;
+}
+
 }  // extern "C"
+

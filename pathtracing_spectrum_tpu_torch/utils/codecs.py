@@ -1,11 +1,13 @@
-"""The binding of the host library's LZW and PackBits decoders
-(``csrc/lzw_decode.cpp``), which the GIF, TIFF and PSD readers of
-``utils/image.py`` run. They are bit-serial, so host C++ (a 2048x2048 LZW
-strip would take minutes in Python), with no Python fallback: when the
-host library cannot be built, the call raises with the compiler's output.
+"""The binding of the host library's LZW, PackBits, SGI RLE and PCX RLE
+decoders (``csrc/lzw_decode.cpp``), which the GIF, TIFF, PSD, SGI and PCX
+readers of ``utils/image.py`` run. They are serial over codes or packets,
+so host C++ (a 2048x2048 LZW strip would take minutes in Python, and a
+4K PCX holds ~25 M bytes of runs), with no Python fallback: when the host
+library cannot be built, the call raises with the compiler's output.
 
 Each function returns the decoded bytes, or raises :class:`BrokenData`
-where PIL (for GIF and PSD) or libtiff (for TIFF) rejects the data.
+where PIL (for GIF, PSD, SGI and PCX) or libtiff (for TIFF) rejects the
+data.
 """
 
 from __future__ import annotations
@@ -62,3 +64,35 @@ def packbits(data: bytes, row_bytes: int, rows: int = 0) -> np.ndarray:
                                rows):
         raise BrokenData("broken PackBits data")
     return out[:n]
+
+
+def sgi_rle(data: bytes, width: int, height: int, bands: int,
+            bpc: int) -> np.ndarray:
+    """The rows of an RLE SGI file (``data`` is the whole file) as PIL's
+    SgiRleDecode.c expands them: [height, width * bands * bpc] uint8, each
+    row its channels interleaved, ``bpc`` bytes a sample as stored
+    (big-endian), in file order (bottom-up); where PIL stops without an
+    error (a row's last packet is not the end), that row and the rest are
+    zeros."""
+    lib = _build.load_host()
+    buf, ptr = _source(data)
+    out = np.zeros((height, width * bands * bpc), np.uint8)
+    if lib.pts_sgi_rle_decode(ptr, buf.size, width, height, bands, bpc,
+                              out.ctypes.data):
+        raise BrokenData("broken SGI run-length data")
+    return out
+
+
+def pcx_rle(data: bytes, width: int, bits: int, line_bytes: int,
+            height: int) -> np.ndarray:
+    """[height, line_bytes] uint8: the lines of PCX image data (``data``
+    starts at the first packet) as PIL's PcxDecode.c leaves them in its
+    line buffer, the planes moved together where it moves them (``bits``:
+    the rawmode's bits a pixel, 1, 2, 4, 8 or 24)."""
+    lib = _build.load_host()
+    buf, ptr = _source(data)
+    out = np.zeros((height, line_bytes), np.uint8)
+    if lib.pts_pcx_decode(ptr, buf.size, width, bits, line_bytes, height,
+                          out.ctypes.data):
+        raise BrokenData("broken PCX run-length data")
+    return out

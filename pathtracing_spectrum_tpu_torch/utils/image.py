@@ -40,9 +40,11 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   gives them to PIL (RGBA not premultiplied, fancy upsampling; RGB where
   the file has no alpha), its demuxer's checks of every chunk and frame
   included;
-- BMP: ``BI_RGB`` at 1, 4, 8, 16, 24 and 32 bits (the fourth byte of a
-  32-bit pixel ignored, as PIL ignores it) and ``BI_BITFIELDS`` at 16, 24
-  and 32 bits with the masks PIL reads, bottom-up or top-down;
+- BMP and DIB (a BMP without its file header, its pixels where PIL's
+  reads of the header, masks and palette end): ``BI_RGB`` at 1, 4, 8, 16,
+  24 and 32 bits (the fourth byte of a 32-bit pixel ignored, as PIL
+  ignores it) and ``BI_BITFIELDS`` at 16, 24 and 32 bits with the masks
+  PIL reads, bottom-up or top-down;
 - TGA: image types 1, 2, 3, 9, 10 and 11 (colour-mapped, true-colour,
   grey, and their run-length forms) at 8, 24 and 32 bits, with the origin
   bits; a run packet that crosses a row is PIL's "buffer overrun";
@@ -70,14 +72,33 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   (PackBits rows, as PIL's decoder drops what a packet holds past a row),
   bitmap (a set bit white, as PIL reads it), grey, multichannel and
   duotone (the first channel), indexed, RGB (a 4th channel is alpha) and
-  CMYK (stored inverted, PIL's ``cmyk2rgb``) at 8 bits.
+  CMYK (stored inverted, PIL's ``cmyk2rgb``) at 8 bits;
+- SGI: the 8 modes of PIL's table (L, RGB and RGBA at 1 or 2 bytes a
+  sample, the high byte kept as PIL keeps it), verbatim or RLE (the host
+  library's expansion, ``utils/codecs.py``, as PIL's SgiRleDecode.c
+  expands the rows: a row that ends early keeps the previous row's
+  samples, a row whose last packet is not the end stops the decoding
+  without an error, the rows after it black);
+- PCX: 1 bit in 1 plane, 1 bit in 2 or 4 planes with the header's 16
+  colours, and version 5 at 8 bits in 1 plane (grey, or the palette after
+  ``0x0C`` at the end where it is not the grey ramp) or 3 (RGB), PIL's
+  stride rule and its moving of the planes included; the RLE lines in the
+  host library;
+- IM, the first frame of each mode PIL's IM writer makes: ``0 1``,
+  Greyscale, LA (both with a ``Lut`` that is not grey: PIL's ``P`` and
+  ``PA``), ``L 32S`` (``I``, clipped to 0..255), ``L 16``, ``L 16L`` and
+  ``L 16B``, ``L 32F`` (``F``), RGB, RGBA, RGBX, CMYK (PIL's
+  ``cmyk2rgb``) and YCC (PIL's fixed-point ``ImagingConvertYCbCr2RGB``),
+  and the type names PIL reads as the same mode and rawmode.
 
-Two named deviations from PIL, one rule: a 16-bit grey PNG (colour type 0)
-and a 16-bit grey TIFF keep the high byte of each sample, as stb_image
-(the reference's loader) and PIL's own 16-bit RGB paths do (the PNG's
-``tRNS`` key is compared with the 16-bit sample). PIL opens both as mode
-``I;16`` and ``convert("RGBA")`` clips at 255 instead, so in the JAX
-package a 16-bit roughness map comes out almost all 1.0.
+Three named deviations from PIL, one rule: a 16-bit grey PNG (colour type
+0), a 16-bit grey TIFF and a 16-bit grey IM file (``L 16``, ``L 16L``,
+``L 16B``) keep the high byte of each sample, as stb_image (the
+reference's loader) and PIL's own 16-bit RGB paths do (the PNG's ``tRNS``
+key is compared with the 16-bit sample). PIL opens all three as mode
+``I;16`` (``I;16L``, ``I;16B``) and ``convert("RGBA")`` clips at 255
+instead, so in the JAX package a 16-bit roughness map comes out almost
+all 1.0.
 
 A missing file, a file no PIL plugin opens (an HTML page saved as
 ``.png``, zeros, noise), and a broken file of a format decoded here (a
@@ -85,10 +106,11 @@ bad checksum, truncated data, a header or mode PIL refuses, more pixels
 than PIL's decompression-bomb limit) return ``None``, as PIL's exception
 does in the JAX package and as the reference's ``Image`` fails soft to
 black (image.cpp:48-49). A format PIL opens and the port does not (ICO,
-QOI, JPEG 2000, ... : the other 34 plugins) or a flavour of one decoded
+QOI, JPEG 2000, ... : the other 30 plugins) or a flavour of one decoded
 here that it does not take (lossless and block-smoothed progressive
-JPEG, RLE BMP, 16-bit PNM, JPEG-in-TIFF, CCITT, CMYK, YCbCr and
-CIELab TIFF, old-style LZW, BigTIFF, CIELab PSD, ...) raises
+JPEG, RLE BMP and DIB, 16-bit PNM, JPEG-in-TIFF, CCITT, CMYK, YCbCr and
+CIELab TIFF, old-style LZW, BigTIFF, CIELab PSD, the IM image types
+PIL's writer does not make, ...) raises
 ``NotImplementedError`` naming the file and the flavour: a texture is
 never dropped quietly.
 
@@ -190,7 +212,7 @@ def _check_size(width: int, height: int) -> None:
 def load_rgba(path: str) -> "np.ndarray | None":
     """Load an image file as float32 RGBA [H, W, 4] in [0, 1] (row 0 =
     image top), equal to PIL's ``convert("RGBA")`` / 255 (see the module
-    docstring for the formats and the two deviations). ``None`` when the
+    docstring for the formats and the three deviations). ``None`` when the
     file is missing or broken; ``NotImplementedError`` naming the file and
     the format for a format or flavour not decoded here."""
     rgba = load_rgba8(path)
@@ -213,8 +235,8 @@ def load_rgba8(path: str) -> "np.ndarray | None":
     if kind not in _DECODERS:
         raise NotImplementedError(
             f"{path}: {kind} is not decoded by the PyTorch port (PNG, JPEG, "
-            "BMP, TGA, binary PNM, GIF, TIFF, PSD and WebP are; convert it; "
-            "ROADMAP Queue 1 item 11)")
+            "BMP, DIB, TGA, binary PNM, GIF, TIFF, PSD, WebP, SGI, PCX and "
+            "IM are; convert it; ROADMAP Queue 1 item 11)")
     try:
         return _DECODERS[kind](data)
     except (_Refused, NotImplementedError) as e:
@@ -686,11 +708,24 @@ _BMP_MASKS32 = {
 
 def _decode_bmp(data: bytes) -> np.ndarray:
     """[H, W, 4] uint8 RGBA of a BMP file, as BmpImagePlugin reads it."""
-    offset, hsize = _u32(data, 10), _u32(data, 14)
-    head = data[18:14 + hsize]
+    return _bitmap(data, 14, _u32(data, 10))
+
+
+def _decode_dib(data: bytes) -> np.ndarray:
+    """[H, W, 4] uint8 RGBA of a DIB file (a BMP without its file header),
+    as PIL's DibImageFile reads it: the info header at byte 0, the pixels
+    where PIL's reads of the header, the masks and the palette end."""
+    return _bitmap(data, 0, 0)
+
+
+def _bitmap(data: bytes, start: int, offset: int) -> np.ndarray:
+    """BmpImagePlugin._bitmap: the info header at ``start``, the pixels at
+    ``offset`` or, where it is 0, where the reads before them end."""
+    hsize = _u32(data, start)
+    head = data[start + 4:start + hsize]
     if len(head) != hsize - 4:
         raise _Unreadable("truncated header")
-    pos = 14 + hsize              # where the palette (or the masks) start
+    pos = start + hsize           # where the palette (or the masks) start
     masks = None
     if hsize == 12:               # OS/2 BITMAPCOREHEADER
         width, height, bits = _u16(head, 0), _u16(head, 2), _u16(head, 6)
@@ -722,17 +757,20 @@ def _decode_bmp(data: bytes) -> np.ndarray:
     if width == 0 or height == 0:
         raise _Unreadable("empty BMP")
     _check_size(width, height)
-    stride = ((width * bits + 31) >> 3) & ~3
-    rows = _rows(data, offset, height, (width * bits + 7) // 8, stride)
-    if not top_down:
-        rows = rows[::-1]
-    out = np.full((height, width, 4), 255, np.uint8)
+    palette = b""
     if bits <= 8:
         if compression != 0:
             raise _Unreadable("bitfields on a palette BMP")
         if not 0 < colors <= 65536:
             raise _Unreadable(f"BMP palette size {colors}")
         palette = data[pos:pos + pad * colors]
+    stride = ((width * bits + 31) >> 3) & ~3
+    rows = _rows(data, offset or pos + len(palette), height,
+                 (width * bits + 7) // 8, stride)
+    if not top_down:
+        rows = rows[::-1]
+    out = np.full((height, width, 4), 255, np.uint8)
+    if bits <= 8:
         index = (_unpack(rows, bits, width) if bits < 8
                  else rows[:, :width])
         grey_values = (0, 255) if colors == 2 else range(colors)
@@ -1329,6 +1367,12 @@ def _tiff_samples(rows: np.ndarray, bits: int, width: int, per: int,
     return s.reshape(planes, height, width, per)
 
 
+def _float_grey(f: np.ndarray) -> np.ndarray:
+    """PIL's mode ``F`` to ``L``: truncated and clipped to 0..255, NaN 0."""
+    return np.where(np.isnan(f), 0.0, np.clip(f, 0.0, 255.0)).astype(
+        np.uint8)
+
+
 def _tiff_rgba(s: np.ndarray, mode: str, photo: int, bits: int, extra,
                colormap) -> np.ndarray:
     """RGBA8 of [H, W, spp] samples as PIL's rawmode unpacks them and
@@ -1336,9 +1380,7 @@ def _tiff_rgba(s: np.ndarray, mode: str, photo: int, bits: int, extra,
     h, w = s.shape[:2]
     out = np.full((h, w, 4), 255, np.uint8)
     if mode == "F":
-        f = s[..., 0]
-        v = np.where(np.isnan(f), 0.0, np.clip(f, 0.0, 255.0))
-        out[..., :3] = v.astype(np.uint8)[..., None]
+        out[..., :3] = _float_grey(s[..., 0])[..., None]
         return out
     if bits == 16:                    # the high byte (see the docstring)
         s = (s >> 8).astype(np.uint8)
@@ -1467,11 +1509,294 @@ def _decode_psd(data: bytes) -> np.ndarray:
     return out
 
 
+# ---- SGI, PCX, IM: PIL's SgiImagePlugin, PcxImagePlugin, ImImagePlugin ----
+
+def _grey_rgba(grey: np.ndarray) -> np.ndarray:
+    out = np.full(grey.shape + (4,), 255, np.uint8)
+    out[..., :3] = grey[..., None]
+    return out
+
+
+def _palette_lut(palette: bytes) -> np.ndarray:
+    """[256, 4] RGBA of RGB triplets, opaque; entries past them black."""
+    n = min(len(palette) // 3, 256)
+    lut = np.zeros((256, 4), np.uint8)
+    lut[:, 3] = 255
+    lut[:n, :3] = np.frombuffer(palette, np.uint8, 3 * n).reshape(n, 3)
+    return lut
+
+
+# SgiImagePlugin.MODES: (bytes a sample, dimension, channels)
+_SGI_MODES = ((1, 1, 1), (1, 2, 1), (2, 1, 1), (2, 2, 1), (1, 3, 3),
+              (2, 3, 3), (1, 3, 4), (2, 3, 4))
+
+
+def _decode_sgi(data: bytes) -> np.ndarray:
+    """[H, W, 4] uint8 RGBA of an SGI file, as SgiImagePlugin reads it:
+    verbatim (each channel's rows in turn) or RLE (the host library's
+    expansion of PIL's SgiRleDecode.c), rows bottom-up, L, RGB or RGBA at
+    1 or 2 bytes a sample (the high byte kept, as PIL's ``;16B`` rawmodes
+    keep it)."""
+    if len(data) < 12:
+        raise _Unreadable("truncated SGI header")
+    compression, bpc = data[2], data[3]
+    dimension, width, height, bands = struct.unpack_from(">4H", data, 4)
+    if (bpc, dimension, bands) not in _SGI_MODES:
+        raise _Unreadable("Unsupported SGI image mode")
+    if width == 0 or height == 0:
+        raise _Unreadable("empty SGI image")
+    _check_size(width, height)
+    if compression == 0:
+        size = bands * height * width * bpc
+        if 512 + size > len(data):
+            raise _Unreadable("truncated SGI image data")
+        planes = np.frombuffer(data, np.uint8, size, 512).reshape(
+            bands, height, width, bpc)
+        px = np.moveaxis(planes[..., 0], 0, -1)
+    elif compression == 1:
+        try:
+            rows = codecs.sgi_rle(data, width, height, bands, bpc)
+        except codecs.BrokenData as e:
+            raise _Unreadable(str(e)) from None
+        px = rows.reshape(height, width, bands, bpc)[..., 0]
+    else:                         # PIL makes no tile: "cannot load"
+        raise _Unreadable(f"SGI compression {compression}")
+    px = px[::-1]
+    if bands == 1:
+        return _grey_rgba(px[..., 0])
+    out = np.full((height, width, 4), 255, np.uint8)
+    out[..., :bands] = px
+    return out
+
+
+_GREY_RAMP = np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+
+
+def _decode_pcx(data: bytes) -> np.ndarray:
+    """[H, W, 4] uint8 RGBA of a PCX file, as PcxImagePlugin reads it:
+    1 bit in 1 plane (mode ``1``), 2 or 4 (``P;2L``, ``P;4L`` with the
+    header's 16 colours), version 5 at 8 bits in 1 plane (``L``, or ``P``
+    where the last 769 bytes are ``0x0C`` and a palette other than the
+    grey ramp) or 3 (``RGB;L``); the lines run-length decoded by the host
+    library as PIL's PcxDecode.c decodes them, PIL's stride rule
+    included."""
+    if len(data) < 68:
+        raise _Unreadable("truncated PCX header")
+    x0, y0, x1, y1 = struct.unpack_from("<4H", data, 4)
+    width, height = x1 + 1 - x0, y1 + 1 - y0
+    if width <= 0 or height <= 0:     # (PIL: "bad PCX image size")
+        raise _Unreadable(f"PCX image size {width}x{height}")
+    version, bits, planes = data[1], data[3], data[65]
+    palette = None
+    if bits == 1 and planes == 1:
+        mode = "1"
+    elif bits == 1 and planes in (2, 4):
+        mode, palette = "P;L", data[16:64]
+    elif version == 5 and bits == 8 and planes == 1:
+        mode = "L"
+        if len(data) < 769:       # PIL's seek(-769, END) raises
+            raise _Unreadable("PCX file shorter than its palette")
+        tail = data[-769:]
+        if tail[0] == 12 and tail[1:] != _GREY_RAMP:
+            mode, palette = "P", tail[1:]
+    elif version == 5 and bits == 8 and planes == 3:
+        mode = "RGB"
+    else:
+        raise _Unreadable("unknown PCX mode")
+    _check_size(width, height)
+    # CVE-2020-35653: PIL's own stride, made even where the header's differs
+    stride = (width * bits + 7) // 8
+    if _u16(data, 66) != stride:
+        stride += stride % 2
+    try:
+        lines = codecs.pcx_rle(memoryview(data)[128:], width,
+                               planes * bits, planes * stride, height)
+    except codecs.BrokenData as e:
+        raise _Unreadable(str(e)) from None
+    if mode == "1":
+        return _grey_rgba(_unpack(lines, 1, width) * 255)
+    if mode == "P;L":             # unpackP2L/P4L: planes (w + 7) // 8 apart
+        s = (width + 7) // 8
+        index = sum(_unpack(lines[:, p * s:(p + 1) * s], 1, width) << p
+                    for p in range(planes)).astype(np.uint8)
+        return _palette_lut(palette)[index]
+    if mode == "L":
+        return _grey_rgba(lines[:, :width])
+    if mode == "P":
+        return _palette_lut(palette)[lines[:, :width]]
+    out = np.full((height, width, 4), 255, np.uint8)
+    out[..., :3] = lines[:, :3 * width].reshape(height, 3, width).transpose(
+        0, 2, 1)
+    return out
+
+
+# ImImagePlugin.OPEN: "Image type" -> (mode, rawmode), built as PIL builds it
+_IM_OPEN = {
+    "0 1 image": ("1", "1"), "L 1 image": ("1", "1"),
+    "Greyscale image": ("L", "L"), "Grayscale image": ("L", "L"),
+    "RGB image": ("RGB", "RGB;L"), "RLB image": ("RGB", "RLB"),
+    "RYB image": ("RGB", "RLB"), "B1 image": ("1", "1"),
+    "B2 image": ("P", "P;2"), "B4 image": ("P", "P;4"),
+    "X 24 image": ("RGB", "RGB"), "L 32 S image": ("I", "I;32"),
+    "L 32 F image": ("F", "F;32"), "RGB3 image": ("RGB", "RGB;T"),
+    "RYB3 image": ("RGB", "RYB;T"), "LA image": ("LA", "LA;L"),
+    "PA image": ("LA", "PA;L"), "RGBA image": ("RGBA", "RGBA;L"),
+    "RGBX image": ("RGB", "RGBX;L"), "CMYK image": ("CMYK", "CMYK;L"),
+    "YCC image": ("YCbCr", "YCbCr;L")}
+for _i in ("8", "8S", "16", "16S", "32", "32F"):
+    _IM_OPEN[f"L {_i} image"] = _IM_OPEN[f"L*{_i} image"] = ("F", f"F;{_i}")
+for _i in ("16", "16L", "16B"):
+    _IM_OPEN[f"L {_i} image"] = _IM_OPEN[f"L*{_i} image"] = (f"I;{_i}",
+                                                             f"I;{_i}")
+_IM_OPEN["L 32S image"] = _IM_OPEN["L*32S image"] = ("I", "I;32S")
+for _i in range(2, 33):
+    _IM_OPEN[f"L*{_i} image"] = ("F", f"F;{_i}")
+
+# (mode, rawmode) decoded here -> (samples a pixel, dtype of a sample): the
+# 15 modes of PIL's IM writer (P and PA are Greyscale and LA with a Lut)
+_IM_DECODED = {
+    ("1", "1"): (1, None), ("L", "L"): (1, "u1"), ("P", "P"): (1, "u1"),
+    ("LA", "LA;L"): (2, "u1"), ("PA", "PA;L"): (2, "u1"),
+    ("I", "I;32S"): (1, "<i4"), ("I;16", "I;16"): (1, "<u2"),
+    ("I;16L", "I;16L"): (1, "<u2"), ("I;16B", "I;16B"): (1, ">u2"),
+    ("F", "F;32F"): (1, "<f4"), ("RGB", "RGB;L"): (3, "u1"),
+    ("RGBA", "RGBA;L"): (4, "u1"), ("RGB", "RGBX;L"): (4, "u1"),
+    ("CMYK", "CMYK;L"): (4, "u1"), ("YCbCr", "YCbCr;L"): (3, "u1")}
+
+
+def _im_number(v: str):
+    try:
+        return int(v)
+    except ValueError:
+        return float(v)
+
+
+def _decode_im(data: bytes) -> np.ndarray:
+    """[H, W, 4] uint8 RGBA of an IM file's first frame, as ImImagePlugin
+    reads its header (a ``Lut`` that is not grey makes Greyscale ``P`` and
+    LA ``PA``) and PIL's ``convert("RGBA")`` converts its mode; rows
+    bottom-up, each row's bands one after another. 16-bit grey keeps the
+    high byte (the named deviation); the other image types PIL opens are
+    refused."""
+    info = {"Image type": "L", "Image size (x*y)": (512, 512)}
+    rawmode, known, pos, c = "L", 0, 0, b""
+    while True:
+        c = data[pos:pos + 1]
+        pos += 1
+        if c == b"\r":
+            continue
+        if c in (b"", b"\0", b"\x1a"):
+            break
+        end = data.find(b"\n", pos)
+        end = len(data) if end < 0 else end + 1
+        line, pos = c + data[pos:end], end
+        if len(line) > 100:
+            raise _Unreadable("IM header line over 100 bytes")
+        m = _IM_LINE.match(line[:-2] if line.endswith(b"\r\n") else
+                           line.removesuffix(b"\n"))
+        if not m:
+            raise _Unreadable("IM header syntax")
+        known += m.group(1) in _IM_TAGS
+        k, v = (g.decode("latin-1") for g in m.group(1, 2))
+        if k in ("File size (no of images)", "Scale (x,y)",
+                 "Image size (x*y)"):
+            v = tuple(map(_im_number, v.replace("*", ",").split(",")))
+            v = v[0] if len(v) == 1 else v
+        elif k == "Image type" and v in _IM_OPEN:
+            v, rawmode = _IM_OPEN[v]
+        info[k] = v
+    if not known:
+        raise _Unreadable("no IM header")
+    while c and c != b"\x1a":
+        c = data[pos:pos + 1]
+        pos += 1
+    if not c:
+        raise _Unreadable("IM header without its end")
+    mode, size = info["Image type"], info["Image size (x*y)"]
+    if not (isinstance(size, tuple) and len(size) == 2 and all(
+            isinstance(n, int) and n > 0 for n in size)):
+        raise _Unreadable(f"IM image size {size}")
+    width, height = size
+    _check_size(width, height)
+    palette = None
+    if "Lut" in info:             # 768 bytes: planar R, G and B tables
+        lut = data[pos:pos + 768]
+        pos += 768
+        if len(lut) < 768:
+            raise _Unreadable("truncated IM palette")
+        t = np.frombuffer(lut, np.uint8).reshape(3, 256)
+        grey = bool((t[0] == t[1]).all() and (t[1] == t[2]).all())
+        if mode in ("L", "LA", "P", "PA") and not grey:
+            mode = "P" if mode in ("L", "P") else "PA"
+            rawmode = "P" if mode == "P" else "PA;L"
+            palette = t.T.tobytes()
+    if (mode, rawmode) not in _IM_DECODED:
+        if (mode, rawmode) in set(_IM_OPEN.values()):
+            raise _Refused(f"image type {mode} ({rawmode})")
+        raise _Unreadable(f"IM mode {mode}")
+    n, dtype = _IM_DECODED[(mode, rawmode)]
+    if dtype is None:             # mode 1: bits, most significant first
+        rows = _rows(data, pos, height, (width + 7) // 8, (width + 7) // 8)
+        return _grey_rgba(_unpack(rows[::-1], 1, width) * 255)
+    step = np.dtype(dtype).itemsize * width
+    rows = _rows(data, pos, height, n * step, n * step)[::-1]
+    bands = np.ascontiguousarray(rows).view(dtype).reshape(
+        height, n, width).transpose(0, 2, 1)
+    if mode in ("P", "PA"):
+        out = _palette_lut(palette)[bands[..., 0]]
+        if mode == "PA":
+            out[..., 3] = bands[..., 1]
+        return out
+    if mode in ("L", "LA"):
+        out = _grey_rgba(bands[..., 0])
+        if mode == "LA":
+            out[..., 3] = bands[..., 1]
+        return out
+    if mode == "I":
+        return _grey_rgba(np.clip(bands[..., 0], 0, 255).astype(np.uint8))
+    if mode.startswith("I;16"):   # the high byte (the named deviation)
+        return _grey_rgba((bands[..., 0] >> 8).astype(np.uint8))
+    if mode == "F":
+        return _grey_rgba(_float_grey(bands[..., 0]))
+    if mode == "CMYK":
+        return jpeg.inverted_cmyk_rgba(255 - bands)
+    if mode == "YCbCr":
+        return _ycbcr_rgba(bands)
+    out = np.full((height, width, 4), 255, np.uint8)
+    out[..., :3] = bands[..., :3]
+    if mode == "RGBA":
+        out[..., 3] = bands[..., 3]
+    return out
+
+
+def _ycc_table(k: float) -> np.ndarray:
+    """A table of ConvertYCbCr.c: ``k * (i - 128)`` in 6 fractional bits,
+    + 0.5 and truncated towards zero, as its tables were generated."""
+    return np.trunc(k * (np.arange(256) - 128) * 64 + 0.5).astype(np.int32)
+
+
+_YCC_R_CR, _YCC_G_CB = _ycc_table(1.40200), _ycc_table(-0.34414)
+_YCC_G_CR, _YCC_B_CB = _ycc_table(-0.71414), _ycc_table(1.77200)
+
+
+def _ycbcr_rgba(ycc: np.ndarray) -> np.ndarray:
+    """PIL's ``ImagingConvertYCbCr2RGB`` of [..., 3] uint8 YCbCr: Y plus
+    each table's entry shifted right by 6, clipped; alpha 255."""
+    y = ycc[..., 0].astype(np.int32)
+    cb, cr = ycc[..., 1], ycc[..., 2]
+    out = np.full(ycc.shape[:-1] + (4,), 255, np.uint8)
+    out[..., 0] = np.clip(y + (_YCC_R_CR[cr] >> 6), 0, 255)
+    out[..., 1] = np.clip(y + ((_YCC_G_CB[cb] + _YCC_G_CR[cr]) >> 6), 0, 255)
+    out[..., 2] = np.clip(y + (_YCC_B_CB[cb] >> 6), 0, 255)
+    return out
+
+
 # PIL's format name -> the decoder here
 _DECODERS = {"PNG": _decode_png, "JPEG": jpeg.decode_rgba,
-             "BMP": _decode_bmp, "TGA": _decode_tga, "PPM": _decode_pnm,
-             "GIF": _decode_gif, "TIFF": _decode_tiff, "PSD": _decode_psd,
-             "WEBP": webp.decode_rgba}
+             "BMP": _decode_bmp, "DIB": _decode_dib, "TGA": _decode_tga,
+             "PPM": _decode_pnm, "GIF": _decode_gif, "TIFF": _decode_tiff,
+             "PSD": _decode_psd, "WEBP": webp.decode_rgba, "SGI": _decode_sgi,
+             "PCX": _decode_pcx, "IM": _decode_im}
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -676,6 +676,14 @@ def _refused():
             ti.libjpeg_bytes(cmyk, "cmyk", progressive=True)),
         "RLE BMP": ti.bmp_bytes(4, 2, 8, [bytes(4)] * 2,
                                 palette=bytes(1024), compression=1),
+        "RLE DIB": ti.bmp_bytes(4, 2, 8, [bytes(4)] * 2,
+                                palette=bytes(1024), compression=1)[14:],
+        "4-bit RLE DIB": ti.bmp_bytes(4, 2, 4, [bytes(2)] * 2,
+                                      palette=bytes(64), compression=2)[14:],
+        **{f"IM {typ} image": f"Image type: {typ} image\r\nImage size (x*y): "
+           f"4*2\r\n\x1a".encode() + bytes(64)
+           for typ in ("B2", "RLB", "X 24", "RGB3", "L 32 F", "L 8",
+                       "L*12")},
         "16-bit PNM": b"P6 4 2 65535\n" + bytes(48),
         "ASCII PNM": b"P3 1 1 255\n1 2 3\n",
     }
@@ -941,8 +949,8 @@ def test_the_port_lists_pils_plugins_in_pils_order():
 def test_formats_pil_opens_and_the_port_does_not_raise(tmp_path):
     """Every format PIL writes and the port does not decode raises
     NotImplementedError naming the file (never None)."""
-    decoded = {"PNG", "JPEG", "BMP", "TGA", "PPM", "GIF", "TIFF", "PSD",
-               "WEBP"}
+    decoded = {"PNG", "JPEG", "BMP", "DIB", "TGA", "PPM", "GIF", "TIFF",
+               "PSD", "WEBP", "SGI", "PCX", "IM"}
     for fmt, data in PIL_WRITTEN.items():
         if Image.open(__import__("io").BytesIO(data)).format in decoded:
             continue

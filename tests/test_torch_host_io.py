@@ -224,9 +224,19 @@ def test_host_library_is_built_from_the_port_sources_with_jax_flags():
     assert path.exists() and path.parent == _build.BUILD_DIR
 
 
+# a 1x1 RLE SGI file (one row: a run of one 7, the end) and a 2x1 PCX
+RLE_FILES = {
+    "sgi_rle": (b"\x01\xda\x01\x01" + bytes([0, 2, 0, 1, 0, 1, 0, 1])
+                + bytes(500) + (520).to_bytes(4, "big")
+                + (3).to_bytes(4, "big") + bytes([1, 7, 0])),
+    "pcx_rle": image._pcx_bytes(np.zeros((1, 2), np.uint8)),
+}
+
+
 @pytest.mark.parametrize("call", ["load_obj", "export_spectrum", "jpeg",
                                   "jpeg_encode", "tiff_lzw", "webp",
-                                  "gif_encode", "webp_encode"])
+                                  "gif_encode", "webp_encode", "sgi_rle",
+                                  "pcx_rle"])
 def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
                                                               monkeypatch):
     def no_library():
@@ -244,6 +254,10 @@ def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
                    "webp_encode": ".webp"}[call]
             image.write_image(str(tmp_path / f"x{ext}"),
                               np.zeros((2, 3), np.uint8))
+        elif call in RLE_FILES:
+            path = tmp_path / ("x.sgi" if call == "sgi_rle" else "x.pcx")
+            path.write_bytes(RLE_FILES[call])
+            image.load_rgba(str(path))
         else:
             image.load_rgba(os.path.join(
                 os.path.dirname(__file__), "torch_data",

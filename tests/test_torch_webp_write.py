@@ -261,3 +261,19 @@ def test_webp_write_imports_neither_jax_nor_pil(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.slow
+def test_partition0_restart_is_pils():
+    """A 5600x5600 RGB noise image, byte for byte PIL's file. Noise makes
+    the encoder choose 4x4 intra modes in nearly every macroblock, and
+    each 4x4 block's mode costs partition 0 a few bits: over its 122,500
+    macroblocks the first pass's partition 0 passes libwebp's limit
+    (512 KiB less 2,048 bytes), so ``VP8EncTokenLoop`` halves the 4x4
+    header budget (``max_i4_header_bits``) and codes the image again
+    (``csrc/webp_encode.cpp``, ``Encoder::token_loop``). No smaller image
+    reaches that restart: a noise image of fewer than about 100,000
+    macroblocks fits in the first pass."""
+    img = np.random.default_rng(16).integers(0, 256, (5600, 5600, 3),
+                                             np.uint8)
+    assert webp.encode(img) == pil_webp(img)

@@ -1,6 +1,7 @@
 """Image files made by hand or by PIL for the port's texture decoders:
 PNG (any colour type and bit depth, plain or Adam7-interlaced, every row
-filter), BMP, TGA (raw and run-length), JPEG files from PIL, rewritten
+filter), BMP, TGA (raw and run-length), PCX (any bits, planes and stride,
+run-length coded line by line), JPEG files from PIL, rewritten
 marker by marker into the flavours PIL does not write (4:4:0 and other
 sampling factors, SOF1, RGB by component ids, other precisions and frame
 types), GIF (LZW, colour tables, transparency, interlace, frames inside
@@ -186,6 +187,48 @@ def tga_bytes(width: int, height: int, kind: int, depth: int, pixels: bytes,
                        height, depth, flags)
     body = tga_rle(pixels, depth // 8) if kind & 8 else pixels
     return head + image_id + (cmap or b"") + body
+
+
+# ---- PCX ------------------------------------------------------------------
+
+def pcx_rle(line: bytes) -> bytes:
+    """PCX packets of ``line``: runs of up to 63 as ``0xC0 | count`` and
+    the byte, a single byte under 0xC0 as itself."""
+    out = bytearray()
+    i = 0
+    while i < len(line):
+        j = i
+        while j + 1 < len(line) and line[j + 1] == line[i] and j - i < 62:
+            j += 1
+        if j == i and line[i] < 0xC0:
+            out.append(line[i])
+        else:
+            out += bytes([0xC0 | (j - i + 1), line[i]])
+        i = j + 1
+    return bytes(out)
+
+
+def pcx_bytes(lines: np.ndarray, width: int, bits: int, planes: int,
+              version: int = 5, stride: int = None, palette16: bytes = b"",
+              tail: bytes = b"", origin=(0, 0), body: bytes = None) -> bytes:
+    """A PCX file of ``lines`` ([H, planes * stride] uint8, each line's
+    planes one after another), the header's stride ``stride`` (by default
+    the lines' own), run-length coded line by line (or ``body`` as given),
+    then ``tail`` (a ``0x0C`` palette)."""
+    height = lines.shape[0]
+    stride = lines.shape[1] // planes if stride is None else stride
+    x0, y0 = origin
+    head = struct.pack("<BBBBHHHHHH48sBBHHHH54s", 10, version, 1, bits, x0,
+                       y0, x0 + width - 1, y0 + height - 1, 72, 72,
+                       palette16.ljust(48, b"\0"), 0, planes, stride, 1, 0,
+                       0, b"")
+    if body is None:
+        body = b"".join(pcx_rle(bytes(line)) for line in lines)
+    return head + body + tail
+
+
+GREY_PCX_PALETTE = b"\x0c" + np.repeat(np.arange(256, dtype=np.uint8),
+                                       3).tobytes()
 
 
 # ---- JPEG -----------------------------------------------------------------

@@ -18,6 +18,12 @@ byte for byte; no image is committed for these. ``chip_smoke.py`` imports
 :func:`writer_images` from this file (PIL is imported only where it is
 used).
 
+And it records, in ``tests/torch_data/map_digests.json``, the sha256 of
+each of ``READER_MAPS`` (the textured session's RLE SGI roughness map and
+PCX normal map, made at run time by :func:`reader_map`: nothing is
+committed) and of PIL's decode of it; ``chip_smoke.py`` holds the maps it
+builds and the port's decodes of them to these.
+
 Fixtures (all content procedural, from fixed seeds):
 
 - ``roughness_2048_prog420.jpg``: 2048x2048 progressive 4:2:0 JPEG,
@@ -68,6 +74,7 @@ import importlib.util
 import io
 import json
 import os
+import struct
 import sys
 
 import numpy as np
@@ -158,6 +165,113 @@ def procedural_rgb(w: int, h: int, seed: int) -> np.ndarray:
     b = ((x // 64 + y // 64) % 2) * 160 + noise
     return np.clip(np.stack([r + noise // 4, g, b], -1), 0, 255).astype(
         np.uint8)
+
+
+def sgi_rle_bytes(pixels: np.ndarray, name: bytes = b"",
+                  bpc: int = 1) -> bytes:
+    """An SGI file with RLE rows (compression 1), which neither PIL nor the
+    port writes, of [H, W] or [H, W, Z] pixels (Z 3 or 4; uint8, or
+    uint16 samples at ``bpc`` 2), row 0 the image's top. Rows bottom-up,
+    channel-major tables of starts and lengths (in bytes) after the
+    512-byte header, then each row's packets: a run of 2 to 127 equal
+    samples as the count and the sample, the samples between runs as
+    literal packets (``0x80 | count`` and up to 127 samples), a 0 count
+    ending the row; at ``bpc`` 2 every count and sample is a big-endian
+    16-bit word. In numpy over the whole image (no loop over runs)."""
+    px = np.asarray(pixels)
+    px = px[..., None] if px.ndim == 2 else px
+    h, w, z = px.shape
+    dimension = 3 if z > 1 else (1 if h == 1 else 2)
+    rows = np.moveaxis(px[::-1], -1, 0).reshape(z * h, w).astype(np.int64)
+    v = rows.ravel()
+    start = np.ones(v.size, bool)
+    start[1:] = v[1:] != v[:-1]
+    start[::w] = True                         # a row starts a run
+    pos = np.flatnonzero(start)
+    length = np.diff(np.append(pos, v.size))
+    single = length == 1
+    # a segment: a run of 2 or more, or the singles that follow one
+    # another in a row (one literal stretch)
+    joins = np.zeros_like(single)
+    joins[1:] = single[1:] & single[:-1] & (pos[1:] // w == pos[:-1] // w)
+    seg = ~joins
+    seg_id = np.cumsum(seg) - 1
+    seg_len = np.bincount(seg_id, weights=length).astype(np.int64)
+    seg_pos, literal = pos[seg], single[seg]
+    # packets of at most 127 samples
+    n_pk = (seg_len + 126) // 127
+    first = np.cumsum(n_pk) - n_pk
+    k = np.arange(n_pk.sum()) - np.repeat(first, n_pk)
+    pk_start = np.repeat(seg_pos, n_pk) + 127 * k
+    pk_count = np.minimum(np.repeat(seg_len, n_pk) - 127 * k, 127)
+    pk_lit = np.repeat(literal, n_pk)
+    pk_row = pk_start // w
+    size = np.where(pk_lit, 1 + pk_count, 2)     # words (counts, samples)
+    row_words = np.bincount(pk_row, weights=size,
+                            minlength=z * h).astype(np.int64) + 1
+    row_at = np.cumsum(row_words) - row_words
+    at = row_at[pk_row] + (np.cumsum(size) - size) - (
+        np.cumsum(row_words - 1) - (row_words - 1))[pk_row]
+    words = np.zeros(int(row_words.sum()), np.int64)   # the 0 counts
+    words[at] = pk_count | np.where(pk_lit, 0x80, 0)
+    words[at[~pk_lit] + 1] = v[pk_start[~pk_lit]]
+    lit_n = pk_count[pk_lit]
+    off = np.arange(lit_n.sum()) - np.repeat(np.cumsum(lit_n) - lit_n,
+                                             lit_n)
+    words[np.repeat(at[pk_lit] + 1, lit_n) + off] = v[
+        np.repeat(pk_start[pk_lit], lit_n) + off]
+    body = words.astype(np.uint8 if bpc == 1 else ">u2").tobytes()
+    starts = 512 + 8 * z * h + bpc * row_at
+    head = (struct.pack(">hBBHHHHll4s79ss", 474, 1, bpc, dimension, w, h, z,
+                        0, 255 if bpc == 1 else 65535, b"", name, b"")
+            + struct.pack(">l404s", 0, b""))
+    return (head + starts.astype(">u4").tobytes()
+            + (bpc * row_words).astype(">u4").tobytes() + body)
+
+
+# the textured session's maps read by the SGI and PCX readers, made at run
+# time (nothing is committed): a 2048x2048 RGB roughness map as an RLE
+# SGI file (sgi_rle_bytes) and a 1024x1024 RGB normal map as the PCX file
+# Image.save writes (which the port's writer writes byte for byte); their
+# content is procedural_rgb's, in integers only
+READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
+               "normal_1024.pcx": (1024, 12)}
+
+
+def reader_map(name: str) -> "tuple[np.ndarray, bytes | None]":
+    """(pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI file's
+    bytes from :func:`sgi_rle_bytes`; None for the PCX, which the writer
+    under test (PIL's or the port's ``write_image``) makes."""
+    n, seed = READER_MAPS[name]
+    px = procedural_rgb(n, n, seed)
+    if name.endswith(".sgi"):
+        return px, sgi_rle_bytes(px, name=b"roughness")
+    return px, None
+
+
+def reader_map_digests() -> dict:
+    """{map: {"file_sha256", "rgba_sha256", "shape", "of"}}: the sha256 of
+    each map's file (the RLE SGI encoder's output, PIL's PCX file) and of
+    PIL's ``convert("RGBA")`` of it."""
+    import tempfile
+    from PIL import Image
+    ti = _images_module()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in READER_MAPS:
+            px, data = reader_map(name)
+            if data is None:
+                path = os.path.join(tmp, name)
+                Image.fromarray(px).save(path)
+                with open(path, "rb") as f:
+                    data = f.read()
+            rgba = ti.pil_rgba8(data)
+            out[name] = {"file_sha256": hashlib.sha256(data).hexdigest(),
+                         "rgba_sha256": hashlib.sha256(
+                             rgba.tobytes()).hexdigest(),
+                         "shape": list(rgba.shape),
+                         "of": 'PIL 12.1 convert("RGBA")'}
+    return out
 
 
 # the extensions the port writes byte for byte as PIL (JPEG, BMP, DIB,
@@ -302,6 +416,9 @@ def main() -> int:
         f.write("\n")
     with open(os.path.join(OUT, "write_digests.json"), "w") as f:
         json.dump(write_digests(), f, indent=1, sort_keys=True)
+        f.write("\n")
+    with open(os.path.join(OUT, "map_digests.json"), "w") as f:
+        json.dump(reader_map_digests(), f, indent=1, sort_keys=True)
         f.write("\n")
     return 0
 
