@@ -54,18 +54,23 @@ through its kernels and made a healthy image:
 - the host's file readers and writers: files that are no image read as
   None and the extensions PIL cannot save raising PIL's exceptions; the
   committed texture fixtures (``tests/torch_data/``: JPEG, CMYK, YCCK and
-  arithmetic-coded JPEG, BMP, TGA, PNM, 16-bit and Adam7 PNG, GIF, TIFF,
-  PSD, WebP) decoded and held to the digests of PIL's decode, the
+  arithmetic-coded JPEG, BMP, 8-bit and 1-bit TGA, PNM (P4, 16-bit P5,
+  16-bit and maxval-1000 P6, Pf), 16-bit and Adam7 PNG, GIF, TIFF (mode
+  I in LZW among them), PSD, WebP) decoded and held to the digests of
+  PIL's decode, the
   2048x2048 progressive JPEG's, YCCK arithmetic progressive JPEG's,
   Deflate TIFF's and lossy WebP's and the 1024x1024 CMYK arithmetic
   JPEG's and lossless WebP's decodes timed; a 2048x2048 RLE SGI
-  roughness map and a 1024x1024 PCX normal map made on the machine, each
-  file and its decode held to the digests recorded with PIL, both decodes
+  roughness map, a 1024x1024 PCX normal map, a 2048x2048 CMYK TIFF
+  roughness map and a 1024x1024 PackBits YCbCr TIFF normal map made on
+  the machine, each file and its decode held to the digests recorded
+  with PIL, the decodes timed, and a 2048x2048 P5 at maxval 65535 and a
+  2048x2048 Pf made there, their decodes held to their samples and
   timed; the textured sphere at
   1920x1080 with that JPEG as its roughness map and a 1024x1024 JPEG as
   its normal map, then with the two arithmetic-coded JPEGs, then with the
   TIFF and a 512x512 16-bit LZW TIFF, then with the two WebPs, then with
-  the SGI and PCX maps, 16
+  the SGI and PCX maps, then with the CMYK and YCbCr TIFFs, 16
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
   checker session; ``write_image``'s JPEG,
@@ -1181,16 +1186,22 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       1024x1024 CMYK arithmetic JPEG's and lossless WebP's decodes timed
       (median of ``decodes``);
     - the reader maps of ``tools/make_torch_fixtures.py`` made here: a
-      2048x2048 RGB roughness map as an RLE SGI file (its numpy encoder)
-      and a 1024x1024 RGB normal map as a PCX file (``write_image``), each
-      file and its decode held to the digests recorded with PIL
-      (``tests/torch_data/map_digests.json``), both decodes timed;
+      2048x2048 RGB roughness map as an RLE SGI file (its numpy encoder),
+      a 1024x1024 RGB normal map as a PCX file (``write_image``), a
+      2048x2048 roughness map as an uncompressed CMYK TIFF and a
+      1024x1024 normal map as a PackBits YCbCr TIFF (its numpy TIFF
+      encoder), each file and its decode held to the digests recorded
+      with PIL (``tests/torch_data/map_digests.json``), the decodes
+      timed; a 2048x2048 P5 at maxval 65535 and a 2048x2048 Pf made here,
+      their decodes held to the samples' high bytes (the named
+      deviation) and to PIL's ``F`` to ``L`` rule, both timed;
     - ``textured_sphere_scene`` at ``res`` with that JPEG as its roughness
       map and the 1024x1024 baseline JPEG as its normal map, then with the
       YCCK and CMYK arithmetic-coded JPEGs (``jpeg-flavours``), then with
       the TIFF as its roughness map and the 512x512 16-bit LZW TIFF as its
       normal map, then with the two WebPs, then with the RLE SGI and PCX
-      maps (``sgi-pcx``), through ``"hier"``: the texture table on the
+      maps (``sgi-pcx``), then with the CMYK and YCbCr TIFF maps
+      (``tiff-cmyk-ycbcr``), through ``"hier"``: the texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry, then ms per sample in turns against the checker-map
       session;
@@ -1301,13 +1312,39 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             "tiff": ("roughness_2048_deflate.tif", "normal_512_lzw16.tif"),
             "webp": ("roughness_2048_lossy.webp", "normal_1024_lossless.webp"),
             "sgi-pcx": tuple(os.path.join(maps_dir.name, name) for name in (
-                "roughness_2048_rle.sgi", "normal_1024.pcx"))}
+                "roughness_2048_rle.sgi", "normal_1024.pcx")),
+            "tiff-cmyk-ycbcr": tuple(os.path.join(maps_dir.name, name)
+                                     for name in (
+                "roughness_2048_cmyk.tif", "normal_1024_ycbcr_packbits.tif"))}
     for name in [rough for rough, _ in maps.values()] + [
-            maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1]]:
+            maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
+            maps["tiff-cmyk-ycbcr"][1]]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
         say("files", decode=os.path.basename(name), runs=decodes, ms=ms,
             median_ms=med, clock="host", card=repr(card))
+    # a 16-bit P5 and a Pf made here: the P5 keeps its samples' high bytes
+    # (the named deviation), the Pf is PIL's F to L (truncated, clipped)
+    grey = fixtures.procedural_rgb(2048, 2048, 15).astype(np.int64)
+    wide = grey[..., 0] * 256 + grey[..., 1]
+    flt = grey[..., 2].astype(np.float32) * np.float32(1.25) - np.float32(
+        30.5)
+    for name, data, want in (
+            ("grey16_2048.pgm", b"P5\n2048 2048\n65535\n"
+             + wide.astype(">u2").tobytes(), grey[..., 0]),
+            ("float_2048.pfm", b"Pf\n2048 2048\n-1.0\n"
+             + flt[::-1].astype("<f4").tobytes(),
+             np.clip(flt, 0, 255).astype(np.int64))):
+        path = os.path.join(maps_dir.name, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        rgba = image.load_rgba8(path)
+        same = (rgba.shape == (2048, 2048, 4) and np.array_equal(
+            rgba[..., 0], want) and bool((rgba[..., 3] == 255).all()))
+        ms, med = median_ms(lambda: image.load_rgba8(path))
+        say("files", decode=name, equals_samples=same, runs=decodes, ms=ms,
+            median_ms=med, clock="host", card=repr(card))
+        check(same, f"{name}: the decode is not its samples' rule")
 
     # the textured sessions with the JPEG maps, the arithmetic-coded YCCK
     # and CMYK JPEG maps, the TIFF maps (16-bit LZW normals) and the WebP
@@ -1354,7 +1391,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                            dev, seed=0)
     sessions["checker"].run(1, batch=1)
     turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
-             "sgi-pcx", "webp", "tiff", "jpeg-flavours", "jpeg", "checker")
+             "tiff-cmyk-ycbcr", "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff",
+             "jpeg-flavours", "jpeg", "checker")
     rates = {name: [] for name in turns}
     for name in turns:
         rates[name].append(timed_step(torch, sessions[name], rate_spp))
@@ -2740,8 +2778,8 @@ def main() -> int:
         # the multi phase's driven sessions (tiles on 1 and 3, spp on NCCL)
         k["launches_multi"] = multi_launches[k["name"]]
         # the files phase's sessions (textured 1080p from the JPEG, the
-        # arithmetic-coded JPEG, the TIFF and the WebP maps, the natively
-        # parsed 52k terrain)
+        # arithmetic-coded JPEG, the TIFF, the WebP, the SGI and PCX, and
+        # the CMYK and YCbCr TIFF maps, the natively parsed 52k terrain)
         k["launches_files"] = files_launches[k["name"]]
     finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)

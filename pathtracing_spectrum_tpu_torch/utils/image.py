@@ -47,8 +47,13 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   PIL reads, bottom-up or top-down;
 - TGA: image types 1, 2, 3, 9, 10 and 11 (colour-mapped, true-colour,
   grey, and their run-length forms) at 8, 24 and 32 bits, with the origin
-  bits; a run packet that crosses a row is PIL's "buffer overrun";
-- binary PNM: P5 and P6 with maxval 255;
+  bits; a run packet that crosses a row is PIL's "buffer overrun"; grey
+  at 1 bit (mode ``1``, rows padded to a byte; run-length or with a
+  colour map None, as PIL fails on both);
+- binary PNM: P4 (mode ``1``, a set bit black), P5 and P6 at every maxval
+  (255 as the bytes, any other through PpmDecoder's float64 scaling,
+  half to even; a 16-bit P6 scaled to 255), Pf (mode ``F``: its scale's
+  sign the byte order, rows bottom-up);
 - GIF (87a and 89a), the first frame: LZW in the host library
   (``utils/codecs.py``, ``csrc/lzw_decode.cpp``), the local or global
   colour table (entries past it black) or none (grey), the graphic
@@ -67,7 +72,15 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   3 at 1, 2, 4, 8 and 16 bits, grey + alpha, RGB with extra samples 0, 1
   (associated alpha, unpremultiplied as PIL's ``RGBa`` with its
   truncation) and 2, palette + alpha; 32-bit floats (mode ``F``,
-  truncated and clipped to 0..255 as PIL converts them); fill order 2;
+  truncated and clipped to 0..255 as PIL converts them); mode ``I``
+  (32-bit signed, 32-bit unsigned little-endian, 16-bit signed; clipped
+  to 0..255), a compressed big-endian one or float read with its bytes
+  swapped, as PIL reads libtiff's native samples; CMYK at 8 bits with 0,
+  1 or 2 extra samples and at 16 (PIL's ``cmyk2rgb``); YCbCr: compressed
+  at subsampling (1, 1) through libtiff 4.7's RGBA reader (its
+  ``TIFFYCbCrToRGBInit`` tables under the file's YCbCrCoefficients and
+  ReferenceBlackWhite), uncompressed raw as PIL reads it (4 bytes a pixel
+  as RGB, or the planes as R, G and B); fill order 2;
 - PSD, the merged image PIL shows before any ``seek``: raw or RLE
   (PackBits rows, as PIL's decoder drops what a packet holds past a row),
   bitmap (a set bit white, as PIL reads it), grey, multichannel and
@@ -91,14 +104,15 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   ``cmyk2rgb``) and YCC (PIL's fixed-point ``ImagingConvertYCbCr2RGB``),
   and the type names PIL reads as the same mode and rawmode.
 
-Three named deviations from PIL, one rule: a 16-bit grey PNG (colour type
-0), a 16-bit grey TIFF and a 16-bit grey IM file (``L 16``, ``L 16L``,
-``L 16B``) keep the high byte of each sample, as stb_image (the
-reference's loader) and PIL's own 16-bit RGB paths do (the PNG's ``tRNS``
-key is compared with the 16-bit sample). PIL opens all three as mode
-``I;16`` (``I;16L``, ``I;16B``) and ``convert("RGBA")`` clips at 255
-instead, so in the JAX package a 16-bit roughness map comes out almost
-all 1.0.
+Four named deviations from PIL, one rule: a 16-bit grey PNG (colour type
+0), a 16-bit grey TIFF, a 16-bit grey IM file (``L 16``, ``L 16L``,
+``L 16B``) and a P5 PNM with a maxval above 255 keep the high byte of
+each sample (the P5's scaled to 65535 as PIL scales it), as stb_image
+(the reference's loader) and PIL's own 16-bit RGB paths do (the PNG's
+``tRNS`` key is compared with the 16-bit sample). PIL opens the first
+three as mode ``I;16`` (``I;16L``, ``I;16B``) and the P5 as mode ``I``,
+and ``convert("RGBA")`` clips at 255 instead, so in the JAX package a
+16-bit roughness map comes out almost all 1.0.
 
 A missing file, a file no PIL plugin opens (an HTML page saved as
 ``.png``, zeros, noise), and a broken file of a format decoded here (a
@@ -108,9 +122,11 @@ does in the JAX package and as the reference's ``Image`` fails soft to
 black (image.cpp:48-49). A format PIL opens and the port does not (ICO,
 QOI, JPEG 2000, ... : the other 30 plugins) or a flavour of one decoded
 here that it does not take (lossless and block-smoothed progressive
-JPEG, RLE BMP and DIB, 16-bit PNM, JPEG-in-TIFF, CCITT, CMYK, YCbCr and
-CIELab TIFF, old-style LZW, BigTIFF, CIELab PSD, the IM image types
-PIL's writer does not make, ...) raises
+JPEG, RLE BMP and DIB, plain-text PNM (P1-P3) and PIL's test extensions
+(``P0CMYK``, ``PyP``, ``PyRGBA``, ``PyCMYK``), JPEG-in-TIFF, CCITT,
+YCbCr TIFF at other subsampling than (1, 1) or turned by its orientation,
+uncompressed YCbCr TIFF tiles, CIELab TIFF, old-style LZW, BigTIFF,
+CIELab PSD, the IM image types PIL's writer does not make, ...) raises
 ``NotImplementedError`` naming the file and the flavour: a texture is
 never dropped quietly.
 
@@ -212,7 +228,7 @@ def _check_size(width: int, height: int) -> None:
 def load_rgba(path: str) -> "np.ndarray | None":
     """Load an image file as float32 RGBA [H, W, 4] in [0, 1] (row 0 =
     image top), equal to PIL's ``convert("RGBA")`` / 255 (see the module
-    docstring for the formats and the three deviations). ``None`` when the
+    docstring for the formats and the four deviations). ``None`` when the
     file is missing or broken; ``NotImplementedError`` naming the file and
     the format for a format or flavour not decoded here."""
     rgba = load_rgba8(path)
@@ -235,7 +251,8 @@ def load_rgba8(path: str) -> "np.ndarray | None":
     if kind not in _DECODERS:
         raise NotImplementedError(
             f"{path}: {kind} is not decoded by the PyTorch port (PNG, JPEG, "
-            "BMP, DIB, TGA, binary PNM, GIF, TIFF, PSD, WebP, SGI, PCX and "
+            "BMP, DIB, TGA, binary PNM and PFM, GIF, TIFF, PSD, WebP, SGI, "
+            "PCX and "
             "IM are; convert it; ROADMAP Queue 1 item 11)")
     try:
         return _DECODERS[kind](data)
@@ -814,8 +831,13 @@ def _bitmap(data: bytes, start: int, offset: int) -> np.ndarray:
     return out
 
 
+# TgaImagePlugin.MODES: (image type & 7, depth) PIL has a raw mode for
+_TGA_MODES = ((1, 8), (2, 16), (2, 24), (2, 32), (3, 1), (3, 8), (3, 16))
+
+
 def _decode_tga(data: bytes) -> np.ndarray:
-    """[H, W, 4] uint8 RGBA of a TGA file, as TgaImagePlugin reads it."""
+    """[H, W, 4] uint8 RGBA of a TGA file, as TgaImagePlugin reads it
+    (see the module docstring)."""
     id_len, has_map, kind = data[0], data[1], data[2]
     width, height = struct.unpack_from("<HH", data, 12)
     depth, flags = data[16], data[17]
@@ -823,8 +845,16 @@ def _decode_tga(data: bytes) -> np.ndarray:
     if base not in (1, 2, 3) or kind & ~0xB:
         raise _Unreadable(f"TGA image type {kind}")
     _check_size(width, height)
-    if (base, depth) not in ((1, 8), (2, 24), (2, 32), (3, 8), (3, 16)):
-        raise _Refused(f"image type {kind} at {depth} bits")
+    if (base, depth) == (2, 16):
+        raise _Refused(f"image type {kind} at 16 bits")
+    if (base, depth) not in _TGA_MODES:   # PIL makes no tile: "cannot load"
+        raise _Unreadable(f"TGA image type {kind} at {depth} bits")
+    if depth == 1 and kind & 8:
+        # TgaRleDecode takes depth // 8 = 0 bytes a pixel: its packets
+        # never fill a row, and PIL finds the file truncated
+        raise _Unreadable("a run-length TGA at 1 bit")
+    if depth == 1 and has_map:    # PIL cannot put a palette on mode 1
+        raise _Unreadable("a 1-bit TGA with a colour map")
     pos = 18 + id_len
     lut = None
     if has_map:
@@ -843,7 +873,12 @@ def _decode_tga(data: bytes) -> np.ndarray:
         lut[start:n] = np.frombuffer(entries, np.uint8).reshape(
             size, 3)[:n - start, ::-1]     # BGR entries
     npix, bpp = width * height, depth // 8
-    if kind & 8:
+    if depth == 1:                # mode 1: rows padded to a byte, a set
+        stride = (width + 7) // 8     # bit white
+        pixels = (_unpack(_rows(data, pos, height, stride, stride), 1,
+                          width) * 255).ravel()
+        bpp = 1
+    elif kind & 8:
         pixels = _tga_rle(data, pos, width, height, bpp)
     else:
         if pos + npix * bpp > len(data):
@@ -903,8 +938,23 @@ _WHITESPACE = b" \t\n\x0b\x0c\r"
 
 
 def _decode_pnm(data: bytes) -> np.ndarray:
-    """[H, W, 4] uint8 RGBA of a binary PGM (P5) or PPM (P6) file with
-    maxval 255, its header read as PpmImagePlugin reads it."""
+    """[H, W, 4] uint8 RGBA of a binary PNM file, its header read as
+    PpmImagePlugin reads it and its pixels as the decoder it picks:
+
+    - P4: mode ``1`` (rawmode ``1;I``: a set bit is black), each row
+      padded to a whole byte;
+    - P5 and P6 at maxval 255: the bytes; P5 at 65535: mode ``I`` from
+      ``I;16B``, its high byte kept (the named deviation);
+    - P5 and P6 at any other maxval: PpmDecoder's ``min(out_max,
+      round(value / maxval * out_max))`` in float64, half to even, of
+      1-byte samples below 256 and big-endian 2-byte ones from 256;
+      ``out_max`` 65535 for P5 above 255 (mode ``I``, its high byte kept:
+      the named deviation), 255 otherwise (a 16-bit P6 is scaled, not cut
+      to its high byte); the data cut short is None, as PpmDecoder's short
+      result is PIL's "not enough image data";
+    - Pf: mode ``F``, a scale token parsed as a float (zero or not finite
+      is None), little-endian where it is negative, rows bottom-up, then
+      PIL's ``F`` to ``L`` (:func:`_float_grey`)."""
     pos = 0
     magic = b""
     while pos < len(data) and len(magic) < 6:
@@ -913,14 +963,14 @@ def _decode_pnm(data: bytes) -> np.ndarray:
         if c in _WHITESPACE:
             break
         magic += c
-    if magic not in (b"P5", b"P6"):
-        if magic in (b"P1", b"P2", b"P3", b"P4", b"Pf", b"P0CMYK", b"PyP",
-                     b"PyRGBA", b"PyCMYK"):
-            raise _Refused(f"{magic.decode()} (only binary P5 and P6 are "
-                           "decoded)")
+    if magic not in (b"P4", b"P5", b"P6", b"Pf"):
+        if magic in (b"P1", b"P2", b"P3", b"P0CMYK", b"PyP", b"PyRGBA",
+                     b"PyCMYK"):
+            raise _Refused(f"{magic.decode()} (plain-text PNM and PIL's test "
+                           "extensions are not decoded)")
         raise _Unreadable("not a PNM file")
 
-    def token():
+    def token() -> bytes:
         nonlocal pos
         tok = b""
         while len(tok) <= 10:
@@ -940,21 +990,42 @@ def _decode_pnm(data: bytes) -> np.ndarray:
             tok += c
         if not tok or len(tok) > 10:
             raise _Unreadable("bad PNM header")
-        return int(tok)
+        return tok
 
-    width, height, maxval = token(), token(), token()
-    if not 0 < maxval < 65536 or width <= 0 or height <= 0:
+    width, height = int(token()), int(token())
+    if magic == b"Pf":
+        scale = float(token())
+        if scale == 0.0 or not np.isfinite(scale):
+            raise _Unreadable(f"Pf scale {scale}")
+    elif magic != b"P4":
+        maxval = int(token())
+        if not 0 < maxval < 65536:
+            raise _Unreadable(f"maxval {maxval}")
+    if width <= 0 or height <= 0:
         raise _Unreadable("bad PNM header")
     _check_size(width, height)
+    if magic == b"P4":
+        stride = (width + 7) // 8
+        rows = _rows(data, pos, height, stride, stride)
+        return _grey_rgba((1 - _unpack(rows, 1, width)) * 255)
+    if magic == b"Pf":
+        f = _rows(data, pos, height, 4 * width, 4 * width)[::-1]
+        f = np.ascontiguousarray(f).view("<f4" if scale < 0 else ">f4")
+        return _grey_rgba(_float_grey(f))
     spp = 1 if magic == b"P5" else 3
-    if pos + width * height * spp * (1 if maxval < 256 else 2) > len(data):
-        raise _Unreadable("truncated pixel data")
-    if maxval != 255:
-        raise _Refused(f"maxval {maxval} (only 255 is decoded)")
-    px = np.frombuffer(data, np.uint8, width * height * spp, pos).reshape(
-        height, width, spp)
+    wide = maxval > 255
+    px = _rows(data, pos, height, width * spp * (1 + wide),
+               width * spp * (1 + wide)).view(">u2" if wide else np.uint8)
+    px = px.reshape(height, width, spp)
+    if maxval == 65535 and spp == 1:      # PIL's raw I;16B: the high byte
+        px = px >> 8
+    elif maxval != 255:                   # PpmDecoder
+        out_max = 65535 if wide and spp == 1 else 255
+        px = np.minimum(out_max, np.rint(px / maxval * out_max))
+        if out_max == 65535:              # mode I: the high byte
+            px = px.astype(np.int64) >> 8
     out = np.full((height, width, 4), 255, np.uint8)
-    out[..., :3] = px
+    out[..., :3] = px.astype(np.uint8)
     return out
 
 
@@ -1081,14 +1152,16 @@ _TIFF_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
 
 def _tiff_ifd(data: bytes, pos: int, order: str, pil: bool = True) -> dict:
     """{tag: tuple of integers} of the integer tags of the IFD at ``pos``:
-    a tag of an unknown type or with no values is skipped, and the entries
-    stop at the end of the file (an entry count that runs past it is
-    clipped). A tag whose values lie past the end stops PIL's
-    ImageFileDirectory (``pil``) there; libtiff, which reads the IFD again
-    for compressed data, skips it alone."""
+    a tag of an unknown type or with no values is skipped, and PIL's
+    ImageFileDirectory (``pil``) stops the entries at the end of the file
+    (an entry count that runs past it is clipped), where libtiff, which
+    reads the IFD again for compressed data, fails. A tag whose values lie
+    past the end stops PIL's reading there; libtiff skips it alone."""
     if pos + 2 > len(data):
         raise _Unreadable("truncated IFD")
     (count,) = struct.unpack_from(order + "H", data, pos)
+    if not pil and pos + 2 + 12 * count > len(data):
+        raise _Unreadable("truncated IFD (libtiff reads all its entries)")
     count = min(count, (len(data) - pos - 2) // 12)
     tags = {}
     for i in range(count):
@@ -1112,9 +1185,18 @@ def _tiff_ifd(data: bytes, pos: int, order: str, pil: bool = True) -> dict:
         if kind in _TIFF_TYPES:           # (PIL takes the first value)
             tags[tag] = struct.unpack_from(f"{order}{n}{_TIFF_TYPES[kind]}",
                                            value)
+        elif kind == 5 and tag in _TIFF_RATIONALS:   # as libtiff: float32
+            v = struct.unpack_from(f"{order}{2 * n}I", value)
+            tags[tag] = tuple(np.float32(a) / np.float32(b) if b else
+                              np.float32(0) for a, b in zip(v[::2], v[1::2]))
         else:
             tags[tag] = None
     return tags
+
+
+# the RATIONAL tags read, as libtiff reads them (``(float)num /
+# (float)den``, 0 where den is 0): YCbCrCoefficients, ReferenceBlackWhite
+_TIFF_RATIONALS = (529, 532)
 
 
 # libtiff's one-value integer tags, and whether another count or a type
@@ -1263,12 +1345,13 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                        f"({_TIFF_REFUSED[compression]})")
     if compression not in _TIFF_COMPRESSIONS:
         raise _Unreadable(f"compression {compression}")
-    if mode in ("CMYK", "LAB", "I") or photo == 6 or bps[0] == 12:
-        raise _Refused({"CMYK": "CMYK", "LAB": "CIELab"}.get(
-            mode, "YCbCr" if photo == 6 else f"mode {mode} "
-            f"({bps[0]}-bit samples, sample format {sample_format[0]})"))
+    if mode == "LAB" or bps[0] == 12:
+        raise _Refused("CIELab" if mode == "LAB" else f"mode {mode} "
+                       f"({bps[0]}-bit samples, sample format "
+                       f"{sample_format[0]})")
     if g(274, (1,))[0] in (5, 6, 7, 8):
         raise _Refused("a transposing orientation")
+    ycbcr = None
     if compression != 1:
         # PIL hands compressed data to libtiff, which lays it out by its
         # own reading of the IFD
@@ -1276,6 +1359,8 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         fill = g(266, (1,))[0]
         if len(g(338, ())) > spp:         # setExtraSamples refuses it
             raise _Unreadable("more extra samples than samples")
+        if photo == 6:                    # libtiff's RGBA reader
+            ycbcr = _libtiff_ycbcr(tags, spp, g(274, (1,))[0])
     planar = g(284, (1,))[0]
     bits = bps[0]
     predictor = g(317, (1,))[0] if compression != 1 else 1
@@ -1283,14 +1368,15 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         raise _Refused(f"predictor {predictor} at {bits} bits")
     if planar == 2 and compression == 1 and bits != 8 and spp > 1:
         raise _Refused(f"uncompressed separate planes at {bits} bits")
-    if bits == 32 and order == ">" and compression != 1:
-        raise _Refused("compressed big-endian floats (PIL reads them with "
-                       "their bytes swapped)")
     if width == 0 or height == 0:
         raise _Unreadable("empty image")
     _check_size(width, height)
     planes = spp if planar == 2 else 1
     per = 1 if planar == 2 else spp            # samples per plane pixel
+    if photo == 6 and compression == 1 and per == 3:
+        per = 4                   # PIL's raw RGBX: 4 bytes a pixel
+        if 324 in tags:
+            raise _Refused("uncompressed YCbCr tiles")
     if 324 in tags:
         if 322 not in tags or 323 not in tags:
             raise _Unreadable("invalid tile dimensions")
@@ -1343,22 +1429,30 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                     dt).view(np.uint8).reshape(r, row_bytes)
         out[plane, y0:y0 + rows, tx * row_bytes:(tx + 1) * row_bytes] = \
             chunk[:rows]
-    samples = _tiff_samples(out, bits, width, per, order)
+    if compression != 1 and order == ">" and mode in ("I", "F"):
+        # PIL reads libtiff's native-order samples as big-endian (only
+        # its I;16B rawmodes are made native): their bytes swapped
+        order = "<"
+    kind = "f" if mode == "F" else "i" if mode == "I" else "u"
+    samples = _tiff_samples(out, bits, width, per, order, kind)
     samples = (np.concatenate(list(samples), axis=-1) if planar == 2
                else samples[0])
+    if ycbcr is not None:
+        return _libtiff_ycbcr_rgba(samples, *ycbcr)
     return _tiff_rgba(samples, mode, photo, bits, extra, tags.get(320))
 
 
 def _tiff_samples(rows: np.ndarray, bits: int, width: int, per: int,
-                  order: str) -> np.ndarray:
+                  order: str, kind: str = "u") -> np.ndarray:
     """[planes, H, W, per] samples of [planes, H, row bytes] data: uint8
-    for 1 to 8 bits, uint16 at 16, float32 at 32 (sample format 3)."""
+    for 1 to 8 bits, at 16 and 32 bits unsigned (``kind`` "u"), signed
+    ("i": mode ``I``) or float32 ("f")."""
     planes, height = rows.shape[:2]
     n = width * per
     if bits in (16, 32):
-        dt = np.dtype(order + ("u2" if bits == 16 else "f4"))
-        s = rows[..., :n * bits // 8].copy().view(dt).astype(
-            np.uint16 if bits == 16 else np.float32)
+        dt = np.dtype(f"{order}{kind}{bits // 8}")
+        s = rows[..., :n * bits // 8].copy().view(dt).astype(dt.newbyteorder(
+            "="))
     elif bits == 8:
         s = rows[..., :n]
     else:
@@ -1373,6 +1467,88 @@ def _float_grey(f: np.ndarray) -> np.ndarray:
         np.uint8)
 
 
+def _libtiff_floats(tags: dict, tag: int, n: int, default) -> list:
+    """libtiff's float32 array of a RATIONAL or integer tag of ``n``
+    values, ``default`` where it is missing or has another count (libtiff
+    ignores the tag then, with a warning)."""
+    v = tags.get(tag, default)
+    if v is None:
+        raise _Refused(f"tag {tag} of a type other than RATIONAL or integer")
+    return [np.float32(x) for x in (v if len(v) == n else default)]
+
+
+def _libtiff_ycbcr(tags: dict, spp: int, orientation: int):
+    """(luma, reference black and white) of a compressed YCbCr TIFF, which
+    PIL reads through libtiff's RGBA reader (``TIFFRGBAImageGet``), after
+    its checks; the subsampling other than (1, 1) and an orientation the
+    reader would turn by are refused."""
+    if spp != 3:                  # TIFFReadDirectory: zero strip size
+        raise _Unreadable(f"YCbCr with {spp} samples a pixel")
+    sub = tags.get(530) or ()
+    sub = tuple(sub) if len(sub) == 2 else (2, 2)   # libtiff's default
+    if sub != (1, 1):
+        raise _Refused(f"YCbCr subsampling {sub}")
+    if orientation != 1:
+        raise _Refused(f"YCbCr at orientation {orientation} (libtiff's "
+                       "RGBA reader turns the image by it)")
+    # TIFFVGetFieldDefaulted; TIFFDefaultRefBlackWhite for YCbCr
+    luma = _libtiff_floats(tags, 529, 3, (0.299, 0.587, 0.114))
+    ref = _libtiff_floats(tags, 532, 6, (0, 255, 128, 255, 128, 255))
+    if luma[1] == 0:              # initYCbCrConversion's checks
+        raise _Unreadable("YCbCrCoefficients with a zero green")
+    if not all(np.float32(-0x7FFFFFFF + 128) < f < np.float32(0x7FFFFFFF)
+               for f in ref):
+        raise _Unreadable("ReferenceBlackWhite out of range")
+    return luma, ref
+
+
+def _libtiff_ycbcr_tables(luma, ref):
+    """libtiff 4.7's ``TIFFYCbCrToRGBInit`` (tif_color.c): the Y, Cr->R,
+    Cb->B, Cr->G and Cb->G tables of 256 entries, its float32 arithmetic
+    (``Code2V``, ``CLAMPw``, truncation to int32) and ``FIX`` with
+    ``SHIFT`` 16."""
+    f32 = np.float32
+
+    def fix(f):                   # FIX(CLAMP(f, 0.0F, 2.0F))
+        f = f32(0) if not f >= 0 else min(f, f32(2))
+        return int(np.float64(f * f32(65536)) + 0.5)
+
+    red, green, blue = luma
+    f1 = f32(2) - f32(2) * red
+    f3 = f32(2) - f32(2) * blue
+    d1, d2 = fix(f1), -fix(red * f1 / green)
+    d3, d4 = fix(f3), -fix(blue * f3 / green)
+
+    def code2v(c, rb, rw, cr):
+        span = rw - rb
+        v = f32(c - np.trunc(rb).astype(np.int64)) * f32(cr) / (
+            span if span != 0 else f32(1))
+        # CLAMPw to -4096..4096 (float32), then the int32 cast truncates
+        return np.trunc(np.clip(v, f32(-4096), f32(4096))).astype(np.int64)
+
+    x = np.arange(-128, 128, dtype=np.int64)
+    cr = code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127)
+    cb = code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127)
+    half = 1 << 15
+    y = code2v(x + 128, ref[0], ref[1], 255)
+    return (y, (d1 * cr + half) >> 16, (d3 * cb + half) >> 16, d2 * cr,
+            d4 * cb + half)
+
+
+def _libtiff_ycbcr_rgba(ycc: np.ndarray, luma, ref) -> np.ndarray:
+    """[H, W, 4] RGBA of [H, W, 3] uint8 YCbCr samples as libtiff's
+    ``putcontig8bitYCbCr11tile`` (and its separate-plane twin) converts
+    them through ``TIFFYCbCrtoRGB``: table sums clamped to 0..255."""
+    y_tab, cr_r, cb_b, cr_g, cb_g = _libtiff_ycbcr_tables(luma, ref)
+    y = y_tab[ycc[..., 0]]
+    cb, cr = ycc[..., 1], ycc[..., 2]
+    out = np.full(ycc.shape[:-1] + (4,), 255, np.uint8)
+    out[..., 0] = np.clip(y + cr_r[cr], 0, 255)
+    out[..., 1] = np.clip(y + ((cb_g[cb] + cr_g[cr]) >> 16), 0, 255)
+    out[..., 2] = np.clip(y + cb_b[cb], 0, 255)
+    return out
+
+
 def _tiff_rgba(s: np.ndarray, mode: str, photo: int, bits: int, extra,
                colormap) -> np.ndarray:
     """RGBA8 of [H, W, spp] samples as PIL's rawmode unpacks them and
@@ -1382,8 +1558,12 @@ def _tiff_rgba(s: np.ndarray, mode: str, photo: int, bits: int, extra,
     if mode == "F":
         out[..., :3] = _float_grey(s[..., 0])[..., None]
         return out
+    if mode == "I":                   # signed, or 32-bit: clipped
+        return _grey_rgba(np.clip(s[..., 0], 0, 255).astype(np.uint8))
     if bits == 16:                    # the high byte (see the docstring)
         s = (s >> 8).astype(np.uint8)
+    if mode == "CMYK":                # not inverted: PIL's cmyk2rgb
+        return jpeg.inverted_cmyk_rgba(255 - s[..., :4])
     if mode in ("P", "PA"):
         if colormap is None or len(colormap) < 3 * (1 << bits):
             raise _Unreadable("palette image without a full colour map")

@@ -5,9 +5,9 @@ The machine with the card has no PIL, so ``chip_smoke.py`` holds the
 port's decodes and writes there by digest. This script makes each fixture
 with PIL (or by hand, for the PNG, TIFF, GIF and PSD flavours PIL does not
 write) and records, in ``tests/torch_data/digests.json``, the sha256 of
-PIL's ``convert("RGBA")`` bytes of each. For the 16-bit grey PNG and TIFF
-it records the high-byte image instead: the port's named deviation from
-PIL, which clips that mode at 255. ``tests/test_torch_formats.py`` checks
+PIL's ``convert("RGBA")`` bytes of each. For the 16-bit grey PNG, TIFF
+and P5 it records the high-byte image instead: the port's named deviation
+from PIL, which clips that mode at 255. ``tests/test_torch_formats.py`` checks
 the digests against PIL's decode on every run.
 
 It also records, in ``tests/torch_data/write_digests.json``, the sha256
@@ -19,8 +19,9 @@ byte for byte; no image is committed for these. ``chip_smoke.py`` imports
 used).
 
 And it records, in ``tests/torch_data/map_digests.json``, the sha256 of
-each of ``READER_MAPS`` (the textured session's RLE SGI roughness map and
-PCX normal map, made at run time by :func:`reader_map`: nothing is
+each of ``READER_MAPS`` (the textured sessions' RLE SGI roughness map and
+PCX normal map, and uncompressed CMYK roughness map and PackBits YCbCr
+normal map as TIFFs, made at run time by :func:`reader_map`: nothing is
 committed) and of PIL's decode of it; ``chip_smoke.py`` holds the maps it
 builds and the port's decodes of them to these.
 
@@ -58,6 +59,12 @@ Fixtures (all content procedural, from fixed seeds):
   LZW), ``grey16.tif`` (37x29 16-bit grey, its digest the high-byte
   image), ``rle.psd`` (37x29 RGBA, RLE) and ``assoc_alpha.tif`` (37x29
   RGBA with associated alpha, PackBits);
+- ``small.pbm`` (PIL's P4 of mode 1), ``grey16.pgm`` (PIL's P5 of mode
+  I;16 at maxval 65535, its digest the high-byte image), ``small16.ppm``
+  and ``small_1000.ppm`` (P6 at maxval 65535 and 1000, by hand: PIL
+  writes P6 at 255 only), ``small.pfm`` (PIL's Pf of mode F),
+  ``small_1bit.tga`` (PIL's TGA of mode 1) and ``small_i32_lzw.tif``
+  (PIL's LZW TIFF of mode I), 37x29;
 - ``roughness_2048_lossy.webp`` (the roughness map's content as a lossy
   WebP, quality 80), ``normal_1024_lossless.webp`` (the normal map as a
   lossless WebP whose alpha is the bump height), and 37x29
@@ -229,23 +236,136 @@ def sgi_rle_bytes(pixels: np.ndarray, name: bytes = b"",
             + (bpc * row_words).astype(">u4").tobytes() + body)
 
 
-# the textured session's maps read by the SGI and PCX readers, made at run
-# time (nothing is committed): a 2048x2048 RGB roughness map as an RLE
-# SGI file (sgi_rle_bytes) and a 1024x1024 RGB normal map as the PCX file
-# Image.save writes (which the port's writer writes byte for byte); their
-# content is procedural_rgb's, in integers only
+def packbits_rows(rows: np.ndarray) -> "tuple[bytes, np.ndarray]":
+    """(PackBits bytes, bytes of each row) of [R, N] uint8 rows, each row
+    coded apart: a run of 2 to 128 equal bytes as ``257 - count`` and the
+    byte (a run's last byte alone as a literal of one), the bytes between
+    runs as literal packets (``count - 1`` and up to 128 bytes). In numpy
+    over the whole image (no loop over runs)."""
+    r, w = rows.shape
+    v = rows.ravel().astype(np.int64)
+    start = np.ones(v.size, bool)
+    start[1:] = v[1:] != v[:-1]
+    start[::w] = True                         # a row starts a run
+    pos = np.flatnonzero(start)
+    length = np.diff(np.append(pos, v.size))
+    single = length == 1
+    joins = np.zeros_like(single)             # singles that follow one
+    joins[1:] = single[1:] & single[:-1] & (pos[1:] // w == pos[:-1] // w)
+    seg = ~joins                              # another in a row
+    seg_len = np.bincount(np.cumsum(seg) - 1, weights=length).astype(
+        np.int64)
+    seg_pos, literal = pos[seg], single[seg]
+    n_pk = (seg_len + 127) // 128             # packets of at most 128
+    k = np.arange(n_pk.sum()) - np.repeat(np.cumsum(n_pk) - n_pk, n_pk)
+    pk_start = np.repeat(seg_pos, n_pk) + 128 * k
+    pk_count = np.minimum(np.repeat(seg_len, n_pk) - 128 * k, 128)
+    pk_lit = np.repeat(literal, n_pk)
+    size = np.where(pk_lit, 1 + pk_count, 2)
+    at = np.cumsum(size) - size
+    out = np.zeros(int(size.sum()), np.int64)
+    out[at] = np.where(pk_lit, pk_count - 1, (257 - pk_count) & 0xFF)
+    out[at[~pk_lit] + 1] = v[pk_start[~pk_lit]]
+    lit_n = pk_count[pk_lit]
+    off = np.arange(lit_n.sum()) - np.repeat(np.cumsum(lit_n) - lit_n,
+                                             lit_n)
+    out[np.repeat(at[pk_lit] + 1, lit_n) + off] = v[
+        np.repeat(pk_start[pk_lit], lit_n) + off]
+    row_bytes = np.bincount(pk_start // w, weights=size,
+                            minlength=r).astype(np.int64)
+    return out.astype(np.uint8).tobytes(), row_bytes
+
+
+def tiff_map_bytes(samples: np.ndarray, photometric: int,
+                   packbits: bool = False, rows_per_strip: int = 16) -> bytes:
+    """A little-endian one-IFD TIFF of [H, W, S] uint8 samples (S 3 or 4,
+    contiguous), uncompressed or PackBits (:func:`packbits_rows`), in
+    strips of ``rows_per_strip`` rows after the IFD; a YCbCr file
+    (photometric 6) says subsampling (1, 1) and PIL's
+    ReferenceBlackWhite (0, 255, 128, 255, 128, 255)."""
+    h, w, spp = samples.shape
+    rows = np.ascontiguousarray(samples).reshape(h, w * spp)
+    if packbits:
+        body, row_bytes = packbits_rows(rows)
+    else:
+        body, row_bytes = rows.tobytes(), np.full(h, w * spp, np.int64)
+    strips = np.add.reduceat(row_bytes, np.arange(0, h, rows_per_strip))
+    S, L, R = 3, 4, 5
+    tags = {256: (L, [w]), 257: (L, [h]), 258: (S, [8] * spp),
+            259: (S, [32773 if packbits else 1]), 262: (S, [photometric]),
+            273: (L, [0] * len(strips)), 277: (S, [spp]),
+            278: (L, [rows_per_strip]), 279: (L, [int(n) for n in strips]),
+            284: (S, [1])}
+    if photometric == 6:
+        tags[530] = (S, [1, 1])
+        tags[532] = (R, [0, 1, 255, 1, 128, 1, 255, 1, 128, 1, 255, 1])
+    aux_at = 8 + 2 + 12 * len(tags) + 4
+    aux_len = sum(len(v) * (2 if k == S else 4) for k, v in tags.values()
+                  if len(v) * (2 if k == S else 4) > 4)
+    at = aux_at + aux_len + np.cumsum(strips) - strips
+    tags[273] = (L, [int(a) for a in at])
+    entries, aux = b"", b""
+    for tag in sorted(tags):
+        kind, values = tags[tag]
+        data = struct.pack("<" + {S: "H", L: "I", R: "I"}[kind] * len(values),
+                           *values)
+        count = len(values) // (2 if kind == R else 1)
+        if len(data) <= 4:
+            value = data.ljust(4, b"\0")
+        else:
+            value = struct.pack("<I", aux_at + len(aux))
+            aux += data
+        entries += struct.pack("<HHI", tag, kind, count) + value
+    return (b"II*\0" + struct.pack("<IH", 8, len(tags)) + entries
+            + b"\0" * 4 + aux + body)
+
+
+def cmyk_of(rgb: np.ndarray) -> np.ndarray:
+    """[H, W, 4] uint8 CMYK samples of RGB: the inverted channels with a
+    black of the darkest, halved, taken out (integers only)."""
+    c = 255 - rgb.astype(np.int64)
+    k = c.min(-1, keepdims=True) // 2
+    return np.concatenate([c - k, k], -1).astype(np.uint8)
+
+
+def ycbcr_of(rgb: np.ndarray) -> np.ndarray:
+    """[H, W, 3] uint8 YCbCr samples of RGB by JPEG's fixed-point BT.601
+    (16 fractional bits, integers only)."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half = 1 << 15
+    y = (19595 * r + 38470 * g + 7471 * b + half) >> 16
+    cb = ((-11059 * r - 21709 * g + 32768 * b + half) >> 16) + 128
+    cr = ((32768 * r - 27439 * g - 5329 * b + half) >> 16) + 128
+    return np.clip(np.stack([y, cb, cr], -1), 0, 255).astype(np.uint8)
+
+
+# the textured sessions' maps read by the SGI, PCX and TIFF readers, made
+# at run time (nothing is committed): a 2048x2048 RGB roughness map as an
+# RLE SGI file (sgi_rle_bytes) and a 1024x1024 RGB normal map as the PCX
+# file Image.save writes (which the port's writer writes byte for byte);
+# a 2048x2048 roughness map as an uncompressed CMYK TIFF and a 1024x1024
+# normal map as a YCbCr TIFF in PackBits at subsampling (1, 1)
+# (tiff_map_bytes); their content is procedural_rgb's, in integers only
 READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
-               "normal_1024.pcx": (1024, 12)}
+               "normal_1024.pcx": (1024, 12),
+               "roughness_2048_cmyk.tif": (2048, 13),
+               "normal_1024_ycbcr_packbits.tif": (1024, 14)}
 
 
-def reader_map(name: str) -> "tuple[np.ndarray, bytes | None]":
-    """(pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI file's
-    bytes from :func:`sgi_rle_bytes`; None for the PCX, which the writer
-    under test (PIL's or the port's ``write_image``) makes."""
+def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
+    """(RGB pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI
+    file's bytes from :func:`sgi_rle_bytes`; None for the PCX, which the
+    writer under test (PIL's or the port's ``write_image``) makes; for the
+    TIFFs, whose samples are CMYK and YCbCr, no RGB pixels and the bytes
+    of :func:`tiff_map_bytes`."""
     n, seed = READER_MAPS[name]
     px = procedural_rgb(n, n, seed)
     if name.endswith(".sgi"):
         return px, sgi_rle_bytes(px, name=b"roughness")
+    if name.endswith("_cmyk.tif"):
+        return None, tiff_map_bytes(cmyk_of(px), 5)
+    if name.endswith("_ycbcr_packbits.tif"):
+        return None, tiff_map_bytes(ycbcr_of(px), 6, packbits=True)
     return px, None
 
 
@@ -398,6 +518,28 @@ def fixtures():
            "deviation: PIL clips mode I;16 at 255)")
     out["grey16.png"] = (ti.png_bytes(grey, 0, 16), high, how)
     out["grey16.tif"] = (ti.tiff_bytes(grey, 16), high, how)
+    out["grey16.pgm"] = (pil_file(Image.frombytes(
+        "I;16", (w, h), grey.astype("<u2").tobytes()), "PPM"), high, how)
+    # PIL's files of modes 1, F and I, and 16-bit and maxval-1000 P6 files
+    # (PIL writes no P6 but at 255), from their own seed
+    more = np.random.default_rng(17)
+    wide = small.astype(np.int64) * 257 + more.integers(0, 257, (h, w, 3))
+    files = {
+        "small.pbm": pil_file(Image.fromarray(small[..., 0] > 120), "PPM"),
+        "small.pfm": pil_file(Image.fromarray(
+            (small[..., 1].astype(np.float32) * 1.25 - 30.5)), "PPM"),
+        "small_1bit.tga": pil_file(Image.fromarray(small[..., 2] > 100),
+                                   "TGA"),
+        "small_i32_lzw.tif": pil_file(Image.fromarray(
+            more.integers(-200, 700, (h, w)).astype(np.int32)), "TIFF",
+            compression="tiff_lzw"),
+        "small16.ppm": b"P6\n%d %d\n65535\n" % (w, h) + wide.astype(
+            ">u2").tobytes(),
+        "small_1000.ppm": b"P6\n%d %d\n1000\n" % (w, h) + (
+            wide * 1000 // 65535).astype(">u2").tobytes(),
+    }
+    for name, data in files.items():
+        out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     return out
 
 
