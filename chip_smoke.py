@@ -1190,7 +1190,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       a 1024x1024 RGB normal map as a PCX file (``write_image``), a
       2048x2048 roughness map as an uncompressed CMYK TIFF and a
       1024x1024 normal map as a PackBits YCbCr TIFF (its numpy TIFF
-      encoder), each file and its decode held to the digests recorded
+      encoder), a 1024x1024 normal map as a JPEG-in-TIFF in 256x256
+      tiles (each the port's JPEG of its tile, no YCbCrSubsampling tag),
+      each file and its decode held to the digests recorded
       with PIL (``tests/torch_data/map_digests.json``), the decodes
       timed; a 2048x2048 P5 at maxval 65535 and a 2048x2048 Pf made here,
       their decodes held to the samples' high bytes (the named
@@ -1201,7 +1203,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       the TIFF as its roughness map and the 512x512 16-bit LZW TIFF as its
       normal map, then with the two WebPs, then with the RLE SGI and PCX
       maps (``sgi-pcx``), then with the CMYK and YCbCr TIFF maps
-      (``tiff-cmyk-ycbcr``), through ``"hier"``: the texture table on the
+      (``tiff-cmyk-ycbcr``), then with the 2048x2048 Group 4 fixture
+      ``roughness_2048_g4.tif`` as its roughness map and the JPEG-in-TIFF
+      map as its normal map (``tiff-jpeg-ccitt``, both decodes timed),
+      through ``"hier"``: the texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry, then ms per sample in turns against the checker-map
       session;
@@ -1315,10 +1320,12 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                 "roughness_2048_rle.sgi", "normal_1024.pcx")),
             "tiff-cmyk-ycbcr": tuple(os.path.join(maps_dir.name, name)
                                      for name in (
-                "roughness_2048_cmyk.tif", "normal_1024_ycbcr_packbits.tif"))}
+                "roughness_2048_cmyk.tif", "normal_1024_ycbcr_packbits.tif")),
+            "tiff-jpeg-ccitt": ("roughness_2048_g4.tif", os.path.join(
+                maps_dir.name, "normal_1024_jpeg_tiles.tif"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
-            maps["tiff-cmyk-ycbcr"][1]]:
+            maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1]]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
         say("files", decode=os.path.basename(name), runs=decodes, ms=ms,
@@ -1347,9 +1354,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         check(same, f"{name}: the decode is not its samples' rule")
 
     # the textured sessions with the JPEG maps, the arithmetic-coded YCCK
-    # and CMYK JPEG maps, the TIFF maps (16-bit LZW normals) and the WebP
-    # maps (lossy roughness, lossless normals with alpha), each counted
-    # through K3, K2 and threefry
+    # and CMYK JPEG maps, the TIFF maps (16-bit LZW normals), the WebP
+    # maps (lossy roughness, lossless normals with alpha), the SGI and PCX
+    # maps, the CMYK and YCbCr TIFF maps and the Group 4 and JPEG-in-TIFF
+    # maps, each counted through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1391,8 +1399,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                            dev, seed=0)
     sessions["checker"].run(1, batch=1)
     turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
-             "tiff-cmyk-ycbcr", "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff",
-             "jpeg-flavours", "jpeg", "checker")
+             "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "tiff-jpeg-ccitt",
+             "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff", "jpeg-flavours",
+             "jpeg", "checker")
     rates = {name: [] for name in turns}
     for name in turns:
         rates[name].append(timed_step(torch, sessions[name], rate_spp))

@@ -9,8 +9,11 @@ Two shared libraries, each built into ``build/`` next to this file
 - the host library, by the host C++ compiler, on any machine that uses
   it (the CPU tests too): the BVH builder ``csrc/bvh_build.cpp``, the OBJ
   parser and spectral writer ``csrc/host_io.cpp``, the JPEG decoder
-  ``csrc/jpeg_decode.cpp`` and encoder ``csrc/jpeg_encode.cpp``, the
+  ``csrc/jpeg_decode.cpp`` (which also reads JPEG-compressed TIFF strips
+  as libtiff does) and encoder ``csrc/jpeg_encode.cpp``, the
   LZW, PackBits, SGI RLE and PCX RLE decoders ``csrc/lzw_decode.cpp``,
+  the CCITT (fax) decoder of TIFF compressions 2, 3 and 4
+  ``csrc/fax_decode.cpp``,
   the WebP decoder ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (with
   their shared VP8 tables and transforms ``csrc/vp8_common.h``) and the
   GIF quantiser and LZW encoder ``csrc/gif_encode.cpp``.
@@ -43,7 +46,8 @@ HEADERS = (_CSRC / "tri_hit.cuh",)
 HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
                 _CSRC / "jpeg_decode.cpp", _CSRC / "jpeg_encode.cpp",
                 _CSRC / "lzw_decode.cpp", _CSRC / "webp_decode.cpp",
-                _CSRC / "gif_encode.cpp", _CSRC / "webp_encode.cpp")
+                _CSRC / "gif_encode.cpp", _CSRC / "webp_encode.cpp",
+                _CSRC / "fax_decode.cpp")
 HOST_HEADERS = (_CSRC / "jpeg_std_tables.h", _CSRC / "vp8_common.h")
 BUILD_DIR = _HERE / "build"
 
@@ -88,6 +92,10 @@ _HOST_SIGNATURES = {
     "pts_jpeg_copy": ([_V, _V], None),
     "pts_jpeg_free": ([_V], None),
     "pts_jpeg_encode": ([_V, _I32, _I32, _I32], _V),
+    "pts_jpeg_tables": ([_V, _I64, _V, _S, _I32], _V),
+    "pts_jpeg_tables_free": ([_V], None),
+    "pts_jpeg_tiff_decode": ([_V, _V, _I64] + [_I32] * 8 + [_V, _S, _I32],
+                             _V),
     "pts_gif_quantize": ([_V, _I64, _V, _V], _I32),
     "pts_gif_lzw_encode": ([_V, _I32, _I32, _I32, _I64], _V),
     "pts_buffer_size": ([_V], _I64),
@@ -98,6 +106,9 @@ _HOST_SIGNATURES = {
     "pts_packbits_decode": ([_V, _I64, _V, _I64, _I64], _I32),
     "pts_sgi_rle_decode": ([_V, _I64, _I32, _I32, _I32, _I32, _V], _I32),
     "pts_pcx_decode": ([_V, _I64, _I32, _I32, _I64, _I32, _V], _I32),
+    "pts_fax_run_slots": ([_I32, _I32, _I32], _I64),
+    "pts_fax_decode": ([_V, _I64, _I32, _I32, _I32, _I32, _I64] + [_V] * 4,
+                       _I32),
     "pts_webp_decode": ([_V, _I64, _V, _S, _I32], _V),
     "pts_webp_size": ([_V, _V, _V], None),
     "pts_webp_copy": ([_V, _V], None),
@@ -215,8 +226,8 @@ def load() -> ctypes.CDLL:
 def load_host() -> ctypes.CDLL:
     """Build (when the hashed library is missing) and load the host
     library: the BVH builder, the OBJ parser, the spectral writer, the
-    JPEG decoder and encoder, the LZW, PackBits, SGI RLE and PCX RLE
-    decoders, the WebP decoder and encoder and the GIF encoder. Raises with the compiler's
+    JPEG decoder and encoder, the LZW, PackBits, SGI RLE, PCX RLE and
+    CCITT decoders, the WebP decoder and encoder and the GIF encoder. Raises with the compiler's
     output when it cannot be built: none of them has a fallback."""
     if _Library.host is not None:
         return _Library.host

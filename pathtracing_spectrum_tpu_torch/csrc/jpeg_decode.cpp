@@ -40,6 +40,17 @@
 // of the scan up to a restart as nothing, and a marker met in the data
 // feeds zero bytes.
 //
+// The strips and tiles of a JPEG-compressed TIFF are read as libtiff 4.7's
+// JPEG codec (tif_jpeg.c) reads them for PIL (pts_jpeg_tables,
+// pts_jpeg_tiff_decode): no PIL walk of the markers; the JPEGTables
+// stream first, its tables and those each stream defines kept for the
+// streams after it; the stream handed over whole, libtiff's fake EOI
+// markers past its end; JPEGPreDecode's checks of the frame against the
+// strip or tile; YCbCr converted to RGB whatever the markers say
+// (JPEGCOLORMODE_RGB), any other data's components as stored; a
+// single-scan stream read no further than its scan, where nothing can
+// fail it any more.
+//
 // Integer arithmetic only, so the result does not depend on the host's
 // floating-point unit or on -march. Refused (status 2, with a reason):
 // lossless Huffman frames (SOF3), and a progressive file whose scans
@@ -189,7 +200,7 @@ struct Suspend {};
 class BitReader {
  public:
   BitReader(const uint8_t* data, size_t size, size_t pos)
-      : d_(data), n_(size), avail_(size), pos_(pos) {}
+      : d_(data), n_(size), avail_(size), real_(size), pos_(pos) {}
 
   // PIL's feeding of a single-scan sequential file, whose refill points
   // decide whether the end of the data is ever met: the first 64 KiB, one
@@ -200,7 +211,12 @@ class BitReader {
     avail_ = std::min(n_, avail_ + 65536);
     return true;
   }
-  size_t buffered() const { return avail_ - pos_; }
+  // libjpeg's bytes_in_buffer (libtiff's fake EOI after the stream's own
+  // bytes never reaches the fast path's test)
+  size_t buffered() const {
+    return pos_ < real_ ? std::min(avail_, real_) - pos_ : 0;
+  }
+  void set_real(size_t real) { real_ = real; }
   bool at_marker() const { return marker_; }
 
   struct State {
@@ -352,7 +368,7 @@ class BitReader {
     }
   }
   const uint8_t* d_;
-  size_t n_, avail_;
+  size_t n_, avail_, real_;
   size_t pos_;
   uint64_t buf_ = 0;
   int bits_ = 0;
@@ -707,6 +723,15 @@ inline void ycc_rgb(int y, int cb, int cr, uint8_t* rgb) {
 
 // ---- the decoder ----------------------------------------------------------
 
+// libtiff's tables between the strips of one image: those of JPEGTables,
+// and those a strip's stream defines or libjpeg's std_huff_tables set,
+// for the strips after it (jpeg_abort keeps them)
+struct TiffTables {
+  int32_t qt[4][64] = {};
+  bool qt_defined[4] = {};
+  Huffman dc[4], ac[4];
+};
+
 struct Decoder {
   const uint8_t* d;
   size_t n;
@@ -730,6 +755,19 @@ struct Decoder {
   uint8_t dc_stats[16][64], ac_stats[16][256];
   uint8_t fixed_bin = 113;
   size_t fed = 65536;
+  // libtiff's JPEG codec (tif_jpeg.c) reading a strip or tile, or the
+  // JPEGTables stream (tables_only): the stream's own bytes are the first
+  // `real`, the rest libtiff's fake EOI markers (std_fill_input_buffer);
+  // JPEGPreDecode's checks run at the first scan; a single-scan stream
+  // taller than the rows libtiff reads (want_rows) is not read past its
+  // scan (JPEGDecode does not finish the decompression)
+  bool tiff = false, tables_only = false;
+  size_t real = 0;
+  int want_rows = 0;
+  struct TiffCheck {
+    int seg_w, seg_h, spp, hs, vs;
+    bool last_strip, ycbcr;
+  } check{};
 
   Decoder(const uint8_t* data, size_t size) : d(data), n(size) {
     std::memset(dc_L, 0, sizeof(dc_L));
@@ -839,8 +877,10 @@ struct Decoder {
       max_h = std::max(max_h, c.h);
       max_v = std::max(max_v, c.v);
     }
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4)  // (PIL's walk refused it)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) {  // (PIL's walk refused it)
+      if (tiff) refuse(std::to_string(ncomp) + "-component JPEG in TIFF");
       broken(std::to_string(ncomp) + "-component JPEG");
+    }
     mcux = (W + 8 * max_h - 1) / (8 * max_h);
     mcuy = (H + 8 * max_v - 1) / (8 * max_v);
     for (Component& c : comp) {
@@ -892,8 +932,27 @@ struct Decoder {
     return sc;
   }
 
+  // tif_jpeg.c JPEGPreDecode's checks of the stream against the strip or
+  // tile: its size (taller only for the last strip), its components, and
+  // the sampling factors (the luma's YCbCrSubsampling under photometric
+  // YCbCr, all others 1x1); jdcolor.c's YCbCr -> RGB takes 3 components
+  void tiff_checks() const {
+    const TiffCheck& t = check;
+    if (W > t.seg_w || (H > t.seg_h && !(W == t.seg_w && t.last_strip)))
+      broken("JPEG strip/tile size exceeds expected dimensions");
+    if (ncomp != t.spp) broken("improper JPEG component count");
+    if (comp[0].h != t.hs || comp[0].v != t.vs)
+      broken("improper JPEG sampling factors");
+    for (int i = 1; i < ncomp; ++i)
+      if (comp[static_cast<size_t>(i)].h != 1 ||
+          comp[static_cast<size_t>(i)].v != 1)
+        broken("improper JPEG sampling factors");
+    if (t.ycbcr && ncomp != 3) broken("bogus colour conversion");
+  }
+
   size_t read_scan(size_t p, size_t end) {
     const std::vector<Component*> sc = sos_components(p, end);
+    if (tiff && !scanned) tiff_checks();
     const int ns = static_cast<int>(sc.size());
     // jdinput.c per_scan_setup: libjpeg's MCU holds 10 blocks at most
     int blocks = 0;
@@ -946,8 +1005,11 @@ struct Decoder {
     if (arith) return arith_scan(sc, end, ss, se, ah, al);
 
     BitReader br(d, n, end);
+    // a single-scan sequential file: decode_mcu's fast and slow paths, as
+    // PIL feeds the data (libtiff hands it over whole)
     const bool pil_feed = !progressive && !multi_scan;
-    if (pil_feed) br.feed_as_pil();
+    if (pil_feed && !tiff) br.feed_as_pil();
+    if (tiff) br.set_real(real);
     int mcus_x, mcus_y;
     bool single = ns == 1;
     if (single) {
@@ -1413,6 +1475,18 @@ struct Decoder {
   // it are read as far as the file holds them, as jpeg_finish_decompress
   // does, and a second SOS is an error); a multi-scan file is read to EOI
   void parse() {
+    if (tiff) {  // jdmarker.c first_marker; no suspension
+      if (d[0] != 0xFF || d[1] != 0xD8) broken("not a JPEG stream");
+      bool done_scan = false;
+      try {
+        read_markers(done_scan);
+      } catch (const Error&) {
+        // JPEGDecode takes jpeg_finish_decompress's error for success:
+        // the markers after a single-scan stream's scan cannot fail it
+        if (!done_scan) throw;
+      }
+      return;
+    }
     if (n < 4 || d[0] != 0xFF || d[1] != 0xD8 || d[2] != 0xFF)
       broken("not a JPEG file");
     pil_open();
@@ -1433,7 +1507,7 @@ struct Decoder {
       int m = at(p++);
       if (m == 0x00) continue;  // FF 00 outside a scan: garbage
       if (m == 0xD9) {
-        if (!scanned) broken("no image data");
+        if (!scanned && !tables_only) broken("no image data");
         return;
       }
       if (m == 0xD8) broken("duplicate SOI");
@@ -1477,6 +1551,7 @@ struct Decoder {
         if (len != 4) broken("bad DRI");
         restart_interval = u16(body);
       } else if (m == 0xDA) {
+        if (tables_only) broken("JPEGTables with a scan");
         if (done_scan) {  // jdinput.c consume_markers
           sos_components(body, end);
           broken("a second scan in a single-scan file");
@@ -1484,6 +1559,7 @@ struct Decoder {
         next = read_scan(body, end);
         scanned = true;
         done_scan = !multi_scan;
+        if (tiff && done_scan && want_rows < H) return;
       } else {
         at(end - 1);
         read_sof(body, end, m);
@@ -1518,6 +1594,56 @@ struct Decoder {
       refuse("progressive JPEG whose scans leave coefficients incomplete");
   }
 
+  void load_tables(const TiffTables& t) {
+    std::memcpy(qt, t.qt, sizeof(qt));
+    std::memcpy(qt_defined, t.qt_defined, sizeof(qt_defined));
+    for (int i = 0; i < 4; ++i) {
+      dc[i] = t.dc[i];
+      ac[i] = t.ac[i];
+    }
+  }
+  void store_tables(TiffTables& t) const {
+    std::memcpy(t.qt, qt, sizeof(qt));
+    std::memcpy(t.qt_defined, qt_defined, sizeof(qt_defined));
+    for (int i = 0; i < 4; ++i) {
+      t.dc[i] = dc[i];
+      t.ac[i] = ac[i];
+    }
+  }
+
+  // The samples as libjpeg hands them to libtiff, 4 bytes a pixel: under
+  // photometric YCbCr RGB (JPEGCOLORMODE_RGB: jpeg_color_space JCS_YCbCr,
+  // whatever the markers say), else the components as stored
+  // (JCS_UNKNOWN: no conversion, CMYK not inverted, no YCCK)
+  void decode_tiff(uint8_t* out) {
+    std::vector<std::vector<uint8_t>> full(static_cast<size_t>(ncomp));
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[static_cast<size_t>(i)];
+      int stride = c.bw * 8;
+      c.plane.assign(static_cast<size_t>(stride) * c.bh * 8, 0);
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct_islow(c.block(by, bx), c.quant,
+                     &c.plane[static_cast<size_t>(by) * 8 * stride + bx * 8],
+                     stride);
+      full[static_cast<size_t>(i)].resize(static_cast<size_t>(W) * H);
+      upsample(c, max_h, max_v, W, H, full[static_cast<size_t>(i)].data());
+      c.plane.clear();
+      c.plane.shrink_to_fit();
+    }
+    const size_t np = static_cast<size_t>(W) * H;
+    for (size_t i = 0; i < np; ++i) {
+      uint8_t* o = out + 4 * i;
+      if (check.ycbcr) {
+        ycc_rgb(full[0][i], full[1][i], full[2][i], o);
+        o[3] = 255;
+      } else {
+        for (int k = 0; k < 4; ++k)
+          o[k] = k < ncomp ? full[static_cast<size_t>(k)][i] : 0;
+      }
+    }
+  }
+
   // The image as libjpeg hands it to PIL, 4 bytes a pixel: RGBA for 1
   // component (grey) or 3 (YCbCr or RGB), and for 4 the CMYK samples of
   // out_color_space JCS_CMYK (ycck_cmyk_convert: C, M and Y are 255 minus
@@ -1525,6 +1651,10 @@ struct Decoder {
   // reads as inverted CMYK ("CMYK;I").
   void decode(uint8_t* out) {
     check_smoothing();
+    if (tiff) {
+      decode_tiff(out);
+      return;
+    }
     std::vector<std::vector<uint8_t>> full(static_cast<size_t>(ncomp));
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[static_cast<size_t>(i)];
@@ -1587,6 +1717,19 @@ struct JpegImage {
   std::vector<uint8_t> pixels;  // Decoder::decode's 4 bytes a pixel
 };
 
+// A strip's bytes followed by libtiff's fake EOI markers, which its
+// source manager hands libjpeg each time the data runs out: enough of
+// them for any marker segment read past the end
+std::vector<uint8_t> libtiff_stream(const uint8_t* data, int64_t size) {
+  std::vector<uint8_t> s(static_cast<size_t>(size) + 2 * 65540);
+  if (size > 0) std::memcpy(s.data(), data, static_cast<size_t>(size));
+  for (size_t i = static_cast<size_t>(size); i < s.size(); i += 2) {
+    s[i] = 0xFF;
+    s[i + 1] = 0xD9;
+  }
+  return s;
+}
+
 void set_message(char* msg, int32_t cap, const std::string& what) {
   if (!msg || cap <= 0) return;
   size_t k = std::min(what.size(), static_cast<size_t>(cap - 1));
@@ -1609,6 +1752,95 @@ void* pts_jpeg_decode(const uint8_t* data, int64_t size, int32_t* status,
     Decoder dec(data, static_cast<size_t>(size));
     dec.parse();
     if (!dec.frame) broken("no frame");
+    JpegImage* img = new JpegImage();
+    img->width = dec.W;
+    img->height = dec.H;
+    img->components = dec.ncomp;
+    img->pixels.resize(static_cast<size_t>(dec.W) * dec.H * 4);
+    try {
+      dec.decode(img->pixels.data());
+    } catch (...) {
+      delete img;
+      throw;
+    }
+    *status = 0;
+    return img;
+  } catch (const Error& e) {
+    *status = e.status;
+    set_message(msg, cap, e.what);
+  } catch (const std::bad_alloc&) {
+    *status = 1;
+    set_message(msg, cap, "out of memory");
+  }
+  return nullptr;
+}
+
+// libtiff's JPEG tables for one image: those of a JPEGTables stream
+// (`size` 0: none), which must hold tables only (status 1 otherwise).
+// Returns a handle for pts_jpeg_tiff_decode, released by
+// pts_jpeg_tables_free; nullptr on failure with *status and msg as
+// pts_jpeg_decode's.
+void* pts_jpeg_tables(const uint8_t* data, int64_t size, int32_t* status,
+                      char* msg, int32_t cap) {
+  try {
+    TiffTables* t = new TiffTables();
+    if (size > 0) {
+      std::vector<uint8_t> s = libtiff_stream(data, size);
+      Decoder dec(s.data(), s.size());
+      dec.tiff = dec.tables_only = true;
+      dec.real = static_cast<size_t>(size);
+      dec.fed = s.size();
+      try {
+        dec.parse();
+      } catch (...) {
+        delete t;
+        throw;
+      }
+      dec.store_tables(*t);
+    }
+    *status = 0;
+    return t;
+  } catch (const Error& e) {
+    *status = e.status;
+    set_message(msg, cap, e.what);
+  } catch (const std::bad_alloc&) {
+    *status = 1;
+    set_message(msg, cap, "out of memory");
+  }
+  return nullptr;
+}
+
+void pts_jpeg_tables_free(void* tables) {
+  delete static_cast<TiffTables*>(tables);
+}
+
+// One strip or tile of a JPEG-compressed TIFF as libtiff's JPEG codec
+// decodes it for PIL: the stream read after the image's tables (updated
+// by what it defines), checked against the strip or tile (`seg_w` x
+// `seg_h`, `spp` samples, luma sampling `hs` x `vs`; `last_strip`: the
+// last strip of a striped image, which may be taller), `want_rows` rows
+// of it read, converted from YCbCr to RGB where `ycbcr` (JPEGCOLORMODE_RGB)
+// or else its components as stored. Returns a handle as pts_jpeg_decode
+// (pts_jpeg_size and pts_jpeg_copy read it: 4 bytes a pixel, the first
+// `components` of them the samples).
+void* pts_jpeg_tiff_decode(void* tables, const uint8_t* data, int64_t size,
+                           int32_t seg_w, int32_t seg_h, int32_t spp,
+                           int32_t hs, int32_t vs, int32_t last_strip,
+                           int32_t ycbcr, int32_t want_rows, int32_t* status,
+                           char* msg, int32_t cap) {
+  try {
+    std::vector<uint8_t> s = libtiff_stream(data, size);
+    Decoder dec(s.data(), s.size());
+    dec.tiff = true;
+    dec.real = static_cast<size_t>(size);
+    dec.fed = s.size();
+    dec.want_rows = want_rows;
+    dec.check = {seg_w, seg_h, spp, hs, vs, last_strip != 0, ycbcr != 0};
+    TiffTables* t = static_cast<TiffTables*>(tables);
+    dec.load_tables(*t);
+    dec.parse();
+    if (!dec.frame) broken("no frame");
+    dec.store_tables(*t);
     JpegImage* img = new JpegImage();
     img->width = dec.W;
     img->height = dec.H;

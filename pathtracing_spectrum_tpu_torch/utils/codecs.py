@@ -1,9 +1,11 @@
 """The binding of the host library's LZW, PackBits, SGI RLE and PCX RLE
-decoders (``csrc/lzw_decode.cpp``), which the GIF, TIFF, PSD, SGI and PCX
-readers of ``utils/image.py`` run. They are serial over codes or packets,
-so host C++ (a 2048x2048 LZW strip would take minutes in Python, and a
-4K PCX holds ~25 M bytes of runs), with no Python fallback: when the host
-library cannot be built, the call raises with the compiler's output.
+decoders (``csrc/lzw_decode.cpp``) and its CCITT decoder
+(``csrc/fax_decode.cpp``), which the GIF, TIFF, PSD, SGI and PCX readers
+of ``utils/image.py`` run. They are serial over codes, packets or bits,
+so host C++ (a 2048x2048 LZW strip or bilevel map would take minutes in
+Python, and a 4K PCX holds ~25 M bytes of runs), with no Python fallback:
+when the host library cannot be built, the call raises with the
+compiler's output.
 
 Each function returns the decoded bytes, or raises :class:`BrokenData`
 where PIL (for GIF, PSD, SGI and PCX) or libtiff (for TIFF) rejects the
@@ -96,3 +98,40 @@ def pcx_rle(data: bytes, width: int, bits: int, line_bytes: int,
                           out.ctypes.data):
         raise BrokenData("broken PCX run-length data")
     return out
+
+
+class Fax:
+    """libtiff 4.7's CCITT decoder (tif_fax3.c) over the strips or tiles
+    of one image: TIFF compression 2 (Modified Huffman, rows byte-aligned),
+    3 (T.4 with EOLs; ``options`` its T4Options, bit 0 the 2-D rows) or 4
+    (T.6), ``width`` pixels a row. It keeps what libtiff keeps between
+    them: its run array (a damaged 2-D row may read stale runs) and its
+    mode (a strip of compression 3 that had no EOLs was read again without
+    them, and so are the strips after it). ``csrc/fax_decode.cpp`` lists
+    the damage it recovers from as libtiff does."""
+
+    _MODES = {2: 7, 3: 0, 4: 1}   # FAXMODE_NORTC | NOEOL | BYTEALIGN ...
+
+    def __init__(self, scheme: int, options: int, width: int):
+        lib = _build.load_host()
+        self.scheme, self.options, self.width = scheme, options, width
+        self._runs = np.zeros(lib.pts_fax_run_slots(scheme, options, width),
+                              np.uint32)
+        self._mode = ctypes.c_int32(self._MODES[scheme])
+
+    def decode(self, data: bytes, out: np.ndarray) -> np.ndarray:
+        """Decode one strip or tile (fill order 1) into ``out``, [rows, row
+        bytes] uint8, whose rows the decoder does not write keep their
+        bytes (compression 4 stops at the end of its data without an error
+        once a row is written); returns the rows written, [rows] bool.
+        Raises :class:`BrokenData` where libtiff fails."""
+        lib = _build.load_host()
+        buf, ptr = _source(data)
+        rows, row_bytes = out.shape
+        written = np.zeros(max(rows, 1), np.uint8)
+        if lib.pts_fax_decode(ptr, buf.size, self.scheme, self.options,
+                              self.width, rows, row_bytes, out.ctypes.data,
+                              written.ctypes.data, self._runs.ctypes.data,
+                              ctypes.byref(self._mode)) != 1:
+            raise BrokenData("broken CCITT data")
+        return written[:rows].astype(bool)

@@ -67,7 +67,21 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   failing libtiff's reading where libtiff fetches it without recovery;
   no compression, LZW
   (host library), Deflate (``zlib``), PackBits (host library); predictor
-  2 at 8 and 16 bits (a ``cumsum`` in the sample's unsigned dtype);
+  2 at 8 and 16 bits for LZW and Deflate, the codecs libtiff runs it in
+  (a ``cumsum`` in the sample's unsigned dtype); CCITT Modified Huffman,
+  Group 3 (1-D, or 2-D by T4Options bit 0, EOLs aligned or not) and
+  Group 4 (host library, ``codecs.Fax``: libtiff 4.7's decoder, its
+  recovery from bad code words, rows too long or too short and data that
+  ends early, the strip read again without EOLs, PIL's strip buffer kept
+  between strips); JPEG (compression 7: each strip or tile the host
+  library's JPEG decoder reads as libtiff's JPEG codec hands libjpeg's
+  samples to PIL, ``jpeg.TiffDecoder``: after the JPEGTables and the
+  tables of the streams before it, libtiff's checks of each stream,
+  YCbCr converted to RGB by libjpeg at the stream's sampling (the
+  YCbCrSubsampling tag, or without it the first strip's), other
+  photometrics' samples as stored, CMYK not inverted); the image turned
+  by its Orientation tag as PIL's ``load_end`` turns it
+  (``ImageOps.exif_transpose``);
   strips or tiles, contiguous or separate planes; photometric 0, 1, 2 and
   3 at 1, 2, 4, 8 and 16 bits, grey + alpha, RGB with extra samples 0, 1
   (associated alpha, unpremultiplied as PIL's ``RGBa`` with its
@@ -123,12 +137,13 @@ black (image.cpp:48-49). A format PIL opens and the port does not (ICO,
 QOI, JPEG 2000, ... : the other 30 plugins) or a flavour of one decoded
 here that it does not take (lossless and block-smoothed progressive
 JPEG, RLE BMP and DIB, plain-text PNM (P1-P3) and PIL's test extensions
-(``P0CMYK``, ``PyP``, ``PyRGBA``, ``PyCMYK``), JPEG-in-TIFF, CCITT,
-YCbCr TIFF at other subsampling than (1, 1) or turned by its orientation,
-uncompressed YCbCr TIFF tiles, CIELab TIFF, old-style LZW, BigTIFF,
-CIELab PSD, the IM image types PIL's writer does not make, ...) raises
-``NotImplementedError`` naming the file and the flavour: a texture is
-never dropped quietly.
+(``P0CMYK``, ``PyP``, ``PyRGBA``, ``PyCMYK``), old-style JPEG-in-TIFF
+(compression 6), JPEG-in-TIFF in separate planes, CCITT RLEW (32771),
+YCbCr TIFF at other subsampling than (1, 1) or turned by its orientation
+(JPEG-compressed YCbCr apart), uncompressed YCbCr TIFF tiles, CIELab
+TIFF, old-style LZW, BigTIFF, CIELab PSD, the IM image types PIL's
+writer does not make, ...) raises ``NotImplementedError`` naming the
+file and the flavour: a texture is never dropped quietly.
 
 Named deviations on damaged or odd files (``tests/test_torch_damage.py``
 and ``tests/test_torch_formats.py`` hold the rest):
@@ -144,7 +159,18 @@ and ``tests/test_torch_formats.py`` hold the rest):
   height and ``pixel n8`` lines);
 - a TIFF damaged inside its IFD (an entry's tag, type, count or value):
   PIL's and libtiff's checks of each entry are copied only as far as the
-  paragraph on TIFF above says.
+  paragraph on TIFF above says;
+- an uncompressed TIFF in one strip at orientation 5-8 whose mode PIL
+  memory-maps (L, P, RGBA, CMYK, I;16) is refused: PIL maps its samples
+  at the size it has already swapped, so its pixels are the rows read at
+  the wrong width;
+- CCITT data that ends before the last row of a strip or tile (Group 4
+  stops there without an error) leaves the rows after it as PIL's strip
+  buffer held them: the strip's before, which is read, or, in the first
+  strip, memory PIL never initialised (its image differs from run to
+  run), which is refused; a JPEG stream smaller than its strip or tile,
+  which libtiff reads with a warning, leaving the rest of the buffer as
+  it was, is refused.
 
 Writing: :func:`write_image` is what the viewer, the CLI and the shell
 save through. As the JAX package's ``PIL.Image.save(path)``, it picks the
@@ -1264,12 +1290,17 @@ def _tiff_mode(order, photo, sample_format, fill, bps, extra):
     return None
 
 
-_TIFF_COMPRESSIONS = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate",
-                      32773: "PackBits"}
-_TIFF_REFUSED = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-                 6: "old-style JPEG", 7: "JPEG", 32771: "RAW_16",
+_TIFF_COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3",
+                      4: "CCITT Group 4", 5: "LZW", 7: "JPEG", 8: "Deflate",
+                      32946: "Deflate", 32773: "PackBits"}
+_TIFF_REFUSED = {6: "old-style JPEG",
+                 32771: "CCITT RLEW (PIL's own files do not read back)",
                  32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
                  34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
+_TIFF_FAX = (2, 3, 4)
+# the codecs libtiff runs its predictor in (tif_predict.c): LZW and
+# Deflate; PackBits, CCITT and JPEG ignore the tag
+_TIFF_PREDICTED = (5, 8, 32946)
 
 
 def _tiff_chunk(raw: bytes, compression: int, nbytes: int) -> np.ndarray:
@@ -1299,6 +1330,117 @@ def _tiff_chunk(raw: bytes, compression: int, nbytes: int) -> np.ndarray:
 
 _REVERSED_BITS = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                           np.uint8)
+
+
+class _FaxChunks:
+    """The strips or tiles of a CCITT image as PIL reads them: libtiff's
+    decoder (``codecs.Fax``) into PIL's strip or tile buffer, which PIL
+    keeps from one to the next. Compression 4 stops without an error where
+    its data ends, the rows after it left as the buffer held them: rows of
+    the strip or tile before, or, where none wrote them, memory PIL never
+    initialised (refused: PIL's image differs from one run to the next)."""
+
+    def __init__(self, compression: int, options: int, width: int,
+                 rows: int, row_bytes: int):
+        self.fax = codecs.Fax(compression, options, width)
+        self.buf = np.zeros((rows, row_bytes), np.uint8)
+        self.known = np.zeros(rows, bool)
+
+    def __call__(self, raw: bytes, n: int, keep: int, last: bool):
+        self.known[:n] |= self.fax.decode(raw, self.buf[:n])
+        if not self.known[:keep].all():
+            raise _Refused("CCITT data that ends before the last row of a "
+                           "strip or tile PIL has not filled before (PIL "
+                           "reads those rows from uninitialised memory)")
+        return self.buf[:n].copy()
+
+
+class _JpegChunks:
+    """The strips or tiles of a JPEG-compressed TIFF as PIL reads them:
+    libtiff's JPEG codec (``jpeg.TiffDecoder``: the JPEGTables ``tables``,
+    JPEGPreDecode's checks, RGB under photometric YCbCr, else the stored
+    components). A stream smaller than its strip or tile is refused:
+    libtiff reads what it holds and leaves the rest of PIL's buffer as it
+    was."""
+
+    def __init__(self, tables, width: int, spp: int, sampling, ycbcr: bool):
+        self.dec = jpeg.TiffDecoder(tables)
+        self.width, self.spp, self.sampling = width, spp, sampling
+        self.ycbcr = ycbcr
+
+    def __call__(self, raw: bytes, n: int, keep: int, last: bool):
+        s = self.dec.decode(raw, self.width, n, self.spp, self.sampling,
+                            last, self.ycbcr, n)
+        if s.shape[0] < n or s.shape[1] < self.width:
+            raise _Refused(f"a {s.shape[1]}x{s.shape[0]} JPEG stream in a "
+                           f"{self.width}x{n} strip or tile (PIL keeps the "
+                           "rest of its buffer)")
+        return s[:n, :self.width].reshape(n, -1)
+
+
+def _tiff_tag_bytes(data: bytes, at: int, order: str, tag: int):
+    """The values of a BYTE or UNDEFINED tag of the IFD at ``at`` as
+    libtiff reads them (JPEGTables), None where it is missing, of another
+    type or past the end of the file (libtiff skips it)."""
+    (count,) = struct.unpack_from(order + "H", data, at)
+    for i in range(min(count, (len(data) - at - 2) // 12)):
+        t, kind, n, value = struct.unpack_from(order + "HHI4s", data,
+                                               at + 2 + 12 * i)
+        if t != tag:
+            continue
+        if kind not in (1, 6, 7) or n == 0:
+            return None
+        if n <= 4:
+            return value[:n]
+        (pos,) = struct.unpack(order + "I", value)
+        v = data[pos:pos + n]
+        return v if len(v) == n else None
+    return None
+
+
+def _jpeg_first_sampling(s: bytes, spp: int):
+    """libtiff's JPEGFixupTagsSubsampling: a YCbCr JPEG TIFF without the
+    YCbCrSubsampling tag takes the first component's sampling factors from
+    the frame of its first strip or tile (``s``), where its markers lead
+    to one and the factors have a TIFF equivalent; else (2, 2)."""
+    p = 0
+
+    def byte():
+        nonlocal p
+        p += 1
+        return s[p - 1]                 # IndexError: the strip ran out
+
+    try:
+        while True:
+            while byte() != 255:
+                pass
+            m = 255
+            while m == 255:
+                m = byte()
+            if m == 0xD8:
+                continue
+            if m in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD) or 0xE0 <= m <= 0xEF:
+                n = byte() << 8 | byte()
+                if n < 2:
+                    return (2, 2)
+                p += n - 2
+                continue
+            if m not in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+                return (2, 2)
+            if byte() << 8 | byte() != 8 + 3 * spp:
+                return (2, 2)
+            p += 7
+            v = byte()
+            p += 1
+            for _ in range(1, spp):
+                p += 1
+                if byte() != 0x11:
+                    return (2, 2)
+                p += 1
+            h, v = v >> 4, v & 15
+            return (h, v) if h in (1, 2, 4) and v in (1, 2, 4) else (2, 2)
+    except IndexError:
+        return (2, 2)
 
 
 def _decode_tiff(data: bytes) -> np.ndarray:
@@ -1349,8 +1491,7 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         raise _Refused("CIELab" if mode == "LAB" else f"mode {mode} "
                        f"({bps[0]}-bit samples, sample format "
                        f"{sample_format[0]})")
-    if g(274, (1,))[0] in (5, 6, 7, 8):
-        raise _Refused("a transposing orientation")
+    orientation = g(274, (1,))[0]     # PIL's exif_transpose, at the end
     ycbcr = None
     if compression != 1:
         # PIL hands compressed data to libtiff, which lays it out by its
@@ -1359,11 +1500,20 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         fill = g(266, (1,))[0]
         if len(g(338, ())) > spp:         # setExtraSamples refuses it
             raise _Unreadable("more extra samples than samples")
-        if photo == 6:                    # libtiff's RGBA reader
+        if photo == 6 and compression != 7:   # libtiff's RGBA reader
             ycbcr = _libtiff_ycbcr(tags, spp, g(274, (1,))[0])
     planar = g(284, (1,))[0]
     bits = bps[0]
-    predictor = g(317, (1,))[0] if compression != 1 else 1
+    predictor = g(317, (1,))[0] if compression in _TIFF_PREDICTED else 1
+    if compression in _TIFF_FAX and (bits != 1 or (spp > 1 and planar == 1)):
+        raise _Unreadable("CCITT data of other than 1-bit samples")
+    if compression == 7:
+        if planar == 2:
+            raise _Refused("JPEG with separate planes")
+        if bits != 8:                     # JPEGPreDecode: data precision
+            raise _Unreadable(f"JPEG data at {bits} bits")
+        if photo == 6 and spp != 3:
+            raise _Unreadable(f"YCbCr JPEG with {spp} samples a pixel")
     if predictor not in (1, 2) or (predictor == 2 and bits not in (8, 16)):
         raise _Refused(f"predictor {predictor} at {bits} bits")
     if planar == 2 and compression == 1 and bits != 8 and spp > 1:
@@ -1396,9 +1546,29 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     nx, ny = -(-width // cw), -(-height // ch)
     if len(offsets) < planes * nx * ny:
         raise _Unreadable("too few strips or tiles")
+    if orientation in (5, 6, 7, 8) and compression == 1 and \
+            planes * nx * ny == 1 and mode in _PIL_MAPPED:
+        raise _Refused(f"an uncompressed single-strip {mode} TIFF at "
+                       f"orientation {orientation} (PIL maps its samples "
+                       "with the width and height swapped)")
     if nx > 1 and cw * per * bits % 8:
         raise _Refused("tiles that end inside a byte")
     out = np.zeros((planes, height, row_bytes * nx), np.uint8)
+    if compression in _TIFF_FAX:
+        reader = _FaxChunks(compression, g(292, (0,))[0] if compression == 3
+                            else 0, cw, ch, row_bytes)
+    elif compression == 7:
+        if photo != 6:
+            sampling = (1, 1)
+        elif len(g(530, ())) == 2:
+            sampling = tuple(g(530, ()))
+        else:           # JPEGFixupTagsSubsampling: the first strip's frame
+            sampling = _jpeg_first_sampling(data[offsets[0]:offsets[0] + (
+                counts[0] if counts else 0)], spp) if offsets[0] else (2, 2)
+        reader = _JpegChunks(_tiff_tag_bytes(data, at, order, 347), cw, spp,
+                             sampling, photo == 6)
+    else:
+        reader = None
     for k in range(planes * nx * ny):
         plane, rest = divmod(k, nx * ny)
         ty, tx = divmod(rest, nx)
@@ -1413,10 +1583,13 @@ def _decode_tiff(data: bytes) -> np.ndarray:
             raise _Unreadable("truncated strip or tile")   # strip/tile"
         if fill == 2:                 # libtiff reverses the stored bits
             raw = _REVERSED_BITS[np.frombuffer(raw, np.uint8)].tobytes()
-        chunk = _tiff_chunk(raw, compression,
-                            (rows if compression == 1 or not tiled else ch)
-                            * row_bytes)
-        chunk = chunk.reshape(-1, row_bytes)
+        if reader is not None:        # a whole tile, or the strip's rows
+            chunk = reader(raw, ch if tiled else rows, rows,
+                           not tiled and y0 + rows == height)
+        else:
+            chunk = _tiff_chunk(raw, compression,
+                                (rows if compression == 1 or not tiled
+                                 else ch) * row_bytes).reshape(-1, row_bytes)
         if predictor == 2:            # in the sample's own unsigned dtype
             r = chunk.shape[0]
             if bits == 8:
@@ -1437,9 +1610,24 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     samples = _tiff_samples(out, bits, width, per, order, kind)
     samples = (np.concatenate(list(samples), axis=-1) if planar == 2
                else samples[0])
-    if ycbcr is not None:
+    if ycbcr is not None:             # (at orientation 1 only)
         return _libtiff_ycbcr_rgba(samples, *ycbcr)
-    return _tiff_rgba(samples, mode, photo, bits, extra, tags.get(320))
+    rgba = _tiff_rgba(samples, mode, photo, bits, extra, tags.get(320))
+    return np.ascontiguousarray(
+        _EXIF_TRANSPOSE.get(orientation, lambda a: a)(rgba))
+
+
+# PIL's TIFF load_end runs ImageOps.exif_transpose: the Orientation tag's
+# Image.Transpose method, as numpy views of [H, W, 4]. Of an uncompressed
+# file in one strip whose mode PIL can memory-map (Image._MAPMODES), PIL
+# maps the samples at the size it has already swapped for orientations
+# 5-8; the port refuses those (_PIL_MAPPED)
+_PIL_MAPPED = ("L", "P", "RGBA", "CMYK", "I;16", "I;16B")
+_EXIF_TRANSPOSE = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
+                   4: lambda a: a[::-1], 5: lambda a: a.swapaxes(0, 1),
+                   6: lambda a: np.rot90(a, -1),
+                   7: lambda a: a[::-1, ::-1].swapaxes(0, 1),
+                   8: lambda a: np.rot90(a, 1)}
 
 
 def _tiff_samples(rows: np.ndarray, bits: int, width: int, per: int,

@@ -662,8 +662,9 @@ def _refused():
     cmyk = np.concatenate([ti.smooth_rgb(6, 40, 24),
                            ti.smooth_rgb(7, 40, 24)[..., :1]], -1)
     return {
-        "JPEG-in-TIFF": pil("TIFF", compression="jpeg"),
-        "CCITT Group 4 TIFF": pil("TIFF", "1", compression="group4"),
+        "old-style JPEG-in-TIFF": ti.tiff_bytes(
+            x, photometric=6, compression=6, chunks=[base]),
+        "CCITT RLEW TIFF": pil("TIFF", "1", compression="tiff_raw_16"),
         "YCbCr LZW TIFF subsampled 2x2": ti.tiff_bytes(
             x, photometric=6, compression=5, extra_tags=((530, 3, [2, 2]),)),
         "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),

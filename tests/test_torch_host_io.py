@@ -213,7 +213,7 @@ def test_host_library_is_built_from_the_port_sources_with_jax_flags():
     sources = {p.name for p in _build.HOST_SOURCES}
     assert sources == {"bvh_build.cpp", "host_io.cpp", "jpeg_decode.cpp",
                        "jpeg_encode.cpp", "lzw_decode.cpp", "webp_decode.cpp",
-                       "gif_encode.cpp", "webp_encode.cpp"}
+                       "gif_encode.cpp", "webp_encode.cpp", "fax_decode.cpp"}
     assert {p.name for p in _build.HOST_HEADERS} == {"jpeg_std_tables.h",
                                                      "vp8_common.h"}
     jax_compile = inspect.getsource(native._compile)
@@ -236,7 +236,7 @@ RLE_FILES = {
 @pytest.mark.parametrize("call", ["load_obj", "export_spectrum", "jpeg",
                                   "jpeg_encode", "tiff_lzw", "webp",
                                   "gif_encode", "webp_encode", "sgi_rle",
-                                  "pcx_rle"])
+                                  "pcx_rle", "tiff_g4", "tiff_jpeg"])
 def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
                                                               monkeypatch):
     def no_library():
@@ -262,6 +262,7 @@ def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
             image.load_rgba(os.path.join(
                 os.path.dirname(__file__), "torch_data",
                 {"jpeg": "normal_1024_444.jpg", "tiff_lzw":
-                 "normal_512_lzw16.tif", "webp": "normal_1024_lossless.webp"}[
-                    call]))
+                 "normal_512_lzw16.tif", "webp": "normal_1024_lossless.webp",
+                 "tiff_g4": "small_g4_miniswhite.tif",
+                 "tiff_jpeg": "small_jpeg_ycbcr.tif"}[call]))
     assert jpeg.BrokenJpeg is not RuntimeError

@@ -621,7 +621,8 @@ with open(normal, "wb") as f:
     f.write(fx.tiff_map_bytes(fx.ycbcr_of(px[::-1]), 6, packbits=True))
 data_dir = os.path.join(sys.argv[1], "tests", "torch_data")
 for name in ("small.pbm", "grey16.pgm", "small_1000.ppm", "small.pfm",
-             "small_1bit.tga", "small_i32_lzw.tif"):
+             "small_1bit.tga", "small_i32_lzw.tif", "small_jpeg_ycbcr.tif",
+             "small_g4_miniswhite.tif"):
     assert image.load_rgba8(os.path.join(data_dir, name)).shape == (29, 37, 4)
 sc = pt.Scene()
 sc.wavelengths = [500.0, 1000.0, 1500.0, 2000.0]

@@ -266,6 +266,58 @@ def segments(data: bytes):
         pos = end
 
 
+def jpeg_tables_split(data: bytes):
+    """(JPEGTables, abbreviated stream) of a JPEG file: SOI, its DQT and
+    DHT segments and EOI; and the file without them and its APP
+    segments."""
+    head = segments(data)
+    keep = [(m, a, b) for m, a, b in head if m in (0xDB, 0xC4)]
+    rest = [(m, a, b) for m, a, b in head
+            if m not in (0xDB, 0xC4) and not 0xE0 <= m <= 0xEF]
+    tables = b"\xff\xd8" + b"".join(data[a:b] for _, a, b in keep) + \
+        b"\xff\xd9"
+    stream = b"\xff\xd8" + b"".join(data[a:b] for _, a, b in rest[:-1]) + \
+        data[rest[-1][1]:]
+    return tables, stream
+
+
+def jpeg_tiff_bytes(rgb: np.ndarray, subsampling: int = 2,
+                    rows_per_strip: int = None, tile=None,
+                    tables: bool = False, sampling_tag=None,
+                    photometric: int = 6, order: str = "<",
+                    **save) -> bytes:
+    """A JPEG-compressed TIFF (compression 7) of [H, W, 3] uint8 ``rgb``
+    wrapped by hand (PIL writes YCbCr at 1x1 only): each strip, or each
+    ``tile`` (w, h) padded with black, PIL's JPEG of its pixels at
+    ``subsampling`` (0 4:4:4, 1 4:2:2, 2 4:2:0); with ``tables`` the
+    streams abbreviated and the first one's tables in JPEGTables (tag
+    347); YCbCrSubsampling (530) only where ``sampling_tag`` is given."""
+    h, w, _ = rgb.shape
+    pieces = []
+    if tile is None:
+        rps = rows_per_strip or h
+        pieces = [rgb[y:y + rps] for y in range(0, h, rps)]
+    else:
+        tw, th = tile
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                t = np.zeros((th, tw, 3), np.uint8)
+                part = rgb[y:y + th, x:x + tw]
+                t[:part.shape[0], :part.shape[1]] = part
+                pieces.append(t)
+    chunks = [jpeg_bytes(np.ascontiguousarray(p), subsampling=subsampling,
+                         **save) for p in pieces]
+    extra = []
+    if tables:
+        extra.append((347, 7, jpeg_tables_split(chunks[0])[0]))
+        chunks = [jpeg_tables_split(c)[1] for c in chunks]
+    if sampling_tag is not None:
+        extra.append((530, 3, list(sampling_tag)))
+    return tiff_bytes(rgb, photometric=photometric, compression=7,
+                      rows_per_strip=rows_per_strip, tile=tile,
+                      chunks=chunks, extra_tags=tuple(extra), order=order)
+
+
 def drop_segment(data: bytes, marker: int) -> bytes:
     for m, start, end in segments(data):
         if m == marker:
@@ -519,11 +571,16 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = None,
                compression: int = 1, predictor: int = 1, order: str = "<",
                planar: int = 1, rows_per_strip: int = None, tile=None,
                extra=None, sample_format: int = None, colormap=None,
-               extra_tags=(), fill_order: int = None) -> bytes:
+               extra_tags=(), fill_order: int = None,
+               chunks=None) -> bytes:
     """A one-IFD TIFF of ``samples`` [h, w, spp] (integers below
     ``2**bits``, or float32 with ``sample_format`` 3), in byte order
     ``order`` ('<' II, '>' MM), strips of ``rows_per_strip`` rows or
-    tiles of ``tile`` (w, h), compression 1, 5, 8, 32946 or 32773."""
+    tiles of ``tile`` (w, h), compression 1, 5, 8, 32946 or 32773; or,
+    where ``chunks`` is given, those bytes as the strips or tiles of a
+    file of ``samples``' shape under any ``compression`` (``samples``
+    then gives the size only). ``extra_tags`` are (tag, type, values),
+    type 7 (UNDEFINED) taking bytes."""
     h, w, spp = samples.shape
     if photometric is None:
         photometric = 1 if spp in (1, 2) else 2
@@ -561,8 +618,10 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = None,
         compress = lambda raw: plain(raw).translate(rev)   # noqa: E731
     planes = [samples] if planar == 1 else [samples[..., i:i + 1]
                                               for i in range(spp)]
-    chunks = []
-    if tile is None:
+    given, chunks = chunks, []
+    if given is not None:
+        chunks = list(given)
+    elif tile is None:
         rps = rows_per_strip or h
         for plane in planes:
             for y in range(0, h, rps):
@@ -602,7 +661,7 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = None,
     off_tag, cnt_tag = (273, 279) if tile is None else (324, 325)
     tags[off_tag] = (L, [0] * len(chunks))
     tags[cnt_tag] = (L, [len(c) for c in chunks])
-    fmt = {S: "H", L: "I", R: "I"}
+    fmt = {S: "H", L: "I", R: "I", 7: "B"}
     ifd_at = 8
     aux_at = ifd_at + 2 + 12 * len(tags) + 4
 

@@ -20,10 +20,11 @@ used).
 
 And it records, in ``tests/torch_data/map_digests.json``, the sha256 of
 each of ``READER_MAPS`` (the textured sessions' RLE SGI roughness map and
-PCX normal map, and uncompressed CMYK roughness map and PackBits YCbCr
-normal map as TIFFs, made at run time by :func:`reader_map`: nothing is
-committed) and of PIL's decode of it; ``chip_smoke.py`` holds the maps it
-builds and the port's decodes of them to these.
+PCX normal map, uncompressed CMYK roughness map and PackBits YCbCr
+normal map as TIFFs, and a JPEG-in-TIFF normal map in 256x256 tiles,
+made at run time by :func:`reader_map`: nothing is committed) and of
+PIL's decode of it; ``chip_smoke.py`` holds the maps it builds and the
+port's decodes of them to these.
 
 Fixtures (all content procedural, from fixed seeds):
 
@@ -71,7 +72,22 @@ Fixtures (all content procedural, from fixed seeds):
   ``small_lossy.webp`` (VP8), ``small_lossy_alpha.webp`` (VP8X with an
   ALPH chunk), ``small_palette.webp`` (VP8L colour indexing, five
   colours) and ``small_anim.webp`` (two frames, the first cropped to a
-  window at an offset).
+  window at an offset);
+- PIL's JPEG-compressed TIFFs (compression 7, JPEGTables, abbreviated
+  streams in strips) of modes L, RGB, CMYK and YCbCr (``small_jpeg_l``,
+  ``_rgb``, ``_cmyk``, ``_ycbcr.tif``), and two wrapped by hand at 4:2:0
+  without the YCbCrSubsampling tag: ``small_jpeg420_strips.tif`` (two
+  16-row strips, whole JPEG files, no JPEGTables) and
+  ``small_jpeg420_tiles.tif`` (16x16 tiles cut at the edges, abbreviated
+  streams, JPEGTables), 37x29;
+- PIL's CCITT TIFFs of mode 1, 37x29: ``small_g3_1d.tif`` (Group 3, 1-D
+  rows after EOLs), ``small_g3_2d.tif`` (T4Options 1, 8-row strips),
+  ``small_g3_eol_aligned.tif`` (T4Options 4), ``small_g4_miniswhite.tif``
+  (Group 4, photometric 0), ``small_g4_fill2.tif`` (Group 4, fill order
+  2, 8-row strips) and ``small_ccitt_rle.tif`` (compression 2); and
+  ``roughness_2048_g4.tif``, a 2048x2048 bilevel Group 4 map of 32-pixel
+  cells (:func:`roughness_bilevel`: the textured session's roughness map
+  of ``chip_smoke.py``'s ``tiff-jpeg-ccitt`` turn).
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -97,6 +113,14 @@ def _images_module():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def roughness_bilevel(n: int = 2048, cell: int = 32) -> np.ndarray:
+    """[n, n] bool: cells of ``cell`` pixels set where two waves over the
+    cell indices cross: a blocky pattern, ~13 KB in Group 4."""
+    i, j = np.mgrid[0:n // cell, 0:n // cell]
+    on = ((i * 7 + j * 3) % 11 < 5) ^ ((i * j) % 5 == 0)
+    return np.kron(on, np.ones((cell, cell), bool))
 
 
 def roughness_map(n: int = 2048) -> np.ndarray:
@@ -299,11 +323,41 @@ def tiff_map_bytes(samples: np.ndarray, photometric: int,
     if photometric == 6:
         tags[530] = (S, [1, 1])
         tags[532] = (R, [0, 1, 255, 1, 128, 1, 255, 1, 128, 1, 255, 1])
+    return _le_tiff(tags, 273, strips, body)
+
+
+def jpeg_tiff_map_bytes(rgb: np.ndarray, tile: int = 256) -> bytes:
+    """A little-endian one-IFD JPEG-in-TIFF (compression 7, photometric
+    YCbCr, no YCbCrSubsampling tag: libtiff takes the first tile's 2x2)
+    of [H, W, 3] uint8 RGB in ``tile``-square tiles after the IFD, each
+    the JPEG file of its tile that PIL's ``Image.save`` writes (quality
+    75, 4:2:0), as the port's ``utils/jpeg.py`` writes it."""
+    sys.path.insert(0, HERE)
+    from pathtracing_spectrum_tpu_torch.utils import jpeg
+    h, w, _ = rgb.shape
+    chunks = [jpeg.encode(np.ascontiguousarray(rgb[y:y + tile, x:x + tile]))
+              for y in range(0, h, tile) for x in range(0, w, tile)]
+    S, L = 3, 4
+    tags = {256: (L, [w]), 257: (L, [h]), 258: (S, [8, 8, 8]),
+            259: (S, [7]), 262: (S, [6]), 277: (S, [3]), 284: (S, [1]),
+            322: (L, [tile]), 323: (L, [tile]), 324: (L, [0] * len(chunks)),
+            325: (L, [len(c) for c in chunks])}
+    return _le_tiff(tags, 324, np.array([len(c) for c in chunks]),
+                    b"".join(chunks))
+
+
+def _le_tiff(tags: dict, offsets_tag: int, sizes: np.ndarray,
+             body: bytes) -> bytes:
+    """A little-endian TIFF of one IFD at 8 holding ``tags`` ({tag: (type,
+    values)}, types 3, 4 and 5), the values that do not fit an entry
+    after it, then ``body``: the strips or tiles of ``sizes`` bytes whose
+    offsets ``offsets_tag`` receives."""
+    S, L, R = 3, 4, 5
     aux_at = 8 + 2 + 12 * len(tags) + 4
     aux_len = sum(len(v) * (2 if k == S else 4) for k, v in tags.values()
                   if len(v) * (2 if k == S else 4) > 4)
-    at = aux_at + aux_len + np.cumsum(strips) - strips
-    tags[273] = (L, [int(a) for a in at])
+    at = aux_at + aux_len + np.cumsum(sizes) - sizes
+    tags[offsets_tag] = (L, [int(a) for a in at])
     entries, aux = b"", b""
     for tag in sorted(tags):
         kind, values = tags[tag]
@@ -345,19 +399,23 @@ def ycbcr_of(rgb: np.ndarray) -> np.ndarray:
 # file Image.save writes (which the port's writer writes byte for byte);
 # a 2048x2048 roughness map as an uncompressed CMYK TIFF and a 1024x1024
 # normal map as a YCbCr TIFF in PackBits at subsampling (1, 1)
-# (tiff_map_bytes); their content is procedural_rgb's, in integers only
+# (tiff_map_bytes); a 1024x1024 normal map as a JPEG-in-TIFF in 256x256
+# tiles (jpeg_tiff_map_bytes); their content is procedural_rgb's, in
+# integers only
 READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "normal_1024.pcx": (1024, 12),
                "roughness_2048_cmyk.tif": (2048, 13),
-               "normal_1024_ycbcr_packbits.tif": (1024, 14)}
+               "normal_1024_ycbcr_packbits.tif": (1024, 14),
+               "normal_1024_jpeg_tiles.tif": (1024, 16)}
 
 
 def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
     """(RGB pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI
     file's bytes from :func:`sgi_rle_bytes`; None for the PCX, which the
     writer under test (PIL's or the port's ``write_image``) makes; for the
-    TIFFs, whose samples are CMYK and YCbCr, no RGB pixels and the bytes
-    of :func:`tiff_map_bytes`."""
+    TIFFs, whose samples are CMYK and YCbCr or JPEG streams, no RGB
+    pixels and the bytes of :func:`tiff_map_bytes` or
+    :func:`jpeg_tiff_map_bytes`."""
     n, seed = READER_MAPS[name]
     px = procedural_rgb(n, n, seed)
     if name.endswith(".sgi"):
@@ -366,6 +424,8 @@ def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
         return None, tiff_map_bytes(cmyk_of(px), 5)
     if name.endswith("_ycbcr_packbits.tif"):
         return None, tiff_map_bytes(ycbcr_of(px), 6, packbits=True)
+    if name.endswith("_jpeg_tiles.tif"):
+        return None, jpeg_tiff_map_bytes(px)
     return px, None
 
 
@@ -520,6 +580,35 @@ def fixtures():
     out["grey16.tif"] = (ti.tiff_bytes(grey, 16), high, how)
     out["grey16.pgm"] = (pil_file(Image.frombytes(
         "I;16", (w, h), grey.astype("<u2").tobytes()), "PPM"), high, how)
+    # PIL's JPEG TIFFs of four modes, 4:2:0 ones wrapped by hand, and
+    # PIL's CCITT TIFFs of mode 1 (two in 8-row strips)
+    bilevel = Image.fromarray(small[..., 0] > 120)
+    files = {
+        **{f"small_jpeg_{m.lower()}.tif": pil_file(
+            Image.fromarray(small).convert(m), "TIFF", compression="jpeg")
+           for m in ("L", "RGB", "YCbCr")},
+        "small_jpeg_cmyk.tif": pil_file(Image.fromarray(np.concatenate(
+            [small, alpha], -1), "CMYK"), "TIFF", compression="jpeg"),
+        "small_jpeg420_strips.tif": ti.jpeg_tiff_bytes(
+            small, 2, rows_per_strip=16),
+        "small_jpeg420_tiles.tif": ti.jpeg_tiff_bytes(
+            small, 2, tile=(16, 16), tables=True),
+        "small_g3_1d.tif": pil_file(bilevel, "TIFF", compression="group3"),
+        "small_g3_2d.tif": pil_file(bilevel, "TIFF", compression="group3",
+                                    tiffinfo={292: 1, 278: 8}),
+        "small_g3_eol_aligned.tif": pil_file(
+            bilevel, "TIFF", compression="group3", tiffinfo={292: 4}),
+        "small_g4_miniswhite.tif": pil_file(
+            bilevel, "TIFF", compression="group4", tiffinfo={262: 0}),
+        "small_g4_fill2.tif": pil_file(bilevel, "TIFF", compression="group4",
+                                       tiffinfo={266: 2, 278: 8}),
+        "small_ccitt_rle.tif": pil_file(bilevel, "TIFF",
+                                        compression="tiff_ccitt"),
+        "roughness_2048_g4.tif": pil_file(Image.fromarray(
+            roughness_bilevel()), "TIFF", compression="group4"),
+    }
+    for name, data in files.items():
+        out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     # PIL's files of modes 1, F and I, and 16-bit and maxval-1000 P6 files
     # (PIL writes no P6 but at 255), from their own seed
     more = np.random.default_rng(17)
