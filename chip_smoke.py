@@ -56,8 +56,8 @@ through its kernels and made a healthy image:
   committed texture fixtures (``tests/torch_data/``: JPEG, CMYK, YCCK and
   arithmetic-coded JPEG, BMP, 8-bit and 1-bit TGA, PNM (P4, 16-bit P5,
   16-bit and maxval-1000 P6, Pf), 16-bit and Adam7 PNG, GIF, TIFF (mode
-  I in LZW among them), PSD, WebP) decoded and held to the digests of
-  PIL's decode, the
+  I in LZW among them), PSD, WebP, QOI, DXT5 and uncompressed DDS)
+  decoded and held to the digests of PIL's decode, the
   2048x2048 progressive JPEG's, YCCK arithmetic progressive JPEG's,
   Deflate TIFF's and lossy WebP's and the 1024x1024 CMYK arithmetic
   JPEG's and lossless WebP's decodes timed; a 2048x2048 RLE SGI
@@ -70,15 +70,18 @@ through its kernels and made a healthy image:
   1920x1080 with that JPEG as its roughness map and a 1024x1024 JPEG as
   its normal map, then with the two arithmetic-coded JPEGs, then with the
   TIFF and a 512x512 16-bit LZW TIFF, then with the two WebPs, then with
-  the SGI and PCX maps, then with the CMYK and YCbCr TIFFs, 16
+  the SGI and PCX maps, then with the CMYK and YCbCr TIFFs, then with a
+  2048x2048 Group 4 TIFF and a 1024x1024 tiled JPEG-in-TIFF, then with
+  a 2048x2048 QOI (written by the port) and a 1024x1024 DXT1 DDS, 16
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
   checker session; ``write_image``'s JPEG,
-  BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX and WebP files of a 37x29
-  and a 3840x2160 image held to the digests of PIL's, the DIB, IM, SGI
-  and PCX ones read back by the port equal to the pixels, the 4K PCX and
-  SGI decodes and the 4K JPEG, GIF
-  and WebP encodes timed, and a preview written as ``v.jpg``, ``v.gif``
+  BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, DDS, EPS and
+  MPO files of a 37x29 and a 3840x2160 image held to the digests of
+  PIL's, the DIB, IM, SGI, PCX, QOI and DDS ones read back by the port
+  equal to the pixels and the MPO equal to the JPEG's decode, the 4K PCX
+  and SGI decodes and the 4K JPEG, GIF, WebP, QOI and DDS encodes timed,
+  and a preview written as ``v.jpg``, ``v.gif``
   and ``v.webp`` by ``python -m pathtracing_spectrum_tpu_torch`` read
   back (the WebP held to the preview by its PSNR); the 52k and 200k terrains parsed by the native OBJ parser and
   by the plain Python one, bitwise equal, both timed, the 52k one
@@ -167,16 +170,20 @@ MULTI_SPP, MULTI_TERRAIN_SPP, MULTI_RAGGED, MULTI_RATE_TURNS = 16, 4, 3, 1
 SHELL_SPP = 4            # the scripted shell's render
 # the host's file readers and writers: the committed texture fixtures
 # (tools/make_torch_fixtures.py) held by digest, the 2048x2048 JPEG's and
-# TIFF's decodes timed (median of 5); the textured 1080p sessions with the
-# JPEG maps and the TIFF maps (16 samples each, then 4 a step against the
-# checker session in turns); the writers held to PIL's digests, the 4K JPEG
-# encode timed (median of 5); the terrains parsed natively and in Python,
+# TIFF's decodes timed (median of 5); the textured 1080p sessions with
+# each pair of maps (16 samples each, then 4 a step against the checker
+# session in turns); the writers held to PIL's digests, the 4K encodes
+# timed (median of 5); the terrains parsed natively and in Python,
 # the 52k one rendered through "hier" (4 samples); a 512x512x4 export held
 # to the formatter, the 4K one timed
 FILES_DIR = os.path.join(HERE, "tests", "torch_data")
 FILES_DECODES, FILES_RATE_SPP, FILES_TERRAIN_SPP = 5, 4, 4
-# the extensions whose files the files phase reads back (DIB, IM, SGI, PCX)
-READ_BACK = (".dib", ".im", ".sgi", ".bw", ".rgb", ".rgba", ".pcx")
+# the extensions whose files the files phase reads back as their pixels
+# (DIB, IM, SGI, PCX, QOI, DDS), and those it reads back as the JPEG
+# written before them (a single-frame MPO is PIL's JPEG file)
+READ_BACK = (".dib", ".im", ".sgi", ".bw", ".rgb", ".rgba", ".pcx", ".qoi",
+             ".dds")
+READ_BACK_AS_JPEG = (".mpo",)
 # the least PSNR the module preview's WebP may have against the grey
 # preview: 5 dB below what the same preview gives on the CPU
 # (python3 tools/webp_preview_psnr.py: 49.625 dB)
@@ -1206,16 +1213,20 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       (``tiff-cmyk-ycbcr``), then with the 2048x2048 Group 4 fixture
       ``roughness_2048_g4.tif`` as its roughness map and the JPEG-in-TIFF
       map as its normal map (``tiff-jpeg-ccitt``, both decodes timed),
-      through ``"hier"``: the texture table on the
+      then with a 2048x2048 RGB QOI roughness map written by the port and
+      a 1024x1024 DXT1 DDS normal map of hashed blocks (``qoi-dds``, both
+      decodes timed), through ``"hier"``: the texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry, then ms per sample in turns against the checker-map
       session;
     - ``write_image`` of the 37x29 fixture image and a procedural
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
-      (``tests/torch_data/write_digests.json``), the DIB, IM, SGI and PCX
-      files (``READ_BACK``) read back by the port equal to the pixels; the
-      4K RGB PCX and SGI decodes and the 4K JPEG, GIF and WebP encodes
+      (``tests/torch_data/write_digests.json``; QOI as L raising PIL's
+      ``ValueError``), the DIB, IM, SGI, PCX, QOI and DDS files
+      (``READ_BACK``) read back by the port equal to the pixels, the MPO
+      (``READ_BACK_AS_JPEG``) equal to the JPEG's decode; the 4K RGB PCX
+      and SGI decodes and the 4K JPEG, GIF, WebP, QOI and DDS encodes
       timed (median of ``decodes``); ``python -m
       pathtracing_spectrum_tpu_torch preview ... --out v.jpg --device
       cuda`` read back by the port's JPEG decoder, ``--out v.gif`` read
@@ -1254,7 +1265,7 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         for ext, want in ((".psd", KeyError), (".xpm", KeyError),
                           (".bufr", OSError), (".msp", OSError),
                           (".blp", ValueError), (".qoi", ValueError),
-                          (".dds", NotImplementedError)):
+                          (".pdf", NotImplementedError)):
             path = os.path.join(tmp, "out" + ext)
             try:
                 image.write_image(path, grey)
@@ -1322,10 +1333,13 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                      for name in (
                 "roughness_2048_cmyk.tif", "normal_1024_ycbcr_packbits.tif")),
             "tiff-jpeg-ccitt": ("roughness_2048_g4.tif", os.path.join(
-                maps_dir.name, "normal_1024_jpeg_tiles.tif"))}
+                maps_dir.name, "normal_1024_jpeg_tiles.tif")),
+            "qoi-dds": tuple(os.path.join(maps_dir.name, name) for name in (
+                "roughness_2048.qoi", "normal_1024_dxt1.dds"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
-            maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1]]:
+            maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
+            maps["qoi-dds"][1]]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
         say("files", decode=os.path.basename(name), runs=decodes, ms=ms,
@@ -1356,8 +1370,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # the textured sessions with the JPEG maps, the arithmetic-coded YCCK
     # and CMYK JPEG maps, the TIFF maps (16-bit LZW normals), the WebP
     # maps (lossy roughness, lossless normals with alpha), the SGI and PCX
-    # maps, the CMYK and YCbCr TIFF maps and the Group 4 and JPEG-in-TIFF
-    # maps, each counted through K3, K2 and threefry
+    # maps, the CMYK and YCbCr TIFF maps, the Group 4 and JPEG-in-TIFF
+    # maps and the QOI and DXT1 maps, each counted through K3, K2 and
+    # threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1399,9 +1414,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                            dev, seed=0)
     sessions["checker"].run(1, batch=1)
     turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
-             "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "tiff-jpeg-ccitt",
-             "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff", "jpeg-flavours",
-             "jpeg", "checker")
+             "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "qoi-dds", "qoi-dds",
+             "tiff-jpeg-ccitt", "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff",
+             "jpeg-flavours", "jpeg", "checker")
     rates = {name: [] for name in turns}
     for name in turns:
         rates[name].append(timed_step(torch, sessions[name], rate_spp))
@@ -1413,9 +1428,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     maps_dir.cleanup()
 
     # the writers: two images as L and RGB under every extension written
-    # byte for byte, held to the digests of PIL's files; the 4K JPEG, GIF
-    # and WebP encodes timed; a preview written as a JPEG, a GIF and a
-    # WebP by the module's CLI
+    # byte for byte, held to the digests of PIL's files (QOI as L to PIL's
+    # ValueError); the 4K JPEG, GIF, WebP, QOI and DDS encodes timed; a
+    # preview written as a JPEG, a GIF and a WebP by the module's CLI
     with open(os.path.join(FILES_DIR, "write_digests.json")) as f:
         write_digests = json.load(f)
     images = fixtures.writer_images()
@@ -1428,24 +1443,41 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                 same, back = [], []
                 rgba = np.full(px.shape[:2] + (4,), 255, np.uint8)
                 rgba[..., :3] = px[..., None] if px.ndim == 2 else px
+                jpeg_rgba = None
                 for ext in fixtures.WRITE_EXTENSIONS:
                     path = os.path.join(tmp, "x" + ext)
+                    if wanted[ext] == fixtures.QOI_L_RAISES:
+                        try:
+                            image.write_image(path, px)
+                            raised = None
+                        except ValueError as e:
+                            raised = f"ValueError: {e}"
+                        same.append(raised == wanted[ext]
+                                    and not os.path.exists(path))
+                        continue
                     image.write_image(path, px)
                     with open(path, "rb") as f:
                         digest = hashlib.sha256(f.read()).hexdigest()
                     same.append(digest == wanted[ext])
+                    if ext == ".jpg":
+                        jpeg_rgba = image.load_rgba8(path)
                     if ext in READ_BACK:
                         back.append(np.array_equal(image.load_rgba8(path),
                                                    rgba))
+                    if ext in READ_BACK_AS_JPEG:
+                        back.append(np.array_equal(image.load_rgba8(path),
+                                                   jpeg_rgba))
                     os.remove(path)
+                n_back = len([e for e in READ_BACK + READ_BACK_AS_JPEG
+                              if wanted[e] != fixtures.QOI_L_RAISES])
                 say("files", write=name, mode=mode,
                     extensions=len(same), digests_equal=sum(same),
                     read_back=len(back), read_back_equal=sum(back))
                 check(all(same), f"{name} {mode}: a written file is not "
                       "PIL's")
-                check(len(back) == len(READ_BACK) and all(back),
-                      f"{name} {mode}: a DIB, IM, SGI or PCX file the port "
-                      "wrote does not read back as its pixels")
+                check(len(back) == n_back and all(back),
+                      f"{name} {mode}: a DIB, IM, SGI, PCX, QOI, DDS or MPO "
+                      "file the port wrote does not read back as its pixels")
         rgb4k = images["procedural_3840x2160"]["RGB"]
         for ext in (".pcx", ".sgi"):
             path = os.path.join(tmp, "x" + ext)
@@ -1463,6 +1495,11 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         ms, med = median_ms(lambda: webp.encode(rgb4k))
         say("files", webp_encode="3840x2160 RGB", runs=decodes, ms=ms,
             median_ms=med, clock="host", card=repr(card))
+        for fmt, encode in (("qoi", image._qoi_bytes),
+                            ("dds", image._dds_bytes)):
+            ms, med = median_ms(lambda: encode(rgb4k))
+            say("files", **{f"{fmt}_encode": "3840x2160 RGB"}, runs=decodes,
+                ms=ms, median_ms=med, clock="host", card=repr(card))
         scene_path = os.path.join(tmp, "textured.pts")
         out = os.path.join(tmp, "v.jpg")
         scene_io.save_scene(textured_sphere_scene(
@@ -2787,8 +2824,9 @@ def main() -> int:
         # the multi phase's driven sessions (tiles on 1 and 3, spp on NCCL)
         k["launches_multi"] = multi_launches[k["name"]]
         # the files phase's sessions (textured 1080p from the JPEG, the
-        # arithmetic-coded JPEG, the TIFF, the WebP, the SGI and PCX, and
-        # the CMYK and YCbCr TIFF maps, the natively parsed 52k terrain)
+        # arithmetic-coded JPEG, the TIFF, the WebP, the SGI and PCX, the
+        # CMYK and YCbCr TIFF, the Group 4 and JPEG-in-TIFF, and the QOI
+        # and DXT1 maps, the natively parsed 52k terrain)
         k["launches_files"] = files_launches[k["name"]]
     finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)

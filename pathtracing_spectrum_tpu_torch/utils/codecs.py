@@ -1,15 +1,17 @@
 """The binding of the host library's LZW, PackBits, SGI RLE and PCX RLE
-decoders (``csrc/lzw_decode.cpp``) and its CCITT decoder
-(``csrc/fax_decode.cpp``), which the GIF, TIFF, PSD, SGI and PCX readers
-of ``utils/image.py`` run. They are serial over codes, packets or bits,
-so host C++ (a 2048x2048 LZW strip or bilevel map would take minutes in
-Python, and a 4K PCX holds ~25 M bytes of runs), with no Python fallback:
-when the host library cannot be built, the call raises with the
-compiler's output.
+decoders (``csrc/lzw_decode.cpp``), its CCITT decoder
+(``csrc/fax_decode.cpp``), its QOI decoder and encoder (``csrc/qoi.cpp``)
+and its DDS block decoder (``csrc/bcn_decode.cpp``), which the GIF, TIFF,
+PSD, SGI, PCX, QOI and DDS readers and the QOI writer of
+``utils/image.py`` run. They are serial over codes, packets, ops or bits,
+so host C++ (a 2048x2048 LZW strip, bilevel map or QOI stream would take
+minutes in Python, and a 4K PCX holds ~25 M bytes of runs), with no
+Python fallback: when the host library cannot be built, the call raises
+with the compiler's output.
 
-Each function returns the decoded bytes, or raises :class:`BrokenData`
-where PIL (for GIF, PSD, SGI and PCX) or libtiff (for TIFF) rejects the
-data.
+Each decoder returns the decoded bytes, or raises :class:`BrokenData`
+where PIL (for GIF, PSD, SGI, PCX, QOI and DDS) or libtiff (for TIFF)
+rejects the data.
 """
 
 from __future__ import annotations
@@ -97,6 +99,45 @@ def pcx_rle(data: bytes, width: int, bits: int, line_bytes: int,
     if lib.pts_pcx_decode(ptr, buf.size, width, bits, line_bytes, height,
                           out.ctypes.data):
         raise BrokenData("broken PCX run-length data")
+    return out
+
+
+def qoi(data: bytes, width: int, height: int, bands: int) -> np.ndarray:
+    """[height, width, bands] uint8 (3: RGB, 4: RGBA) of the QOI ops in
+    ``data`` (the bytes after the 14-byte header), as PIL's QoiDecoder
+    decodes them (``csrc/qoi.cpp`` lists where that is not qoi.h)."""
+    lib = _build.load_host()
+    buf, ptr = _source(data)
+    out = np.zeros((height, width, bands), np.uint8)
+    if lib.pts_qoi_decode(ptr, buf.size, bands, width * height,
+                          out.ctypes.data):
+        raise BrokenData("QOI data ends before the last pixel")
+    return out
+
+
+def qoi_encode(rgb: np.ndarray) -> bytes:
+    """The QOI ops (the 8-byte padding included, the header not) PIL's
+    QoiEncoder writes for [H, W, 3] uint8 RGB."""
+    lib = _build.load_host()
+    img = np.ascontiguousarray(rgb, np.uint8)
+    npix = img.size // 3
+    out = np.empty(4 * npix + 8, np.uint8)
+    n = lib.pts_qoi_encode(img.ctypes.data, npix, out.ctypes.data)
+    return out[:n].tobytes()
+
+
+def bcn(data: bytes, n: int, width: int, height: int,
+        signed: bool = False) -> np.ndarray:
+    """The pixels of a block-compressed DDS image (``data`` from its first
+    block; ``n`` 1-5 as PIL numbers BC1-BC5, ``signed`` for BC5S) as PIL's
+    BcnDecode.c leaves them: [height, width, 4] uint8 R, G, B, A (BC5's
+    blue 0, BC5S's 128, its alpha unused), or [height, width] for BC4."""
+    lib = _build.load_host()
+    buf, ptr = _source(data)
+    out = np.zeros((height, width) + (() if n == 4 else (4,)), np.uint8)
+    if lib.pts_bcn_decode(ptr, buf.size, n, int(signed), width, height,
+                          out.ctypes.data):
+        raise BrokenData("DDS data ends before the last block")
     return out
 
 

@@ -116,7 +116,17 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   ``PA``), ``L 32S`` (``I``, clipped to 0..255), ``L 16``, ``L 16L`` and
   ``L 16B``, ``L 32F`` (``F``), RGB, RGBA, RGBX, CMYK (PIL's
   ``cmyk2rgb``) and YCC (PIL's fixed-point ``ImagingConvertYCbCr2RGB``),
-  and the type names PIL reads as the same mode and rawmode.
+  and the type names PIL reads as the same mode and rawmode;
+- QOI, as PIL's own Python decoder reads it, not as qoi.h (the host
+  library, ``csrc/qoi.cpp``): RGB where the channels byte is 3, else
+  RGBA; the index read as zeros before it is filled, a run not stored in
+  it, a run past the last pixel and a missing end marker allowed;
+- DDS: uncompressed RGB and RGBA under any masks and bit count (PIL's
+  ``DdsRgbDecoder``, bytes past the file's end read as zeros), L and LA
+  luminance, 8-bit indices with an RGBA palette, and BC1 (DXT1), BC2
+  (DXT3), BC3 (DXT5), BC4 (BC4U, ATI1), BC5 (BC5U, ATI2) and BC5S blocks
+  (the host library, ``csrc/bcn_decode.cpp``, as PIL's BcnDecode.c) or,
+  after a DX10 header, those and 8-bit RGBA by their DXGI formats.
 
 Four named deviations from PIL, one rule: a 16-bit grey PNG (colour type
 0), a 16-bit grey TIFF, a 16-bit grey IM file (``L 16``, ``L 16L``,
@@ -134,7 +144,8 @@ bad checksum, truncated data, a header or mode PIL refuses, more pixels
 than PIL's decompression-bomb limit) return ``None``, as PIL's exception
 does in the JAX package and as the reference's ``Image`` fails soft to
 black (image.cpp:48-49). A format PIL opens and the port does not (ICO,
-QOI, JPEG 2000, ... : the other 30 plugins) or a flavour of one decoded
+EPS (PIL reads it only through Ghostscript), JPEG 2000, ... : the other
+28 plugins) or a flavour of one decoded
 here that it does not take (lossless and block-smoothed progressive
 JPEG, RLE BMP and DIB, plain-text PNM (P1-P3) and PIL's test extensions
 (``P0CMYK``, ``PyP``, ``PyRGBA``, ``PyCMYK``), old-style JPEG-in-TIFF
@@ -142,8 +153,9 @@ JPEG, RLE BMP and DIB, plain-text PNM (P1-P3) and PIL's test extensions
 YCbCr TIFF at other subsampling than (1, 1) or turned by its orientation
 (JPEG-compressed YCbCr apart), uncompressed YCbCr TIFF tiles, CIELab
 TIFF, old-style LZW, BigTIFF, CIELab PSD, the IM image types PIL's
-writer does not make, ...) raises ``NotImplementedError`` naming the
-file and the flavour: a texture is never dropped quietly.
+writer does not make, BC6H and BC7 DDS, ...) raises
+``NotImplementedError`` naming the file and the flavour: a texture is
+never dropped quietly.
 
 Named deviations on damaged or odd files (``tests/test_torch_damage.py``
 and ``tests/test_torch_formats.py`` hold the rest):
@@ -203,13 +215,23 @@ extension                       what is written
 ``.webp``                       PIL's WebP byte for byte (libwebp's lossy
                                 VP8 at quality 80, method 4; L as RGB:
                                 ``utils/webp.py``, ``csrc/webp_encode.cpp``)
+``.qoi``                        PIL's QOI byte for byte (RGB; colorspace
+                                byte 1; ``csrc/qoi.cpp``)
+``.dds``                        PIL's uncompressed DDS byte for byte (L as
+                                LUMINANCE, RGB as BGR)
+``.eps``, ``.ps``               PIL's EPS byte for byte (hex samples)
+``.mpo``                        PIL's single-frame MPO: its JPEG, byte for
+                                byte
 the 27 extensions PIL cannot    PIL's exception and message: ``KeyError``
 save as L or RGB, and ``.qoi``  without a save handler (``.psd``, ``.xpm``
 for L                           ...), ``OSError`` for a handler not
                                 installed or a mode refused (``.bufr``,
-                                ``.msp`` ...), ``ValueError`` (``.blp``)
-the 16 other extensions PIL     ``NotImplementedError`` naming the path
-knows                           and the format
+                                ``.msp`` ...), ``ValueError`` (``.blp``,
+                                ``.qoi``)
+the 11 other extensions PIL     ``NotImplementedError`` naming the path
+knows (``.avif .avifs .icns     and the format
+.ico .j2c .j2k .jp2 .jpc .jpf
+.jpx .pdf``)
 an unknown extension, or none   ``ValueError("unknown file extension")``
 ==============================  =========================================
 
@@ -278,8 +300,8 @@ def load_rgba8(path: str) -> "np.ndarray | None":
         raise NotImplementedError(
             f"{path}: {kind} is not decoded by the PyTorch port (PNG, JPEG, "
             "BMP, DIB, TGA, binary PNM and PFM, GIF, TIFF, PSD, WebP, SGI, "
-            "PCX and "
-            "IM are; convert it; ROADMAP Queue 1 item 11)")
+            "PCX, IM, QOI and DDS are; convert it; ROADMAP Queue 1 item "
+            "11)")
     try:
         return _DECODERS[kind](data)
     except (_Refused, NotImplementedError) as e:
@@ -2159,12 +2181,138 @@ def _ycbcr_rgba(ycc: np.ndarray) -> np.ndarray:
     return out
 
 
+def _decode_qoi(data: bytes) -> np.ndarray:
+    """QoiImagePlugin: ``qoif``, big-endian width and height, a channels
+    byte (3: RGB, any other: RGBA; the colorspace byte after it ignored),
+    then the ops, decoded by the host library as PIL's QoiDecoder decodes
+    them (``utils/codecs.py``, ``csrc/qoi.cpp``)."""
+    if len(data) < 14:
+        raise _Unreadable("truncated QOI header")
+    width, height = struct.unpack_from(">II", data, 4)
+    if width == 0 or height == 0:
+        raise _Unreadable("empty QOI image")
+    _check_size(width, height)
+    bands = 3 if data[12] == 3 else 4
+    px = codecs.qoi(data[14:], width, height, bands)
+    if bands == 4:
+        return px
+    out = np.full((height, width, 4), 255, np.uint8)
+    out[..., :3] = px
+    return out
+
+
+# DdsImagePlugin's DDPF flags, and its fourccs and DXGI formats by the
+# BcnDecode.c format it decodes them as (0: raw RGBA)
+_DDPF_ALPHAPIXELS, _DDPF_FOURCC, _DDPF_PAL8 = 0x1, 0x4, 0x20
+_DDPF_RGB, _DDPF_LUMINANCE = 0x40, 0x20000
+_DDS_FOURCC = {b"DXT1": 1, b"DXT3": 2, b"DXT5": 3, b"BC4U": 4, b"ATI1": 4,
+               b"BC5U": 5, b"ATI2": 5, b"BC5S": 5}
+_DXGI = {70: 1, 71: 1, 73: 2, 74: 2, 76: 3, 77: 3, 79: 4, 80: 4, 82: 5,
+         83: 5, 84: 5, 27: 0, 28: 0, 29: 0}
+_DXGI_REFUSED = {95: "BC6H", 96: "BC6HS", 97: "BC7", 98: "BC7", 99: "BC7"}
+
+
+def _dds_masked(data: bytes, width: int, height: int, bitcount: int,
+                masks) -> np.ndarray:
+    """DdsRgbDecoder: ``bitcount // 8`` little-endian bytes a pixel (the
+    bytes past the file's end zeros: PIL reads them as an empty read),
+    each channel ``int((v & mask) >> shift) / (mask >> shift) * 255)`` in
+    float64, ``shift`` the mask's trailing zeros; 0 for a zero mask."""
+    npix = width * height
+    step = bitcount // 8
+    values = np.zeros(npix, np.uint64)
+    if step and data:
+        # pixel i's low 4 bytes (the masks have 32 bits), over the data
+        # and 4 zero bytes after it, for the pixels that start in it
+        n = min(npix, -(-len(data) // step))
+        take = min(step, 4)
+        raw = np.frombuffer(data + bytes(4), np.uint8)
+        view = np.lib.stride_tricks.as_strided(raw, (n, take), (step, 1))
+        values[:n] = (view.astype(np.uint64)
+                      << (8 * np.arange(take, dtype=np.uint64))).sum(1)
+    out = np.full((height, width, 4), 255, np.uint8)
+    for i, mask in enumerate(masks):
+        shift = (mask & -mask).bit_length() - 1 if mask else 0
+        total = mask >> shift
+        channel = np.zeros(npix, np.uint8)
+        if total:
+            v = ((values & np.uint64(mask)) >> np.uint64(shift)).astype(
+                np.float64)
+            channel = (v / total * 255).astype(np.uint8)
+        out[..., i] = channel.reshape(height, width)
+    return out
+
+
+def _decode_dds(data: bytes) -> np.ndarray:
+    """DdsImagePlugin: a 124-byte header, then by its pixel format flags
+    (the first of RGB, LUMINANCE, PALETTEINDEXED8 and FOURCC set):
+    DdsRgbDecoder's masked pixels (RGB, or RGBA with ALPHAPIXELS), raw L
+    (8 bits) or LA (16 with ALPHAPIXELS; the masks ignored), raw indices
+    after a 1,024-byte RGBA palette, or DXT1/DXT3/DXT5, BC4, BC5 and BC5S
+    blocks (host library, ``csrc/bcn_decode.cpp``) or, after a DX10
+    header, those by their DXGI names and raw RGBA. PIL reads on from
+    where the header ends (its tile offsets are never sought); data past
+    the pixels is ignored. BC6H and BC7 are refused."""
+    if len(data) < 128 or _u32(data, 4) != 124:
+        raise _Unreadable("DDS header size")
+    _, height, width = struct.unpack_from("<3I", data, 8)
+    if width == 0 or height == 0:
+        raise _Unreadable("empty DDS image")
+    _check_size(width, height)
+    pfflags, fourcc, bitcount = struct.unpack_from("<I4sI", data, 80)
+    pos = 128
+    if pfflags & _DDPF_RGB:
+        count = 4 if pfflags & _DDPF_ALPHAPIXELS else 3
+        masks = struct.unpack_from(f"<{count}I", data, 92)
+        return _dds_masked(data[pos:], width, height, bitcount, masks)
+    if pfflags & _DDPF_LUMINANCE:
+        if bitcount == 8:
+            return _grey_rgba(_rows(data, pos, height, width, width))
+        if bitcount != 16 or not pfflags & _DDPF_ALPHAPIXELS:
+            raise _Unreadable(f"DDS luminance at {bitcount} bits")
+        la = _rows(data, pos, height, 2 * width, 2 * width).reshape(
+            height, width, 2)
+        out = _grey_rgba(la[..., 0])
+        out[..., 3] = la[..., 1]
+        return out
+    if pfflags & _DDPF_PAL8:
+        lut = np.frombuffer(data, np.uint8, 1024, pos).reshape(256, 4)
+        return lut[_rows(data, pos + 1024, height, width, width)]
+    if not pfflags & _DDPF_FOURCC:
+        raise _Unreadable(f"DDS pixel format flags {pfflags}")
+    signed = fourcc == b"BC5S"
+    if fourcc == b"DX10":
+        if len(data) < pos + 4:
+            raise _Unreadable("truncated DX10 header")
+        dxgi = _u32(data, pos)
+        pos += 20
+        if dxgi in _DXGI_REFUSED:
+            raise _Refused(f"DDS {_DXGI_REFUSED[dxgi]}")
+        if dxgi not in _DXGI:
+            raise _Unreadable(f"DXGI format {dxgi}")
+        n, signed = _DXGI[dxgi], dxgi == 84
+        if n == 0:
+            return _rows(data, pos, height, 4 * width, 4 * width).reshape(
+                height, width, 4)
+    elif fourcc in _DDS_FOURCC:
+        n = _DDS_FOURCC[fourcc]
+    else:
+        raise _Unreadable(f"DDS pixel format {fourcc!r}")
+    px = codecs.bcn(data[pos:], n, width, height, signed)
+    if n == 4:
+        return _grey_rgba(px)
+    if n == 5:
+        px[..., 3] = 255
+    return px
+
+
 # PIL's format name -> the decoder here
 _DECODERS = {"PNG": _decode_png, "JPEG": jpeg.decode_rgba,
              "BMP": _decode_bmp, "DIB": _decode_dib, "TGA": _decode_tga,
              "PPM": _decode_pnm, "GIF": _decode_gif, "TIFF": _decode_tiff,
              "PSD": _decode_psd, "WEBP": webp.decode_rgba, "SGI": _decode_sgi,
-             "PCX": _decode_pcx, "IM": _decode_im}
+             "PCX": _decode_pcx, "IM": _decode_im, "QOI": _decode_qoi,
+             "DDS": _decode_dds}
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -2350,11 +2498,79 @@ def _pcx_bytes(img: np.ndarray) -> bytes:
     return header + body.tobytes() + (grey if planes == 1 else b"")
 
 
+def _qoi_bytes(img: np.ndarray) -> bytes:
+    """QoiImagePlugin._save for RGB (L raises before this): ``qoif``, the
+    big-endian size, 3 channels, colorspace 1 (PIL writes 0 only when
+    asked for ``colorspace="sRGB"``), then PIL's QoiEncoder ops (host
+    library, ``csrc/qoi.cpp``)."""
+    h, w = img.shape[:2]
+    if img.size == 0:             # what PIL raises on the way
+        raise ValueError("Size cannot be negative")
+    return (b"qoif" + struct.pack(">II", w, h) + bytes((3, 1))
+            + codecs.qoi_encode(img))
+
+
+def _dds_bytes(img: np.ndarray) -> bytes:
+    """DdsImagePlugin._save without a ``pixel_format``: the 128-byte
+    header (flags CAPS, HEIGHT, WIDTH, PIXELFORMAT and PITCH, the pitch
+    ``(w * bits + 7) // 8``), then the rows top-down: L as LUMINANCE at 8
+    bits (the masks ``0xFF000000`` three times, as PIL writes them), RGB
+    as RGB at 24 bits (masks ``0xFF0000 0xFF00 0xFF``) stored as BGR."""
+    h, w = img.shape[:2]
+    if img.size == 0:
+        raise SystemError("tile cannot extend outside image")
+    grey = img.ndim == 2
+    bits = 8 if grey else 24
+    flags, masks = ((_DDPF_LUMINANCE, (0xFF000000,) * 3) if grey else
+                    (_DDPF_RGB, (0xFF0000, 0xFF00, 0xFF)))
+    caps_height_width_pitch_pixelformat = 0x100F
+    head = (b"DDS " + struct.pack("<7I", 124,
+                                  caps_height_width_pitch_pixelformat, h, w,
+                                  (w * bits + 7) // 8, 0, 0)
+            + bytes(44) + struct.pack("<4I", 32, flags, 0, bits)
+            + struct.pack("<4I", *masks, 0)
+            + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    return head + (img if grey else img[..., ::-1]).tobytes()
+
+
+def _eps_bytes(img: np.ndarray) -> bytes:
+    """EpsImagePlugin._save (``eps=1`` under both names): the EPS comments
+    (the ``%%%%`` lines formatted with ``%``, so one ``%`` of each pair
+    goes, as in PIL), PostScript's ``image`` (L) or ``false 3
+    colorimage`` (RGB) header, the samples as EpsEncode.c writes them
+    (lower-case hex, a newline after every 39 bytes but the last, the
+    count running on across rows), then ``%%%%EndBinary`` (a literal PIL
+    does not format) and ``grestore end``."""
+    h, w = img.shape[:2]
+    if img.size == 0:
+        raise SystemError("tile cannot extend outside image")
+    bands, operator = (1, b"image") if img.ndim == 2 else (
+        3, b"false 3 colorimage")
+    head = (b"%!PS-Adobe-3.0 EPSF-3.0\n"
+            b"%%Creator: PIL 0.1 EpsEncode\n"
+            + b"%%%%BoundingBox: 0 0 %d %d\n" % (w, h)
+            + b"%%Pages: 1\n%%EndComments\n%%Page: 1 1\n"
+            + b"%%ImageData: %d %d " % (w, h)
+            + b'%d %d 0 1 1 "%s"\n' % (8, bands, operator)
+            + b"gsave\n10 dict begin\n"
+            + b"/buf %d string def\n" % (w * bands)
+            + b"%d %d scale\n" % (w, h) + b"%d %d 8\n" % (w, h)
+            + b"[%d 0 0 -%d 0 %d]\n" % (w, h, h)
+            + b"{ currentfile buf readhexstring pop } bind\n"
+            + operator + b"\n")
+    text = img.tobytes().hex().encode("ascii")
+    body = b"\n".join(text[i:i + 78] for i in range(0, len(text), 78))
+    return head + body + b"\n%%%%EndBinary\n" + b"grestore end\n"
+
+
 _WRITERS = {
     "PNG": _png_bytes, "JPEG": jpeg.encode,
     "BMP": _bmp_bytes, "DIB": lambda img: _bmp_bytes(img, False),
     "TIFF": _tiff_bytes, "PPM": _ppm_bytes, "TGA": _tga_bytes,
-    "GIF": gif.encode, "PCX": _pcx_bytes, "WEBP": webp.encode}
+    "GIF": gif.encode, "PCX": _pcx_bytes, "WEBP": webp.encode,
+    "QOI": _qoi_bytes, "DDS": _dds_bytes, "EPS": _eps_bytes,
+    # a single frame: PIL's MpoImagePlugin._save is JPEG's _save
+    "MPO": jpeg.encode}
 # the writers whose file holds its own name
 _NAMED_WRITERS = {"IM": _im_bytes, "SGI": _sgi_bytes}
 
@@ -2399,16 +2615,19 @@ def write_image(path, pixels: np.ndarray) -> None:
 
     - ``.png``/``.apng``: :func:`write_png` (the decoded pixels equal
       PIL's file; its bytes are not held);
-    - JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX and WebP names:
-      PIL's file at its defaults, byte for byte (JPEG: quality 75, 4:2:0,
-      the host library's encoder; GIF: the host library's median cut and
-      LZW; WebP: the host library's lossy VP8 encoder at quality 80, a
-      side over 16,383 pixels raising PIL's ``ValueError``; IM and SGI
-      write the file's name into their header, as PIL does);
+    - JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, DDS,
+      EPS (``.eps``, ``.ps``) and MPO names: PIL's file at its defaults,
+      byte for byte (JPEG and MPO: quality 75, 4:2:0, the host library's
+      encoder; GIF: the host library's median cut and LZW; WebP: the host
+      library's lossy VP8 encoder at quality 80, a side over 16,383
+      pixels raising PIL's ``ValueError``; QOI: RGB only, L raising PIL's
+      ``ValueError``; IM and SGI write the file's name into their header,
+      as PIL does);
     - an extension PIL registers but cannot save as L or RGB: PIL's
       exception (``KeyError`` without a save handler, ``OSError`` or
       ``ValueError`` where the handler refuses), writing nothing;
-    - any of the 16 other extensions PIL registers:
+    - any of the 11 other extensions PIL registers (AVIF, ICNS, ICO,
+      JPEG 2000 and PDF names):
       ``NotImplementedError`` naming the path and the format (never PNG
       bytes under another name);
     - an extension PIL does not know, or none: ``ValueError("unknown file
@@ -2433,8 +2652,8 @@ def write_image(path, pixels: np.ndarray) -> None:
     else:
         raise NotImplementedError(
             f"{path}: writing {fmt} is not done by the PyTorch port (PNG, "
-            "JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX and WebP "
-            "are; ROADMAP Queue 1 item 11)")
+            "JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, "
+            "DDS, EPS and MPO are; ROADMAP Queue 1 item 11)")
     with open(path, "wb") as f:
         f.write(data)
 

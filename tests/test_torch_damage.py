@@ -1,6 +1,6 @@
 """Damaged image files: the port's loader against the JAX package's (PIL
-12.1), on every committed fixture and ``assets/checker.png`` cut short and
-with single bits flipped. Both must give None (PIL raises), or the same
+12.1), on every committed fixture (QOI, DXT5 and uncompressed DDS among
+them) and ``assets/checker.png`` cut short and with single bits flipped. Both must give None (PIL raises), or the same
 image bit for bit. One test per fixture and kind of damage, looping over
 its cases; a small file gets a case for nearly every byte, a large one a
 few dozen, most in its headers.

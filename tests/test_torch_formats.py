@@ -34,6 +34,7 @@ from pathtracing_spectrum_tpu_torch.utils import image  # noqa: E402
 
 import torch_images as ti  # noqa: E402
 from scene_helpers import cornell_scene  # noqa: E402
+from test_torch_readers import fx  # noqa: E402
 from test_torch_scene import assert_fields_equal, to_port_scene  # noqa: E402,E501
 from test_torch_spectral import assert_same, trace_both  # noqa: E402
 from test_torch_textures import normal_mapped_wall  # noqa: E402
@@ -668,7 +669,9 @@ def _refused():
         "YCbCr LZW TIFF subsampled 2x2": ti.tiff_bytes(
             x, photometric=6, compression=5, extra_tags=((530, 3, [2, 2]),)),
         "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),
-        "ICO writer": ".ico", "DDS writer": ".dds",
+        "ICO writer": ".ico", "JPEG 2000 writer": ".jp2",
+        **{f"{name} DDS": fx.dds_header(8, 8, 0x4, b"DX10", dxgi=dxgi)
+           + bytes(64) for name, dxgi in (("BC7", 98), ("BC6H", 95))},
         "lossless JPEG": ti.patch_frame(base, kind=0xC3),
         "lossless JPEG by libjpeg": ti.libjpeg_bytes(x, lossless=True),
         "progressive JPEG cut short": ti.drop_last_scan(prog),
@@ -952,7 +955,7 @@ def test_formats_pil_opens_and_the_port_does_not_raise(tmp_path):
     """Every format PIL writes and the port does not decode raises
     NotImplementedError naming the file (never None)."""
     decoded = {"PNG", "JPEG", "BMP", "DIB", "TGA", "PPM", "GIF", "TIFF",
-               "PSD", "WEBP", "SGI", "PCX", "IM"}
+               "PSD", "WEBP", "SGI", "PCX", "IM", "QOI", "DDS"}
     for fmt, data in PIL_WRITTEN.items():
         if Image.open(__import__("io").BytesIO(data)).format in decoded:
             continue

@@ -2,9 +2,10 @@
 12.1's ``Image.save``, which the JAX package saves through: the format
 comes from the file name's extension, JPEG (the host library's encoder),
 BMP, DIB, TIFF, PPM, TGA, GIF (the host library's quantiser and LZW
-encoder), IM, SGI, PCX and WebP (the host library's VP8 encoder) files are
-PIL's byte for byte (IM and SGI hold the file's name, so both are written
-under the same name), PNG decodes to
+encoder), IM, SGI, PCX, WebP (the host library's VP8 encoder), DDS, EPS
+(``.eps``, ``.ps``) and MPO files are PIL's byte for byte (IM and SGI
+hold the file's name, so both are written under the same name; QOI's
+are held in ``tests/test_torch_qoi_dds.py``), PNG decodes to
 the same pixels, the extensions PIL cannot save as L or RGB raise PIL's own
 exception, the other extensions PIL registers raise
 ``NotImplementedError`` naming the path, and an unknown one raises PIL's
@@ -39,7 +40,7 @@ from scene_helpers import cornell_scene  # noqa: E402
 
 BYTE_EQUAL = [ext for ext, fmt in sorted(image.EXTENSIONS.items())
               if fmt in ("JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA", "GIF",
-                         "IM", "SGI", "PCX", "WEBP")]
+                         "IM", "SGI", "PCX", "WEBP", "DDS", "EPS", "MPO")]
 # 1x1, odd sizes, and several 16x16 MCU rows with partial MCUs
 SIZES = [(1, 1), (17, 9), (37, 29), (45, 53)]
 
@@ -154,9 +155,9 @@ def test_written_jpeg_decodes_in_the_port_as_in_pil(tmp_path):
 
 
 WRITTEN = {"PNG", "JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA", "GIF", "IM",
-           "SGI", "PCX", "WEBP"}
+           "SGI", "PCX", "WEBP", "QOI", "DDS", "EPS", "MPO"}
 # the formats PIL 12.1 saves as L or RGB and the port does not write yet
-# (ROADMAP Queue 1 item 11d: 16 extensions)
+# (ROADMAP Queue 1 item 11d: 11 extensions)
 OTHER_FORMATS = sorted({fmt for fmt in image.EXTENSIONS.values()} - WRITTEN
                        - set(image._PIL_CANNOT_SAVE))
 
@@ -175,8 +176,7 @@ def pil_save_error(img: np.ndarray, ext: str):
 @pytest.mark.parametrize("fmt", OTHER_FORMATS)
 def test_other_registered_extensions_raise_naming_the_path(fmt, tmp_path):
     """Where PIL writes the file and the port does not, the port raises
-    ``NotImplementedError`` naming the path (both modes; QOI only as RGB,
-    PIL refuses L)."""
+    ``NotImplementedError`` naming the path (both modes)."""
     for ext in (e for e, f in image.EXTENSIONS.items() if f == fmt):
         for img in (np.zeros((2, 3), np.uint8), np.zeros((2, 3, 3), np.uint8)):
             if pil_save_error(img, ext) is not None:
@@ -327,8 +327,9 @@ def test_write_digests_are_pils_and_the_ports(tmp_path):
     """``tests/torch_data/write_digests.json`` (written by
     ``tools/make_torch_fixtures.py``, which ``chip_smoke.py`` holds the
     card machine's writes to) records PIL's file for the 37x29 image under
-    every extension; the port writes the same bytes (the 3840x2160 image
-    is held on the card's machine)."""
+    every extension (for QOI as L, PIL's ``ValueError`` in its place); the
+    port writes the same bytes, or raises the same error (the 3840x2160
+    image is held on the card's machine)."""
     import hashlib
     import importlib.util
     import json
@@ -346,6 +347,12 @@ def test_write_digests_are_pils_and_the_ports(tmp_path):
             fx.WRITE_EXTENSIONS)
         for ext, want in recorded["small_37x29"][mode].items():
             port = named(tmp_path, "port", ext)
+            if want == fx.QOI_L_RAISES:
+                with pytest.raises(ValueError) as e:
+                    image.write_image(str(port), px)
+                assert f"ValueError: {e.value}" == want
+                assert (ext, mode) == (".qoi", "L") and not port.exists()
+                continue
             image.write_image(str(port), px)
             assert hashlib.sha256(port.read_bytes()).hexdigest() == want
             assert pil_bytes(px, ext, tmp_path) == port.read_bytes()
@@ -353,11 +360,13 @@ def test_write_digests_are_pils_and_the_ports(tmp_path):
 
 @pytest.mark.parametrize("mode", ["L", "RGB"])
 @pytest.mark.parametrize("ext", [".gif", ".im", ".pcx", ".sgi", ".bw",
-                                 ".rgb", ".rgba", ".webp"])
+                                 ".rgb", ".rgba", ".webp", ".qoi", ".dds",
+                                 ".eps", ".ps", ".mpo"])
 def test_recorded_digests_of_the_new_writers_are_pils(ext, mode, tmp_path):
-    """The GIF, IM, PCX, SGI and WebP digests recorded for the 37x29 image
-    (which ``chip_smoke.py`` holds the card machine's writes to) are those
-    of PIL's files under the name ``x``."""
+    """The GIF, IM, PCX, SGI, WebP, QOI, DDS, EPS and MPO digests recorded
+    for the 37x29 image (which ``chip_smoke.py`` holds the card machine's
+    writes to) are those of PIL's files under the name ``x``; for QOI as
+    L, PIL's ``ValueError``."""
     import hashlib
     import json
     here = os.path.dirname(os.path.abspath(__file__))
@@ -365,4 +374,9 @@ def test_recorded_digests_of_the_new_writers_are_pils(ext, mode, tmp_path):
         want = json.load(f)["small_37x29"][mode][ext]
     px = ti.smooth_rgb(9, 37, 29)
     px = np.ascontiguousarray(px[..., 1]) if mode == "L" else px
+    if (ext, mode) == (".qoi", "L"):
+        with pytest.raises(ValueError) as e:
+            pil_bytes(px, ext, tmp_path)
+        assert f"ValueError: {e.value}" == want
+        return
     assert hashlib.sha256(pil_bytes(px, ext, tmp_path)).hexdigest() == want

@@ -127,17 +127,18 @@ def test_scene_data_from_numpy_carries_bvh_ordered_scene():
 
 
 def test_texture_binding_raises(tmp_path):
-    """A texture the port does not decode (a 1x1 QOI) fails the compile,
+    """A texture the port does not decode (a 1x1 ICO) fails the compile,
     naming the file, instead of rendering without it. A broken BMP and a
     broken GIF (the 64-byte ``BM`` and ``GIF89a`` files, once refused as
     formats not decoded) and a missing file bind nothing, as in the
     reference and the JAX package."""
     jsc, sc = port_cornell()
-    rough = tmp_path / "rough.qoi"
-    rough.write_bytes(b"qoif" + (1).to_bytes(4, "big") * 2 + b"\3\0"
-                      + b"\xfe\x10\x20\x30" + bytes(7) + b"\1")
+    rough = tmp_path / "rough.ico"
+    rough.write_bytes(b"\0\0\1\0\1\0" + bytes((1, 1, 0, 0, 1, 0, 32, 0))
+                      + (8).to_bytes(4, "little") + (22).to_bytes(4, "little")
+                      + bytes(8))
     sc.objects[0].elements[0].material.roughness_tex_file = str(rough)
-    with pytest.raises(NotImplementedError, match="rough.qoi"):
+    with pytest.raises(NotImplementedError, match="rough.ico"):
         sc.compile("cpu")
     broken = tmp_path / "rough.bmp"
     broken.write_bytes(b"BM" + bytes(64))

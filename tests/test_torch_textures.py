@@ -167,16 +167,16 @@ def test_unsupported_png_flavours_raise_naming_the_file(what, tmp_path):
         with open(path, "wb") as f:
             f.write(torch_images.png_bytes(samples, 0, 8, interlace=1))
         assert_bitwise(image.load_rgba(path), pil_rgba(path))
-    qoi = str(tmp_path / f"{what}.qoi")
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(qoi)
-    with pytest.raises(NotImplementedError, match=f"{what}.qoi"):
-        image.load_rgba(qoi)
+    ico = str(tmp_path / f"{what}.ico")
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(ico)
+    with pytest.raises(NotImplementedError, match=f"{what}.ico"):
+        image.load_rgba(ico)
 
 
 def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
-    """A JPEG, a GIF and a WebP, once refused, decode as PIL does; a QOI
-    still raises naming the file; a missing or broken file is None in both
-    packages."""
+    """A JPEG, a GIF, a WebP and a QOI, once refused, decode as PIL does;
+    an ICO still raises naming the file; a missing or broken file is None
+    in both packages."""
     jpg = str(tmp_path / "tex.jpg")
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(jpg)
     assert_bitwise(image.load_rgba(jpg), jimage.load_rgba(jpg))
@@ -188,8 +188,11 @@ def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
     assert_bitwise(image.load_rgba(webp), jimage.load_rgba(webp))
     qoi = str(tmp_path / "tex.qoi")
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(qoi)
-    with pytest.raises(NotImplementedError, match="tex.qoi"):
-        image.load_rgba(qoi)
+    assert_bitwise(image.load_rgba(qoi), jimage.load_rgba(qoi))
+    ico = str(tmp_path / "tex.ico")
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(ico)
+    with pytest.raises(NotImplementedError, match="tex.ico"):
+        image.load_rgba(ico)
     assert image.load_rgba(str(tmp_path / "missing.png")) is None
     assert image.load_rgba("") is None
     broken = tmp_path / "broken.png"

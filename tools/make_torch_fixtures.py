@@ -21,10 +21,11 @@ used).
 And it records, in ``tests/torch_data/map_digests.json``, the sha256 of
 each of ``READER_MAPS`` (the textured sessions' RLE SGI roughness map and
 PCX normal map, uncompressed CMYK roughness map and PackBits YCbCr
-normal map as TIFFs, and a JPEG-in-TIFF normal map in 256x256 tiles,
-made at run time by :func:`reader_map`: nothing is committed) and of
-PIL's decode of it; ``chip_smoke.py`` holds the maps it builds and the
-port's decodes of them to these.
+normal map as TIFFs, a JPEG-in-TIFF normal map in 256x256 tiles, a QOI
+roughness map and a DXT1 DDS normal map, made at run time by
+:func:`reader_map`: nothing is committed) and of PIL's decode of it;
+``chip_smoke.py`` holds the maps it builds and the port's decodes of
+them to these.
 
 Fixtures (all content procedural, from fixed seeds):
 
@@ -87,7 +88,11 @@ Fixtures (all content procedural, from fixed seeds):
   2, 8-row strips) and ``small_ccitt_rle.tif`` (compression 2); and
   ``roughness_2048_g4.tif``, a 2048x2048 bilevel Group 4 map of 32-pixel
   cells (:func:`roughness_bilevel`: the textured session's roughness map
-  of ``chip_smoke.py``'s ``tiff-jpeg-ccitt`` turn).
+  of ``chip_smoke.py``'s ``tiff-jpeg-ccitt`` turn);
+- PIL's QOI of the 37x29 image with alpha (``small.qoi``: QOI_OP_RGBA,
+  runs and every other op), its DXT5 DDS (``small_dxt5.dds``, PIL's BCn
+  encoder) and its uncompressed RGBA DDS (``small_rgba.dds``, 32-bit
+  pixels under ARGB masks).
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -401,21 +406,53 @@ def ycbcr_of(rgb: np.ndarray) -> np.ndarray:
 # normal map as a YCbCr TIFF in PackBits at subsampling (1, 1)
 # (tiff_map_bytes); a 1024x1024 normal map as a JPEG-in-TIFF in 256x256
 # tiles (jpeg_tiff_map_bytes); their content is procedural_rgb's, in
-# integers only
+# integers only; a 2048x2048 RGB roughness map as the QOI file Image.save
+# writes (which the port's writer writes byte for byte) and a 1024x1024
+# DXT1 DDS normal map of hashed block bytes (dxt1_map_bytes)
 READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "normal_1024.pcx": (1024, 12),
                "roughness_2048_cmyk.tif": (2048, 13),
                "normal_1024_ycbcr_packbits.tif": (1024, 14),
-               "normal_1024_jpeg_tiles.tif": (1024, 16)}
+               "normal_1024_jpeg_tiles.tif": (1024, 16),
+               "roughness_2048.qoi": (2048, 18),
+               "normal_1024_dxt1.dds": (1024, 19)}
+
+
+def dds_header(width: int, height: int, pfflags: int, fourcc: bytes = b"",
+               bitcount: int = 0, masks=(0, 0, 0, 0), dxgi=None) -> bytes:
+    """A DDS file's 128-byte header (and, with ``dxgi``, the 20-byte DX10
+    header after it) as DdsImagePlugin reads it: flags CAPS, HEIGHT,
+    WIDTH and PIXELFORMAT, the pixel format's flags, fourcc, bit count
+    and four masks, DDSCAPS TEXTURE."""
+    head = (b"DDS " + struct.pack("<7I", 124, 0x1007, height, width, 0, 0,
+                                  0) + bytes(44)
+            + struct.pack("<II4sI", 32, pfflags, fourcc.ljust(4, b"\0"),
+                          bitcount) + struct.pack("<4I", *masks)
+            + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 0, 1)
+    return head
+
+
+def dxt1_map_bytes(n: int, seed: int) -> bytes:
+    """An ``n``-square DXT1 DDS file (``n`` a multiple of 4) whose 8-byte
+    blocks are hashed integers (both colour orders, so both of BC1's
+    modes), after :func:`dds_header`."""
+    k = np.arange(n * n // 2, dtype=np.uint64)
+    hsh = (k * 2654435761 + seed * 40503) & 0xFFFFFFFF
+    hsh = ((hsh ^ (hsh >> 15)) * 2246822519) & 0xFFFFFFFF
+    return (dds_header(n, n, 0x4, b"DXT1")
+            + ((hsh ^ (hsh >> 13)) & 0xFF).astype(np.uint8).tobytes())
 
 
 def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
     """(RGB pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI
-    file's bytes from :func:`sgi_rle_bytes`; None for the PCX, which the
-    writer under test (PIL's or the port's ``write_image``) makes; for the
-    TIFFs, whose samples are CMYK and YCbCr or JPEG streams, no RGB
-    pixels and the bytes of :func:`tiff_map_bytes` or
-    :func:`jpeg_tiff_map_bytes`."""
+    file's bytes from :func:`sgi_rle_bytes`; None for the PCX and the QOI,
+    which the writer under test (PIL's or the port's ``write_image``)
+    makes; for the TIFFs, whose samples are CMYK and YCbCr or JPEG
+    streams, and the DDS, whose blocks are hashed bytes, no RGB pixels
+    and the bytes of :func:`tiff_map_bytes`, :func:`jpeg_tiff_map_bytes`
+    or :func:`dxt1_map_bytes`."""
     n, seed = READER_MAPS[name]
     px = procedural_rgb(n, n, seed)
     if name.endswith(".sgi"):
@@ -426,6 +463,8 @@ def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
         return None, tiff_map_bytes(ycbcr_of(px), 6, packbits=True)
     if name.endswith("_jpeg_tiles.tif"):
         return None, jpeg_tiff_map_bytes(px)
+    if name.endswith("_dxt1.dds"):
+        return None, dxt1_map_bytes(n, seed)
     return px, None
 
 
@@ -455,13 +494,17 @@ def reader_map_digests() -> dict:
 
 
 # the extensions the port writes byte for byte as PIL (JPEG, BMP, DIB,
-# TIFF, PPM, TGA, GIF, IM, PCX, SGI and WebP, PIL 12.1's names for each);
-# IM and SGI write the file's name, so every file is written as "x" +
-# extension
+# TIFF, PPM, TGA, GIF, IM, PCX, SGI, WebP, QOI, DDS, EPS and MPO, PIL
+# 12.1's names for each); IM and SGI write the file's name, so every file
+# is written as "x" + extension
 WRITE_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif", ".bmp", ".dib",
                     ".tif", ".tiff", ".pbm", ".pgm", ".ppm", ".pnm", ".pfm",
                     ".tga", ".icb", ".vda", ".vst", ".gif", ".im", ".pcx",
-                    ".sgi", ".bw", ".rgb", ".rgba", ".webp")
+                    ".sgi", ".bw", ".rgb", ".rgba", ".webp", ".qoi", ".dds",
+                    ".eps", ".ps", ".mpo")
+# what write_digests records where PIL raises (QOI of mode L) in place of
+# the digest: the exception's type and message
+QOI_L_RAISES = "ValueError: Unsupported QOI image mode"
 
 
 def writer_images() -> dict:
@@ -479,7 +522,9 @@ def writer_images() -> dict:
 
 
 def write_digests() -> dict:
-    """{image: {mode: {extension: sha256 of PIL's file}}}."""
+    """{image: {mode: {extension: sha256 of PIL's file}}}; where PIL
+    raises, ``"<type>: <message>"`` (:data:`QOI_L_RAISES`). PIL's QOI
+    encoder is Python, a minute or so for the 4K image."""
     import tempfile
     from PIL import Image
     out = {}
@@ -488,9 +533,14 @@ def write_digests() -> dict:
             for mode, px in modes.items():
                 for ext in WRITE_EXTENSIONS:
                     path = os.path.join(tmp, "x" + ext)
-                    Image.fromarray(px).save(path)
-                    with open(path, "rb") as f:
-                        digest = hashlib.sha256(f.read()).hexdigest()
+                    try:
+                        Image.fromarray(px).save(path)
+                    except ValueError as e:
+                        digest = f"{type(e).__name__}: {e}"
+                        assert digest == QOI_L_RAISES, digest
+                    else:
+                        with open(path, "rb") as f:
+                            digest = hashlib.sha256(f.read()).hexdigest()
                     out.setdefault(name, {}).setdefault(mode, {})[ext] = \
                         digest
     return out
@@ -627,6 +677,14 @@ def fixtures():
         "small_1000.ppm": b"P6\n%d %d\n1000\n" % (w, h) + (
             wide * 1000 // 65535).astype(">u2").tobytes(),
     }
+    for name, data in files.items():
+        out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
+    # PIL's QOI and DDS files of the image with alpha
+    with_alpha = Image.fromarray(np.concatenate([small, alpha], -1), "RGBA")
+    files = {"small.qoi": pil_file(with_alpha, "QOI"),
+             "small_dxt5.dds": pil_file(with_alpha, "DDS",
+                                        pixel_format="DXT5"),
+             "small_rgba.dds": pil_file(with_alpha, "DDS")}
     for name, data in files.items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     return out
