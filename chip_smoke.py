@@ -56,8 +56,8 @@ through its kernels and made a healthy image:
   committed texture fixtures (``tests/torch_data/``: JPEG, CMYK, YCCK and
   arithmetic-coded JPEG, BMP, 8-bit and 1-bit TGA, PNM (P4, 16-bit P5,
   16-bit and maxval-1000 P6, Pf), 16-bit and Adam7 PNG, GIF, TIFF (mode
-  I in LZW among them), PSD, WebP, QOI, DXT5 and uncompressed DDS)
-  decoded and held to the digests of PIL's decode, the
+  I in LZW among them), PSD, WebP, QOI, DXT5 and uncompressed DDS, ICO,
+  ICNS) decoded and held to the digests of PIL's decode, the
   2048x2048 progressive JPEG's, YCCK arithmetic progressive JPEG's,
   Deflate TIFF's and lossy WebP's and the 1024x1024 CMYK arithmetic
   JPEG's and lossless WebP's decodes timed; a 2048x2048 RLE SGI
@@ -72,15 +72,21 @@ through its kernels and made a healthy image:
   TIFF and a 512x512 16-bit LZW TIFF, then with the two WebPs, then with
   the SGI and PCX maps, then with the CMYK and YCbCr TIFFs, then with a
   2048x2048 Group 4 TIFF and a 1024x1024 tiled JPEG-in-TIFF, then with
-  a 2048x2048 QOI (written by the port) and a 1024x1024 DXT1 DDS, 16
+  a 2048x2048 QOI (written by the port) and a 1024x1024 DXT1 DDS, then
+  with the port's ICNS of a 2048x2048 roughness map (read at its
+  1024x1024 entry) and its ICO of a 1024x1024 normal map (read at its
+  256x256 frame), 16
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
   checker session; ``write_image``'s JPEG,
-  BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, DDS, EPS and
-  MPO files of a 37x29 and a 3840x2160 image held to the digests of
-  PIL's, the DIB, IM, SGI, PCX, QOI and DDS ones read back by the port
-  equal to the pixels and the MPO equal to the JPEG's decode, the 4K PCX
-  and SGI decodes and the 4K JPEG, GIF, WebP, QOI and DDS encodes timed,
+  BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, DDS, EPS, MPO
+  and PDF files of a 37x29 and a 3840x2160 image held to the digests of
+  PIL's (the PDF's dates pinned), its ICO and ICNS files to PIL's
+  directories and frames' pixels, the DIB, IM, SGI, PCX, QOI and DDS
+  ones read back by the port equal to the pixels, the MPO equal to the
+  JPEG's decode and the ICO and ICNS equal to the frame PIL's reader
+  picks, the 4K PCX and SGI decodes and the 4K JPEG, GIF, WebP, QOI,
+  DDS, PDF, ICO and ICNS encodes timed,
   and a preview written as ``v.jpg``, ``v.gif``
   and ``v.webp`` by ``python -m pathtracing_spectrum_tpu_torch`` read
   back (the WebP held to the preview by its PSNR); the 52k and 200k terrains parsed by the native OBJ parser and
@@ -130,6 +136,7 @@ import hashlib
 import importlib.util
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -179,11 +186,13 @@ SHELL_SPP = 4            # the scripted shell's render
 FILES_DIR = os.path.join(HERE, "tests", "torch_data")
 FILES_DECODES, FILES_RATE_SPP, FILES_TERRAIN_SPP = 5, 4, 4
 # the extensions whose files the files phase reads back as their pixels
-# (DIB, IM, SGI, PCX, QOI, DDS), and those it reads back as the JPEG
-# written before them (a single-frame MPO is PIL's JPEG file)
+# (DIB, IM, SGI, PCX, QOI, DDS), those it reads back as the JPEG written
+# before them (a single-frame MPO is PIL's JPEG file), and those it reads
+# back as the frame PIL's reader picks (ICO: the largest; ICNS: ic10)
 READ_BACK = (".dib", ".im", ".sgi", ".bw", ".rgb", ".rgba", ".pcx", ".qoi",
              ".dds")
 READ_BACK_AS_JPEG = (".mpo",)
+READ_BACK_AS_FRAME = (".ico", ".icns")
 # the least PSNR the module preview's WebP may have against the grey
 # preview: 5 dB below what the same preview gives on the CPU
 # (python3 tools/webp_preview_psnr.py: 49.625 dB)
@@ -1176,6 +1185,25 @@ def surface_phase(torch, pt, dev, card, counts, zero_counts, cornell,
     return launches, errs
 
 
+def picked_frame(data: bytes) -> bytes:
+    """The PNG frame PIL's reader loads from an ICO or ICNS file PIL or the
+    port writes: the ICO frame of the largest area (the first of those,
+    all 32 bits), the ICNS ``ic10`` entry."""
+    if data.startswith(b"icns"):
+        pos = 8
+        while pos < len(data):
+            kind, length = struct.unpack_from(">4sI", data, pos)
+            if kind == b"ic10":
+                return data[pos + 8:pos + length]
+            pos += length
+        raise ValueError("no ic10 entry")
+    entries = [struct.unpack_from("<BBxxxxxxII", data, 6 + 16 * i)
+               for i in range(struct.unpack_from("<H", data, 4)[0])]
+    w, h, length, offset = max(entries,
+                               key=lambda e: (e[0] or 256) * (e[1] or 256))
+    return data[offset:offset + length]
+
+
 def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                 res=TEX_RES, spp=TEX_SPP, rate_spp=FILES_RATE_SPP,
                 terrains=("52k", "200k"), terrain_res=RES,
@@ -1215,7 +1243,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       map as its normal map (``tiff-jpeg-ccitt``, both decodes timed),
       then with a 2048x2048 RGB QOI roughness map written by the port and
       a 1024x1024 DXT1 DDS normal map of hashed blocks (``qoi-dds``, both
-      decodes timed), through ``"hier"``: the texture table on the
+      decodes timed), then with the port's ICNS of a 2048x2048 RGB
+      roughness map, read at its 1024x1024 ``ic10`` entry, and its ICO of
+      a 1024x1024 RGB normal map, read at its 256x256 frame (``ico-icns``,
+      both decodes timed), through ``"hier"``: the texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry, then ms per sample in turns against the checker-map
       session;
@@ -1223,11 +1254,15 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
       (``tests/torch_data/write_digests.json``; QOI as L raising PIL's
-      ``ValueError``), the DIB, IM, SGI, PCX, QOI and DDS files
-      (``READ_BACK``) read back by the port equal to the pixels, the MPO
-      (``READ_BACK_AS_JPEG``) equal to the JPEG's decode; the 4K RGB PCX
-      and SGI decodes and the 4K JPEG, GIF, WebP, QOI and DDS encodes
-      timed (median of ``decodes``); ``python -m
+      ``ValueError``; PDFs under ``make_torch_fixtures.pinned_gmtime``;
+      ICO and ICNS files by their ``icon_digest``, the frames decoded by
+      the port), the DIB, IM, SGI, PCX, QOI and DDS files (``READ_BACK``)
+      read back by the port equal to the pixels, the MPO
+      (``READ_BACK_AS_JPEG``) equal to the JPEG's decode, the ICO and ICNS
+      (``READ_BACK_AS_FRAME``) equal to the frame PIL's reader picks; the
+      4K RGB PCX and SGI decodes and the 4K JPEG, GIF, WebP, QOI, DDS,
+      PDF, ICO and ICNS encodes timed (median of ``decodes``); ``python
+      -m
       pathtracing_spectrum_tpu_torch preview ... --out v.jpg --device
       cuda`` read back by the port's JPEG decoder, ``--out v.gif`` read
       back by its GIF decoder, equal to the preview's grey image, and
@@ -1265,7 +1300,7 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         for ext, want in ((".psd", KeyError), (".xpm", KeyError),
                           (".bufr", OSError), (".msp", OSError),
                           (".blp", ValueError), (".qoi", ValueError),
-                          (".pdf", NotImplementedError)):
+                          (".jp2", NotImplementedError)):
             path = os.path.join(tmp, "out" + ext)
             try:
                 image.write_image(path, grey)
@@ -1311,8 +1346,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             with open(path, "wb") as f:
                 f.write(data)
         with open(path, "rb") as f:
-            file_same = hashlib.sha256(f.read()).hexdigest() == want[
-                "file_sha256"]
+            file_same = fixtures.file_digest(
+                name, f.read(), image._decode_png) == want["file_sha256"]
         rgba = image.load_rgba8(path)
         same = (list(rgba.shape) == want["shape"] and hashlib.sha256(
             rgba.tobytes()).hexdigest() == want["rgba_sha256"])
@@ -1335,11 +1370,13 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             "tiff-jpeg-ccitt": ("roughness_2048_g4.tif", os.path.join(
                 maps_dir.name, "normal_1024_jpeg_tiles.tif")),
             "qoi-dds": tuple(os.path.join(maps_dir.name, name) for name in (
-                "roughness_2048.qoi", "normal_1024_dxt1.dds"))}
+                "roughness_2048.qoi", "normal_1024_dxt1.dds")),
+            "ico-icns": tuple(os.path.join(maps_dir.name, name) for name in (
+                "roughness_2048.icns", "normal_1024.ico"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
-            maps["qoi-dds"][1]]:
+            maps["qoi-dds"][1], maps["ico-icns"][1]]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
         say("files", decode=os.path.basename(name), runs=decodes, ms=ms,
@@ -1371,8 +1408,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # and CMYK JPEG maps, the TIFF maps (16-bit LZW normals), the WebP
     # maps (lossy roughness, lossless normals with alpha), the SGI and PCX
     # maps, the CMYK and YCbCr TIFF maps, the Group 4 and JPEG-in-TIFF
-    # maps and the QOI and DXT1 maps, each counted through K3, K2 and
-    # threefry
+    # maps, the QOI and DXT1 maps and the ICNS and ICO maps, each counted
+    # through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1381,7 +1418,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         sc_m = textured_sphere_scene(pt, res, roughness=rough, normal=normal)
         data_m = sc_m.compile(dev)
         table = data_m.textures
-        same = tuple(table.shape) == (2, 2048, 2048, 4)  # padded to 2048²
+        # padded to the larger map: 2048² (1024² for the ICNS and ICO maps)
+        side = 1024 if kind == "ico-icns" else 2048
+        same = tuple(table.shape) == (2, side, side, 4)
         for i, path in enumerate((normal, rough)):  # normal maps come first
             host = torch.from_numpy(image.load_rgba(path))
             h, w = host.shape[:2]
@@ -1414,9 +1453,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                            dev, seed=0)
     sessions["checker"].run(1, batch=1)
     turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
-             "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "qoi-dds", "qoi-dds",
-             "tiff-jpeg-ccitt", "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff",
-             "jpeg-flavours", "jpeg", "checker")
+             "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "qoi-dds", "ico-icns",
+             "ico-icns", "qoi-dds", "tiff-jpeg-ccitt", "tiff-cmyk-ycbcr",
+             "sgi-pcx", "webp", "tiff", "jpeg-flavours", "jpeg", "checker")
     rates = {name: [] for name in turns}
     for name in turns:
         rates[name].append(timed_step(torch, sessions[name], rate_spp))
@@ -1429,7 +1468,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
 
     # the writers: two images as L and RGB under every extension written
     # byte for byte, held to the digests of PIL's files (QOI as L to PIL's
-    # ValueError); the 4K JPEG, GIF, WebP, QOI and DDS encodes timed; a
+    # ValueError, PDFs at a pinned time, ICO and ICNS frame for frame); the
+    # 4K JPEG, GIF, WebP, QOI, DDS, PDF, ICO and ICNS encodes timed; a
     # preview written as a JPEG, a GIF and a WebP by the module's CLI
     with open(os.path.join(FILES_DIR, "write_digests.json")) as f:
         write_digests = json.load(f)
@@ -1455,10 +1495,12 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                         same.append(raised == wanted[ext]
                                     and not os.path.exists(path))
                         continue
-                    image.write_image(path, px)
+                    with fixtures.pinned_gmtime():
+                        image.write_image(path, px)
                     with open(path, "rb") as f:
-                        digest = hashlib.sha256(f.read()).hexdigest()
-                    same.append(digest == wanted[ext])
+                        data = f.read()
+                    same.append(fixtures.file_digest(
+                        ext, data, image._decode_png) == wanted[ext])
                     if ext == ".jpg":
                         jpeg_rgba = image.load_rgba8(path)
                     if ext in READ_BACK:
@@ -1467,8 +1509,13 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                     if ext in READ_BACK_AS_JPEG:
                         back.append(np.array_equal(image.load_rgba8(path),
                                                    jpeg_rgba))
+                    if ext in READ_BACK_AS_FRAME:
+                        back.append(np.array_equal(
+                            image.load_rgba8(path),
+                            image._decode_png(picked_frame(data))))
                     os.remove(path)
                 n_back = len([e for e in READ_BACK + READ_BACK_AS_JPEG
+                              + READ_BACK_AS_FRAME
                               if wanted[e] != fixtures.QOI_L_RAISES])
                 say("files", write=name, mode=mode,
                     extensions=len(same), digests_equal=sum(same),
@@ -1476,8 +1523,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                 check(all(same), f"{name} {mode}: a written file is not "
                       "PIL's")
                 check(len(back) == n_back and all(back),
-                      f"{name} {mode}: a DIB, IM, SGI, PCX, QOI, DDS or MPO "
-                      "file the port wrote does not read back as its pixels")
+                      f"{name} {mode}: a DIB, IM, SGI, PCX, QOI, DDS, MPO, "
+                      "ICO or ICNS file the port wrote does not read back as "
+                      "its pixels")
         rgb4k = images["procedural_3840x2160"]["RGB"]
         for ext in (".pcx", ".sgi"):
             path = os.path.join(tmp, "x" + ext)
@@ -1496,7 +1544,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         say("files", webp_encode="3840x2160 RGB", runs=decodes, ms=ms,
             median_ms=med, clock="host", card=repr(card))
         for fmt, encode in (("qoi", image._qoi_bytes),
-                            ("dds", image._dds_bytes)):
+                            ("dds", image._dds_bytes),
+                            ("pdf", lambda px: image._pdf_bytes(px, "x.pdf")),
+                            ("ico", image._ico_bytes),
+                            ("icns", image._icns_bytes)):
             ms, med = median_ms(lambda: encode(rgb4k))
             say("files", **{f"{fmt}_encode": "3840x2160 RGB"}, runs=decodes,
                 ms=ms, median_ms=med, clock="host", card=repr(card))
@@ -2825,8 +2876,8 @@ def main() -> int:
         k["launches_multi"] = multi_launches[k["name"]]
         # the files phase's sessions (textured 1080p from the JPEG, the
         # arithmetic-coded JPEG, the TIFF, the WebP, the SGI and PCX, the
-        # CMYK and YCbCr TIFF, the Group 4 and JPEG-in-TIFF, and the QOI
-        # and DXT1 maps, the natively parsed 52k terrain)
+        # CMYK and YCbCr TIFF, the Group 4 and JPEG-in-TIFF, the QOI and
+        # DXT1, and the ICNS and ICO maps, the natively parsed 52k terrain)
         k["launches_files"] = files_launches[k["name"]]
     finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)

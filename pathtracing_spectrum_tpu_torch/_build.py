@@ -14,7 +14,8 @@ Two shared libraries, each built into ``build/`` next to this file
   LZW, PackBits, SGI RLE and PCX RLE decoders ``csrc/lzw_decode.cpp``,
   the CCITT (fax) decoder of TIFF compressions 2, 3 and 4
   ``csrc/fax_decode.cpp``, the QOI decoder and encoder ``csrc/qoi.cpp``,
-  the DDS block (BC1-BC5) decoder ``csrc/bcn_decode.cpp``,
+  the DDS block (BC1-BC5) decoder ``csrc/bcn_decode.cpp``, PIL's
+  LANCZOS and BICUBIC resampler ``csrc/resample.cpp``,
   the WebP decoder ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (with
   their shared VP8 tables and transforms ``csrc/vp8_common.h``) and the
   GIF quantiser and LZW encoder ``csrc/gif_encode.cpp``.
@@ -49,7 +50,7 @@ HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
                 _CSRC / "lzw_decode.cpp", _CSRC / "webp_decode.cpp",
                 _CSRC / "gif_encode.cpp", _CSRC / "webp_encode.cpp",
                 _CSRC / "fax_decode.cpp", _CSRC / "qoi.cpp",
-                _CSRC / "bcn_decode.cpp")
+                _CSRC / "bcn_decode.cpp", _CSRC / "resample.cpp")
 HOST_HEADERS = (_CSRC / "jpeg_std_tables.h", _CSRC / "vp8_common.h")
 BUILD_DIR = _HERE / "build"
 
@@ -114,6 +115,7 @@ _HOST_SIGNATURES = {
     "pts_qoi_decode": ([_V, _I64, _I32, _I64, _V], _I32),
     "pts_qoi_encode": ([_V, _I64, _V], _I64),
     "pts_bcn_decode": ([_V, _I64] + [_I32] * 4 + [_V], _I32),
+    "pts_resample": ([_V] + [_I32] * 6 + [_V], _I32),
     "pts_webp_decode": ([_V, _I64, _V, _S, _I32], _V),
     "pts_webp_size": ([_V, _V, _V], None),
     "pts_webp_copy": ([_V, _V], None),
@@ -233,7 +235,7 @@ def load_host() -> ctypes.CDLL:
     library: the BVH builder, the OBJ parser, the spectral writer, the
     JPEG decoder and encoder, the LZW, PackBits, SGI RLE, PCX RLE and
     CCITT decoders, the QOI decoder and encoder, the DDS block decoder,
-    the WebP decoder and encoder and the GIF encoder. Raises with the
+    the resampler, the WebP decoder and encoder and the GIF encoder. Raises with the
     compiler's output when it cannot be built: none of them has a
     fallback."""
     if _Library.host is not None:

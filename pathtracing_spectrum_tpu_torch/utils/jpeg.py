@@ -153,6 +153,8 @@ def encode(pixels: np.ndarray) -> bytes:
     lib = _build.load_host()
     img = np.ascontiguousarray(pixels, np.uint8)
     h, w = img.shape[:2]
+    if h == 0 or w == 0:          # JpegImagePlugin._save's check
+        raise ValueError("cannot write empty image as JPEG")
     if max(h, w) > 65500:         # libjpeg's JPEG_MAX_DIMENSION
         raise ValueError(f"image too large for JPEG: {w}x{h}")
     handle = lib.pts_jpeg_encode(img.ctypes.data, w, h,

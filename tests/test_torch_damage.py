@@ -1,9 +1,11 @@
 """Damaged image files: the port's loader against the JAX package's (PIL
-12.1), on every committed fixture (QOI, DXT5 and uncompressed DDS among
-them) and ``assets/checker.png`` cut short and with single bits flipped. Both must give None (PIL raises), or the same
+12.1), on every committed fixture (QOI, DXT5 and uncompressed DDS, ICO
+and ICNS among them) and ``assets/checker.png`` cut short and with single
+bits flipped. Both must give None (PIL raises), or the same
 image bit for bit. One test per fixture and kind of damage, looping over
 its cases; a small file gets a case for nearly every byte, a large one a
-few dozen, most in its headers.
+few dozen, most in its headers (for an ICNS file also its table of
+contents, each block's header and the head of the ``ic10`` PNG it loads).
 
 Deviations named here and in ``utils/image.py``'s docstring:
 
@@ -68,21 +70,40 @@ def _tiff_directory(data: bytes):
     return ranges
 
 
+def _icns_places(data: bytes):
+    """Offsets in an ICNS file's table of contents, in each block's
+    header, and in the head (signature, IHDR, the first IDAT's header and
+    data) of the ``ic10`` entry PIL loads."""
+    out, pos = [], 8
+    while pos + 8 <= len(data):
+        kind, length = struct.unpack_from(">4sI", data, pos)
+        out += [pos, pos + 3, pos + 4, pos + 7]
+        if kind == b"TOC ":
+            out += list(range(pos + 8, pos + length, 5))
+        if kind == b"ic10":
+            out += list(range(pos + 8, pos + 8 + 64, 3))
+        pos += max(length, 8)
+    return out
+
+
 def cases(path: str, kind: str):
     data = open(path, "rb").read()
     n = len(data)
     step = 1 if n <= 2048 else 2
+    extra = _icns_places(data) if data.startswith(b"icns") else []
     if kind == "cut":
         where = (list(range(min(n, 64))) + list(range(64, n, 3 * step))
                  if n <= SMALL else sorted(set(
                      list(range(0, 24, 2)) + list(np.linspace(24, n - 1, 8,
-                                                              dtype=int)))))
+                                                              dtype=int))
+                     + extra)))
         for k in where:
             yield k, data[:k]
         return
     where = (range(0, n, step) if n <= SMALL else sorted(set(
         list(range(0, min(n, 1024), 96)) + list(np.linspace(1024, n - 1, 4,
-                                                           dtype=int)))))
+                                                           dtype=int))
+        + extra)))
     for i in where:
         bit = (i * 5) % 8
         out = bytearray(data)

@@ -669,7 +669,9 @@ def _refused():
         "YCbCr LZW TIFF subsampled 2x2": ti.tiff_bytes(
             x, photometric=6, compression=5, extra_tags=((530, 3, [2, 2]),)),
         "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),
-        "ICO writer": ".ico", "JPEG 2000 writer": ".jp2",
+        # PIL's ICO writer with BMP frames (PNG frames are decoded)
+        "ICO writer": pil("ICO", bitmap_format="bmp"),
+        "JPEG 2000 writer": ".jp2", "AVIF writer": ".avif",
         **{f"{name} DDS": fx.dds_header(8, 8, 0x4, b"DX10", dxgi=dxgi)
            + bytes(64) for name, dxgi in (("BC7", 98), ("BC6H", 95))},
         "lossless JPEG": ti.patch_frame(base, kind=0xC3),
@@ -955,7 +957,8 @@ def test_formats_pil_opens_and_the_port_does_not_raise(tmp_path):
     """Every format PIL writes and the port does not decode raises
     NotImplementedError naming the file (never None)."""
     decoded = {"PNG", "JPEG", "BMP", "DIB", "TGA", "PPM", "GIF", "TIFF",
-               "PSD", "WEBP", "SGI", "PCX", "IM", "QOI", "DDS"}
+               "PSD", "WEBP", "SGI", "PCX", "IM", "QOI", "DDS", "ICO",
+               "ICNS"}
     for fmt, data in PIL_WRITTEN.items():
         if Image.open(__import__("io").BytesIO(data)).format in decoded:
             continue

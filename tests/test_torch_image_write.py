@@ -5,7 +5,8 @@ BMP, DIB, TIFF, PPM, TGA, GIF (the host library's quantiser and LZW
 encoder), IM, SGI, PCX, WebP (the host library's VP8 encoder), DDS, EPS
 (``.eps``, ``.ps``) and MPO files are PIL's byte for byte (IM and SGI
 hold the file's name, so both are written under the same name; QOI's
-are held in ``tests/test_torch_qoi_dds.py``), PNG decodes to
+are held in ``tests/test_torch_qoi_dds.py``, PDF, ICO and ICNS ones in
+``tests/test_torch_pdf_ico_icns.py``), PNG decodes to
 the same pixels, the extensions PIL cannot save as L or RGB raise PIL's own
 exception, the other extensions PIL registers raise
 ``NotImplementedError`` naming the path, and an unknown one raises PIL's
@@ -155,9 +156,10 @@ def test_written_jpeg_decodes_in_the_port_as_in_pil(tmp_path):
 
 
 WRITTEN = {"PNG", "JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA", "GIF", "IM",
-           "SGI", "PCX", "WEBP", "QOI", "DDS", "EPS", "MPO"}
+           "SGI", "PCX", "WEBP", "QOI", "DDS", "EPS", "MPO", "PDF", "ICO",
+           "ICNS"}
 # the formats PIL 12.1 saves as L or RGB and the port does not write yet
-# (ROADMAP Queue 1 item 11d: 11 extensions)
+# (ROADMAP Queue 1 item 11d: 8 extensions, AVIF and JPEG 2000)
 OTHER_FORMATS = sorted({fmt for fmt in image.EXTENSIONS.values()} - WRITTEN
                        - set(image._PIL_CANNOT_SAVE))
 
@@ -327,8 +329,11 @@ def test_write_digests_are_pils_and_the_ports(tmp_path):
     """``tests/torch_data/write_digests.json`` (written by
     ``tools/make_torch_fixtures.py``, which ``chip_smoke.py`` holds the
     card machine's writes to) records PIL's file for the 37x29 image under
-    every extension (for QOI as L, PIL's ``ValueError`` in its place); the
-    port writes the same bytes, or raises the same error (the 3840x2160
+    every extension (for QOI as L, PIL's ``ValueError`` in its place; PDF
+    under a pinned ``time.gmtime``; ICO and ICNS by their directories and
+    frames' pixels, ``make_torch_fixtures.icon_digest``); the port writes
+    the same bytes (for ICO and ICNS, the same directory and pixels, its
+    frames decoded by the port), or raises the same error (the 3840x2160
     image is held on the card's machine)."""
     import hashlib
     import importlib.util
@@ -353,23 +358,36 @@ def test_write_digests_are_pils_and_the_ports(tmp_path):
                 assert f"ValueError: {e.value}" == want
                 assert (ext, mode) == (".qoi", "L") and not port.exists()
                 continue
-            image.write_image(str(port), px)
-            assert hashlib.sha256(port.read_bytes()).hexdigest() == want
-            assert pil_bytes(px, ext, tmp_path) == port.read_bytes()
+            with fx.pinned_gmtime():
+                image.write_image(str(port), px)
+                pil = pil_bytes(px, ext, tmp_path)
+            assert fx.file_digest(ext, port.read_bytes(),
+                                  image._decode_png) == want
+            if ext not in fx.ICON_EXTENSIONS:
+                assert hashlib.sha256(port.read_bytes()).hexdigest() == want
+                assert pil == port.read_bytes()
 
 
 @pytest.mark.parametrize("mode", ["L", "RGB"])
 @pytest.mark.parametrize("ext", [".gif", ".im", ".pcx", ".sgi", ".bw",
                                  ".rgb", ".rgba", ".webp", ".qoi", ".dds",
-                                 ".eps", ".ps", ".mpo"])
+                                 ".eps", ".ps", ".mpo", ".pdf", ".ico",
+                                 ".icns"])
 def test_recorded_digests_of_the_new_writers_are_pils(ext, mode, tmp_path):
-    """The GIF, IM, PCX, SGI, WebP, QOI, DDS, EPS and MPO digests recorded
-    for the 37x29 image (which ``chip_smoke.py`` holds the card machine's
-    writes to) are those of PIL's files under the name ``x``; for QOI as
-    L, PIL's ``ValueError``."""
-    import hashlib
+    """The GIF, IM, PCX, SGI, WebP, QOI, DDS, EPS, MPO, PDF, ICO and ICNS
+    digests recorded for the 37x29 image (which ``chip_smoke.py`` holds
+    the card machine's writes to) are those of PIL's files under the name
+    ``x`` (the PDF under a pinned ``time.gmtime``, ICO and ICNS as
+    ``icon_digest`` of PIL's decode of their frames); for QOI as L, PIL's
+    ``ValueError``."""
+    import importlib.util
     import json
     here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures",
+        os.path.join(here, "..", "tools", "make_torch_fixtures.py"))
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
     with open(os.path.join(here, "torch_data", "write_digests.json")) as f:
         want = json.load(f)["small_37x29"][mode][ext]
     px = ti.smooth_rgb(9, 37, 29)
@@ -379,4 +397,6 @@ def test_recorded_digests_of_the_new_writers_are_pils(ext, mode, tmp_path):
             pil_bytes(px, ext, tmp_path)
         assert f"ValueError: {e.value}" == want
         return
-    assert hashlib.sha256(pil_bytes(px, ext, tmp_path)).hexdigest() == want
+    with fx.pinned_gmtime():
+        data = pil_bytes(px, ext, tmp_path)
+    assert fx.file_digest(ext, data, ti.pil_rgba8) == want

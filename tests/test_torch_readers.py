@@ -724,9 +724,11 @@ def test_written_files_load_back(ext, mode, size, tmp_path):
 def test_reader_map_digests_are_pils(tmp_path):
     """``tests/torch_data/map_digests.json`` (which ``chip_smoke.py`` holds
     the card machine's maps and decodes to) holds the RLE SGI encoder's
-    file, PIL's PCX file, the CMYK and YCbCr TIFF encoder's files and
-    PIL's decode of each; the port's decode equals it (and the pixels of
-    the RGB maps) and the port's PCX writer writes PIL's file."""
+    file, PIL's PCX file, the CMYK and YCbCr TIFF encoder's files, the
+    ``icon_digest`` of PIL's ICNS and ICO files and PIL's decode of each;
+    the port's decode equals it (and the pixels of the RGB maps, where
+    they are read at their own size) and the port's PCX writer writes
+    PIL's file (its ICNS and ICO writers PIL's directories and frames)."""
     import hashlib
     import json
     with open(os.path.join(REPO, "tests", "torch_data",
@@ -741,12 +743,13 @@ def test_reader_map_digests_are_pils(tmp_path):
         else:
             path.write_bytes(data)
         data = path.read_bytes()
-        assert hashlib.sha256(data).hexdigest() == want["file_sha256"]
+        assert fx.file_digest(name, data, image._decode_png) == want[
+            "file_sha256"]
         got = held(tmp_path, name, data)
         assert list(got.shape) == want["shape"]
         assert hashlib.sha256(got.tobytes()).hexdigest() == want[
             "rgba_sha256"]
-        if px is not None:
+        if px is not None and not name.endswith(fx.ICON_EXTENSIONS):
             np.testing.assert_array_equal(got[..., :3], px)
 
 

@@ -127,8 +127,9 @@ def test_scene_data_from_numpy_carries_bvh_ordered_scene():
 
 
 def test_texture_binding_raises(tmp_path):
-    """A texture the port does not decode (a 1x1 ICO) fails the compile,
-    naming the file, instead of rendering without it. A broken BMP and a
+    """A texture the port does not decode (a 1x1 ICO with a BMP frame)
+    fails the compile, naming the file, instead of rendering without it.
+    A broken BMP and a
     broken GIF (the 64-byte ``BM`` and ``GIF89a`` files, once refused as
     formats not decoded) and a missing file bind nothing, as in the
     reference and the JAX package."""
@@ -136,7 +137,7 @@ def test_texture_binding_raises(tmp_path):
     rough = tmp_path / "rough.ico"
     rough.write_bytes(b"\0\0\1\0\1\0" + bytes((1, 1, 0, 0, 1, 0, 32, 0))
                       + (8).to_bytes(4, "little") + (22).to_bytes(4, "little")
-                      + bytes(8))
+                      + (40).to_bytes(4, "little") + bytes(4))
     sc.objects[0].elements[0].material.roughness_tex_file = str(rough)
     with pytest.raises(NotImplementedError, match="rough.ico"):
         sc.compile("cpu")

@@ -168,14 +168,16 @@ def test_unsupported_png_flavours_raise_naming_the_file(what, tmp_path):
             f.write(torch_images.png_bytes(samples, 0, 8, interlace=1))
         assert_bitwise(image.load_rgba(path), pil_rgba(path))
     ico = str(tmp_path / f"{what}.ico")
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(ico)
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(
+        ico, bitmap_format="bmp")
     with pytest.raises(NotImplementedError, match=f"{what}.ico"):
         image.load_rgba(ico)
 
 
 def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
     """A JPEG, a GIF, a WebP and a QOI, once refused, decode as PIL does;
-    an ICO still raises naming the file; a missing or broken file is None
+    an ICO with BMP frames still raises naming the file; a missing or
+    broken file is None
     in both packages."""
     jpg = str(tmp_path / "tex.jpg")
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(jpg)
@@ -190,7 +192,8 @@ def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(qoi)
     assert_bitwise(image.load_rgba(qoi), jimage.load_rgba(qoi))
     ico = str(tmp_path / "tex.ico")
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(ico)
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(
+        ico, bitmap_format="bmp")
     with pytest.raises(NotImplementedError, match="tex.ico"):
         image.load_rgba(ico)
     assert image.load_rgba(str(tmp_path / "missing.png")) is None

@@ -14,16 +14,22 @@ It also records, in ``tests/torch_data/write_digests.json``, the sha256
 of the file PIL's ``Image.save`` writes for two images (the 37x29 fixture
 image and a 3840x2160 one made procedurally, in integers only, by
 :func:`writer_images`) as L and RGB under each extension the port writes
-byte for byte; no image is committed for these. ``chip_smoke.py`` imports
-:func:`writer_images` from this file (PIL is imported only where it is
+byte for byte (a PDF under ``time.gmtime`` pinned to
+:data:`PINNED_GMTIME` by :func:`pinned_gmtime`) and, for ICO and ICNS,
+whose frames are PNG files the port deflates otherwise than PIL, the
+:func:`icon_digest` of PIL's file; no image is committed for these.
+``chip_smoke.py`` imports :func:`writer_images`, :func:`pinned_gmtime`
+and :func:`file_digest` from this file (PIL is imported only where it is
 used).
 
 And it records, in ``tests/torch_data/map_digests.json``, the sha256 of
 each of ``READER_MAPS`` (the textured sessions' RLE SGI roughness map and
 PCX normal map, uncompressed CMYK roughness map and PackBits YCbCr
 normal map as TIFFs, a JPEG-in-TIFF normal map in 256x256 tiles, a QOI
-roughness map and a DXT1 DDS normal map, made at run time by
-:func:`reader_map`: nothing is committed) and of PIL's decode of it;
+roughness map and a DXT1 DDS normal map, an ICNS roughness map and an ICO
+normal map, made at run time by :func:`reader_map`: nothing is committed;
+for the ICNS and ICO maps its :func:`icon_digest`) and of PIL's decode of
+it;
 ``chip_smoke.py`` holds the maps it builds and the port's decodes of
 them to these.
 
@@ -92,11 +98,16 @@ Fixtures (all content procedural, from fixed seeds):
 - PIL's QOI of the 37x29 image with alpha (``small.qoi``: QOI_OP_RGBA,
   runs and every other op), its DXT5 DDS (``small_dxt5.dds``, PIL's BCn
   encoder) and its uncompressed RGBA DDS (``small_rgba.dds``, 32-bit
-  pixels under ARGB masks).
+  pixels under ARGB masks);
+- PIL's ICO of the 37x29 image with alpha (``small.ico``: PNG frames of
+  16x13 and 24x19, PIL's LANCZOS thumbnails) and its ICNS of the top-left
+  6x5 corner of the image as L (``small_6x5_grey.icns``: PNG entries of
+  32 to 1024 pixels a side, PIL's BICUBIC resizes).
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
 
+import contextlib
 import hashlib
 import importlib.util
 import io
@@ -104,6 +115,7 @@ import json
 import os
 import struct
 import sys
+import time
 
 import numpy as np
 
@@ -408,8 +420,13 @@ def ycbcr_of(rgb: np.ndarray) -> np.ndarray:
 # tiles (jpeg_tiff_map_bytes); their content is procedural_rgb's, in
 # integers only; a 2048x2048 RGB roughness map as the QOI file Image.save
 # writes (which the port's writer writes byte for byte) and a 1024x1024
-# DXT1 DDS normal map of hashed block bytes (dxt1_map_bytes)
+# DXT1 DDS normal map of hashed block bytes (dxt1_map_bytes); a 2048x2048
+# RGB roughness map as an ICNS file (read at its 1024x1024 ic10 entry)
+# and a 1024x1024 RGB normal map as an ICO file (read at its 256x256
+# frame), written by Image.save or the port, held by icon_digest
 READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
+               "roughness_2048.icns": (2048, 20),
+               "normal_1024.ico": (1024, 21),
                "normal_1024.pcx": (1024, 12),
                "roughness_2048_cmyk.tif": (2048, 13),
                "normal_1024_ycbcr_packbits.tif": (1024, 14),
@@ -447,9 +464,9 @@ def dxt1_map_bytes(n: int, seed: int) -> bytes:
 
 def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
     """(RGB pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI
-    file's bytes from :func:`sgi_rle_bytes`; None for the PCX and the QOI,
-    which the writer under test (PIL's or the port's ``write_image``)
-    makes; for the TIFFs, whose samples are CMYK and YCbCr or JPEG
+    file's bytes from :func:`sgi_rle_bytes`; None for the PCX, the QOI,
+    the ICNS and the ICO, which the writer under test (PIL's or the port's
+    ``write_image``) makes; for the TIFFs, whose samples are CMYK and YCbCr or JPEG
     streams, and the DDS, whose blocks are hashed bytes, no RGB pixels
     and the bytes of :func:`tiff_map_bytes`, :func:`jpeg_tiff_map_bytes`
     or :func:`dxt1_map_bytes`."""
@@ -469,9 +486,10 @@ def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
 
 
 def reader_map_digests() -> dict:
-    """{map: {"file_sha256", "rgba_sha256", "shape", "of"}}: the sha256 of
-    each map's file (the RLE SGI encoder's output, PIL's PCX file) and of
-    PIL's ``convert("RGBA")`` of it."""
+    """{map: {"file_sha256", "rgba_sha256", "shape", "of"}}: the
+    :func:`file_digest` of each map's file (the RLE SGI encoder's output,
+    PIL's PCX file, ...) and the sha256 of PIL's ``convert("RGBA")`` of
+    it."""
     import tempfile
     from PIL import Image
     ti = _images_module()
@@ -485,7 +503,8 @@ def reader_map_digests() -> dict:
                 with open(path, "rb") as f:
                     data = f.read()
             rgba = ti.pil_rgba8(data)
-            out[name] = {"file_sha256": hashlib.sha256(data).hexdigest(),
+            out[name] = {"file_sha256": file_digest(name, data,
+                                                    ti.pil_rgba8),
                          "rgba_sha256": hashlib.sha256(
                              rgba.tobytes()).hexdigest(),
                          "shape": list(rgba.shape),
@@ -493,18 +512,81 @@ def reader_map_digests() -> dict:
     return out
 
 
-# the extensions the port writes byte for byte as PIL (JPEG, BMP, DIB,
-# TIFF, PPM, TGA, GIF, IM, PCX, SGI, WebP, QOI, DDS, EPS and MPO, PIL
-# 12.1's names for each); IM and SGI write the file's name, so every file
-# is written as "x" + extension
+# the extensions the port writes as PIL (JPEG, BMP, DIB, TIFF, PPM, TGA,
+# GIF, IM, PCX, SGI, WebP, QOI, DDS, EPS, MPO and PDF byte for byte, PIL
+# 12.1's names for each; ICO and ICNS frame for frame, ICON_EXTENSIONS);
+# IM, SGI and PDF write the file's name, so every file is written as "x"
+# + extension
 WRITE_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif", ".bmp", ".dib",
                     ".tif", ".tiff", ".pbm", ".pgm", ".ppm", ".pnm", ".pfm",
                     ".tga", ".icb", ".vda", ".vst", ".gif", ".im", ".pcx",
                     ".sgi", ".bw", ".rgb", ".rgba", ".webp", ".qoi", ".dds",
-                    ".eps", ".ps", ".mpo")
+                    ".eps", ".ps", ".mpo", ".pdf", ".ico", ".icns")
 # what write_digests records where PIL raises (QOI of mode L) in place of
 # the digest: the exception's type and message
 QOI_L_RAISES = "ValueError: Unsupported QOI image mode"
+# the extensions whose files are held by icon_digest
+ICON_EXTENSIONS = (".ico", ".icns")
+# what time.gmtime() gives while a PDF is written for a digest
+PINNED_GMTIME = time.struct_time((2026, 1, 2, 3, 4, 5, 4, 2, 0))
+
+
+@contextlib.contextmanager
+def pinned_gmtime():
+    """``time.gmtime()`` pinned to :data:`PINNED_GMTIME` (PIL's PDF writer
+    and the port's read it for the dates the file holds)."""
+    real = time.gmtime
+    time.gmtime = lambda *args: PINNED_GMTIME
+    try:
+        yield
+    finally:
+        time.gmtime = real
+
+
+def icon_digest(data: bytes, png_rgba) -> str:
+    """The sha256 of an ICO or ICNS file's directory with its lengths and
+    offsets left out (ICO: the header and each entry's size, colours,
+    planes and bits; ICNS: the magic and each block's type, the table of
+    contents' types), then of each frame's PNG signature and IHDR type,
+    size, bit depth and colour type and of its pixels as ``png_rgba``
+    (PIL's decode here, the port's on the card's machine) decodes them,
+    in the file's order. PIL's file and the port's have the same digest
+    where their directories, modes and pixels are the same: their PNGs are
+    deflated differently."""
+    h = hashlib.sha256()
+    frames = []
+    if data.startswith(b"icns"):
+        h.update(data[:4])
+        pos = 8
+        while pos < len(data):
+            kind, length = struct.unpack_from(">4sI", data, pos)
+            body = data[pos + 8:pos + length]
+            h.update(kind)
+            if kind == b"TOC ":
+                h.update(b"".join(body[i:i + 4]
+                                  for i in range(0, len(body), 8)))
+            else:
+                frames.append(body)
+            pos += length
+    else:
+        h.update(data[:6])
+        for i in range(struct.unpack_from("<H", data, 4)[0]):
+            entry = data[6 + 16 * i:22 + 16 * i]
+            h.update(entry[:8])
+            length, offset = struct.unpack_from("<II", entry, 8)
+            frames.append(data[offset:offset + length])
+    for png in frames:
+        h.update(png[:8] + png[12:26])
+        h.update(np.ascontiguousarray(png_rgba(png), np.uint8).tobytes())
+    return h.hexdigest()
+
+
+def file_digest(name: str, data: bytes, png_rgba) -> str:
+    """:func:`icon_digest` of an ICO or ICNS file, the sha256 of any
+    other."""
+    if name.endswith(ICON_EXTENSIONS):
+        return icon_digest(data, png_rgba)
+    return hashlib.sha256(data).hexdigest()
 
 
 def writer_images() -> dict:
@@ -522,13 +604,15 @@ def writer_images() -> dict:
 
 
 def write_digests() -> dict:
-    """{image: {mode: {extension: sha256 of PIL's file}}}; where PIL
-    raises, ``"<type>: <message>"`` (:data:`QOI_L_RAISES`). PIL's QOI
-    encoder is Python, a minute or so for the 4K image."""
+    """{image: {mode: {extension: :func:`file_digest` of PIL's file}}}
+    (PDFs under :func:`pinned_gmtime`); where PIL raises, ``"<type>:
+    <message>"`` (:data:`QOI_L_RAISES`). PIL's QOI encoder is Python, a
+    minute or so for the 4K image."""
     import tempfile
     from PIL import Image
+    ti = _images_module()
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, pinned_gmtime():
         for name, modes in writer_images().items():
             for mode, px in modes.items():
                 for ext in WRITE_EXTENSIONS:
@@ -540,7 +624,8 @@ def write_digests() -> dict:
                         assert digest == QOI_L_RAISES, digest
                     else:
                         with open(path, "rb") as f:
-                            digest = hashlib.sha256(f.read()).hexdigest()
+                            digest = file_digest(ext, f.read(),
+                                                 ti.pil_rgba8)
                     out.setdefault(name, {}).setdefault(mode, {})[ext] = \
                         digest
     return out
@@ -679,12 +764,16 @@ def fixtures():
     }
     for name, data in files.items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
-    # PIL's QOI and DDS files of the image with alpha
+    # PIL's QOI, DDS and ICO files of the image with alpha, its ICNS of a
+    # grey corner
     with_alpha = Image.fromarray(np.concatenate([small, alpha], -1), "RGBA")
     files = {"small.qoi": pil_file(with_alpha, "QOI"),
              "small_dxt5.dds": pil_file(with_alpha, "DDS",
                                         pixel_format="DXT5"),
-             "small_rgba.dds": pil_file(with_alpha, "DDS")}
+             "small_rgba.dds": pil_file(with_alpha, "DDS"),
+             "small.ico": pil_file(with_alpha, "ICO"),
+             "small_6x5_grey.icns": pil_file(Image.fromarray(
+                 np.ascontiguousarray(small[:5, :6, 1])), "ICNS")}
     for name, data in files.items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     return out
