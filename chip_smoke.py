@@ -186,11 +186,12 @@ SHELL_SPP = 4            # the scripted shell's render
 FILES_DIR = os.path.join(HERE, "tests", "torch_data")
 FILES_DECODES, FILES_RATE_SPP, FILES_TERRAIN_SPP = 5, 4, 4
 # the extensions whose files the files phase reads back as their pixels
-# (DIB, IM, SGI, PCX, QOI, DDS), those it reads back as the JPEG written
-# before them (a single-frame MPO is PIL's JPEG file), and those it reads
-# back as the frame PIL's reader picks (ICO: the largest; ICNS: ic10)
+# (DIB, IM, SGI, PCX, QOI, DDS, JPEG 2000), those it reads back as the
+# JPEG written before them (a single-frame MPO is PIL's JPEG file), and
+# those it reads back as the frame PIL's reader picks (ICO: the largest;
+# ICNS: ic10)
 READ_BACK = (".dib", ".im", ".sgi", ".bw", ".rgb", ".rgba", ".pcx", ".qoi",
-             ".dds")
+             ".dds", ".j2c", ".j2k", ".jp2", ".jpc", ".jpf", ".jpx")
 READ_BACK_AS_JPEG = (".mpo",)
 READ_BACK_AS_FRAME = (".ico", ".icns")
 # the least PSNR the module preview's WebP may have against the grey
@@ -1246,7 +1247,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       decodes timed), then with the port's ICNS of a 2048x2048 RGB
       roughness map, read at its 1024x1024 ``ic10`` entry, and its ICO of
       a 1024x1024 RGB normal map, read at its 256x256 frame (``ico-icns``,
-      both decodes timed), through ``"hier"``: the texture table on the
+      both decodes timed), then with the port's JP2 file of a 2048x2048
+      grey roughness map and its JPEG 2000 codestream of a 1024x1024 RGB
+      normal map (``jp2-j2k``, both decodes timed), through ``"hier"``: the texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry, then ms per sample in turns against the checker-map
       session;
@@ -1256,12 +1259,14 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       (``tests/torch_data/write_digests.json``; QOI as L raising PIL's
       ``ValueError``; PDFs under ``make_torch_fixtures.pinned_gmtime``;
       ICO and ICNS files by their ``icon_digest``, the frames decoded by
-      the port), the DIB, IM, SGI, PCX, QOI and DDS files (``READ_BACK``)
-      read back by the port equal to the pixels, the MPO
+      the port), the DIB, IM, SGI, PCX, QOI, DDS and JPEG 2000 files
+      (``READ_BACK``; a file equal to one read back before is not read
+      again) read back by the port equal to the pixels, the MPO
       (``READ_BACK_AS_JPEG``) equal to the JPEG's decode, the ICO and ICNS
       (``READ_BACK_AS_FRAME``) equal to the frame PIL's reader picks; the
-      4K RGB PCX and SGI decodes and the 4K JPEG, GIF, WebP, QOI, DDS,
-      PDF, ICO and ICNS encodes timed (median of ``decodes``); ``python
+      4K RGB PCX, SGI and JPEG 2000 decodes and the 4K JPEG, GIF, WebP,
+      QOI, DDS, PDF, ICO, ICNS and JPEG 2000 encodes timed (median of
+      ``decodes``); ``python
       -m
       pathtracing_spectrum_tpu_torch preview ... --out v.jpg --device
       cuda`` read back by the port's JPEG decoder, ``--out v.gif`` read
@@ -1279,8 +1284,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
 
     Returns the launches of each kernel over the driven sessions."""
     from pathtracing_spectrum_tpu_torch.utils import (gif, image, jpeg,
-                                                      obj_loader, scene_io,
-                                                      spectral_io, webp)
+                                                      jpeg2000, obj_loader,
+                                                      scene_io, spectral_io,
+                                                      webp)
     from pathtracing_spectrum_tpu_torch.preview import preview_render
     # files that are no image give None; the extensions PIL cannot save
     # an L or RGB image under raise PIL's exception, writing nothing
@@ -1300,7 +1306,7 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         for ext, want in ((".psd", KeyError), (".xpm", KeyError),
                           (".bufr", OSError), (".msp", OSError),
                           (".blp", ValueError), (".qoi", ValueError),
-                          (".jp2", NotImplementedError)):
+                          (".avif", NotImplementedError)):
             path = os.path.join(tmp, "out" + ext)
             try:
                 image.write_image(path, grey)
@@ -1372,11 +1378,13 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             "qoi-dds": tuple(os.path.join(maps_dir.name, name) for name in (
                 "roughness_2048.qoi", "normal_1024_dxt1.dds")),
             "ico-icns": tuple(os.path.join(maps_dir.name, name) for name in (
-                "roughness_2048.icns", "normal_1024.ico"))}
+                "roughness_2048.icns", "normal_1024.ico")),
+            "jp2-j2k": tuple(os.path.join(maps_dir.name, name) for name in (
+                "roughness_2048_grey.jp2", "normal_1024.j2k"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
-            maps["qoi-dds"][1], maps["ico-icns"][1]]:
+            maps["qoi-dds"][1], maps["ico-icns"][1], maps["jp2-j2k"][1]]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
         say("files", decode=os.path.basename(name), runs=decodes, ms=ms,
@@ -1408,8 +1416,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # and CMYK JPEG maps, the TIFF maps (16-bit LZW normals), the WebP
     # maps (lossy roughness, lossless normals with alpha), the SGI and PCX
     # maps, the CMYK and YCbCr TIFF maps, the Group 4 and JPEG-in-TIFF
-    # maps, the QOI and DXT1 maps and the ICNS and ICO maps, each counted
-    # through K3, K2 and threefry
+    # maps, the QOI and DXT1 maps, the ICNS and ICO maps and the JP2 and
+    # JPEG 2000 codestream maps, each counted through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1454,8 +1462,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     sessions["checker"].run(1, batch=1)
     turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
              "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "qoi-dds", "ico-icns",
-             "ico-icns", "qoi-dds", "tiff-jpeg-ccitt", "tiff-cmyk-ycbcr",
-             "sgi-pcx", "webp", "tiff", "jpeg-flavours", "jpeg", "checker")
+             "jp2-j2k", "jp2-j2k", "ico-icns", "qoi-dds", "tiff-jpeg-ccitt",
+             "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff", "jpeg-flavours",
+             "jpeg", "checker")
     rates = {name: [] for name in turns}
     for name in turns:
         rates[name].append(timed_step(torch, sessions[name], rate_spp))
@@ -1469,8 +1478,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # the writers: two images as L and RGB under every extension written
     # byte for byte, held to the digests of PIL's files (QOI as L to PIL's
     # ValueError, PDFs at a pinned time, ICO and ICNS frame for frame); the
-    # 4K JPEG, GIF, WebP, QOI, DDS, PDF, ICO and ICNS encodes timed; a
-    # preview written as a JPEG, a GIF and a WebP by the module's CLI
+    # 4K JPEG, GIF, WebP, QOI, DDS, PDF, ICO, ICNS and JPEG 2000 encodes
+    # and the 4K JPEG 2000 decode timed; a preview written as a JPEG, a
+    # GIF and a WebP by the module's CLI
     with open(os.path.join(FILES_DIR, "write_digests.json")) as f:
         write_digests = json.load(f)
     images = fixtures.writer_images()
@@ -1481,6 +1491,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             for mode, px in sorted(modes.items()):
                 wanted = write_digests[name][mode]
                 same, back = [], []
+                # a read-back per distinct file: the JP2 names' files are
+                # one file, read once
+                read = {}
                 rgba = np.full(px.shape[:2] + (4,), 255, np.uint8)
                 rgba[..., :3] = px[..., None] if px.ndim == 2 else px
                 jpeg_rgba = None
@@ -1504,8 +1517,11 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                     if ext == ".jpg":
                         jpeg_rgba = image.load_rgba8(path)
                     if ext in READ_BACK:
-                        back.append(np.array_equal(image.load_rgba8(path),
-                                                   rgba))
+                        key = hashlib.sha256(data).digest()
+                        if key not in read:
+                            read[key] = np.array_equal(
+                                image.load_rgba8(path), rgba)
+                        back.append(read[key])
                     if ext in READ_BACK_AS_JPEG:
                         back.append(np.array_equal(image.load_rgba8(path),
                                                    jpeg_rgba))
@@ -1523,9 +1539,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                 check(all(same), f"{name} {mode}: a written file is not "
                       "PIL's")
                 check(len(back) == n_back and all(back),
-                      f"{name} {mode}: a DIB, IM, SGI, PCX, QOI, DDS, MPO, "
-                      "ICO or ICNS file the port wrote does not read back as "
-                      "its pixels")
+                      f"{name} {mode}: a DIB, IM, SGI, PCX, QOI, DDS, JPEG "
+                      "2000, MPO, ICO or ICNS file the port wrote does not "
+                      "read back as its pixels")
         rgb4k = images["procedural_3840x2160"]["RGB"]
         for ext in (".pcx", ".sgi"):
             path = os.path.join(tmp, "x" + ext)
@@ -1543,6 +1559,15 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         ms, med = median_ms(lambda: webp.encode(rgb4k))
         say("files", webp_encode="3840x2160 RGB", runs=decodes, ms=ms,
             median_ms=med, clock="host", card=repr(card))
+        ms, med = median_ms(lambda: jpeg2000.encode(rgb4k, "jp2"))
+        say("files", jpeg2000_encode="3840x2160 RGB", runs=decodes, ms=ms,
+            median_ms=med, clock="host", card=repr(card))
+        path = os.path.join(tmp, "x.jp2")
+        image.write_image(path, rgb4k)
+        ms, med = median_ms(lambda: image.load_rgba8(path))
+        say("files", decode="x.jp2 3840x2160 RGB", bytes=os.path.getsize(path),
+            runs=decodes, ms=ms, median_ms=med, clock="host", card=repr(card))
+        os.remove(path)
         for fmt, encode in (("qoi", image._qoi_bytes),
                             ("dds", image._dds_bytes),
                             ("pdf", lambda px: image._pdf_bytes(px, "x.pdf")),

@@ -17,8 +17,10 @@ Two shared libraries, each built into ``build/`` next to this file
   the DDS block (BC1-BC5) decoder ``csrc/bcn_decode.cpp``, PIL's
   LANCZOS and BICUBIC resampler ``csrc/resample.cpp``,
   the WebP decoder ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (with
-  their shared VP8 tables and transforms ``csrc/vp8_common.h``) and the
-  GIF quantiser and LZW encoder ``csrc/gif_encode.cpp``.
+  their shared VP8 tables and transforms ``csrc/vp8_common.h``), the
+  GIF quantiser and LZW encoder ``csrc/gif_encode.cpp`` and the JPEG
+  2000 decoder ``csrc/j2k_decode.cpp`` and encoder ``csrc/j2k_encode.cpp``
+  (with their shared tables and 5/3 transform ``csrc/j2k_common.h``).
 
 Each file name carries a hash of its sources and flags, so a changed source
 is always rebuilt and a stale library is never loaded. Nothing here runs at
@@ -50,8 +52,10 @@ HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
                 _CSRC / "lzw_decode.cpp", _CSRC / "webp_decode.cpp",
                 _CSRC / "gif_encode.cpp", _CSRC / "webp_encode.cpp",
                 _CSRC / "fax_decode.cpp", _CSRC / "qoi.cpp",
-                _CSRC / "bcn_decode.cpp", _CSRC / "resample.cpp")
-HOST_HEADERS = (_CSRC / "jpeg_std_tables.h", _CSRC / "vp8_common.h")
+                _CSRC / "bcn_decode.cpp", _CSRC / "resample.cpp",
+                _CSRC / "j2k_encode.cpp", _CSRC / "j2k_decode.cpp")
+HOST_HEADERS = (_CSRC / "jpeg_std_tables.h", _CSRC / "vp8_common.h",
+                _CSRC / "j2k_common.h")
 BUILD_DIR = _HERE / "build"
 
 # sm_90a (Hopper); --fmad=false keeps every multiply and add separately
@@ -122,6 +126,11 @@ _HOST_SIGNATURES = {
     "pts_webp_free": ([_V], None),
     "pts_webp_encode": ([_V, _I32, _I32, _I32, _V], _V),
     "pts_webp_encode_stages": ([_V, _I32, _I32, _I32] + [_V] * 5, _I32),
+    "pts_j2k_encode": ([_V, _I32, _I32, _I32], _V),
+    "pts_j2k_decode": ([_V, _I64, _V, _S, _I32], _V),
+    "pts_j2k_size": ([_V, _V, _V, _V], None),
+    "pts_j2k_copy": ([_V, _V], None),
+    "pts_j2k_free": ([_V], None),
 }
 
 
@@ -235,7 +244,8 @@ def load_host() -> ctypes.CDLL:
     library: the BVH builder, the OBJ parser, the spectral writer, the
     JPEG decoder and encoder, the LZW, PackBits, SGI RLE, PCX RLE and
     CCITT decoders, the QOI decoder and encoder, the DDS block decoder,
-    the resampler, the WebP decoder and encoder and the GIF encoder. Raises with the
+    the resampler, the WebP decoder and encoder, the GIF encoder and the
+    JPEG 2000 decoder and encoder. Raises with the
     compiler's output when it cannot be built: none of them has a
     fallback."""
     if _Library.host is not None:

@@ -131,6 +131,14 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   the one of fewer bits), a PNG decoded as above from its offset on, its
   ``tRNS`` unapplied (PIL's ICO image takes the frame's pixels and
   palette, not its ``info``);
+- JPEG 2000, a JP2 file or a bare codestream, through the host library's
+  decoder (``utils/jpeg2000.py``, ``csrc/j2k_decode.cpp``): the
+  reversible single-tile family PIL writes at its defaults from L, LA,
+  RGB and RGBA (any number of decomposition levels, any code-block size,
+  PLT markers), as OpenJPEG 2.5.4 decodes it for PIL; PIL's header
+  checks, then OpenJPEG's strict reading (a cut file is broken, apart
+  from the cut just after the tile's SOT marker code, which PIL gives as
+  an image of zeros);
 - ICNS: the PNG entry of the largest size ``IcnsFile.bestsize`` finds
   (``ic10``, 1024x1024, in the files PIL and the port write), ``tRNS``
   unapplied as for ICO, its size held as PIL's ``size`` setter holds it.
@@ -151,8 +159,8 @@ bad checksum, truncated data, a header or mode PIL refuses, more pixels
 than PIL's decompression-bomb limit) return ``None``, as PIL's exception
 does in the JAX package and as the reference's ``Image`` fails soft to
 black (image.cpp:48-49). A format PIL opens and the port does not (CUR,
-EPS (PIL reads it only through Ghostscript), JPEG 2000, ... : the other
-26 plugins) or a flavour of one decoded
+EPS (PIL reads it only through Ghostscript), ... : the other 25
+plugins) or a flavour of one decoded
 here that it does not take (lossless and block-smoothed progressive
 JPEG, RLE BMP and DIB, plain-text PNM (P1-P3) and PIL's test extensions
 (``P0CMYK``, ``PyP``, ``PyRGBA``, ``PyCMYK``), old-style JPEG-in-TIFF
@@ -161,7 +169,12 @@ YCbCr TIFF at other subsampling than (1, 1) or turned by its orientation
 (JPEG-compressed YCbCr apart), uncompressed YCbCr TIFF tiles, CIELab
 TIFF, old-style LZW, BigTIFF, CIELab PSD, the IM image types PIL's
 writer does not make, BC6H and BC7 DDS, ICO frames in BMP, ICNS entries
-in RLE with masks or in JPEG 2000, ...) raises
+in RLE with masks or in JPEG 2000, JPEG 2000 with the irreversible 9/7
+transform, tiles, precincts, a progression order other than LRCP, more
+than one layer, the multiple component transform, code-block styles,
+SOP or EPH markers, samples of other than 8 unsigned bits, subsampled
+components, a colour space other than grey or sRGB, a palette or
+reordered channels, ...) raises
 ``NotImplementedError`` naming the file and the flavour: a texture is
 never dropped quietly.
 
@@ -190,7 +203,12 @@ and ``tests/test_torch_formats.py`` hold the rest):
   strip, memory PIL never initialised (its image differs from run to
   run), which is refused; a JPEG stream smaller than its strip or tile,
   which libtiff reads with a warning, leaving the rest of the buffer as
-  it was, is refused.
+  it was, is refused;
+- a JPEG 2000 tile whose packet headers are damaged: OpenJPEG's checks
+  of a packet are copied as far as its code-block segments (one past the
+  tile's end is broken, header bits past it read as zeros); a zero
+  bit-plane count over 64 is broken here, and a JP2 header whose size or
+  component count is not the codestream's is refused.
 
 Writing: :func:`write_image` is what the viewer, the CLI and the shell
 save through. As the JAX package's ``PIL.Image.save(path)``, it picks the
@@ -239,15 +257,19 @@ extension                       what is written
 ``.icns``                       PIL's directory; each entry (PIL's BICUBIC
                                 resize to 32 ... 1024) a PNG of PIL's
                                 pixels
+``.j2c .j2k .jp2 .jpc .jpf      PIL's JPEG 2000 byte for byte (OpenJPEG
+.jpx``                          2.5.4's lossless 5/3 codestream; bare for a
+                                name ending in ``.j2k``, else in a JP2
+                                file: ``utils/jpeg2000.py``,
+                                ``csrc/j2k_encode.cpp``)
 the 27 extensions PIL cannot    PIL's exception and message: ``KeyError``
 save as L or RGB, and ``.qoi``  without a save handler (``.psd``, ``.xpm``
 for L                           ...), ``OSError`` for a handler not
                                 installed or a mode refused (``.bufr``,
                                 ``.msp`` ...), ``ValueError`` (``.blp``,
                                 ``.qoi``)
-the 8 other extensions PIL      ``NotImplementedError`` naming the path
-knows (``.avif .avifs .j2c      and the format
-.j2k .jp2 .jpc .jpf .jpx``)
+the 2 other extensions PIL      ``NotImplementedError`` naming the path
+knows (``.avif .avifs``)        and the format
 an unknown extension, or none   ``ValueError("unknown file extension")``
 ==============================  =========================================
 
@@ -266,7 +288,7 @@ import zlib
 
 import numpy as np
 
-from . import codecs, gif, jpeg, resample, webp
+from . import codecs, gif, jpeg, jpeg2000, resample, webp
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples per pixel, allowed bit depths)
@@ -318,15 +340,16 @@ def load_rgba8(path: str) -> "np.ndarray | None":
         raise NotImplementedError(
             f"{path}: {kind} is not decoded by the PyTorch port (PNG, JPEG, "
             "BMP, DIB, TGA, binary PNM and PFM, GIF, TIFF, PSD, WebP, SGI, "
-            "PCX, IM, QOI, DDS, ICO and ICNS are; convert it; ROADMAP Queue "
-            "1 item 11)")
+            "PCX, IM, QOI, DDS, ICO, ICNS and JPEG 2000 are; convert it; "
+            "ROADMAP Queue 1 item 11)")
     try:
         return _DECODERS[kind](data)
     except (_Refused, NotImplementedError) as e:
         raise NotImplementedError(
             f"{path}: {kind} ({e}) is not decoded by the PyTorch port "
             "(ROADMAP Queue 1 item 11)") from None
-    except (_Unreadable, jpeg.BrokenJpeg, webp.BrokenWebP, zlib.error,
+    except (_Unreadable, jpeg.BrokenJpeg, webp.BrokenWebP,
+            jpeg2000.BrokenJpeg2000, zlib.error,
             struct.error, ValueError, IndexError, KeyError, TypeError):
         return None
 
@@ -2417,13 +2440,21 @@ def _decode_icns(data: bytes) -> np.ndarray:
     return rgba
 
 
+def _decode_jpeg2000(data: bytes) -> np.ndarray:
+    """Image.open's size check on the header's size, then the codestream
+    (``utils/jpeg2000.py``)."""
+    _check_size(*jpeg2000.header(data))
+    return jpeg2000.decode_rgba(data)
+
+
 # PIL's format name -> the decoder here
 _DECODERS = {"PNG": _decode_png, "JPEG": jpeg.decode_rgba,
              "BMP": _decode_bmp, "DIB": _decode_dib, "TGA": _decode_tga,
              "PPM": _decode_pnm, "GIF": _decode_gif, "TIFF": _decode_tiff,
              "PSD": _decode_psd, "WEBP": webp.decode_rgba, "SGI": _decode_sgi,
              "PCX": _decode_pcx, "IM": _decode_im, "QOI": _decode_qoi,
-             "DDS": _decode_dds, "ICO": _decode_ico, "ICNS": _decode_icns}
+             "DDS": _decode_dds, "ICO": _decode_ico, "ICNS": _decode_icns,
+             "JPEG2000": _decode_jpeg2000}
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -2790,8 +2821,15 @@ _WRITERS = {
     "QOI": _qoi_bytes, "DDS": _dds_bytes, "EPS": _eps_bytes,
     # a single frame: PIL's MpoImagePlugin._save is JPEG's _save
     "MPO": jpeg.encode, "ICO": _ico_bytes, "ICNS": _icns_bytes}
-# the writers whose file holds its own name
-_NAMED_WRITERS = {"IM": _im_bytes, "SGI": _sgi_bytes, "PDF": _pdf_bytes}
+# the writers that need the file's name (IM, SGI and PDF write it into
+# the file)
+_NAMED_WRITERS = {
+    "IM": _im_bytes, "SGI": _sgi_bytes, "PDF": _pdf_bytes,
+    # Jpeg2KImagePlugin._save: a codestream where the name's bytes end in
+    # ".j2k" (case-sensitive, unlike the lower-cased extension that picks
+    # the format), else a JP2 file
+    "JPEG2000": lambda img, path: jpeg2000.encode(
+        img, "j2k" if path.encode().endswith(b".j2k") else "jp2")}
 
 # PIL 12.1's Image.registered_extensions(), by format: the format
 # Image.save picks from a file name's lower-cased extension
@@ -2835,14 +2873,16 @@ def write_image(path, pixels: np.ndarray) -> None:
     - ``.png``/``.apng``: :func:`write_png` (the decoded pixels equal
       PIL's file; its bytes are not held);
     - JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, DDS,
-      EPS (``.eps``, ``.ps``), MPO and PDF names: PIL's file at its
-      defaults, byte for byte (JPEG and MPO: quality 75, 4:2:0, the host
+      EPS (``.eps``, ``.ps``), MPO, PDF and JPEG 2000 names: PIL's file at
+      its defaults, byte for byte (JPEG and MPO: quality 75, 4:2:0, the host
       library's encoder; GIF: the host library's median cut and LZW;
       WebP: the host library's lossy VP8 encoder at quality 80, a side
       over 16,383 pixels raising PIL's ``ValueError``; QOI: RGB only, L
       raising PIL's ``ValueError``; IM, SGI and PDF write the file's name
       into the file, as PIL does; PDF embeds the JPEG and two readings of
-      ``time.gmtime()``);
+      ``time.gmtime()``; JPEG 2000: OpenJPEG's lossless codestream, bare
+      for a name ending in ``.j2k``, else in a JP2 file, the host
+      library's encoder, an empty image raising PIL's ``SystemError``);
     - ``.ico`` and ``.icns``: PIL's directory, and frames whose pixels
       and mode are PIL's (PIL's LANCZOS thumbnails and BICUBIC resizes,
       the host library's resampler), each frame a PNG as
@@ -2850,8 +2890,7 @@ def write_image(path, pixels: np.ndarray) -> None:
     - an extension PIL registers but cannot save as L or RGB: PIL's
       exception (``KeyError`` without a save handler, ``OSError`` or
       ``ValueError`` where the handler refuses), writing nothing;
-    - any of the 8 other extensions PIL registers (AVIF and JPEG 2000
-      names):
+    - either of the 2 other extensions PIL registers (AVIF's):
       ``NotImplementedError`` naming the path and the format (never PNG
       bytes under another name);
     - an extension PIL does not know, or none: ``ValueError("unknown file
@@ -2877,7 +2916,8 @@ def write_image(path, pixels: np.ndarray) -> None:
         raise NotImplementedError(
             f"{path}: writing {fmt} is not done by the PyTorch port (PNG, "
             "JPEG, BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, "
-            "DDS, EPS, MPO, PDF, ICO and ICNS are; ROADMAP Queue 1 item 11)")
+            "DDS, EPS, MPO, PDF, ICO, ICNS and JPEG 2000 are; ROADMAP Queue "
+            "1 item 11)")
     with open(path, "wb") as f:
         f.write(data)
 

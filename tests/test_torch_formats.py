@@ -671,7 +671,10 @@ def _refused():
         "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),
         # PIL's ICO writer with BMP frames (PNG frames are decoded)
         "ICO writer": pil("ICO", bitmap_format="bmp"),
-        "JPEG 2000 writer": ".jp2", "AVIF writer": ".avif",
+        "AVIF writer": ".avif",
+        # PIL's JPEG 2000 files the decoder refuses (its defaults decoded)
+        "irreversible JPEG 2000": pil("JPEG2000", irreversible=True),
+        "tiled JPEG 2000": pil("JPEG2000", tile_size=(8, 8)),
         **{f"{name} DDS": fx.dds_header(8, 8, 0x4, b"DX10", dxgi=dxgi)
            + bytes(64) for name, dxgi in (("BC7", 98), ("BC6H", 95))},
         "lossless JPEG": ti.patch_frame(base, kind=0xC3),
@@ -958,7 +961,7 @@ def test_formats_pil_opens_and_the_port_does_not_raise(tmp_path):
     NotImplementedError naming the file (never None)."""
     decoded = {"PNG", "JPEG", "BMP", "DIB", "TGA", "PPM", "GIF", "TIFF",
                "PSD", "WEBP", "SGI", "PCX", "IM", "QOI", "DDS", "ICO",
-               "ICNS"}
+               "ICNS", "JPEG2000"}
     for fmt, data in PIL_WRITTEN.items():
         if Image.open(__import__("io").BytesIO(data)).format in decoded:
             continue

@@ -157,9 +157,9 @@ def test_written_jpeg_decodes_in_the_port_as_in_pil(tmp_path):
 
 WRITTEN = {"PNG", "JPEG", "BMP", "DIB", "TIFF", "PPM", "TGA", "GIF", "IM",
            "SGI", "PCX", "WEBP", "QOI", "DDS", "EPS", "MPO", "PDF", "ICO",
-           "ICNS"}
+           "ICNS", "JPEG2000"}
 # the formats PIL 12.1 saves as L or RGB and the port does not write yet
-# (ROADMAP Queue 1 item 11d: 8 extensions, AVIF and JPEG 2000)
+# (ROADMAP Queue 1 item 11d: 2 extensions, AVIF's)
 OTHER_FORMATS = sorted({fmt for fmt in image.EXTENSIONS.values()} - WRITTEN
                        - set(image._PIL_CANNOT_SAVE))
 

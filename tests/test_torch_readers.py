@@ -726,8 +726,8 @@ def test_reader_map_digests_are_pils(tmp_path):
     the card machine's maps and decodes to) holds the RLE SGI encoder's
     file, PIL's PCX file, the CMYK and YCbCr TIFF encoder's files, the
     ``icon_digest`` of PIL's ICNS and ICO files and PIL's decode of each;
-    the port's decode equals it (and the pixels of the RGB maps, where
-    they are read at their own size) and the port's PCX writer writes
+    the port's decode equals it (and the pixels of the RGB and grey maps,
+    where they are read at their own size) and the port's PCX writer writes
     PIL's file (its ICNS and ICO writers PIL's directories and frames)."""
     import hashlib
     import json
@@ -750,7 +750,8 @@ def test_reader_map_digests_are_pils(tmp_path):
         assert hashlib.sha256(got.tobytes()).hexdigest() == want[
             "rgba_sha256"]
         if px is not None and not name.endswith(fx.ICON_EXTENSIONS):
-            np.testing.assert_array_equal(got[..., :3], px)
+            rgb = np.repeat(px[..., None], 3, 2) if px.ndim == 2 else px
+            np.testing.assert_array_equal(got[..., :3], rgb)
 
 
 # ---- scenes ----------------------------------------------------------------

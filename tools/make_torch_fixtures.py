@@ -27,7 +27,8 @@ each of ``READER_MAPS`` (the textured sessions' RLE SGI roughness map and
 PCX normal map, uncompressed CMYK roughness map and PackBits YCbCr
 normal map as TIFFs, a JPEG-in-TIFF normal map in 256x256 tiles, a QOI
 roughness map and a DXT1 DDS normal map, an ICNS roughness map and an ICO
-normal map, made at run time by :func:`reader_map`: nothing is committed;
+normal map, a grey JP2 roughness map and a JPEG 2000 codestream normal
+map, made at run time by :func:`reader_map`: nothing is committed;
 for the ICNS and ICO maps its :func:`icon_digest`) and of PIL's decode of
 it;
 ``chip_smoke.py`` holds the maps it builds and the port's decodes of
@@ -102,7 +103,10 @@ Fixtures (all content procedural, from fixed seeds):
 - PIL's ICO of the 37x29 image with alpha (``small.ico``: PNG frames of
   16x13 and 24x19, PIL's LANCZOS thumbnails) and its ICNS of the top-left
   6x5 corner of the image as L (``small_6x5_grey.icns``: PNG entries of
-  32 to 1024 pixels a side, PIL's BICUBIC resizes).
+  32 to 1024 pixels a side, PIL's BICUBIC resizes);
+- PIL's JPEG 2000 files at its defaults: the 37x29 image with alpha as a
+  JP2 file (``small_rgba.jp2``: a ``cdef`` box naming the alpha) and its
+  green channel as a bare codestream (``small_grey.j2k``).
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -423,7 +427,10 @@ def ycbcr_of(rgb: np.ndarray) -> np.ndarray:
 # DXT1 DDS normal map of hashed block bytes (dxt1_map_bytes); a 2048x2048
 # RGB roughness map as an ICNS file (read at its 1024x1024 ic10 entry)
 # and a 1024x1024 RGB normal map as an ICO file (read at its 256x256
-# frame), written by Image.save or the port, held by icon_digest
+# frame), written by Image.save or the port, held by icon_digest; a
+# 2048x2048 grey roughness map (the green channel) as a JP2 file and a
+# 1024x1024 RGB normal map as a JPEG 2000 codestream, written by
+# Image.save or the port
 READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "roughness_2048.icns": (2048, 20),
                "normal_1024.ico": (1024, 21),
@@ -432,7 +439,9 @@ READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "normal_1024_ycbcr_packbits.tif": (1024, 14),
                "normal_1024_jpeg_tiles.tif": (1024, 16),
                "roughness_2048.qoi": (2048, 18),
-               "normal_1024_dxt1.dds": (1024, 19)}
+               "normal_1024_dxt1.dds": (1024, 19),
+               "roughness_2048_grey.jp2": (2048, 22),
+               "normal_1024.j2k": (1024, 23)}
 
 
 def dds_header(width: int, height: int, pfflags: int, fourcc: bytes = b"",
@@ -465,7 +474,8 @@ def dxt1_map_bytes(n: int, seed: int) -> bytes:
 def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
     """(RGB pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI
     file's bytes from :func:`sgi_rle_bytes`; None for the PCX, the QOI,
-    the ICNS and the ICO, which the writer under test (PIL's or the port's
+    the ICNS, the ICO and the JPEG 2000 maps (the JP2 one of the green
+    channel), which the writer under test (PIL's or the port's
     ``write_image``) makes; for the TIFFs, whose samples are CMYK and YCbCr or JPEG
     streams, and the DDS, whose blocks are hashed bytes, no RGB pixels
     and the bytes of :func:`tiff_map_bytes`, :func:`jpeg_tiff_map_bytes`
@@ -482,6 +492,8 @@ def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
         return None, jpeg_tiff_map_bytes(px)
     if name.endswith("_dxt1.dds"):
         return None, dxt1_map_bytes(n, seed)
+    if name.endswith("_grey.jp2"):
+        return np.ascontiguousarray(px[..., 1]), None
     return px, None
 
 
@@ -513,7 +525,8 @@ def reader_map_digests() -> dict:
 
 
 # the extensions the port writes as PIL (JPEG, BMP, DIB, TIFF, PPM, TGA,
-# GIF, IM, PCX, SGI, WebP, QOI, DDS, EPS, MPO and PDF byte for byte, PIL
+# GIF, IM, PCX, SGI, WebP, QOI, DDS, EPS, MPO, PDF and JPEG 2000 (a
+# codestream for ".j2k", else a JP2 file) byte for byte, PIL
 # 12.1's names for each; ICO and ICNS frame for frame, ICON_EXTENSIONS);
 # IM, SGI and PDF write the file's name, so every file is written as "x"
 # + extension
@@ -521,7 +534,8 @@ WRITE_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif", ".bmp", ".dib",
                     ".tif", ".tiff", ".pbm", ".pgm", ".ppm", ".pnm", ".pfm",
                     ".tga", ".icb", ".vda", ".vst", ".gif", ".im", ".pcx",
                     ".sgi", ".bw", ".rgb", ".rgba", ".webp", ".qoi", ".dds",
-                    ".eps", ".ps", ".mpo", ".pdf", ".ico", ".icns")
+                    ".eps", ".ps", ".mpo", ".pdf", ".ico", ".icns", ".j2c",
+                    ".j2k", ".jp2", ".jpc", ".jpf", ".jpx")
 # what write_digests records where PIL raises (QOI of mode L) in place of
 # the digest: the exception's type and message
 QOI_L_RAISES = "ValueError: Unsupported QOI image mode"
@@ -764,8 +778,8 @@ def fixtures():
     }
     for name, data in files.items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
-    # PIL's QOI, DDS and ICO files of the image with alpha, its ICNS of a
-    # grey corner
+    # PIL's QOI, DDS, ICO and JP2 files of the image with alpha, its ICNS
+    # of a grey corner, its JPEG 2000 codestream of the green channel
     with_alpha = Image.fromarray(np.concatenate([small, alpha], -1), "RGBA")
     files = {"small.qoi": pil_file(with_alpha, "QOI"),
              "small_dxt5.dds": pil_file(with_alpha, "DDS",
@@ -773,7 +787,11 @@ def fixtures():
              "small_rgba.dds": pil_file(with_alpha, "DDS"),
              "small.ico": pil_file(with_alpha, "ICO"),
              "small_6x5_grey.icns": pil_file(Image.fromarray(
-                 np.ascontiguousarray(small[:5, :6, 1])), "ICNS")}
+                 np.ascontiguousarray(small[:5, :6, 1])), "ICNS"),
+             "small_rgba.jp2": pil_file(with_alpha, "JPEG2000"),
+             "small_grey.j2k": pil_file(Image.fromarray(
+                 np.ascontiguousarray(small[..., 1])), "JPEG2000",
+                 no_jp2=True)}
     for name, data in files.items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     return out
