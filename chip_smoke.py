@@ -75,7 +75,10 @@ through its kernels and made a healthy image:
   a 2048x2048 QOI (written by the port) and a 1024x1024 DXT1 DDS, then
   with the port's ICNS of a 2048x2048 roughness map (read at its
   1024x1024 entry) and its ICO of a 1024x1024 normal map (read at its
-  256x256 frame), 16
+  256x256 frame), then with the port's JP2 and JPEG 2000 codestream
+  maps, then with a 2048x2048 grey RLE8 BMP roughness map and a 256x256
+  ICO normal map whose frame is a 24-bit DIB with an AND mask, both made
+  on the machine and held to PIL's digests, 16
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
   checker session; ``write_image``'s JPEG,
@@ -86,7 +89,10 @@ through its kernels and made a healthy image:
   ones read back by the port equal to the pixels, the MPO equal to the
   JPEG's decode and the ICO and ICNS equal to the frame PIL's reader
   picks, the 4K PCX and SGI decodes and the 4K JPEG, GIF, WebP, QOI,
-  DDS, PDF, ICO and ICNS encodes timed,
+  DDS, PDF, ICO and ICNS encodes timed, and a 3840x2160 RLE8 BMP, a
+  256x256 32-bit CUR, a 128x128 ICNS of ``it32`` and ``t8mk`` entries and
+  an ICNS with a JP2 ``ic09`` entry made there, held to PIL's digests
+  and their decodes timed,
   and a preview written as ``v.jpg``, ``v.gif``
   and ``v.webp`` by ``python -m pathtracing_spectrum_tpu_torch`` read
   back (the WebP held to the preview by its PSNR); the 52k and 200k terrains parsed by the native OBJ parser and
@@ -1228,10 +1234,13 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       1024x1024 normal map as a PackBits YCbCr TIFF (its numpy TIFF
       encoder), a 1024x1024 normal map as a JPEG-in-TIFF in 256x256
       tiles (each the port's JPEG of its tile, no YCbCrSubsampling tag),
-      each file and its decode held to the digests recorded
-      with PIL (``tests/torch_data/map_digests.json``), the decodes
-      timed; a 2048x2048 P5 at maxval 65535 and a 2048x2048 Pf made here,
-      their decodes held to the samples' high bytes (the named
+      a 3840x2160 RLE8 BMP under a colour palette, a 256x256 32-bit
+      one-entry CUR, a 128x128 ICNS of ``it32`` and ``t8mk`` entries and
+      a 512x512 ICNS whose ``ic09`` entry is the port's JP2 file (PIL's
+      byte for byte), each file and its decode held to the digests
+      recorded with PIL (``tests/torch_data/map_digests.json``), the
+      decodes timed; a 2048x2048 P5 at maxval 65535 and a 2048x2048 Pf
+      made here, their decodes held to the samples' high bytes (the named
       deviation) and to PIL's ``F`` to ``L`` rule, both timed;
     - ``textured_sphere_scene`` at ``res`` with that JPEG as its roughness
       map and the 1024x1024 baseline JPEG as its normal map, then with the
@@ -1249,7 +1258,11 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       a 1024x1024 RGB normal map, read at its 256x256 frame (``ico-icns``,
       both decodes timed), then with the port's JP2 file of a 2048x2048
       grey roughness map and its JPEG 2000 codestream of a 1024x1024 RGB
-      normal map (``jp2-j2k``, both decodes timed), through ``"hier"``: the texture table on the
+      normal map (``jp2-j2k``, both decodes timed), then with the grey
+      channel of ``roughness_map(2048)`` as an RLE8 BMP and
+      ``normal_map(256)`` as an ICO of a 24-bit DIB with an AND mask
+      (``rle-bmp-ico``, both decodes timed), through ``"hier"``: the
+      texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry, then ms per sample in turns against the checker-map
       session;
@@ -1344,7 +1357,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
           "map_digests.json names other maps than READER_MAPS")
     maps_dir = tempfile.TemporaryDirectory()
     for name, want in sorted(map_digests.items()):
-        px, data = fixtures.reader_map(name)
+        px, data = fixtures.reader_map(
+            name, lambda px: jpeg2000.encode(px, "jp2"))
         path = os.path.join(maps_dir.name, name)
         if data is None:
             image.write_image(path, px)
@@ -1380,11 +1394,18 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             "ico-icns": tuple(os.path.join(maps_dir.name, name) for name in (
                 "roughness_2048.icns", "normal_1024.ico")),
             "jp2-j2k": tuple(os.path.join(maps_dir.name, name) for name in (
-                "roughness_2048_grey.jp2", "normal_1024.j2k"))}
+                "roughness_2048_grey.jp2", "normal_1024.j2k")),
+            "rle-bmp-ico": tuple(os.path.join(maps_dir.name, name)
+                                 for name in ("roughness_2048_rle8.bmp",
+                                              "normal_256_dib.ico"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
-            maps["qoi-dds"][1], maps["ico-icns"][1], maps["jp2-j2k"][1]]:
+            maps["qoi-dds"][1], maps["ico-icns"][1], maps["jp2-j2k"][1],
+            maps["rle-bmp-ico"][1]] + [
+                os.path.join(maps_dir.name, name) for name in (
+                    "rle8_3840x2160.bmp", "cursor_256.cur",
+                    "icon_128_it32.icns", "icon_512_jp2.icns")]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
         say("files", decode=os.path.basename(name), runs=decodes, ms=ms,
@@ -1416,8 +1437,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # and CMYK JPEG maps, the TIFF maps (16-bit LZW normals), the WebP
     # maps (lossy roughness, lossless normals with alpha), the SGI and PCX
     # maps, the CMYK and YCbCr TIFF maps, the Group 4 and JPEG-in-TIFF
-    # maps, the QOI and DXT1 maps, the ICNS and ICO maps and the JP2 and
-    # JPEG 2000 codestream maps, each counted through K3, K2 and threefry
+    # maps, the QOI and DXT1 maps, the ICNS and ICO maps, the JP2 and
+    # JPEG 2000 codestream maps and the RLE8 BMP and DIB-framed ICO maps,
+    # each counted through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1462,7 +1484,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     sessions["checker"].run(1, batch=1)
     turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
              "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "qoi-dds", "ico-icns",
-             "jp2-j2k", "jp2-j2k", "ico-icns", "qoi-dds", "tiff-jpeg-ccitt",
+             "jp2-j2k", "rle-bmp-ico", "rle-bmp-ico", "jp2-j2k", "ico-icns",
+             "qoi-dds", "tiff-jpeg-ccitt",
              "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff", "jpeg-flavours",
              "jpeg", "checker")
     rates = {name: [] for name in turns}

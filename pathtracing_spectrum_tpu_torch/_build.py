@@ -113,6 +113,8 @@ _HOST_SIGNATURES = {
     "pts_packbits_decode": ([_V, _I64, _V, _I64, _I64], _I32),
     "pts_sgi_rle_decode": ([_V, _I64, _I32, _I32, _I32, _I32, _V], _I32),
     "pts_pcx_decode": ([_V, _I64, _I32, _I32, _I64, _I32, _V], _I32),
+    "pts_bmp_rle_decode": ([_V, _I64, _I64, _I32, _I32, _I32, _V], _I32),
+    "pts_icns_rle_decode": ([_V, _I64, _I64, _I64, _V], _I32),
     "pts_fax_run_slots": ([_I32, _I32, _I32], _I64),
     "pts_fax_decode": ([_V, _I64, _I32, _I32, _I32, _I32, _I64] + [_V] * 4,
                        _I32),
@@ -242,8 +244,8 @@ def load() -> ctypes.CDLL:
 def load_host() -> ctypes.CDLL:
     """Build (when the hashed library is missing) and load the host
     library: the BVH builder, the OBJ parser, the spectral writer, the
-    JPEG decoder and encoder, the LZW, PackBits, SGI RLE, PCX RLE and
-    CCITT decoders, the QOI decoder and encoder, the DDS block decoder,
+    JPEG decoder and encoder, the LZW, PackBits, SGI RLE, PCX RLE, BMP RLE,
+    ICNS RLE and CCITT decoders, the QOI decoder and encoder, the DDS block decoder,
     the resampler, the WebP decoder and encoder, the GIF encoder and the
     JPEG 2000 decoder and encoder. Raises with the
     compiler's output when it cannot be built: none of them has a

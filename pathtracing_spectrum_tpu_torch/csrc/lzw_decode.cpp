@@ -15,7 +15,10 @@
 //    as PIL's PackDecode.c, which PIL's PSD plugin runs (what a packet
 //    holds past the end of a row is dropped);
 //  * SGI RLE as PIL's SgiRleDecode.c at 1 and 2 bytes a sample;
-//  * PCX RLE as PIL's PcxDecode.c.
+//  * PCX RLE as PIL's PcxDecode.c;
+//  * BMP RLE8 and RLE4 as BmpImagePlugin's BmpRleDecoder (Python);
+//  * the RLE of ICNS is32/il32/ih32/it32 entries as IcnsImagePlugin's
+//    read_32 (Python).
 //
 // Every function returns 0 on success, 1 for data PIL or libtiff rejects.
 // Built with the host compiler into the port's build/ directory at first
@@ -352,6 +355,111 @@ int32_t pts_pcx_decode(const uint8_t* data, int64_t size, int32_t xsize,
       for (int64_t i = 1; i < bands; ++i)
         std::memmove(line + i * width, line + i * stride, width);
     }
+  }
+  return 0;
+}
+
+// BMP RLE8 (rle4 == 0) and RLE4 as BmpImagePlugin.BmpRleDecoder reads
+// them, quirks included: `data` is the whole file, the packets start at
+// `pos` (word alignment after an absolute run is by the offset in the
+// file); out receives xsize * ysize indices in the decoder's order (the
+// first row is the bottom one of a bottom-up file), zeroed first. A run
+// is cut at the row's end, where x (the pixels the packets said were
+// added to the row) stands, and x is reset only by an end of line or a
+// delta; an end of line pads with index 0; a delta reads two bytes and
+// then two more, the offsets (right, up); an absolute run of n reads n
+// bytes (RLE8) or n / 2 bytes, two indices each (RLE4), is not cut at
+// the row's end, and adds n to x. Decoding stops at an end of bitmap, at
+// the data's end, or once xsize * ysize indices are out; indices past
+// that are dropped. Fails (1) where fewer come out (PIL's "not enough
+// image data") or where the delta's second pair is cut short (Python's
+// unpacking error).
+int32_t pts_bmp_rle_decode(const uint8_t* data, int64_t size, int64_t pos,
+                           int32_t xsize, int32_t ysize, int32_t rle4,
+                           uint8_t* out) {
+  const int64_t dest = static_cast<int64_t>(xsize) * ysize;
+  std::memset(out, 0, static_cast<size_t>(dest));
+  int64_t n = 0, x = 0;
+  auto put = [&](uint8_t v) {
+    if (n < dest) out[n] = v;
+    ++n;
+  };
+  while (n < dest) {
+    if (pos + 2 > size) break;
+    const int count = data[pos], byte = data[pos + 1];
+    pos += 2;
+    if (count) {
+      const int64_t k = x + count > xsize ? (xsize > x ? xsize - x : 0)
+                                          : count;
+      for (int64_t i = 0; i < k; ++i)
+        put(rle4 ? (i % 2 ? byte & 0x0F : byte >> 4) : byte);
+      x += k;
+    } else if (byte == 0) {               // end of line
+      if (n % xsize) n += xsize - n % xsize;
+      x = 0;
+    } else if (byte == 1) {               // end of bitmap
+      break;
+    } else if (byte == 2) {               // delta: two bytes, then two more
+      if (pos + 2 > size) break;
+      pos += 2;
+      if (pos + 2 > size) return 1;
+      n += data[pos] + static_cast<int64_t>(data[pos + 1]) * xsize;
+      pos += 2;
+      x = n % xsize;
+    } else {                              // absolute run
+      const int64_t want = rle4 ? byte / 2 : byte;
+      const int64_t got = pos + want > size ? size - pos : want;
+      for (int64_t i = 0; i < got; ++i) {
+        const uint8_t v = data[pos + i];
+        if (rle4) {
+          put(v >> 4);
+          put(v & 0x0F);
+        } else {
+          put(v);
+        }
+      }
+      pos += got;
+      if (got < want) break;
+      x += byte;
+      if (pos % 2) ++pos;
+    }
+  }
+  return n < dest ? 1 : 0;
+}
+
+// The RLE of an ICNS 24-bit entry as IcnsImagePlugin.read_32 reads it:
+// from data[pos] three planes of npix samples one after another, each in
+// packets: a byte with bit 7 set repeats the next byte (its value - 125)
+// times, any other byte b copies the b + 1 bytes after it. Reads go on
+// past the entry into what follows in the file. Fails (1) where a plane's
+// packets do not add up to npix (PIL's "Error reading channel") or the
+// file ends inside them (too few samples for the plane).
+int32_t pts_icns_rle_decode(const uint8_t* data, int64_t size, int64_t pos,
+                            int64_t npix, uint8_t* out) {
+  for (int band = 0; band < 3; ++band) {
+    uint8_t* plane = out + band * npix;
+    int64_t left = npix, filled = 0;
+    while (left > 0) {
+      if (pos >= size) break;
+      const int b = data[pos++];
+      int64_t block;
+      if (b & 0x80) {
+        block = b - 125;
+        if (pos < size) {
+          const uint8_t v = data[pos++];
+          for (int64_t i = 0; i < block && filled < npix; ++i)
+            plane[filled++] = v;
+        }
+      } else {
+        block = b + 1;
+        const int64_t got = pos + block > size ? size - pos : block;
+        for (int64_t i = 0; i < got && filled < npix; ++i)
+          plane[filled++] = data[pos + i];
+        pos += got;
+      }
+      left -= block;
+    }
+    if (left != 0 || filled != npix) return 1;
   }
   return 0;
 }

@@ -1,17 +1,17 @@
-"""The binding of the host library's LZW, PackBits, SGI RLE and PCX RLE
-decoders (``csrc/lzw_decode.cpp``), its CCITT decoder
+"""The binding of the host library's LZW, PackBits, SGI RLE, PCX RLE, BMP
+RLE and ICNS RLE decoders (``csrc/lzw_decode.cpp``), its CCITT decoder
 (``csrc/fax_decode.cpp``), its QOI decoder and encoder (``csrc/qoi.cpp``)
 and its DDS block decoder (``csrc/bcn_decode.cpp``), which the GIF, TIFF,
-PSD, SGI, PCX, QOI and DDS readers and the QOI writer of
-``utils/image.py`` run. They are serial over codes, packets, ops or bits,
-so host C++ (a 2048x2048 LZW strip, bilevel map or QOI stream would take
-minutes in Python, and a 4K PCX holds ~25 M bytes of runs), with no
-Python fallback: when the host library cannot be built, the call raises
-with the compiler's output.
+PSD, SGI, PCX, BMP, DIB, ICO, CUR, ICNS, QOI and DDS readers and the QOI
+writer of ``utils/image.py`` run. They are serial over codes, packets,
+ops or bits, so host C++ (a 2048x2048 LZW strip, bilevel map or QOI
+stream would take minutes in Python, and a 4K PCX holds ~25 M bytes of
+runs), with no Python fallback: when the host library cannot be built,
+the call raises with the compiler's output.
 
 Each decoder returns the decoded bytes, or raises :class:`BrokenData`
-where PIL (for GIF, PSD, SGI, PCX, QOI and DDS) or libtiff (for TIFF)
-rejects the data.
+where PIL (for GIF, PSD, SGI, PCX, BMP, ICNS, QOI and DDS) or libtiff
+(for TIFF) rejects the data.
 """
 
 from __future__ import annotations
@@ -100,6 +100,34 @@ def pcx_rle(data: bytes, width: int, bits: int, line_bytes: int,
                           out.ctypes.data):
         raise BrokenData("broken PCX run-length data")
     return out
+
+
+def bmp_rle(data: bytes, pos: int, width: int, height: int,
+            rle4: bool) -> np.ndarray:
+    """[height, width] uint8 palette indices of BMP RLE8 (or, ``rle4``,
+    RLE4) packets from ``data[pos]`` (``data`` is the whole file: an
+    absolute run is word-aligned by its offset in it) as PIL's
+    BmpRleDecoder decodes them, in its order (a bottom-up file's bottom
+    row first); ``csrc/lzw_decode.cpp`` lists its quirks."""
+    lib = _build.load_host()
+    buf, ptr = _source(data)
+    out = np.zeros((height, width), np.uint8)
+    if lib.pts_bmp_rle_decode(ptr, buf.size, pos, width, height, int(rle4),
+                              out.ctypes.data):
+        raise BrokenData("not enough BMP run-length data")
+    return out
+
+
+def icns_rle(data: bytes, pos: int, npix: int) -> np.ndarray:
+    """[3, npix] uint8: the R, G and B planes of an ICNS 24-bit RLE entry
+    whose packets start at ``data[pos]``, as PIL's ``read_32`` reads them
+    (on past the entry where the file goes on)."""
+    lib = _build.load_host()
+    buf, ptr = _source(data)
+    out = np.zeros((3, max(npix, 1)), np.uint8)
+    if lib.pts_icns_rle_decode(ptr, buf.size, pos, npix, out.ctypes.data):
+        raise BrokenData("error reading an ICNS channel")
+    return out[:, :npix]
 
 
 def qoi(data: bytes, width: int, height: int, bands: int) -> np.ndarray:

@@ -660,6 +660,7 @@ def _refused():
 
     base = ti.jpeg_bytes(x)
     prog = ti.jpeg_bytes(ti.smooth_rgb(5, 64, 48), progressive=True)
+    irreversible = pil("JPEG2000", irreversible=True)
     cmyk = np.concatenate([ti.smooth_rgb(6, 40, 24),
                            ti.smooth_rgb(7, 40, 24)[..., :1]], -1)
     return {
@@ -669,12 +670,14 @@ def _refused():
         "YCbCr LZW TIFF subsampled 2x2": ti.tiff_bytes(
             x, photometric=6, compression=5, extra_tags=((530, 3, [2, 2]),)),
         "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),
-        # PIL's ICO writer with BMP frames (PNG frames are decoded)
-        "ICO writer": pil("ICO", bitmap_format="bmp"),
         "AVIF writer": ".avif",
         # PIL's JPEG 2000 files the decoder refuses (its defaults decoded)
-        "irreversible JPEG 2000": pil("JPEG2000", irreversible=True),
+        "irreversible JPEG 2000": irreversible,
         "tiled JPEG 2000": pil("JPEG2000", tile_size=(8, 8)),
+        # an ICNS whose best entry is one of them
+        "irreversible JPEG 2000 ICNS entry": b"icns" + struct.pack(
+            ">I", 16 + len(irreversible)) + b"ic09" + struct.pack(
+                ">I", 8 + len(irreversible)) + irreversible,
         **{f"{name} DDS": fx.dds_header(8, 8, 0x4, b"DX10", dxgi=dxgi)
            + bytes(64) for name, dxgi in (("BC7", 98), ("BC6H", 95))},
         "lossless JPEG": ti.patch_frame(base, kind=0xC3),
@@ -685,12 +688,6 @@ def _refused():
                              progressive=True)),
         "CMYK progressive JPEG cut short": ti.drop_last_scan(
             ti.libjpeg_bytes(cmyk, "cmyk", progressive=True)),
-        "RLE BMP": ti.bmp_bytes(4, 2, 8, [bytes(4)] * 2,
-                                palette=bytes(1024), compression=1),
-        "RLE DIB": ti.bmp_bytes(4, 2, 8, [bytes(4)] * 2,
-                                palette=bytes(1024), compression=1)[14:],
-        "4-bit RLE DIB": ti.bmp_bytes(4, 2, 4, [bytes(2)] * 2,
-                                      palette=bytes(64), compression=2)[14:],
         **{f"IM {typ} image": f"Image type: {typ} image\r\nImage size (x*y): "
            f"4*2\r\n\x1a".encode() + bytes(64)
            for typ in ("B2", "RLB", "X 24", "RGB3", "L 32 F", "L 8",
@@ -961,7 +958,7 @@ def test_formats_pil_opens_and_the_port_does_not_raise(tmp_path):
     NotImplementedError naming the file (never None)."""
     decoded = {"PNG", "JPEG", "BMP", "DIB", "TGA", "PPM", "GIF", "TIFF",
                "PSD", "WEBP", "SGI", "PCX", "IM", "QOI", "DDS", "ICO",
-               "ICNS", "JPEG2000"}
+               "CUR", "ICNS", "JPEG2000"}
     for fmt, data in PIL_WRITTEN.items():
         if Image.open(__import__("io").BytesIO(data)).format in decoded:
             continue

@@ -19,10 +19,11 @@ view), apart from the mapped trace's rtol 1e-4 / atol 1e-6, as
   decoded by PIL and by the port, from 0x0 to 300x260 images.
 - Reading: PIL's and the port's files, hand-made ICOs (frames of several
   sizes, two of one size, colour counts, PNG modes with ``tRNS``, a size
-  that is not the directory's, a BMP frame refused, damaged directories)
-  and ICNS files (each PNG size, blocks out of order or repeated, RLE,
-  mask and JPEG 2000 entries refused, damaged blocks) equal to the JAX
-  package's ``load_rgba``, None where it is None.
+  that is not the directory's, damaged directories) and ICNS files (each
+  PNG size, blocks out of order or repeated, JPEG 2000 entries of junk,
+  damaged blocks) equal to the JAX package's ``load_rgba``, None where it
+  is None (BMP frames and RLE, mask and JPEG 2000 entries:
+  ``tests/test_torch_bmp_icons.py``).
 - A scene with an ICNS roughness map and an ICO normal map compiled and
   traced against the JAX package, and a render from those maps in a
   process that refuses to import jax and PIL.
@@ -473,33 +474,22 @@ def test_hand_made_icns_cases_are_read_by_pil_where_named(tmp_path):
             case
 
 
-def test_ico_with_bmp_frames_is_refused_naming_the_file(tmp_path):
-    """PIL's ICO writer with ``bitmap_format="bmp"``: the frame PIL loads
-    is a DIB with an AND mask (RGB at 32 bits, L at 8 with a palette)."""
-    for mode in ("RGB", "L"):
-        path = tmp_path / f"bmp_frames_{mode}.ico"
-        path.write_bytes(pil_file(Image.fromarray(pixels(40, 30, mode, 4)),
-                                  "ICO", bitmap_format="bmp"))
-        assert jimage.load_rgba(str(path)) is not None
-        with pytest.raises(NotImplementedError,
-                           match=f"bmp_frames_{mode}.ico.*BMP frame"):
-            image.load_rgba(str(path))
-
-
 @pytest.mark.parametrize("kind,body", [
-    (b"it32", bytes(4) + bytes(3 * 128 * 128)),
-    (b"t8mk", bytes(128 * 128)),
     (b"ic07", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a" + bytes(20)),
     (b"ic08", b"\xff\x4f\xff\x51" + bytes(20)),
-], ids=["it32", "t8mk", "jp2", "j2k"])
+], ids=["jp2", "j2k"])
 def test_icns_rle_mask_and_jpeg2000_entries_are_refused(kind, body,
                                                         tmp_path):
-    path = tmp_path / f"old_{kind.decode()}.icns"
-    path.write_bytes(icns_file(block(kind, body),
-                               block(b"ic11", png(pixels(32, 32, "RGB", 1)))))
-    with pytest.raises(NotImplementedError,
-                       match=f"old_{kind.decode()}.icns.*ICNS"):
-        image.load_rgba(str(path))
+    """JPEG 2000 entries of junk after their signatures: None, as in the
+    JAX package (PIL's JPEG 2000 reader fails on them). The RLE and mask
+    entries once refused here decode (``tests/test_torch_bmp_icons.py``);
+    a JPEG 2000 flavour the port does not decode raises naming the file
+    (``tests/test_torch_formats.py``)."""
+    data = icns_file(block(kind, body),
+                     block(b"ic11", png(pixels(32, 32, "RGB", 1))))
+    as_jax(tmp_path, f"old_{kind.decode()}.icns", data)
+    assert image.load_rgba(str(tmp_path / f"old_{kind.decode()}.icns")) \
+        is None
 
 
 def test_the_committed_fixtures_are_pils_files(tmp_path):

@@ -725,7 +725,9 @@ def test_reader_map_digests_are_pils(tmp_path):
     """``tests/torch_data/map_digests.json`` (which ``chip_smoke.py`` holds
     the card machine's maps and decodes to) holds the RLE SGI encoder's
     file, PIL's PCX file, the CMYK and YCbCr TIFF encoder's files, the
-    ``icon_digest`` of PIL's ICNS and ICO files and PIL's decode of each;
+    ``icon_digest`` of PIL's ICNS and ICO files, the RLE8 BMP, DIB ICO,
+    CUR and ICNS encoders' files (the JP2 entry the port's, PIL's byte
+    for byte) and PIL's decode of each;
     the port's decode equals it (and the pixels of the RGB and grey maps,
     where they are read at their own size) and the port's PCX writer writes
     PIL's file (its ICNS and ICO writers PIL's directories and frames)."""
@@ -735,8 +737,9 @@ def test_reader_map_digests_are_pils(tmp_path):
                            "map_digests.json")) as f:
         recorded = json.load(f)
     assert sorted(recorded) == sorted(fx.READER_MAPS)
+    from pathtracing_spectrum_tpu_torch.utils import jpeg2000
     for name, want in recorded.items():
-        px, data = fx.reader_map(name)
+        px, data = fx.reader_map(name, lambda px: jpeg2000.encode(px, "jp2"))
         path = tmp_path / name
         if data is None:
             image.write_image(str(path), px)

@@ -281,6 +281,153 @@ def sgi_rle_bytes(pixels: np.ndarray, name: bytes = b"",
             + (bpc * row_words).astype(">u4").tobytes() + body)
 
 
+def bmp_rle8_bytes(index: np.ndarray, palette: np.ndarray = None) -> bytes:
+    """A BMP file of [H, W] uint8 palette indices in RLE8 (compression 1),
+    which neither PIL nor the port writes, row 0 the image's top; the
+    palette [N, 3] uint8 RGB, or with None the 256 greys (PIL reads the
+    file as mode L). Rows bottom-up, each its packets: a run of equal
+    indices as its count (up to 255) and the index, a stretch of three or
+    more indices between runs as an absolute run (``0``, its count, the
+    indices, a byte of padding after an odd count), an end of line after
+    each row and an end of bitmap after the last. The pixel data starts at
+    an even offset, so the padding is also PIL's word alignment. In numpy
+    over the whole image (no loop over runs)."""
+    px = np.asarray(index, np.uint8)
+    h, w = px.shape
+    pal = (np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+           if palette is None else np.asarray(palette, np.uint8))
+    v = px[::-1].ravel().astype(np.int64)
+    start = np.ones(v.size, bool)
+    start[1:] = v[1:] != v[:-1]
+    start[::w] = True                         # a row starts a run
+    pos = np.flatnonzero(start)
+    length = np.diff(np.append(pos, v.size))
+    single = length == 1
+    same_row = np.zeros_like(single)
+    same_row[1:] = pos[1:] // w == pos[:-1] // w
+    # singles next to one another in a row join into a literal stretch,
+    # where it holds three or more (absolute runs are 3 to 255 long)
+    joins = np.zeros_like(single)
+    joins[1:] = single[1:] & single[:-1] & same_row[1:]
+    seg_id = np.cumsum(~joins) - 1
+    seg_len = np.bincount(seg_id, weights=length).astype(np.int64)
+    joins &= seg_len[seg_id] >= 3
+    seg = ~joins
+    seg_id = np.cumsum(seg) - 1
+    seg_len = np.bincount(seg_id, weights=length).astype(np.int64)
+    seg_pos, literal = pos[seg], single[seg] & (seg_len >= 3)
+    # packets of at most 255 indices; a literal stretch's last one at
+    # least 3 (it borrows from the one before)
+    n_pk = (seg_len + 254) // 255
+    first = np.cumsum(n_pk) - n_pk
+    k = np.arange(n_pk.sum()) - np.repeat(first, n_pk)
+    pk_start = np.repeat(seg_pos, n_pk) + 255 * k
+    pk_count = np.minimum(np.repeat(seg_len, n_pk) - 255 * k, 255)
+    pk_lit = np.repeat(literal, n_pk)
+    short = pk_lit & (pk_count < 3)
+    borrow = np.where(short, 3 - pk_count, 0)
+    pk_count = pk_count + borrow
+    pk_start = pk_start - borrow
+    pk_count[np.flatnonzero(short) - 1] -= borrow[short]
+    pk_row = pk_start // w
+    size = np.where(pk_lit, 2 + pk_count + (pk_count & 1), 2)
+    row_bytes = np.bincount(pk_row, weights=size, minlength=h).astype(
+        np.int64) + 2
+    row_at = np.cumsum(row_bytes) - row_bytes
+    at = row_at[pk_row] + (np.cumsum(size) - size) - (
+        np.cumsum(row_bytes - 2) - (row_bytes - 2))[pk_row]
+    body = np.zeros(int(row_bytes.sum()), np.uint8)
+    body[-1] = 1          # each row ends 00 00 (end of line), the last 00 01
+    run = ~pk_lit
+    body[at[run]] = pk_count[run]
+    body[at[run] + 1] = v[pk_start[run]]
+    body[at[pk_lit] + 1] = pk_count[pk_lit]
+    lit_n = pk_count[pk_lit]
+    off = np.arange(lit_n.sum()) - np.repeat(np.cumsum(lit_n) - lit_n, lit_n)
+    body[np.repeat(at[pk_lit] + 2, lit_n) + off] = v[
+        np.repeat(pk_start[pk_lit], lit_n) + off]
+    quads = np.zeros((len(pal), 4), np.uint8)
+    quads[:, :3] = pal[:, ::-1]               # BGRX
+    offset = 14 + 40 + quads.size
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 1, body.size, 0, 0,
+                       len(pal), 0)
+    return (b"BM" + struct.pack("<IHHI", offset + body.size, 0, 0, offset)
+            + info + quads.tobytes() + body.tobytes())
+
+
+def ico_dib_bytes(rgb: np.ndarray, transparent: np.ndarray) -> bytes:
+    """A one-frame ICO file whose frame is a 24-bit DIB of [H, W, 3] uint8
+    ``rgb`` (row 0 the top) with an AND mask of [H, W] bool
+    ``transparent``: the directory entry (256 as 0), then the
+    BITMAPINFOHEADER at the doubled height, the BGR rows bottom-up, each
+    padded to 4 bytes, and the mask's rows bottom-up, a set bit
+    transparent, each padded to 4 bytes."""
+    h, w = rgb.shape[:2]
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = np.asarray(rgb, np.uint8)[::-1, :, ::-1].reshape(h, -1)
+    mask_stride = (w + 31) // 32 * 4
+    mask = np.zeros((h, mask_stride), np.uint8)
+    bits = np.packbits(np.asarray(transparent, bool)[::-1], axis=1)
+    mask[:, :bits.shape[1]] = bits
+    dib = (struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, 24, 0,
+                       rows.size + mask.size, 0, 0, 0, 0)
+           + rows.tobytes() + mask.tobytes())
+    return (b"\0\0\1\0\1\0" + struct.pack("<BBBBHHII", w % 256, h % 256, 0,
+                                          0, 1, 24, len(dib), 22) + dib)
+
+
+def cur_bytes(rgba: np.ndarray, hotspot=(0, 0)) -> bytes:
+    """A one-entry CUR file of [H, W, 4] uint8 ``rgba`` (row 0 the top):
+    the directory entry (its hotspot where an ICO entry has its planes and
+    bits), then at byte 22 a 32-bit BITMAPINFOHEADER at the doubled
+    height, the BGRA rows bottom-up and an AND mask of zeros (PIL reads a
+    32-bit cursor at byte 22 with its alpha and no mask)."""
+    h, w = rgba.shape[:2]
+    px = np.asarray(rgba, np.uint8)[::-1][..., [2, 1, 0, 3]].tobytes()
+    mask = bytes((w + 31) // 32 * 4 * h)
+    dib = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, 32, 0,
+                      len(px) + len(mask), 0, 0, 0, 0) + px + mask
+    return (b"\0\0\2\0\1\0" + struct.pack("<BBBBHHII", w % 256, h % 256, 0,
+                                          0, *hotspot, len(dib), 22) + dib)
+
+
+def icns_rle(plane: np.ndarray) -> bytes:
+    """One plane of an ICNS 24-bit RLE entry as IcnsImagePlugin's
+    ``read_32`` reads it: a run of 3 to 130 equal bytes as ``count + 125``
+    and the byte, the bytes between runs as literals of up to 128
+    (``count - 1`` and the bytes)."""
+    v = np.asarray(plane, np.uint8).ravel()
+    start = np.ones(v.size, bool)
+    start[1:] = v[1:] != v[:-1]
+    pos = np.flatnonzero(start)
+    length = np.diff(np.append(pos, v.size))
+    out, lit = bytearray(), bytearray()
+    for p, n in zip(pos.tolist(), length.tolist()):
+        while n >= 3:
+            if lit:
+                for i in range(0, len(lit), 128):
+                    out += bytes([len(lit[i:i + 128]) - 1]) + lit[i:i + 128]
+                lit = bytearray()
+            k = min(n, 130)
+            out += bytes([k + 125, v[p]])
+            p, n = p + k, n - k
+        lit += v[p:p + n].tobytes()
+    for i in range(0, len(lit), 128):
+        out += bytes([len(lit[i:i + 128]) - 1]) + lit[i:i + 128]
+    return bytes(out)
+
+
+def icns_bytes(*blocks) -> bytes:
+    """An ICNS file of ``(type, body)`` blocks behind PIL's table of
+    contents."""
+    def block(kind, body):
+        return kind + struct.pack(">I", 8 + len(body)) + body
+    body = b"".join(block(k, b) for k, b in blocks)
+    body = block(b"TOC ", b"".join(block(k, b)[:8] for k, b in blocks)) + body
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
 def packbits_rows(rows: np.ndarray) -> "tuple[bytes, np.ndarray]":
     """(PackBits bytes, bytes of each row) of [R, N] uint8 rows, each row
     coded apart: a run of 2 to 128 equal bytes as ``257 - count`` and the
@@ -430,7 +577,15 @@ def ycbcr_of(rgb: np.ndarray) -> np.ndarray:
 # frame), written by Image.save or the port, held by icon_digest; a
 # 2048x2048 grey roughness map (the green channel) as a JP2 file and a
 # 1024x1024 RGB normal map as a JPEG 2000 codestream, written by
-# Image.save or the port
+# Image.save or the port; the grey channel 0 of roughness_map(2048) as an
+# RLE8 BMP (bmp_rle8_bytes) and normal_map(256) as an ICO of a 24-bit DIB
+# with an AND mask that clears the corners (ico_dib_bytes), the
+# rle-bmp-ico session's maps, and, decoded and timed only, a 3840x2160
+# RLE8 BMP of procedural_rgb's green channel under a colour palette, a
+# 256x256 32-bit one-entry CUR (cur_bytes), a 128x128 ICNS of it32 and
+# t8mk entries (icns_rle) and a 512x512 ICNS whose ic09 entry is a JP2
+# file, written by Image.save or the port (the number: the seed; None
+# where the content is not procedural_rgb's)
 READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "roughness_2048.icns": (2048, 20),
                "normal_1024.ico": (1024, 21),
@@ -441,7 +596,13 @@ READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "roughness_2048.qoi": (2048, 18),
                "normal_1024_dxt1.dds": (1024, 19),
                "roughness_2048_grey.jp2": (2048, 22),
-               "normal_1024.j2k": (1024, 23)}
+               "normal_1024.j2k": (1024, 23),
+               "roughness_2048_rle8.bmp": (2048, None),
+               "normal_256_dib.ico": (256, None),
+               "rle8_3840x2160.bmp": (3840, 24),
+               "cursor_256.cur": (256, 26),
+               "icon_128_it32.icns": (128, 28),
+               "icon_512_jp2.icns": (512, 30)}
 
 
 def dds_header(width: int, height: int, pfflags: int, fourcc: bytes = b"",
@@ -471,7 +632,8 @@ def dxt1_map_bytes(n: int, seed: int) -> bytes:
             + ((hsh ^ (hsh >> 13)) & 0xFF).astype(np.uint8).tobytes())
 
 
-def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
+def reader_map(name: str,
+               jp2=None) -> "tuple[np.ndarray | None, bytes | None]":
     """(RGB pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI
     file's bytes from :func:`sgi_rle_bytes`; None for the PCX, the QOI,
     the ICNS, the ICO and the JPEG 2000 maps (the JP2 one of the green
@@ -479,9 +641,33 @@ def reader_map(name: str) -> "tuple[np.ndarray | None, bytes | None]":
     ``write_image``) makes; for the TIFFs, whose samples are CMYK and YCbCr or JPEG
     streams, and the DDS, whose blocks are hashed bytes, no RGB pixels
     and the bytes of :func:`tiff_map_bytes`, :func:`jpeg_tiff_map_bytes`
-    or :func:`dxt1_map_bytes`."""
+    or :func:`dxt1_map_bytes`; for the RLE8 BMPs, the DIB-framed ICO, the
+    CUR and the ICNS files, the pixels' RGB and the bytes of their
+    encoders, the JP2 entry by ``jp2`` (a writer: [H, W, 3] uint8 to a
+    JP2 file's bytes, PIL's or the port's)."""
     n, seed = READER_MAPS[name]
+    if name == "roughness_2048_rle8.bmp":
+        grey = np.ascontiguousarray(roughness_map(n)[..., 0])
+        return np.repeat(grey[..., None], 3, 2), bmp_rle8_bytes(grey)
+    if name == "normal_256_dib.ico":
+        px = normal_map(n)
+        y, x = np.mgrid[0:n, 0:n] * 2 - (n - 1)
+        return px, ico_dib_bytes(px, x * x + y * y > n * n)
+    if name.endswith(".bmp"):
+        index = procedural_rgb(n, n * 9 // 16, seed)[..., 1]
+        palette = procedural_rgb(256, 1, seed + 1)[0]
+        return palette[index], bmp_rle8_bytes(index, palette)
     px = procedural_rgb(n, n, seed)
+    if name.endswith(".cur"):
+        alpha = procedural_rgb(n, n, seed + 1)[..., :1]
+        return px, cur_bytes(np.concatenate([px, alpha], -1), (n // 2, 3))
+    if name.endswith("_it32.icns"):
+        mask = procedural_rgb(n, n, seed + 1)[..., 0]
+        rle = b"".join(icns_rle(px[..., c]) for c in range(3))
+        return px, icns_bytes((b"it32", bytes(4) + rle),
+                              (b"t8mk", mask.tobytes()))
+    if name.endswith("_jp2.icns"):
+        return px, icns_bytes((b"ic09", jp2(px)))
     if name.endswith(".sgi"):
         return px, sgi_rle_bytes(px, name=b"roughness")
     if name.endswith("_cmyk.tif"):
@@ -506,9 +692,15 @@ def reader_map_digests() -> dict:
     from PIL import Image
     ti = _images_module()
     out = {}
+
+    def jp2(px):
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, "JPEG2000")
+        return buf.getvalue()
+
     with tempfile.TemporaryDirectory() as tmp:
         for name in READER_MAPS:
-            px, data = reader_map(name)
+            px, data = reader_map(name, jp2)
             if data is None:
                 path = os.path.join(tmp, name)
                 Image.fromarray(px).save(path)
@@ -539,8 +731,11 @@ WRITE_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif", ".bmp", ".dib",
 # what write_digests records where PIL raises (QOI of mode L) in place of
 # the digest: the exception's type and message
 QOI_L_RAISES = "ValueError: Unsupported QOI image mode"
-# the extensions whose files are held by icon_digest
+# the extensions whose files are held by icon_digest, but for the reader
+# maps made by an encoder here, whose bytes are held (ENCODED_ICONS)
 ICON_EXTENSIONS = (".ico", ".icns")
+ENCODED_ICONS = ("normal_256_dib.ico", "icon_128_it32.icns",
+                 "icon_512_jp2.icns")
 # what time.gmtime() gives while a PDF is written for a digest
 PINNED_GMTIME = time.struct_time((2026, 1, 2, 3, 4, 5, 4, 2, 0))
 
@@ -596,9 +791,9 @@ def icon_digest(data: bytes, png_rgba) -> str:
 
 
 def file_digest(name: str, data: bytes, png_rgba) -> str:
-    """:func:`icon_digest` of an ICO or ICNS file, the sha256 of any
-    other."""
-    if name.endswith(ICON_EXTENSIONS):
+    """:func:`icon_digest` of an ICO or ICNS file of PNG frames, the
+    sha256 of any other (``ENCODED_ICONS`` too)."""
+    if name.endswith(ICON_EXTENSIONS) and name not in ENCODED_ICONS:
         return icon_digest(data, png_rgba)
     return hashlib.sha256(data).hexdigest()
 
