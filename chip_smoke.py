@@ -77,7 +77,9 @@ through its kernels and made a healthy image:
   1024x1024 entry) and its ICO of a 1024x1024 normal map (read at its
   256x256 frame), then with the port's JP2 and JPEG 2000 codestream
   maps, then with a 2048x2048 grey RLE8 BMP roughness map and a 256x256
-  ICO normal map whose frame is a 24-bit DIB with an AND mask, both made
+  ICO normal map whose frame is a 24-bit DIB with an AND mask, then with
+  a 2048x2048 BC6H UF16 DDS roughness map and a 1024x1024 BC7 DDS normal
+  map of hashed blocks over every mode, both made
   on the machine and held to PIL's digests, 16
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
@@ -1237,7 +1239,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       a 3840x2160 RLE8 BMP under a colour palette, a 256x256 32-bit
       one-entry CUR, a 128x128 ICNS of ``it32`` and ``t8mk`` entries and
       a 512x512 ICNS whose ``ic09`` entry is the port's JP2 file (PIL's
-      byte for byte), each file and its decode held to the digests
+      byte for byte), the ``bc7-bc6h`` session's BC6H and BC7 DDS maps,
+      each file and its decode held to the digests
       recorded with PIL (``tests/torch_data/map_digests.json``), the
       decodes timed; a 2048x2048 P5 at maxval 65535 and a 2048x2048 Pf
       made here, their decodes held to the samples' high bytes (the named
@@ -1261,7 +1264,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       normal map (``jp2-j2k``, both decodes timed), then with the grey
       channel of ``roughness_map(2048)`` as an RLE8 BMP and
       ``normal_map(256)`` as an ICO of a 24-bit DIB with an AND mask
-      (``rle-bmp-ico``, both decodes timed), through ``"hier"``: the
+      (``rle-bmp-ico``, both decodes timed), then with a 2048x2048 BC6H
+      UF16 DDS roughness map of bounded hashed blocks over the 14 modes
+      and a 1024x1024 BC7 DDS normal map of hashed blocks over the 8
+      modes (``bc7-bc6h``, both decodes timed), through ``"hier"``: the
       texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry, then ms per sample in turns against the checker-map
@@ -1397,12 +1403,15 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                 "roughness_2048_grey.jp2", "normal_1024.j2k")),
             "rle-bmp-ico": tuple(os.path.join(maps_dir.name, name)
                                  for name in ("roughness_2048_rle8.bmp",
-                                              "normal_256_dib.ico"))}
+                                              "normal_256_dib.ico")),
+            "bc7-bc6h": tuple(os.path.join(maps_dir.name, name)
+                              for name in ("roughness_2048_bc6h.dds",
+                                           "normal_1024_bc7.dds"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
             maps["qoi-dds"][1], maps["ico-icns"][1], maps["jp2-j2k"][1],
-            maps["rle-bmp-ico"][1]] + [
+            maps["rle-bmp-ico"][1], maps["bc7-bc6h"][1]] + [
                 os.path.join(maps_dir.name, name) for name in (
                     "rle8_3840x2160.bmp", "cursor_256.cur",
                     "icon_128_it32.icns", "icon_512_jp2.icns")]:
@@ -1438,8 +1447,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # maps (lossy roughness, lossless normals with alpha), the SGI and PCX
     # maps, the CMYK and YCbCr TIFF maps, the Group 4 and JPEG-in-TIFF
     # maps, the QOI and DXT1 maps, the ICNS and ICO maps, the JP2 and
-    # JPEG 2000 codestream maps and the RLE8 BMP and DIB-framed ICO maps,
-    # each counted through K3, K2 and threefry
+    # JPEG 2000 codestream maps, the RLE8 BMP and DIB-framed ICO maps and
+    # the BC6H and BC7 DDS maps, each counted through K3, K2 and
+    # threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1484,7 +1494,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     sessions["checker"].run(1, batch=1)
     turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
              "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "qoi-dds", "ico-icns",
-             "jp2-j2k", "rle-bmp-ico", "rle-bmp-ico", "jp2-j2k", "ico-icns",
+             "jp2-j2k", "rle-bmp-ico", "bc7-bc6h", "bc7-bc6h", "rle-bmp-ico",
+             "jp2-j2k", "ico-icns",
              "qoi-dds", "tiff-jpeg-ccitt",
              "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff", "jpeg-flavours",
              "jpeg", "checker")
@@ -2925,7 +2936,9 @@ def main() -> int:
         # the files phase's sessions (textured 1080p from the JPEG, the
         # arithmetic-coded JPEG, the TIFF, the WebP, the SGI and PCX, the
         # CMYK and YCbCr TIFF, the Group 4 and JPEG-in-TIFF, the QOI and
-        # DXT1, and the ICNS and ICO maps, the natively parsed 52k terrain)
+        # DXT1, the ICNS and ICO, the JP2 and J2K, the RLE8 BMP and DIB
+        # ICO, and the BC6H and BC7 DDS maps, the natively parsed 52k
+        # terrain)
         k["launches_files"] = files_launches[k["name"]]
     finish(torch)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,7 @@ Two shared libraries, each built into ``build/`` next to this file
   LZW, PackBits, SGI RLE and PCX RLE decoders ``csrc/lzw_decode.cpp``,
   the CCITT (fax) decoder of TIFF compressions 2, 3 and 4
   ``csrc/fax_decode.cpp``, the QOI decoder and encoder ``csrc/qoi.cpp``,
-  the DDS block (BC1-BC5) decoder ``csrc/bcn_decode.cpp``, PIL's
+  the DDS block (BC1-BC7) decoder ``csrc/bcn_decode.cpp``, PIL's
   LANCZOS and BICUBIC resampler ``csrc/resample.cpp``,
   the WebP decoder ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (with
   their shared VP8 tables and transforms ``csrc/vp8_common.h``), the

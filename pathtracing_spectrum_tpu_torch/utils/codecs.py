@@ -157,9 +157,10 @@ def qoi_encode(rgb: np.ndarray) -> bytes:
 def bcn(data: bytes, n: int, width: int, height: int,
         signed: bool = False) -> np.ndarray:
     """The pixels of a block-compressed DDS image (``data`` from its first
-    block; ``n`` 1-5 as PIL numbers BC1-BC5, ``signed`` for BC5S) as PIL's
-    BcnDecode.c leaves them: [height, width, 4] uint8 R, G, B, A (BC5's
-    blue 0, BC5S's 128, its alpha unused), or [height, width] for BC4."""
+    block; ``n`` 1-7 as PIL numbers BC1-BC7, ``signed`` for BC5S and BC6H
+    SF16) as PIL's BcnDecode.c leaves them: [height, width, 4] uint8 R, G,
+    B, A (BC5's blue 0, BC5S's 128; BC5's and BC6H's alpha unused), or
+    [height, width] for BC4."""
     lib = _build.load_host()
     buf, ptr = _source(data)
     out = np.zeros((height, width) + (() if n == 4 else (4,)), np.uint8)

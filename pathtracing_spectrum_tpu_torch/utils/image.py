@@ -130,7 +130,9 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   luminance, 8-bit indices with an RGBA palette, and BC1 (DXT1), BC2
   (DXT3), BC3 (DXT5), BC4 (BC4U, ATI1), BC5 (BC5U, ATI2) and BC5S blocks
   (the host library, ``csrc/bcn_decode.cpp``, as PIL's BcnDecode.c) or,
-  after a DX10 header, those and 8-bit RGBA by their DXGI formats;
+  after a DX10 header, those, BC6H (UF16 and SF16, as RGB), BC7 (typeless,
+  UNORM and UNORM_SRGB, whose gamma is not applied) and 8-bit RGBA by
+  their DXGI formats;
 - ICO: the frame ``IcoFile`` puts first (the largest, and of two as large
   the one of fewer bits), a PNG decoded as above from its offset on, its
   ``tRNS`` unapplied (PIL's ICO image takes the frame's pixels and
@@ -184,7 +186,7 @@ two entries as ``1``), plain-text PNM (P1-P3) and PIL's test extensions
 YCbCr TIFF at other subsampling than (1, 1) or turned by its orientation
 (JPEG-compressed YCbCr apart), uncompressed YCbCr TIFF tiles, CIELab
 TIFF, old-style LZW, BigTIFF, CIELab PSD, the IM image types PIL's
-writer does not make, BC6H and BC7 DDS, JPEG 2000 (in an ICNS entry too)
+writer does not make, JPEG 2000 (in an ICNS entry too)
 with the irreversible 9/7
 transform, tiles, precincts, a progression order other than LRCP, more
 than one layer, the multiple component transform, code-block styles,
@@ -2311,8 +2313,10 @@ _DDPF_RGB, _DDPF_LUMINANCE = 0x40, 0x20000
 _DDS_FOURCC = {b"DXT1": 1, b"DXT3": 2, b"DXT5": 3, b"BC4U": 4, b"ATI1": 4,
                b"BC5U": 5, b"ATI2": 5, b"BC5S": 5}
 _DXGI = {70: 1, 71: 1, 73: 2, 74: 2, 76: 3, 77: 3, 79: 4, 80: 4, 82: 5,
-         83: 5, 84: 5, 27: 0, 28: 0, 29: 0}
-_DXGI_REFUSED = {95: "BC6H", 96: "BC6HS", 97: "BC7", 98: "BC7", 99: "BC7"}
+         83: 5, 84: 5, 95: 6, 96: 6, 97: 7, 98: 7, 99: 7, 27: 0, 28: 0,
+         29: 0}
+# the DXGI formats PIL decodes as signed: BC5_SNORM and BC6H_SF16
+_DXGI_SIGNED = (84, 96)
 
 
 def _dds_masked(data: bytes, width: int, height: int, bitcount: int,
@@ -2353,9 +2357,12 @@ def _decode_dds(data: bytes) -> np.ndarray:
     (8 bits) or LA (16 with ALPHAPIXELS; the masks ignored), raw indices
     after a 1,024-byte RGBA palette, or DXT1/DXT3/DXT5, BC4, BC5 and BC5S
     blocks (host library, ``csrc/bcn_decode.cpp``) or, after a DX10
-    header, those by their DXGI names and raw RGBA. PIL reads on from
-    where the header ends (its tile offsets are never sought); data past
-    the pixels is ignored. BC6H and BC7 are refused."""
+    header, those by their DXGI names, BC6H (UF16, SF16: RGB, opaque) and
+    BC7 blocks (the sRGB name only sets PIL's ``info["gamma"]``, which
+    ``convert`` does not apply) and raw RGBA. PIL reads on from where the
+    header ends (its tile offsets are never sought); data past the pixels
+    is ignored, and data that ends before the last block is None (PIL:
+    "image file is truncated")."""
     if len(data) < 128 or _u32(data, 4) != 124:
         raise _Unreadable("DDS header size")
     _, height, width = struct.unpack_from("<3I", data, 8)
@@ -2389,11 +2396,9 @@ def _decode_dds(data: bytes) -> np.ndarray:
             raise _Unreadable("truncated DX10 header")
         dxgi = _u32(data, pos)
         pos += 20
-        if dxgi in _DXGI_REFUSED:
-            raise _Refused(f"DDS {_DXGI_REFUSED[dxgi]}")
         if dxgi not in _DXGI:
             raise _Unreadable(f"DXGI format {dxgi}")
-        n, signed = _DXGI[dxgi], dxgi == 84
+        n, signed = _DXGI[dxgi], dxgi in _DXGI_SIGNED
         if n == 0:
             return _rows(data, pos, height, 4 * width, 4 * width).reshape(
                 height, width, 4)
@@ -2404,7 +2409,7 @@ def _decode_dds(data: bytes) -> np.ndarray:
     px = codecs.bcn(data[pos:], n, width, height, signed)
     if n == 4:
         return _grey_rgba(px)
-    if n == 5:
+    if n in (5, 6):
         px[..., 3] = 255
     return px
 

@@ -678,8 +678,6 @@ def _refused():
         "irreversible JPEG 2000 ICNS entry": b"icns" + struct.pack(
             ">I", 16 + len(irreversible)) + b"ic09" + struct.pack(
                 ">I", 8 + len(irreversible)) + irreversible,
-        **{f"{name} DDS": fx.dds_header(8, 8, 0x4, b"DX10", dxgi=dxgi)
-           + bytes(64) for name, dxgi in (("BC7", 98), ("BC6H", 95))},
         "lossless JPEG": ti.patch_frame(base, kind=0xC3),
         "lossless JPEG by libjpeg": ti.libjpeg_bytes(x, lossless=True),
         "progressive JPEG cut short": ti.drop_last_scan(prog),

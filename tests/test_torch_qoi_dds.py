@@ -19,8 +19,9 @@ byte for byte as ``PIL.Image.save``.
   bits with 565, 4444, padded, holed and zero masks, a file cut inside
   its pixels (PIL reads zeros there); LA, P with an RGBA palette, DX10
   RGBA8 under its three names; BC1-BC5 under every fourcc and DXGI name
-  PIL reads, with seeded random blocks; BC6H and BC7 refused naming the
-  file; what PIL refuses None.
+  PIL reads, with seeded random blocks; BC6H and BC7 read as the JAX
+  package reads them (``tests/test_torch_bc7_bc6h.py`` holds them in
+  full); what PIL refuses None.
 - EPS (``.eps``, ``.ps``) and single-frame MPO byte for byte in L and
   RGB; the MPO read back as the JPEG decoder reads it.
 - A scene with a QOI roughness map and a DXT1 normal map compiled and
@@ -344,14 +345,16 @@ def test_random_dds_blocks_decode_as_jax(case, size, tmp_path):
                                           (99, "BC7")])
 def test_bc6h_and_bc7_dds_are_refused_naming_the_file(dxgi, flavour,
                                                       tmp_path):
-    """PIL decodes them (its BC6H and BC7 decoders); the port refuses them,
-    naming the file and the flavour (ROADMAP item 11d step 6)."""
-    path = tmp_path / "my_map.dds"
-    path.write_bytes(fx.dds_header(8, 8, FOURCC, b"DX10", dxgi=dxgi)
-                     + bytes(64))
-    assert jimage.load_rgba(str(path)) is not None
-    with pytest.raises(NotImplementedError, match=f"my_map.dds.*{flavour}"):
-        image.load_rgba(str(path))
+    """PIL decodes them (its BC6H and BC7 decoders), and so does the port,
+    as the JAX package does: zero blocks (BC7's reserved mode, BC6H's mode
+    0 at zero) and hashed ones under the flavour's modes
+    (``tests/test_torch_bc7_bc6h.py`` holds every mode)."""
+    blocks = (fx.bc7_blocks(4, dxgi) if flavour == "BC7" else
+              fx.bc6h_blocks(4, dxgi, signed=flavour == "BC6HS"))
+    for payload in (bytes(64), blocks.tobytes()):
+        got = held(tmp_path, "my_map.dds", fx.dds_header(
+            8, 8, FOURCC, b"DX10", dxgi=dxgi) + payload)
+        assert got.shape == (8, 8, 4)
 
 
 DDS_NONE = {

@@ -28,7 +28,8 @@ PCX normal map, uncompressed CMYK roughness map and PackBits YCbCr
 normal map as TIFFs, a JPEG-in-TIFF normal map in 256x256 tiles, a QOI
 roughness map and a DXT1 DDS normal map, an ICNS roughness map and an ICO
 normal map, a grey JP2 roughness map and a JPEG 2000 codestream normal
-map, made at run time by :func:`reader_map`: nothing is committed;
+map, a BC6H roughness map and a BC7 normal map as DDS files, made at run
+time by :func:`reader_map`: nothing is committed;
 for the ICNS and ICO maps its :func:`icon_digest`) and of PIL's decode of
 it;
 ``chip_smoke.py`` holds the maps it builds and the port's decodes of
@@ -106,7 +107,11 @@ Fixtures (all content procedural, from fixed seeds):
   32 to 1024 pixels a side, PIL's BICUBIC resizes);
 - PIL's JPEG 2000 files at its defaults: the 37x29 image with alpha as a
   JP2 file (``small_rgba.jp2``: a ``cdef`` box naming the alpha) and its
-  green channel as a bare codestream (``small_grey.j2k``).
+  green channel as a bare codestream (``small_grey.j2k``);
+- 37x29 DX10 DDS files of hashed blocks: BC6H SF16 over every mode and
+  reserved code, end points bounded so that most half floats fall in
+  [-1, 1] (``small_bc6h_sf16.dds``), and BC7 over every mode and the
+  reserved one under the sRGB name (``small_bc7_srgb.dds``).
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -584,8 +589,11 @@ def ycbcr_of(rgb: np.ndarray) -> np.ndarray:
 # RLE8 BMP of procedural_rgb's green channel under a colour palette, a
 # 256x256 32-bit one-entry CUR (cur_bytes), a 128x128 ICNS of it32 and
 # t8mk entries (icns_rle) and a 512x512 ICNS whose ic09 entry is a JP2
-# file, written by Image.save or the port (the number: the seed; None
-# where the content is not procedural_rgb's)
+# file, written by Image.save or the port; the bc7-bc6h session's BC6H
+# UF16 roughness map of bounded end points over the 14 modes
+# (bc6h_blocks) and BC7 normal map over the 8 modes (bc7_blocks) as DX10
+# DDS files (the number: the seed; None where the content is not
+# procedural_rgb's)
 READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "roughness_2048.icns": (2048, 20),
                "normal_1024.ico": (1024, 21),
@@ -602,7 +610,9 @@ READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "rle8_3840x2160.bmp": (3840, 24),
                "cursor_256.cur": (256, 26),
                "icon_128_it32.icns": (128, 28),
-               "icon_512_jp2.icns": (512, 30)}
+               "icon_512_jp2.icns": (512, 30),
+               "roughness_2048_bc6h.dds": (2048, 32),
+               "normal_1024_bc7.dds": (1024, 34)}
 
 
 def dds_header(width: int, height: int, pfflags: int, fourcc: bytes = b"",
@@ -632,6 +642,147 @@ def dxt1_map_bytes(n: int, seed: int) -> bytes:
             + ((hsh ^ (hsh >> 13)) & 0xFF).astype(np.uint8).tobytes())
 
 
+M32 = 0xFFFFFFFF
+
+
+def hashed_bytes(n: int, seed: int) -> np.ndarray:
+    """[n] uint8 of a multiplicative integer hash of each index and
+    ``seed`` (the same on every machine and numpy: no generator); the seed
+    is mixed in twice, so that two seeds' streams are not one stream
+    shifted."""
+    m = np.uint64(M32)
+    k = np.arange(n, dtype=np.uint64)
+    h = (k * np.uint64(2654435761) + np.uint64((seed * 40503 + 7) & M32)) & m
+    h = ((h ^ (h >> np.uint64(15))) * np.uint64(2246822519)) & m
+    h ^= np.uint64((seed * 0x85EBCA6B) & M32)
+    h = ((h ^ (h >> np.uint64(13))) * np.uint64(3266489917)) & m
+    return ((h ^ (h >> np.uint64(16))) & np.uint64(0xFF)).astype(np.uint8)
+
+
+def _hashed_u32(n: int, seed: int) -> np.ndarray:
+    """[n] int64 of 32 hashed bits each (four :func:`hashed_bytes`)."""
+    b = hashed_bytes(4 * n, seed).reshape(n, 4).astype(np.int64)
+    return b[:, 0] | b[:, 1] << 8 | b[:, 2] << 16 | b[:, 3] << 24
+
+
+def bc7_blocks(count: int, seed: int, modes=range(8)) -> np.ndarray:
+    """[count, 16] uint8 BC7 blocks of hashed bytes, block i forced to mode
+    ``modes[i % len(modes)]`` (its lowest set bit of byte 0; the reserved
+    mode 8 makes byte 0 zero). Uniform bytes would be mode 0 half the time
+    and mode 7 once in 256."""
+    blocks = hashed_bytes(16 * count, seed).reshape(count, 16)
+    modes = np.asarray(list(modes), np.int64)
+    mode = modes[np.arange(count) % len(modes)]
+    keep = (0xFF << (mode + 1)) & 0xFF
+    blocks[:, 0] = np.where(mode > 7, 0,
+                            (blocks[:, 0] & keep) | (1 << np.minimum(mode, 7)))
+    return blocks
+
+
+# BC6H's 5-bit mode codes of its 14 modes, the first two 2-bit, and the
+# four reserved ones (PIL decodes them as black)
+BC6H_CODES = (0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15)
+BC6H_RESERVED = (19, 23, 27, 31)
+# each mode's (end-point bits, transformed, delta bits R, G, B), and the
+# order of its end-point bits after the mode code, as the D3D BC6H
+# specification's table lists them (w, x, y, z: the end points r0/g0/b0,
+# r1, r2, r3; "rw11-10" is bit 11 then bit 10)
+BC6H_MODES = ((10, 1, 5, 5, 5), (7, 1, 6, 6, 6), (11, 1, 5, 4, 4),
+              (11, 1, 4, 5, 4), (11, 1, 4, 4, 5), (9, 1, 5, 5, 5),
+              (8, 1, 6, 5, 5), (8, 1, 5, 6, 5), (8, 1, 5, 5, 6),
+              (6, 0, 6, 6, 6), (10, 0, 10, 10, 10), (11, 1, 9, 9, 9),
+              (12, 1, 8, 8, 8), (16, 1, 4, 4, 4))
+_BC6H_LAYOUTS = (
+    "gy4 by4 bz4 rw0-9 gw0-9 bw0-9 rx0-4 gz4 gy0-3 gx0-4 bz0 gz0-3 bx0-4 "
+    "bz1 by0-3 ry0-4 bz2 rz0-4 bz3",
+    "gy5 gz4 gz5 rw0-6 bz0 bz1 by4 gw0-6 by5 bz2 gy4 bw0-6 bz3 bz5 bz4 "
+    "rx0-5 gy0-3 gx0-5 gz0-3 bx0-5 by0-3 ry0-5 rz0-5",
+    "rw0-9 gw0-9 bw0-9 rx0-4 rw10 gy0-3 gx0-3 gw10 bz0 gz0-3 bx0-3 bw10 "
+    "bz1 by0-3 ry0-4 bz2 rz0-4 bz3",
+    "rw0-9 gw0-9 bw0-9 rx0-3 rw10 gz4 gy0-3 gx0-4 gw10 gz0-3 bx0-3 bw10 "
+    "bz1 by0-3 ry0-3 bz0 bz2 rz0-3 gy4 bz3",
+    "rw0-9 gw0-9 bw0-9 rx0-3 rw10 by4 gy0-3 gx0-3 gw10 bz0 gz0-3 bx0-4 "
+    "bw10 by0-3 ry0-3 bz1 bz2 rz0-3 bz4 bz3",
+    "rw0-8 by4 gw0-8 gy4 bw0-8 bz4 rx0-4 gz4 gy0-3 gx0-4 bz0 gz0-3 bx0-4 "
+    "bz1 by0-3 ry0-4 bz2 rz0-4 bz3",
+    "rw0-7 gz4 by4 gw0-7 bz2 gy4 bw0-7 bz3 bz4 rx0-5 gy0-3 gx0-4 bz0 "
+    "gz0-3 bx0-4 bz1 by0-3 ry0-5 rz0-5",
+    "rw0-7 bz0 by4 gw0-7 gy5 gy4 bw0-7 gz5 bz4 rx0-4 gz4 gy0-3 gx0-5 "
+    "gz0-3 bx0-4 bz1 by0-3 ry0-4 bz2 rz0-4 bz3",
+    "rw0-7 bz1 by4 gw0-7 by5 gy4 bw0-7 bz5 bz4 rx0-4 gz4 gy0-3 gx0-4 bz0 "
+    "gz0-3 bx0-5 by0-3 ry0-4 bz2 rz0-4 bz3",
+    "rw0-5 gz4 bz0 bz1 by4 gw0-5 gy5 by5 bz2 gy4 bw0-5 gz5 bz3 bz5 bz4 "
+    "rx0-5 gy0-3 gx0-5 gz0-3 bx0-5 by0-3 ry0-5 rz0-5",
+    "rw0-9 gw0-9 bw0-9 rx0-9 gx0-9 bx0-9",
+    "rw0-9 gw0-9 bw0-9 rx0-8 rw10 gx0-8 gw10 bx0-8 bw10",
+    "rw0-9 gw0-9 bw0-9 rx0-7 rw11-10 gx0-7 gw11-10 bx0-7 bw11-10",
+    "rw0-9 gw0-9 bw0-9 rx0-3 rw15-10 gx0-3 gw15-10 bx0-3 bw15-10")
+
+
+def _bc6h_layout(text: str) -> "list[tuple[int, int]]":
+    """[(end-point field 0-11, bit)] of one mode, in the block's order."""
+    fields = {f"{c}{e}": 3 * i + j for i, e in enumerate("wxyz")
+              for j, c in enumerate("rgb")}
+    out = []
+    for tok in text.split():
+        lo, _, hi = tok[2:].partition("-")
+        a, b = int(lo), int(hi or lo)
+        out += [(fields[tok[:2]], k)
+                for k in range(a, b + (1 if b >= a else -1),
+                               1 if b >= a else -1)]
+    return out
+
+
+def bc6h_blocks(count: int, seed: int, signed: bool = False,
+                bounded: bool = True, codes=BC6H_CODES) -> np.ndarray:
+    """[count, 16] uint8 BC6H blocks, block i under the mode code
+    ``codes[i % len(codes)]``, the partition and weights hashed. With
+    ``bounded`` the end points are hashed within 0.48 of the mode's range
+    (and, ``signed``, as far below 0), transformed ones as deltas within
+    that range, so that most unquantised values are half floats in
+    [0, 1] and the 8-bit step is exercised; else every bit is hashed
+    (random end points mostly saturate)."""
+    blocks = hashed_bytes(16 * count, seed).reshape(count, 16)
+    bits = np.unpackbits(blocks, axis=1, bitorder="little")
+    codes = np.asarray(list(codes), np.int64)
+    code = codes[np.arange(count) % len(codes)]
+    for c in np.unique(code):
+        sel = np.nonzero(code == c)[0]
+        nbits = 2 if c < 2 else 5
+        for k in range(nbits):
+            bits[sel, k] = (c >> k) & 1
+        if not bounded or c not in BC6H_CODES:
+            continue
+        mode = BC6H_CODES.index(int(c))
+        prec, tr, *dbits = BC6H_MODES[mode]
+        lim = int(0.48 * (1 << (prec - 1 if signed else prec)))
+        lo = -lim if signed else 0
+        h = _hashed_u32(12 * sel.size, seed * 131 + int(c)).reshape(
+            sel.size, 12)
+        fields = lo + h % (lim - lo + 1)
+        if tr:  # the deltas that keep each end point in [lo, lim]
+            for i in range(3, 12):
+                half = 1 << (dbits[i % 3] - 1)
+                base = fields[:, i % 3]
+                dlo = np.maximum(-half, lo - base)
+                dhi = np.minimum(half - 1, lim - base)
+                fields[:, i] = dlo + h[:, i] % (dhi - dlo + 1)
+        for i in range(12):
+            width = dbits[i % 3] if tr and i >= 3 else prec
+            fields[:, i] &= (1 << width) - 1
+        for k, (f, b) in enumerate(_bc6h_layout(_BC6H_LAYOUTS[mode])):
+            bits[sel, nbits + k] = (fields[:, f] >> b) & 1
+    return np.packbits(bits, axis=1, bitorder="little")
+
+
+def bcn_dds_bytes(blocks: np.ndarray, width: int, height: int,
+                  dxgi: int) -> bytes:
+    """A DDS file of ``blocks`` ([N, 16] uint8, at least the image's)
+    behind a DX10 header of DXGI format ``dxgi`` (:func:`dds_header`)."""
+    return (dds_header(width, height, 0x4, b"DX10", dxgi=dxgi)
+            + np.ascontiguousarray(blocks).tobytes())
+
+
 def reader_map(name: str,
                jp2=None) -> "tuple[np.ndarray | None, bytes | None]":
     """(RGB pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI
@@ -644,7 +795,9 @@ def reader_map(name: str,
     or :func:`dxt1_map_bytes`; for the RLE8 BMPs, the DIB-framed ICO, the
     CUR and the ICNS files, the pixels' RGB and the bytes of their
     encoders, the JP2 entry by ``jp2`` (a writer: [H, W, 3] uint8 to a
-    JP2 file's bytes, PIL's or the port's)."""
+    JP2 file's bytes, PIL's or the port's); for the BC6H and BC7 DDS
+    files, whose blocks are hashed, no RGB pixels and the bytes of
+    :func:`bcn_dds_bytes`."""
     n, seed = READER_MAPS[name]
     if name == "roughness_2048_rle8.bmp":
         grey = np.ascontiguousarray(roughness_map(n)[..., 0])
@@ -678,6 +831,10 @@ def reader_map(name: str,
         return None, jpeg_tiff_map_bytes(px)
     if name.endswith("_dxt1.dds"):
         return None, dxt1_map_bytes(n, seed)
+    if name.endswith("_bc6h.dds"):
+        return None, bcn_dds_bytes(bc6h_blocks(n * n // 16, seed), n, n, 95)
+    if name.endswith("_bc7.dds"):
+        return None, bcn_dds_bytes(bc7_blocks(n * n // 16, seed), n, n, 98)
     if name.endswith("_grey.jp2"):
         return np.ascontiguousarray(px[..., 1]), None
     return px, None
@@ -987,6 +1144,13 @@ def fixtures():
              "small_grey.j2k": pil_file(Image.fromarray(
                  np.ascontiguousarray(small[..., 1])), "JPEG2000",
                  no_jp2=True)}
+    # hashed BC6H SF16 blocks (bounded, every mode and reserved code) and
+    # BC7 blocks (every mode and the reserved one) under the sRGB name
+    blocks = -(-w // 4) * -(-h // 4)
+    files["small_bc6h_sf16.dds"] = bcn_dds_bytes(bc6h_blocks(
+        blocks, 36, signed=True, codes=BC6H_CODES + BC6H_RESERVED), w, h, 96)
+    files["small_bc7_srgb.dds"] = bcn_dds_bytes(
+        bc7_blocks(blocks, 38, range(9)), w, h, 99)
     for name, data in files.items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     return out
