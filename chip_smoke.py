@@ -79,7 +79,9 @@ through its kernels and made a healthy image:
   maps, then with a 2048x2048 grey RLE8 BMP roughness map and a 256x256
   ICO normal map whose frame is a 24-bit DIB with an AND mask, then with
   a 2048x2048 BC6H UF16 DDS roughness map and a 1024x1024 BC7 DDS normal
-  map of hashed blocks over every mode, both made
+  map of hashed blocks over every mode, then with a 2048x2048 FTEX DXT1
+  roughness map and a 1024x1024 BLP2 DXT5 normal map of hashed blocks,
+  both made
   on the machine and held to PIL's digests, 16
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
@@ -93,8 +95,9 @@ through its kernels and made a healthy image:
   picks, the 4K PCX and SGI decodes and the 4K JPEG, GIF, WebP, QOI,
   DDS, PDF, ICO and ICNS encodes timed, and a 3840x2160 RLE8 BMP, a
   256x256 32-bit CUR, a 128x128 ICNS of ``it32`` and ``t8mk`` entries and
-  an ICNS with a JP2 ``ic09`` entry made there, held to PIL's digests
-  and their decodes timed,
+  an ICNS with a JP2 ``ic09`` entry made there, and a 512x512 BLP1 JPEG
+  normal map (the port's JPEG) and a 512x512 BLP2 palette map, held to
+  PIL's digests and their decodes timed,
   and a preview written as ``v.jpg``, ``v.gif``
   and ``v.webp`` by ``python -m pathtracing_spectrum_tpu_torch`` read
   back (the WebP held to the preview by its PSNR); the 52k and 200k terrains parsed by the native OBJ parser and
@@ -1240,6 +1243,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       one-entry CUR, a 128x128 ICNS of ``it32`` and ``t8mk`` entries and
       a 512x512 ICNS whose ``ic09`` entry is the port's JP2 file (PIL's
       byte for byte), the ``bc7-bc6h`` session's BC6H and BC7 DDS maps,
+      the ``blp-ftex`` session's FTEX and BLP maps, a 512x512 BLP1 JPEG
+      normal map (the port's JPEG, split after its SOS segment) and a
+      512x512 BLP2 palette roughness map with alpha,
       each file and its decode held to the digests
       recorded with PIL (``tests/torch_data/map_digests.json``), the
       decodes timed; a 2048x2048 P5 at maxval 65535 and a 2048x2048 Pf
@@ -1267,7 +1273,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       (``rle-bmp-ico``, both decodes timed), then with a 2048x2048 BC6H
       UF16 DDS roughness map of bounded hashed blocks over the 14 modes
       and a 1024x1024 BC7 DDS normal map of hashed blocks over the 8
-      modes (``bc7-bc6h``, both decodes timed), through ``"hier"``: the
+      modes (``bc7-bc6h``, both decodes timed), then with a 2048x2048
+      FTEX DXT1 roughness map and a 1024x1024 BLP2 DXT5 normal map with
+      the alpha flag, both of hashed blocks (``blp-ftex``, both decodes
+      timed), through ``"hier"``: the
       texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry, then ms per sample in turns against the checker-map
@@ -1364,7 +1373,7 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     maps_dir = tempfile.TemporaryDirectory()
     for name, want in sorted(map_digests.items()):
         px, data = fixtures.reader_map(
-            name, lambda px: jpeg2000.encode(px, "jp2"))
+            name, lambda px: jpeg2000.encode(px, "jp2"), jpg=jpeg.encode)
         path = os.path.join(maps_dir.name, name)
         if data is None:
             image.write_image(path, px)
@@ -1406,15 +1415,20 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                               "normal_256_dib.ico")),
             "bc7-bc6h": tuple(os.path.join(maps_dir.name, name)
                               for name in ("roughness_2048_bc6h.dds",
-                                           "normal_1024_bc7.dds"))}
+                                           "normal_1024_bc7.dds")),
+            "blp-ftex": tuple(os.path.join(maps_dir.name, name)
+                              for name in ("roughness_2048_dxt1.ftc",
+                                           "normal_1024_dxt5.blp"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
             maps["qoi-dds"][1], maps["ico-icns"][1], maps["jp2-j2k"][1],
-            maps["rle-bmp-ico"][1], maps["bc7-bc6h"][1]] + [
+            maps["rle-bmp-ico"][1], maps["bc7-bc6h"][1],
+            maps["blp-ftex"][1]] + [
                 os.path.join(maps_dir.name, name) for name in (
                     "rle8_3840x2160.bmp", "cursor_256.cur",
-                    "icon_128_it32.icns", "icon_512_jp2.icns")]:
+                    "icon_128_it32.icns", "icon_512_jp2.icns",
+                    "normal_512_jpeg.blp", "roughness_512_palette.blp")]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
         say("files", decode=os.path.basename(name), runs=decodes, ms=ms,
@@ -1448,8 +1462,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # maps, the CMYK and YCbCr TIFF maps, the Group 4 and JPEG-in-TIFF
     # maps, the QOI and DXT1 maps, the ICNS and ICO maps, the JP2 and
     # JPEG 2000 codestream maps, the RLE8 BMP and DIB-framed ICO maps and
-    # the BC6H and BC7 DDS maps, each counted through K3, K2 and
-    # threefry
+    # the BC6H and BC7 DDS maps and the FTEX and BLP maps, each counted
+    # through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1494,7 +1508,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     sessions["checker"].run(1, batch=1)
     turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
              "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "qoi-dds", "ico-icns",
-             "jp2-j2k", "rle-bmp-ico", "bc7-bc6h", "bc7-bc6h", "rle-bmp-ico",
+             "jp2-j2k", "rle-bmp-ico", "bc7-bc6h", "blp-ftex", "blp-ftex",
+             "bc7-bc6h", "rle-bmp-ico",
              "jp2-j2k", "ico-icns",
              "qoi-dds", "tiff-jpeg-ccitt",
              "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff", "jpeg-flavours",
@@ -2937,7 +2952,8 @@ def main() -> int:
         # arithmetic-coded JPEG, the TIFF, the WebP, the SGI and PCX, the
         # CMYK and YCbCr TIFF, the Group 4 and JPEG-in-TIFF, the QOI and
         # DXT1, the ICNS and ICO, the JP2 and J2K, the RLE8 BMP and DIB
-        # ICO, and the BC6H and BC7 DDS maps, the natively parsed 52k
+        # ICO, the BC6H and BC7 DDS, and the FTEX and BLP maps, the
+        # natively parsed 52k
         # terrain)
         k["launches_files"] = files_launches[k["name"]]
     finish(torch)

@@ -14,8 +14,8 @@ Two shared libraries, each built into ``build/`` next to this file
   LZW, PackBits, SGI RLE and PCX RLE decoders ``csrc/lzw_decode.cpp``,
   the CCITT (fax) decoder of TIFF compressions 2, 3 and 4
   ``csrc/fax_decode.cpp``, the QOI decoder and encoder ``csrc/qoi.cpp``,
-  the DDS block (BC1-BC7) decoder ``csrc/bcn_decode.cpp``, PIL's
-  LANCZOS and BICUBIC resampler ``csrc/resample.cpp``,
+  the DDS block (BC1-BC7) and BLP2 DXT decoder
+  ``csrc/bcn_decode.cpp``, PIL's LANCZOS and BICUBIC resampler ``csrc/resample.cpp``,
   the WebP decoder ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (with
   their shared VP8 tables and transforms ``csrc/vp8_common.h``), the
   GIF quantiser and LZW encoder ``csrc/gif_encode.cpp`` and the JPEG
@@ -94,7 +94,7 @@ _HOST_SIGNATURES = {
     "pts_obj_shape_indices": ([_V, _I32] + [_V] * 4, None),
     "pts_obj_free": ([_V], None),
     "pts_export_spectrum": ([_S, _V, _I32, _I32, _I32], _I32),
-    "pts_jpeg_decode": ([_V, _I64, _V, _S, _I32], _V),
+    "pts_jpeg_decode": ([_V, _I64, _I32, _V, _S, _I32], _V),
     "pts_jpeg_size": ([_V, _V, _V, _V], None),
     "pts_jpeg_copy": ([_V, _V], None),
     "pts_jpeg_free": ([_V], None),
@@ -121,6 +121,7 @@ _HOST_SIGNATURES = {
     "pts_qoi_decode": ([_V, _I64, _I32, _I64, _V], _I32),
     "pts_qoi_encode": ([_V, _I64, _V], _I64),
     "pts_bcn_decode": ([_V, _I64] + [_I32] * 4 + [_V], _I32),
+    "pts_blp_dxt_decode": ([_V, _I64] + [_I32] * 4 + [_V], _I32),
     "pts_resample": ([_V] + [_I32] * 6 + [_V], _I32),
     "pts_webp_decode": ([_V, _I64, _V, _S, _I32], _V),
     "pts_webp_size": ([_V, _V, _V], None),

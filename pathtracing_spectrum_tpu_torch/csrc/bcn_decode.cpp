@@ -47,9 +47,31 @@
 // The pixels are written as PIL's image holds them: 4 bytes a pixel (R,
 // G, B, A) for BC1-BC3 and BC5-BC7 (BC5's blue 0, BC5S's 128, as PIL fills
 // the block before decoding it; BC5's and BC6H's fourth byte unused), 1
-// byte for BC4 (mode L). Built with the host compiler into the port's
-// build/ directory at first use, with floating-point contraction off;
-// plain C ABI.
+// byte for BC4 (mode L).
+//
+// pts_blp_dxt_decode is another decoder of the same blocks: the DXT1, DXT3
+// and DXT5 of BLP2 files, which PIL's BLP plugin (BlpImagePlugin.py)
+// decodes in its own Python (decode_dxt1, decode_dxt3, decode_dxt5), not
+// in BcnDecode.c. Where its results differ from BC1-BC3's above:
+//
+//  * the RGB565 end points are widened by a shift alone (r << 3, g << 2,
+//    b << 3), their high bits not copied down;
+//  * the two thirds are floors of (2a + b) / 3 and (a + 2b) / 3 of those
+//    values, DXT1's mean the floor of (a + b) / 2;
+//  * DXT1's fourth colour (first end point not the larger) is black, and
+//    transparent only where the file's alpha flag is set (the mode is
+//    RGBA; without it the pixels are RGB);
+//  * DXT3's alpha nibble v becomes v * 17, DXT5's six interpolated alphas
+//    are floors of ((8 - c) * a0 + (c - 1) * a1) / 7 and its four of
+//    ((6 - c) * a0 + (c - 1) * a1) / 5, c the 3-bit code.
+//
+// Its output is PIL's list of block rows, not the image: 4 rows for each
+// row of blocks, 4 pixels a block (the image's width rounded up to 4),
+// which the BLP reader then lays out at the image's own width
+// (utils/image.py, _decode_blp).
+//
+// Built with the host compiler into the port's build/ directory at first
+// use, with floating-point contraction off; plain C ABI.
 
 #if defined(__clang__)
 #pragma clang fp contract(off)
@@ -504,6 +526,88 @@ int32_t pts_bcn_decode(const uint8_t* data, int64_t size, int32_t n,
             width - 4 * i < 4 ? width - 4 * i : 4);
         std::memcpy(out + ((4 * j + y) * width + 4 * i) * sz,
                     bytes + 4 * y * sz, static_cast<size_t>(w) * sz);
+      }
+    }
+  }
+  return 0;
+}
+
+// PIL's BLP2 block rows of a `width` x `height` image (BlpImagePlugin's
+// decode_dxt1/3/5 by `alpha_encoding` 0, 1 or 7; `alpha` the header's
+// flag, which DXT1 alone reads) from `data` into `out`: 4 * by rows of
+// 4 * bx pixels, each 3 bytes (R, G, B: DXT1 without the flag) or 4 (R,
+// G, B, A). Returns 0, or 1 where the data holds fewer blocks than the
+// image needs (PIL's _safe_read: "Truncated File Read") or the alpha
+// encoding is none of the three.
+int32_t pts_blp_dxt_decode(const uint8_t* data, int64_t size,
+                           int32_t alpha_encoding, int32_t alpha,
+                           int32_t width, int32_t height, uint8_t* out) {
+  const int64_t bx = (width + 3) / 4, by = (height + 3) / 4;
+  const int block = alpha_encoding == 0 ? 8 : 16;
+  const int sz = alpha_encoding == 0 && !alpha ? 3 : 4;
+  if ((alpha_encoding != 0 && alpha_encoding != 1 && alpha_encoding != 7) ||
+      size / block < bx * by)
+    return 1;
+  const int64_t row = 4 * bx * sz;  // bytes of one output row
+  for (int64_t j = 0; j < by; ++j) {
+    for (int64_t i = 0; i < bx; ++i) {
+      const uint8_t* src = data + (j * bx + i) * block;
+      const uint8_t* colour = block == 8 ? src : src + 8;
+      const int c0 = colour[0] | colour[1] << 8;
+      const int c1 = colour[2] | colour[3] << 8;
+      const uint32_t code = colour[4] | colour[5] << 8 | colour[6] << 16 |
+                            static_cast<uint32_t>(colour[7]) << 24;
+      int p[4][4];  // the four colours, R G B A
+      const int e[2] = {c0, c1};
+      for (int k = 0; k < 2; ++k) {
+        p[k][0] = ((e[k] >> 11) & 0x1F) << 3;
+        p[k][1] = ((e[k] >> 5) & 0x3F) << 2;
+        p[k][2] = (e[k] & 0x1F) << 3;
+        p[k][3] = 255;
+      }
+      const bool four = block == 16 || c0 > c1;
+      for (int ch = 0; ch < 3; ++ch) {
+        if (four) {
+          p[2][ch] = (2 * p[0][ch] + p[1][ch]) / 3;
+          p[3][ch] = (2 * p[1][ch] + p[0][ch]) / 3;
+        } else {
+          p[2][ch] = (p[0][ch] + p[1][ch]) / 2;
+          p[3][ch] = 0;
+        }
+      }
+      p[2][3] = 255;
+      p[3][3] = four ? 255 : 0;
+      int a[8] = {0};
+      uint64_t bits = 0;  // DXT5's 48 bits of 3-bit alpha codes
+      if (alpha_encoding == 7) {
+        const int a0 = src[0], a1 = src[1];
+        a[0] = a0;
+        a[1] = a1;
+        for (int c = 2; c < 8; ++c) {
+          if (a0 > a1)
+            a[c] = ((8 - c) * a0 + (c - 1) * a1) / 7;
+          else if (c < 6)
+            a[c] = ((6 - c) * a0 + (c - 1) * a1) / 5;
+          else
+            a[c] = c == 6 ? 0 : 255;
+        }
+        for (int k = 0; k < 6; ++k)
+          bits |= static_cast<uint64_t>(src[2 + k]) << (8 * k);
+      }
+      for (int n = 0; n < 16; ++n) {
+        const int* c = p[3 & (code >> (2 * n))];
+        uint8_t* o = out + (4 * j + n / 4) * row + (4 * i + n % 4) * sz;
+        o[0] = static_cast<uint8_t>(c[0]);
+        o[1] = static_cast<uint8_t>(c[1]);
+        o[2] = static_cast<uint8_t>(c[2]);
+        if (sz == 3) continue;
+        if (alpha_encoding == 0)
+          o[3] = static_cast<uint8_t>(c[3]);
+        else if (alpha_encoding == 1)
+          o[3] = static_cast<uint8_t>(
+              17 * (15 & (src[n / 2] >> (4 * (n & 1)))));
+        else
+          o[3] = static_cast<uint8_t>(a[7 & (bits >> (3 * n))]);
       }
     }
   }

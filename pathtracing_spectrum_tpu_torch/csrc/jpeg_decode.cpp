@@ -762,6 +762,11 @@ struct Decoder {
   // taller than the rows libtiff reads (want_rows) is not read past its
   // scan (JPEGDecode does not finish the decompression)
   bool tiff = false, tables_only = false;
+  // libjpeg's jpeg_color_space set to JCS_CMYK before decoding, as PIL's
+  // BLP plugin sets it (the tile's jpegmode "CMYK") for a 4-component
+  // stream: its samples handed over as stored, an Adobe transform that
+  // names YCCK not applied
+  bool cmyk_space = false;
   size_t real = 0;
   int want_rows = 0;
   struct TiffCheck {
@@ -1576,7 +1581,9 @@ struct Decoder {
     if (adobe) return adobe_transform == 0;
     return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
   }
-  bool is_ycck() const { return adobe && adobe_transform != 0; }
+  bool is_ycck() const {
+    return !cmyk_space && adobe && adobe_transform != 0;
+  }
 
   void check_smoothing() const {
     // jdcoefct.c smoothing_ok: with the DC known and any of the first 9
@@ -1741,15 +1748,18 @@ void set_message(char* msg, int32_t cap, const std::string& what) {
 
 extern "C" {
 
-// Decode a JPEG file's bytes. Returns a handle (nullptr on failure, with
-// *status 1 for a broken file and 2 for one the port does not decode, and
-// the reason in msg); pts_jpeg_size gives the size and the number of
-// components, pts_jpeg_copy the pixels (4 bytes each: RGBA for 1 or 3
-// components, libjpeg's CMYK for 4), pts_jpeg_free releases it.
-void* pts_jpeg_decode(const uint8_t* data, int64_t size, int32_t* status,
-                      char* msg, int32_t cap) {
+// Decode a JPEG file's bytes (`cmyk_space`: a 4-component stream's colour
+// space taken as CMYK whatever its Adobe marker says, Decoder::cmyk_space).
+// Returns a handle (nullptr on failure, with *status 1 for a broken file
+// and 2 for one the port does not decode, and the reason in msg);
+// pts_jpeg_size gives the size and the number of components,
+// pts_jpeg_copy the pixels (4 bytes each: RGBA for 1 or 3 components,
+// libjpeg's CMYK for 4), pts_jpeg_free releases it.
+void* pts_jpeg_decode(const uint8_t* data, int64_t size, int32_t cmyk_space,
+                      int32_t* status, char* msg, int32_t cap) {
   try {
     Decoder dec(data, static_cast<size_t>(size));
+    dec.cmyk_space = cmyk_space != 0;
     dec.parse();
     if (!dec.frame) broken("no frame");
     JpegImage* img = new JpegImage();

@@ -1,17 +1,17 @@
 """The binding of the host library's LZW, PackBits, SGI RLE, PCX RLE, BMP
 RLE and ICNS RLE decoders (``csrc/lzw_decode.cpp``), its CCITT decoder
 (``csrc/fax_decode.cpp``), its QOI decoder and encoder (``csrc/qoi.cpp``)
-and its DDS block decoder (``csrc/bcn_decode.cpp``), which the GIF, TIFF,
-PSD, SGI, PCX, BMP, DIB, ICO, CUR, ICNS, QOI and DDS readers and the QOI
-writer of ``utils/image.py`` run. They are serial over codes, packets,
-ops or bits, so host C++ (a 2048x2048 LZW strip, bilevel map or QOI
+and its DDS and BLP block decoders (``csrc/bcn_decode.cpp``), which the
+GIF, TIFF, PSD, SGI, PCX, BMP, DIB, ICO, CUR, ICNS, QOI, DDS, BLP and FTEX
+readers and the QOI writer of ``utils/image.py`` run. They are serial
+over codes, packets, ops or bits, so host C++ (a 2048x2048 LZW strip, bilevel map or QOI
 stream would take minutes in Python, and a 4K PCX holds ~25 M bytes of
 runs), with no Python fallback: when the host library cannot be built,
 the call raises with the compiler's output.
 
 Each decoder returns the decoded bytes, or raises :class:`BrokenData`
-where PIL (for GIF, PSD, SGI, PCX, BMP, ICNS, QOI and DDS) or libtiff
-(for TIFF) rejects the data.
+where PIL (for GIF, PSD, SGI, PCX, BMP, ICNS, QOI, DDS, BLP and FTEX) or
+libtiff (for TIFF) rejects the data.
 """
 
 from __future__ import annotations
@@ -167,6 +167,25 @@ def bcn(data: bytes, n: int, width: int, height: int,
     if lib.pts_bcn_decode(ptr, buf.size, n, int(signed), width, height,
                           out.ctypes.data):
         raise BrokenData("DDS data ends before the last block")
+    return out
+
+
+def blp_dxt(data: bytes, alpha_encoding: int, alpha: bool, width: int,
+            height: int) -> np.ndarray:
+    """PIL's block rows of a BLP2 DXT image (``data`` from its first block;
+    ``alpha_encoding`` 0 DXT1, 1 DXT3, 7 DXT5; ``alpha`` the header's
+    flag) as BlpImagePlugin's Python decoders build them, not as
+    BcnDecode.c (``csrc/bcn_decode.cpp`` lists where they differ): [4 *
+    block rows, 4 * blocks a row, 3 or 4] uint8, RGB for DXT1 without the
+    flag, else RGBA, for the BLP reader to lay out at the image's width."""
+    lib = _build.load_host()
+    buf, ptr = _source(data)
+    bx, by = -(-width // 4), -(-height // 4)
+    bands = 3 if alpha_encoding == 0 and not alpha else 4
+    out = np.zeros((4 * by, 4 * bx, bands), np.uint8)
+    if lib.pts_blp_dxt_decode(ptr, buf.size, alpha_encoding, int(alpha),
+                              width, height, out.ctypes.data):
+        raise BrokenData("BLP data ends before the last block row")
     return out
 
 

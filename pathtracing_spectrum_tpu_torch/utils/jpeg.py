@@ -30,10 +30,13 @@ class BrokenJpeg(ValueError):
     """The file is a JPEG, but broken (PIL raises on it too)."""
 
 
-def decode_rgba(data: bytes) -> np.ndarray:
+def decode_rgba(data: bytes, cmyk_space: bool = False) -> np.ndarray:
     """[H, W, 4] uint8 RGBA of a JPEG file's bytes, row 0 = image top: PIL's
     ``convert("RGBA")`` of the image it opens (a 4-component file as mode
-    ``CMYK``, through :func:`inverted_cmyk_rgba`).
+    ``CMYK``, through :func:`inverted_cmyk_rgba`). ``cmyk_space`` decodes a
+    4-component stream as libjpeg does under ``jpeg_color_space`` CMYK
+    (PIL's jpegmode ``"CMYK"``, which its BLP plugin sets): an Adobe
+    transform naming YCCK is not applied.
 
     Raises :class:`BrokenJpeg` for a broken file and
     ``NotImplementedError`` (with the reason) for a flavour the decoder
@@ -41,7 +44,8 @@ def decode_rgba(data: bytes) -> np.ndarray:
     lib = _build.load_host()
     buf = np.frombuffer(data, np.uint8)
     out, n = _image(lib, _call(lambda status, msg: lib.pts_jpeg_decode(
-        buf.ctypes.data, buf.size, status, msg, len(msg))))
+        buf.ctypes.data, buf.size, int(cmyk_space), status, msg,
+        len(msg))))
     return inverted_cmyk_rgba(out) if n == 4 else out
 
 

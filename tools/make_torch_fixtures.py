@@ -28,8 +28,10 @@ PCX normal map, uncompressed CMYK roughness map and PackBits YCbCr
 normal map as TIFFs, a JPEG-in-TIFF normal map in 256x256 tiles, a QOI
 roughness map and a DXT1 DDS normal map, an ICNS roughness map and an ICO
 normal map, a grey JP2 roughness map and a JPEG 2000 codestream normal
-map, a BC6H roughness map and a BC7 normal map as DDS files, made at run
-time by :func:`reader_map`: nothing is committed;
+map, a BC6H roughness map and a BC7 normal map as DDS files, an FTEX
+DXT1 roughness map and a BLP2 DXT5 normal map, a BLP1 JPEG normal map
+and a BLP2 palette roughness map, made at run time by
+:func:`reader_map`: nothing is committed;
 for the ICNS and ICO maps its :func:`icon_digest`) and of PIL's decode of
 it;
 ``chip_smoke.py`` holds the maps it builds and the port's decodes of
@@ -111,7 +113,11 @@ Fixtures (all content procedural, from fixed seeds):
 - 37x29 DX10 DDS files of hashed blocks: BC6H SF16 over every mode and
   reserved code, end points bounded so that most half floats fall in
   [-1, 1] (``small_bc6h_sf16.dds``), and BC7 over every mode and the
-  reserved one under the sRGB name (``small_bc7_srgb.dds``).
+  reserved one under the sRGB name (``small_bc7_srgb.dds``);
+- 37x29 BLP files: a BLP1 palette image of hashed indices and palette
+  with the alpha flag (``small_palette.blp``), a BLP1 JPEG of
+  ``small_ycck_prog.jpg`` (``small_ycck.blp``) and BLP2 DXT1 of hashed
+  blocks without the alpha flag (``small_dxt1.blp``).
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -592,8 +598,11 @@ def ycbcr_of(rgb: np.ndarray) -> np.ndarray:
 # file, written by Image.save or the port; the bc7-bc6h session's BC6H
 # UF16 roughness map of bounded end points over the 14 modes
 # (bc6h_blocks) and BC7 normal map over the 8 modes (bc7_blocks) as DX10
-# DDS files (the number: the seed; None where the content is not
-# procedural_rgb's)
+# DDS files; the blp-ftex session's FTEX DXT1 roughness map and BLP2 DXT5
+# normal map (with the alpha flag) of hashed blocks, a BLP1 JPEG of
+# normal_map(512) (its JPEG split after the SOS segment) and a BLP2
+# palette image with alpha (the number: the seed; None where the content
+# is not procedural_rgb's)
 READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "roughness_2048.icns": (2048, 20),
                "normal_1024.ico": (1024, 21),
@@ -612,7 +621,11 @@ READER_MAPS = {"roughness_2048_rle.sgi": (2048, 11),
                "icon_128_it32.icns": (128, 28),
                "icon_512_jp2.icns": (512, 30),
                "roughness_2048_bc6h.dds": (2048, 32),
-               "normal_1024_bc7.dds": (1024, 34)}
+               "normal_1024_bc7.dds": (1024, 34),
+               "roughness_2048_dxt1.ftc": (2048, 36),
+               "normal_1024_dxt5.blp": (1024, 38),
+               "normal_512_jpeg.blp": (512, None),
+               "roughness_512_palette.blp": (512, 40)}
 
 
 def dds_header(width: int, height: int, pfflags: int, fourcc: bytes = b"",
@@ -783,8 +796,93 @@ def bcn_dds_bytes(blocks: np.ndarray, width: int, height: int,
             + np.ascontiguousarray(blocks).tobytes())
 
 
-def reader_map(name: str,
-               jp2=None) -> "tuple[np.ndarray | None, bytes | None]":
+def blp2_bytes(width: int, height: int, payload: bytes, encoding: int = 2,
+               alpha: int = 1, alpha_encoding: int = 0,
+               palette: bytes = bytes(1024), compression: int = 1,
+               offset: "int | None" = None,
+               length: "int | None" = None) -> bytes:
+    """A BLP2 file as BlpImagePlugin reads it: the 20-byte header (signed
+    bytes for the encoding, the alpha flag and the alpha encoding; no
+    mipmaps), the first of the 16 mipmap offsets and lengths (by default
+    where ``payload`` starts and its length), the 1,024-byte BGRA palette
+    (padded with zeros), then ``payload``."""
+    head = (b"BLP2" + struct.pack("<i4b2I", compression, encoding, alpha,
+                                  alpha_encoding, 0, width, height))
+    offset = 20 + 128 + 1024 if offset is None else offset
+    length = len(payload) if length is None else length
+    return (head + struct.pack("<16I", offset, *bytes(15))
+            + struct.pack("<16I", length, *bytes(15))
+            + palette.ljust(1024, b"\0") + payload)
+
+
+def blp1_bytes(width: int, height: int, payload: bytes,
+               compression: int = 1, encoding: int = 5, alpha: int = 0,
+               palette: bytes = bytes(1024), jpeg_header: bytes = b"",
+               offset: "int | None" = None,
+               length: "int | None" = None) -> bytes:
+    """A BLP1 file: the 28-byte header (subtype 0), the first of the 16
+    mipmap offsets and lengths (by default where ``payload`` starts and
+    its length), then for compression 0 (JPEG) the 4-byte size of
+    ``jpeg_header`` and its bytes, else the 1,024-byte BGRA palette, then
+    ``payload``."""
+    head = (b"BLP1" + struct.pack("<iI2I2i", compression, alpha, width,
+                                  height, encoding, 0))
+    body = (struct.pack("<I", len(jpeg_header)) + jpeg_header
+            if compression == 0 else palette.ljust(1024, b"\0"))
+    offset = 28 + 128 + len(body) if offset is None else offset
+    length = len(payload) if length is None else length
+    return (head + struct.pack("<16I", offset, *bytes(15))
+            + struct.pack("<16I", length, *bytes(15)) + body + payload)
+
+
+def jpeg_sos_end(data: bytes) -> int:
+    """Where a JPEG file's first SOS segment ends (its entropy-coded data
+    starts): a BLP1 file keeps the bytes before it as its JPEG header."""
+    pos = 2
+    while True:
+        marker, length = data[pos + 1], struct.unpack_from(">H", data,
+                                                            pos + 2)[0]
+        pos += 2 + length
+        if marker == 0xDA:
+            return pos
+
+
+def blp1_jpeg_bytes(width: int, height: int, jpg: bytes,
+                    alpha: int = 0) -> bytes:
+    """A BLP1 JPEG file of the JPEG file ``jpg``, split as Blizzard's files
+    are: the header up to the end of its first SOS segment, the rest the
+    first mipmap."""
+    split = jpeg_sos_end(jpg)
+    return blp1_bytes(width, height, jpg[split:], compression=0,
+                      alpha=alpha, jpeg_header=jpg[:split])
+
+
+def ftex_bytes(width: int, height: int, fmt: int, payload: bytes,
+               formats: int = 1, where: "int | None" = None,
+               length: "int | None" = None) -> bytes:
+    """An FTEX file as FtexImagePlugin reads it: ``FTEX``, version 0, the
+    size, one mipmap and ``formats`` formats, the format (0 DXT1, 1 raw
+    RGB) and the offset of the mipmap (by default right after), then at
+    that offset the mipmap's length (by default the payload's) and
+    ``payload``."""
+    head = b"FTEX" + struct.pack("<5i", 0, width, height, 1, formats)
+    where = len(head) + 8 if where is None else where
+    length = len(payload) if length is None else length
+    return (head + struct.pack("<2i", fmt, where)
+            + struct.pack("<i", length) + payload)
+
+
+def pil_jpeg(px: np.ndarray) -> bytes:
+    """PIL's JPEG of ``px`` at its defaults (the port's ``jpeg.encode`` is
+    the same file)."""
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(px).save(buf, "JPEG")
+    return buf.getvalue()
+
+
+def reader_map(name: str, jp2=None,
+               jpg=None) -> "tuple[np.ndarray | None, bytes | None]":
     """(RGB pixels, file bytes) of one of ``READER_MAPS``: the RLE SGI
     file's bytes from :func:`sgi_rle_bytes`; None for the PCX, the QOI,
     the ICNS, the ICO and the JPEG 2000 maps (the JP2 one of the green
@@ -797,8 +895,28 @@ def reader_map(name: str,
     encoders, the JP2 entry by ``jp2`` (a writer: [H, W, 3] uint8 to a
     JP2 file's bytes, PIL's or the port's); for the BC6H and BC7 DDS
     files, whose blocks are hashed, no RGB pixels and the bytes of
-    :func:`bcn_dds_bytes`."""
+    :func:`bcn_dds_bytes`; for the BLP and FTEX files of hashed blocks
+    and the BLP1 JPEG, whose JPEG is ``jpg``'s (a writer: [H, W, 3] uint8
+    to a JPEG file's bytes, by default :func:`pil_jpeg`), no RGB pixels,
+    for the BLP2 palette image its RGB, and the bytes of
+    :func:`ftex_bytes`, :func:`blp2_bytes` or :func:`blp1_jpeg_bytes`."""
     n, seed = READER_MAPS[name]
+    if name == "normal_512_jpeg.blp":
+        return None, blp1_jpeg_bytes(n, n, (jpg or pil_jpeg)(normal_map(n)))
+    if name.endswith("_dxt1.ftc"):
+        return None, ftex_bytes(n, n, 0, hashed_bytes(n * n // 2,
+                                                      seed).tobytes())
+    if name.endswith("_dxt5.blp"):
+        return None, blp2_bytes(n, n, hashed_bytes(n * n, seed).tobytes(),
+                                alpha_encoding=7)
+    if name.endswith("_palette.blp"):
+        index = procedural_rgb(n, n, seed)[..., 1]
+        rgba = np.concatenate([procedural_rgb(256, 1, seed + 1)[0],
+                               procedural_rgb(256, 1, seed + 2)[0, :, :1]],
+                              -1)
+        return rgba[index, :3], blp2_bytes(
+            n, n, index.tobytes(), encoding=1,
+            palette=rgba[:, [2, 1, 0, 3]].tobytes())
     if name == "roughness_2048_rle8.bmp":
         grey = np.ascontiguousarray(roughness_map(n)[..., 0])
         return np.repeat(grey[..., None], 3, 2), bmp_rle8_bytes(grey)
@@ -1151,6 +1269,16 @@ def fixtures():
         blocks, 36, signed=True, codes=BC6H_CODES + BC6H_RESERVED), w, h, 96)
     files["small_bc7_srgb.dds"] = bcn_dds_bytes(
         bc7_blocks(blocks, 38, range(9)), w, h, 99)
+    # BLP: a BLP1 palette image with the alpha flag (its alpha the
+    # palette's), a BLP1 JPEG of the YCCK fixture (its colour space forced
+    # to CMYK: not the JPEG's own decode), BLP2 DXT1 without the flag
+    files["small_palette.blp"] = blp1_bytes(
+        w, h, hashed_bytes(w * h, 40).tobytes(), alpha=1,
+        palette=hashed_bytes(1024, 41).tobytes())
+    files["small_ycck.blp"] = blp1_jpeg_bytes(
+        w, h, out["small_ycck_prog.jpg"][0])
+    files["small_dxt1.blp"] = blp2_bytes(
+        w, h, hashed_bytes(8 * blocks, 42).tobytes(), alpha=0)
     for name, data in files.items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     return out
