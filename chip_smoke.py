@@ -57,7 +57,10 @@ through its kernels and made a healthy image:
   arithmetic-coded JPEG, BMP, 8-bit and 1-bit TGA, PNM (P4, 16-bit P5,
   16-bit and maxval-1000 P6, Pf), 16-bit and Adam7 PNG, GIF, TIFF (mode
   I in LZW among them), PSD, WebP, QOI, DXT5 and uncompressed DDS, ICO,
-  ICNS) decoded and held to the digests of PIL's decode, the
+  ICNS, JPEG 2000 at PIL's defaults and under its save options: layers,
+  progression orders with precincts, tiles at odd offsets, 9/7 with ICT,
+  RCT, signed samples) decoded and held to the digests of PIL's decode,
+  the JPEG 2000 ones timed, the
   2048x2048 progressive JPEG's, YCCK arithmetic progressive JPEG's,
   Deflate TIFF's and lossy WebP's and the 1024x1024 CMYK arithmetic
   JPEG's and lossless WebP's decodes timed; a 2048x2048 RLE SGI
@@ -82,7 +85,9 @@ through its kernels and made a healthy image:
   map of hashed blocks over every mode, then with a 2048x2048 FTEX DXT1
   roughness map and a 1024x1024 BLP2 DXT5 normal map of hashed blocks,
   both made
-  on the machine and held to PIL's digests, 16
+  on the machine and held to PIL's digests, then with PIL's committed
+  9/7 JP2 roughness map of three layers and 9/7 ICT codestream normal
+  map in tiles at odd offsets, RPCL with precincts (``j2k-lossy``), 16
   samples each through ``"hier"`` (K3, K2, threefry), each texture table
   on the card bitwise the host decode, timed in turns against the
   checker session; ``write_image``'s JPEG,
@@ -1276,7 +1281,13 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       modes (``bc7-bc6h``, both decodes timed), then with a 2048x2048
       FTEX DXT1 roughness map and a 1024x1024 BLP2 DXT5 normal map with
       the alpha flag, both of hashed blocks (``blp-ftex``, both decodes
-      timed), through ``"hier"``: the
+      timed), then with the committed PIL files
+      ``roughness_2048_97_layers.jp2`` (grey, 9/7, three rate layers) and
+      ``normal_1024_97_ict_tiles.j2k`` (RGB, 9/7 and ICT, 256x256 tiles
+      at odd offsets, RPCL, 128x128 precincts, two layers) as its maps
+      (``j2k-lossy``, both decodes timed, as are the six 19x13 files of
+      ``make_torch_fixtures.J2K_OPTION_FILES`` and the ICNS of a 9/7 JP2
+      entry), through ``"hier"``: the
       texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry, then ms per sample in turns against the checker-map
@@ -1418,17 +1429,21 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                            "normal_1024_bc7.dds")),
             "blp-ftex": tuple(os.path.join(maps_dir.name, name)
                               for name in ("roughness_2048_dxt1.ftc",
-                                           "normal_1024_dxt5.blp"))}
+                                           "normal_1024_dxt5.blp")),
+            "j2k-lossy": ("roughness_2048_97_layers.jp2",
+                          "normal_1024_97_ict_tiles.j2k")}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
             maps["qoi-dds"][1], maps["ico-icns"][1], maps["jp2-j2k"][1],
             maps["rle-bmp-ico"][1], maps["bc7-bc6h"][1],
-            maps["blp-ftex"][1]] + [
+            maps["blp-ftex"][1], maps["j2k-lossy"][1]] + [
                 os.path.join(maps_dir.name, name) for name in (
                     "rle8_3840x2160.bmp", "cursor_256.cur",
                     "icon_128_it32.icns", "icon_512_jp2.icns",
-                    "normal_512_jpeg.blp", "roughness_512_palette.blp")]:
+                    "normal_512_jpeg.blp", "roughness_512_palette.blp")] + [
+                name for name in fixtures.J2K_OPTION_FILES
+                if not name.startswith(("roughness_", "normal_"))]:
         path = os.path.join(FILES_DIR, name)
         ms, med = median_ms(lambda: image.load_rgba8(path))
         say("files", decode=os.path.basename(name), runs=decodes, ms=ms,
@@ -1462,8 +1477,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # maps, the CMYK and YCbCr TIFF maps, the Group 4 and JPEG-in-TIFF
     # maps, the QOI and DXT1 maps, the ICNS and ICO maps, the JP2 and
     # JPEG 2000 codestream maps, the RLE8 BMP and DIB-framed ICO maps and
-    # the BC6H and BC7 DDS maps and the FTEX and BLP maps, each counted
-    # through K3, K2 and threefry
+    # the BC6H and BC7 DDS maps and the FTEX and BLP maps and the lossy
+    # JPEG 2000 maps, each counted through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1508,8 +1523,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     sessions["checker"].run(1, batch=1)
     turns = ("checker", "jpeg", "jpeg-flavours", "tiff", "webp", "sgi-pcx",
              "tiff-cmyk-ycbcr", "tiff-jpeg-ccitt", "qoi-dds", "ico-icns",
-             "jp2-j2k", "rle-bmp-ico", "bc7-bc6h", "blp-ftex", "blp-ftex",
-             "bc7-bc6h", "rle-bmp-ico",
+             "jp2-j2k", "rle-bmp-ico", "bc7-bc6h", "blp-ftex", "j2k-lossy",
+             "j2k-lossy", "blp-ftex", "bc7-bc6h", "rle-bmp-ico",
              "jp2-j2k", "ico-icns",
              "qoi-dds", "tiff-jpeg-ccitt",
              "tiff-cmyk-ycbcr", "sgi-pcx", "webp", "tiff", "jpeg-flavours",

@@ -20,7 +20,8 @@ Two shared libraries, each built into ``build/`` next to this file
   their shared VP8 tables and transforms ``csrc/vp8_common.h``), the
   GIF quantiser and LZW encoder ``csrc/gif_encode.cpp`` and the JPEG
   2000 decoder ``csrc/j2k_decode.cpp`` and encoder ``csrc/j2k_encode.cpp``
-  (with their shared tables and 5/3 transform ``csrc/j2k_common.h``).
+  (with their shared tables and forward 5/3 transform
+  ``csrc/j2k_common.h``).
 
 Each file name carries a hash of its sources and flags, so a changed source
 is always rebuilt and a stale library is never loaded. Nothing here runs at

@@ -1,10 +1,12 @@
 // JPEG 2000 code shared by the decoder (j2k_decode.cpp) and the encoder
 // (j2k_encode.cpp), as ISO 15444-1 defines it and OpenJPEG 2.5 computes
 // it: the MQ coder's probability states and the 19 contexts' initial
-// states (Annex C), tier-1's context tables (Annex D), the reversible 5/3
-// lifting steps with symmetric extension (Annex F), the tag trees of the
-// packet headers (B.10.2), and the subband and code-block geometry of a
-// tile whose origin is the image origin 0 (B.5-B.7).
+// states (Annex C), tier-1's context tables (Annex D), the forward
+// reversible 5/3 lifting steps with symmetric extension (Annex F; the
+// decoder's inverse transforms, which follow a tile's origin, are its
+// own), the tag trees of the packet headers (B.10.2), and the encoder's
+// subband and code-block geometry of a tile whose origin is the image
+// origin 0 (B.5-B.7).
 
 #pragma once
 
@@ -178,26 +180,6 @@ inline void fwd53(int32_t* x, int n, ptrdiff_t stride, int32_t* t) {
   }
 }
 
-// Its inverse: low-pass samples first in, interleaved samples out.
-inline void inv53(int32_t* x, int n, ptrdiff_t stride, int32_t* t) {
-  if (n < 2) return;
-  const int sn = (n + 1) / 2, dn = n / 2;
-  for (int i = 0; i < sn; ++i) {
-    const int32_t dl = x[(sn + (i > 0 ? i - 1 : 0)) * stride];
-    const int32_t dr = x[(sn + (i < dn ? i : dn - 1)) * stride];
-    t[2 * i] = static_cast<int32_t>(
-        static_cast<uint32_t>(x[i * stride]) -
-        static_cast<uint32_t>((dl + dr + 2) >> 2));
-  }
-  for (int i = 0; i < dn; ++i) {
-    const int32_t right = 2 * i + 2 < n ? t[2 * i + 2] : t[2 * i];
-    t[2 * i + 1] = static_cast<int32_t>(
-        static_cast<uint32_t>(x[(sn + i) * stride]) +
-        static_cast<uint32_t>((t[2 * i] + right) >> 1));
-  }
-  for (int i = 0; i < n; ++i) x[i * stride] = t[i];
-}
-
 // ---- geometry ------------------------------------------------------------
 
 inline int ceil_div_pow2(int a, int b) {
@@ -254,6 +236,7 @@ struct TagTree {
   };
   std::vector<Node> nodes;
 
+  TagTree() = default;
   TagTree(int w, int h) {
     std::vector<int> widths, heights;
     int n = 0;

@@ -144,13 +144,15 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   no mask; a 32-bit bitmap at byte 22 (a one-entry file) keeps its
   alpha;
 - JPEG 2000, a JP2 file or a bare codestream, through the host library's
-  decoder (``utils/jpeg2000.py``, ``csrc/j2k_decode.cpp``): the
-  reversible single-tile family PIL writes at its defaults from L, LA,
-  RGB and RGBA (any number of decomposition levels, any code-block size,
-  PLT markers), as OpenJPEG 2.5.4 decodes it for PIL; PIL's header
-  checks, then OpenJPEG's strict reading (a cut file is broken, apart
-  from the cut just after the tile's SOT marker code, which PIL gives as
-  an image of zeros);
+  decoder (``utils/jpeg2000.py``, ``csrc/j2k_decode.cpp``): every file
+  PIL writes from L, LA, RGB and RGBA under its save options but the
+  cinema profiles (the 5/3 or 9/7 transform, quality layers, the five
+  progression orders, precincts, code-block sizes, tiles, image and tile
+  offsets, RCT or ICT, signed samples, PLT markers), as OpenJPEG 2.5.4
+  decodes it for PIL; PIL's header checks, then OpenJPEG's strict
+  reading (a cut file is broken, apart from a cut just after a tile's
+  SOT marker code, which PIL gives with the tiles before it decoded and
+  zeros after);
 - ICNS: the entries of the largest size ``IcnsFile.bestsize`` finds
   (``ic10``, 1024x1024, in the files PIL and the port write): a PNG
   (``tRNS`` unapplied as for ICO) or a JPEG 2000 stream of the entry's
@@ -199,10 +201,8 @@ YCbCr TIFF at other subsampling than (1, 1) or turned by its orientation
 (JPEG-compressed YCbCr apart), uncompressed YCbCr TIFF tiles, CIELab
 TIFF, old-style LZW, BigTIFF, CIELab PSD, the IM image types PIL's
 writer does not make, JPEG 2000 (in an ICNS entry too)
-with the irreversible 9/7
-transform, tiles, precincts, a progression order other than LRCP, more
-than one layer, the multiple component transform, code-block styles,
-SOP or EPH markers, samples of other than 8 unsigned bits, subsampled
+with tile-parts, code-block styles, SOP or EPH markers, COC, QCC, RGN,
+POC, PPM or PPT markers, samples of other than 8 bits, subsampled
 components, a colour space other than grey or sRGB, a palette or
 reordered channels, a BLP1 JPEG of a refused JPEG flavour, ...) raises
 ``NotImplementedError`` naming the file and the flavour: a texture is

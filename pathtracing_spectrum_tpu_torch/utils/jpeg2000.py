@@ -12,16 +12,26 @@ the codestream behind the signature, ``ftyp``, ``jp2h`` (``ihdr`` and
 ``colr``) and ``jp2c`` boxes OpenJPEG writes; a ``"j2k"`` file is the bare
 codestream (PIL writes it for a name ending in ``.j2k``).
 
-The decoder computes what OpenJPEG gives PIL for the reversible
-single-tile family (the files PIL writes at its defaults from L, LA, RGB
-and RGBA, any number of levels, any code-block size, PLT markers), so
-:func:`decode_rgba` equals the JAX package's ``convert("RGBA")`` bit for
-bit. Other flavours (the 9/7 transform, tiles, precincts, other
-progression orders, layers, the multiple component transform, ...) raise
-``NotImplementedError`` naming the flavour. The header checks are PIL's
-own (``Jpeg2KImagePlugin._open``), then OpenJPEG's strict reading: a
-file cut anywhere is broken, apart from a cut just after the tile's SOT
-marker code, which OpenJPEG gives PIL as an image of zeros.
+The decoder computes what OpenJPEG gives PIL for every file PIL writes
+from L, LA, RGB and RGBA under its save options but the cinema profiles:
+the reversible 5/3 and the irreversible 9/7 transform (its float
+dequantisation, lifting and ICT rounded as OpenJPEG rounds them), quality
+layers (the passes of every layer accumulated, passes a layer cuts
+reconstructed at the half step), the five progression orders, precincts,
+any code-block size, tiles with image and tile offsets (each tile's
+transform in the phase of its odd or even origin), RCT, signed samples
+and PLT markers, so :func:`decode_rgba` equals the JAX package's
+``convert("RGBA")`` bit for bit. ``csrc/j2k_decode.cpp`` names where
+OpenJPEG departs from the standard and the decoder follows it. Other
+flavours (tile-parts, code-block styles, SOP and EPH markers, COC, QCC,
+RGN, POC, PPM and PPT markers, samples of other than 8 bits, subsampled
+components, ...) raise ``NotImplementedError`` naming the flavour. The
+header checks are PIL's own (``Jpeg2KImagePlugin._open``), then
+OpenJPEG's strict reading: a file cut anywhere is broken, apart from a
+cut just after a tile's SOT marker code, which OpenJPEG gives PIL with
+the tiles before it decoded and zeros after; a marker code OpenJPEG does
+not know in the main header is skipped two bytes at a time to the next
+one it knows (``opj_j2k_read_unk``).
 
 Both are host C++ (tier-1 is bit-serial), with no Python fallback: when
 the host library cannot be built, the call raises with the compiler's

@@ -660,7 +660,14 @@ def _refused():
 
     base = ti.jpeg_bytes(x)
     prog = ti.jpeg_bytes(ti.smooth_rgb(5, 64, 48), progressive=True)
-    irreversible = pil("JPEG2000", irreversible=True)
+    # a JP2 file whose COD sets the SOP bit (PIL reads it: SOP is
+    # optional), and a 16-bit grey one (PIL's I;16)
+    sop = bytearray(pil("JPEG2000"))
+    sop[sop.index(b"\xff\x52") + 4] |= 2
+    sop = bytes(sop)
+    grey16 = __import__("io").BytesIO()
+    Image.frombytes("I;16", (16, 16), (x[..., 0].astype("<u2") * 257)
+                    .tobytes()).save(grey16, "JPEG2000")
     cmyk = np.concatenate([ti.smooth_rgb(6, 40, 24),
                            ti.smooth_rgb(7, 40, 24)[..., :1]], -1)
     return {
@@ -671,13 +678,14 @@ def _refused():
             x, photometric=6, compression=5, extra_tags=((530, 3, [2, 2]),)),
         "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),
         "AVIF writer": ".avif",
-        # PIL's JPEG 2000 files the decoder refuses (its defaults decoded)
-        "irreversible JPEG 2000": irreversible,
-        "tiled JPEG 2000": pil("JPEG2000", tile_size=(8, 8)),
+        # JPEG 2000 files PIL reads and the decoder refuses (every save
+        # option of PIL's but the cinema profiles is decoded)
+        "JPEG 2000 with SOP markers": sop,
+        "16-bit JPEG 2000": grey16.getvalue(),
         # an ICNS whose best entry is one of them
-        "irreversible JPEG 2000 ICNS entry": b"icns" + struct.pack(
-            ">I", 16 + len(irreversible)) + b"ic09" + struct.pack(
-                ">I", 8 + len(irreversible)) + irreversible,
+        "JPEG 2000 ICNS entry with SOP markers": b"icns" + struct.pack(
+            ">I", 16 + len(sop)) + b"ic09" + struct.pack(
+                ">I", 8 + len(sop)) + sop,
         "lossless JPEG": ti.patch_frame(base, kind=0xC3),
         "lossless JPEG by libjpeg": ti.libjpeg_bytes(x, lossless=True),
         "progressive JPEG cut short": ti.drop_last_scan(prog),

@@ -12,8 +12,9 @@ OpenJPEG 2.5.4), exact everywhere (tolerance 0: bytes, pixels, and
   and three-value contents.
 - The reader: PIL's files of L, LA, RGB and RGBA at the same sizes, as a
   codestream and as a JP2 file, with 16x16 and 64x32 code-blocks and PLT
-  markers, held to the JAX package's ``load_rgba``; the flavours the port
-  refuses (irreversible, tiles, precincts, RPCL, two layers, MCT) naming
+  markers, held to the JAX package's ``load_rgba``; flavours PIL reads
+  and the port refuses (16-bit samples; POC, COC, QCC and RGN markers;
+  a code-block style; SOP set in COD; a tile in two tile-parts) naming
   the file and the flavour; every cut of a 37x29 RGB codestream and JP2
   file, None exactly where the JAX package is None (PIL reads one cut of
   each: just after the SOT marker code, an image of zeros); every bit
@@ -25,6 +26,7 @@ OpenJPEG 2.5.4), exact everywhere (tolerance 0: bytes, pixels, and
 """
 
 import os
+import struct
 import subprocess
 import sys
 
@@ -167,14 +169,84 @@ def test_flat_and_three_value_files_read_as_jax(mode, content_kind, kind,
     held(tmp_path, "x." + kind, pil_j2k(px, kind))
 
 
+def edited(kind: str, edit) -> bytes:
+    """PIL's 37x29 RGB file at its defaults with its codestream (a
+    bytearray) passed through ``edit``; a JP2 file's ``jp2c`` box takes
+    the new length."""
+    data = pil_j2k(content("noise", 37, 29, 3, 6), kind)
+    at = data.index(b"\xff\x4f\xff\x51")
+    stream = bytes(edit(bytearray(data[at:])))
+    if kind == "j2k":
+        return stream
+    return data[:at - 8] + struct.pack(">I", 8 + len(stream)) + b"jp2c" + stream
+
+
+def after_qcd(segment):
+    """An edit that puts a marker segment behind QCD."""
+    def edit(cs):
+        end = cs.index(b"\xff\x5c") + 2
+        end += cs[end] << 8 | cs[end + 1]
+        return cs[:end] + segment(cs) + cs[end:]
+    return edit
+
+
+def cod_byte(offset: int, value):
+    """An edit of the COD segment's byte at ``offset`` from its marker."""
+    def edit(cs):
+        at = cs.index(b"\xff\x52") + offset
+        cs[at] = value(cs[at])
+        return cs
+    return edit
+
+
+def _poc(cs):            # one progression over every layer, resolution
+    cod = cs.index(b"\xff\x52")   # and component: LRCP's own order
+    return b"\xff\x5f\x00\x09\x00\x00\x00\x01" + bytes(
+        [cs[cod + 9] + 1, 3, 0])
+
+
+def _coc(cs):            # component 0's coding style as COD's
+    cod = cs.index(b"\xff\x52")
+    return b"\xff\x53\x00\x09\x00\x00" + bytes(cs[cod + 9:cod + 14])
+
+
+def _qcc(cs):            # component 0's quantisation as QCD's
+    qcd = cs.index(b"\xff\x5c")
+    n = cs[qcd + 2] << 8 | cs[qcd + 3]
+    return b"\xff\x5d" + struct.pack(">H", n + 1) + b"\x00" + bytes(
+        cs[qcd + 4:qcd + 2 + n])
+
+
+def two_tile_parts(cs):
+    """The one tile's data split after its 40th byte into two tile-parts
+    (TNsot 2), each behind its own SOT and SOD."""
+    sot, sod = cs.index(b"\xff\x90"), cs.index(b"\xff\x93") + 2
+    data = cs[sod:-2]
+    first = cs[sot:sod] + data[:40]
+    first[6:10] = struct.pack(">I", len(first))
+    first[11] = 2
+    second = bytearray(b"\xff\x90\x00\x0a\x00\x00") + struct.pack(
+        ">IBB", 14 + len(data) - 40, 1, 2) + b"\xff\x93" + data[40:]
+    return cs[:sot] + first + second + b"\xff\xd9"
+
+
+# flavours PIL reads and the port refuses: (the file of a kind, what the
+# refusal names); the 9/7 transform, tiles, precincts, RPCL, layers and
+# MCT, refused here before, are read now (tests/test_torch_jpeg2000_lossy.py)
 REFUSED = {
-    "irreversible": ({"irreversible": True}, "irreversible 9/7"),
-    "tiles": ({"tile_size": (16, 16)}, "more than one tile"),
-    "precincts": ({"precinct_size": (32, 32)}, "precincts"),
-    "rpcl": ({"progression": "RPCL"}, "progression order RPCL"),
-    "layers": ({"quality_layers": [40, 20], "quality_mode": "rates"},
-               "2 quality layers"),
-    "mct": ({"mct": 1}, "multiple component transform"),
+    "i16": (lambda kind: pil_file(Image.frombytes("I;16", (37, 29), content(
+        "noise", 37, 29, 2, 6).tobytes()), "JPEG2000", no_jp2=kind == "j2k"),
+        "16-bit"),
+    "poc": (lambda kind: edited(kind, after_qcd(_poc)), "POC marker"),
+    "coc": (lambda kind: edited(kind, after_qcd(_coc)), "COC marker"),
+    "qcc": (lambda kind: edited(kind, after_qcd(_qcc)), "QCC marker"),
+    "rgn": (lambda kind: edited(kind, after_qcd(
+        lambda cs: b"\xff\x5e\x00\x05\x00\x00\x00")), "RGN marker"),
+    "style": (lambda kind: edited(kind, cod_byte(12, lambda v: 0x08)),
+              "code-block style 8"),
+    "sop": (lambda kind: edited(kind, cod_byte(4, lambda v: v | 2)),
+            "SOP markers"),
+    "tileparts": (lambda kind: edited(kind, two_tile_parts), "tile-parts"),
 }
 
 
@@ -182,8 +254,8 @@ REFUSED = {
 @pytest.mark.parametrize("flavour", sorted(REFUSED))
 def test_refused_flavours_name_the_file_and_the_flavour(flavour, kind,
                                                         tmp_path):
-    save, what = REFUSED[flavour]
-    data = pil_j2k(content("noise", 37, 29, 3, 6), kind, **save)
+    make, what = REFUSED[flavour]
+    data = make(kind)
     path = tmp_path / f"{flavour}.{kind}"
     path.write_bytes(data)
     assert jimage.load_rgba(str(path)) is not None   # PIL reads it

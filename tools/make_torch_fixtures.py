@@ -117,7 +117,16 @@ Fixtures (all content procedural, from fixed seeds):
 - 37x29 BLP files: a BLP1 palette image of hashed indices and palette
   with the alpha flag (``small_palette.blp``), a BLP1 JPEG of
   ``small_ycck_prog.jpg`` (``small_ycck.blp``) and BLP2 DXT1 of hashed
-  blocks without the alpha flag (``small_dxt1.blp``).
+  blocks without the alpha flag (``small_dxt1.blp``);
+- PIL's JPEG 2000 files under its save options (``J2K_OPTION_FILES``): a
+  19x13 file for each step of the reader beyond PIL's defaults
+  (``small_layers_db.j2k``, ``small_rpcl_precincts.jp2``,
+  ``small_tiles_offsets.j2k``, ``small_97_ict.jp2``, ``small_rct.j2k``,
+  ``small_signed.jp2``), the ``j2k-lossy`` session's maps
+  (``roughness_2048_97_layers.jp2``: grey, 9/7, three rate layers;
+  ``normal_1024_97_ict_tiles.j2k``: RGB, 9/7 and ICT, 256x256 tiles at
+  odd offsets, RPCL, 128x128 precincts, two layers) and
+  ``icon_512_jp2_97.icns``, whose ``ic09`` entry is a 9/7 JP2.
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -1115,6 +1124,59 @@ def write_digests() -> dict:
     return out
 
 
+# PIL's JPEG 2000 files under its save options (no cinema profile): a
+# 19x13 file for each of the reader's steps (layers cut by dB on the 5/3
+# transform; RPCL with precincts; tiles with odd image and tile offsets;
+# 9/7 with ICT; RCT; signed samples), the j2k-lossy session's maps (a
+# 2048x2048 grey 9/7 JP2 of three rate layers, a 1024x1024 RGB 9/7 + ICT
+# codestream in 256x256 tiles at odd offsets, RPCL, 128x128 precincts, two
+# layers: procedural_rgb's content, the seed the number) and a 512x512
+# ICNS whose ic09 entry is a 9/7 JP2 of one rate layer
+# (name: (side or None for 19x13, seed, mode, Image.save's options))
+J2K_OPTION_FILES = {
+    "small_layers_db.j2k": (None, 51, "L", {
+        "quality_mode": "dB", "quality_layers": [30, 40]}),
+    "small_rpcl_precincts.jp2": (None, 52, "RGBA", {
+        "progression": "RPCL", "precinct_size": (32, 32),
+        "codeblock_size": (16, 16)}),
+    "small_tiles_offsets.j2k": (None, 53, "RGB", {
+        "tile_size": (16, 16), "tile_offset": (3, 5), "offset": (7, 9)}),
+    "small_97_ict.jp2": (None, 54, "RGB", {"irreversible": True, "mct": 1}),
+    "small_rct.j2k": (None, 55, "RGB", {"mct": 1}),
+    "small_signed.jp2": (None, 56, "LA", {"signed": True}),
+    "roughness_2048_97_layers.jp2": (2048, 41, "L", {
+        "irreversible": True, "quality_layers": [160, 80, 40]}),
+    "normal_1024_97_ict_tiles.j2k": (1024, 43, "RGB", {
+        "irreversible": True, "mct": 1, "tile_size": (256, 256),
+        "tile_offset": (3, 5), "offset": (131, 133), "progression": "RPCL",
+        "precinct_size": (128, 128), "quality_layers": [50, 25]}),
+    "icon_512_jp2_97.icns": (512, 45, "RGB", {
+        "irreversible": True, "quality_layers": [20]}),
+}
+
+
+def j2k_option_file(name: str) -> bytes:
+    """The bytes of :data:`J2K_OPTION_FILES`'s ``name``, written by PIL
+    (the ICNS by :func:`icns_bytes` around PIL's JP2 file)."""
+    from PIL import Image
+    side, seed, mode, save = J2K_OPTION_FILES[name]
+    w, h = (19, 13) if side is None else (side, side)
+    px = procedural_rgb(w, h, seed)
+    if mode in ("LA", "RGBA"):
+        px = np.concatenate([px, procedural_rgb(w, h, seed + 100)[..., :1]],
+                            -1)
+        if mode == "LA":
+            px = px[..., [1, 3]]
+    elif mode == "L":
+        px = px[..., 1]
+    out = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(px), mode).save(
+        out, "JPEG2000", no_jp2=name.endswith(".j2k"), **save)
+    if name.endswith(".icns"):
+        return icns_bytes((b"ic09", out.getvalue()))
+    return out.getvalue()
+
+
 def fixtures():
     """{name: (file bytes, RGBA8 the port must decode, how it was got)}."""
     from PIL import Image
@@ -1280,6 +1342,10 @@ def fixtures():
     files["small_dxt1.blp"] = blp2_bytes(
         w, h, hashed_bytes(8 * blocks, 42).tobytes(), alpha=0)
     for name, data in files.items():
+        out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
+    # PIL's JPEG 2000 files under its save options
+    for name in J2K_OPTION_FILES:
+        data = j2k_option_file(name)
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     return out
 
