@@ -56,7 +56,8 @@ through its kernels and made a healthy image:
   committed texture fixtures (``tests/torch_data/``: JPEG, CMYK, YCCK and
   arithmetic-coded JPEG, BMP, 8-bit and 1-bit TGA, PNM (P4, 16-bit P5,
   16-bit and maxval-1000 P6, Pf), 16-bit and Adam7 PNG, GIF, TIFF (mode
-  I in LZW among them), PSD, WebP, QOI, DXT5 and uncompressed DDS, ICO,
+  I in LZW among them; LZMA, ZSTD and LA JPEG), PSD, WebP, QOI, DXT5 and
+  uncompressed DDS, ICO,
   ICNS, JPEG 2000 at PIL's defaults and under its save options: layers,
   progression orders with precincts, tiles at odd offsets, 9/7 with ICT,
   RCT, signed samples) decoded and held to the digests of PIL's decode,
@@ -87,10 +88,13 @@ through its kernels and made a healthy image:
   both made
   on the machine and held to PIL's digests, then with PIL's committed
   9/7 JP2 roughness map of three layers and 9/7 ICT codestream normal
-  map in tiles at odd offsets, RPCL with precincts (``j2k-lossy``), 16
-  samples each through ``"hier"`` (K3, K2, threefry), each texture table
-  on the card bitwise the host decode, timed in turns against the
-  checker session; ``write_image``'s JPEG,
+  map in tiles at odd offsets, RPCL with precincts (``j2k-lossy``), then
+  with PIL's committed 2048x2048 grey ZSTD roughness map and 1024x1024
+  RGB LZMA normal map (``tiff-lzma-zstd``; Python's ``lzma`` checked
+  first), 16 samples each through ``"hier"`` (K3, K2, threefry), each
+  texture table on the card bitwise the host decode, timed in turns
+  against the checker session (``tiff-lzma-zstd`` by its drive alone);
+  ``write_image``'s JPEG,
   BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, DDS, EPS, MPO
   and PDF files of a 37x29 and a 3840x2160 image held to the digests of
   PIL's (the PDF's dates pinned), its ICO and ICNS files to PIL's
@@ -1287,11 +1291,17 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       at odd offsets, RPCL, 128x128 precincts, two layers) as its maps
       (``j2k-lossy``, both decodes timed, as are the six 19x13 files of
       ``make_torch_fixtures.J2K_OPTION_FILES`` and the ICNS of a 9/7 JP2
-      entry), through ``"hier"``: the
-      texture table on the
+      entry), then with the committed PIL files
+      ``roughness_2048_zstd.tif`` (grey, ZSTD, predictor 2) and
+      ``normal_1024_lzma.tif`` (RGB, LZMA) as its maps
+      (``tiff-lzma-zstd``, both decodes timed, as are the two-block ZSTD
+      strip ``zstd_blocks_256.tif`` and the LA JPEG TIFF
+      ``small_jpeg_la.tif``; Python's ``lzma`` checked first), through
+      ``"hier"``: the texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
-      and threefry, then ms per sample in turns against the checker-map
-      session;
+      and threefry (each drive's ms a sample on the host's clock), then ms
+      per sample in turns against the checker-map session (all but
+      ``tiff-lzma-zstd``, which only its drive times);
     - ``write_image`` of the 37x29 fixture image and a procedural
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
@@ -1327,6 +1337,15 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                                       scene_io, spectral_io,
                                                       webp)
     from pathtracing_spectrum_tpu_torch.preview import preview_render
+    # TIFF compression 34925 reads through Python's lzma (liblzma): a
+    # Python built without it fails here
+    import lzma
+    xz = lzma.compress(b"pathtracing" * 100, format=lzma.FORMAT_XZ,
+                       check=lzma.CHECK_NONE)
+    back = lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(xz, 1100)
+    say("files", lzma_module=lzma.__file__, xz_round_trip=back == (
+        b"pathtracing" * 100))
+    check(back == b"pathtracing" * 100, "the lzma module does not round-trip")
     # files that are no image give None; the extensions PIL cannot save
     # an L or RGB image under raise PIL's exception, writing nothing
     with tempfile.TemporaryDirectory() as tmp:
@@ -1431,13 +1450,17 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                               for name in ("roughness_2048_dxt1.ftc",
                                            "normal_1024_dxt5.blp")),
             "j2k-lossy": ("roughness_2048_97_layers.jp2",
-                          "normal_1024_97_ict_tiles.j2k")}
+                          "normal_1024_97_ict_tiles.j2k"),
+            "tiff-lzma-zstd": ("roughness_2048_zstd.tif",
+                               "normal_1024_lzma.tif")}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
             maps["qoi-dds"][1], maps["ico-icns"][1], maps["jp2-j2k"][1],
             maps["rle-bmp-ico"][1], maps["bc7-bc6h"][1],
-            maps["blp-ftex"][1], maps["j2k-lossy"][1]] + [
+            maps["blp-ftex"][1], maps["j2k-lossy"][1],
+            maps["tiff-lzma-zstd"][1], "zstd_blocks_256.tif",
+            "small_jpeg_la.tif"] + [
                 os.path.join(maps_dir.name, name) for name in (
                     "rle8_3840x2160.bmp", "cursor_256.cur",
                     "icon_128_it32.icns", "icon_512_jp2.icns",
@@ -1478,7 +1501,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # maps, the QOI and DXT1 maps, the ICNS and ICO maps, the JP2 and
     # JPEG 2000 codestream maps, the RLE8 BMP and DIB-framed ICO maps and
     # the BC6H and BC7 DDS maps and the FTEX and BLP maps and the lossy
-    # JPEG 2000 maps, each counted through K3, K2 and threefry
+    # JPEG 2000 maps and the ZSTD and LZMA TIFF maps, each counted through
+    # K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1503,12 +1527,15 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         warm.run(1, batch=1)
         del warm
         sess_m = pt.RenderSession(sc_m, dev, seed=0)
+        t0 = time.perf_counter()
         img_m, got = drive(torch, sess_m, spp, counts, zero_counts)
+        drive_ms = 1e3 * (time.perf_counter() - t0) / spp
         st = sess_m.stats()
         want = want_counts(spp, DEPTH, route="intersect_bvh", sorts=spp)
         say("files", session=f"textured-{kind} {res[0]}x{res[1]}", spp=spp,
             backend=st["backend"], launches=json.dumps(got),
-            expected=json.dumps(want), mean=float(img_m.mean()))
+            expected=json.dumps(want), mean=float(img_m.mean()),
+            drive_ms_per_sample=drive_ms, clock="host", card=repr(card))
         check(st["backend"] == "hier", f"textured-{kind} resolved "
               f"{st['backend']}")
         check(got == want, f"textured-{kind} launches {got}, expected {want}")
@@ -1516,8 +1543,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         healthy(img_m, f"textured-{kind}")
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
-        sessions[kind] = sess_m
-        del img_m
+        if kind != "tiff-lzma-zstd":  # (timed by its drive, not in turns)
+            sessions[kind] = sess_m
+        del img_m, sess_m
     sessions["checker"] = pt.RenderSession(textured_sphere_scene(pt, res),
                                            dev, seed=0)
     sessions["checker"].run(1, batch=1)

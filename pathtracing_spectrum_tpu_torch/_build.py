@@ -13,7 +13,8 @@ Two shared libraries, each built into ``build/`` next to this file
   as libtiff does) and encoder ``csrc/jpeg_encode.cpp``, the
   LZW, PackBits, SGI RLE and PCX RLE decoders ``csrc/lzw_decode.cpp``,
   the CCITT (fax) decoder of TIFF compressions 2, 3 and 4
-  ``csrc/fax_decode.cpp``, the QOI decoder and encoder ``csrc/qoi.cpp``,
+  ``csrc/fax_decode.cpp``, the Zstandard decoder of TIFF compression
+  50000 ``csrc/zstd_decode.cpp``, the QOI decoder and encoder ``csrc/qoi.cpp``,
   the DDS block (BC1-BC7) and BLP2 DXT decoder
   ``csrc/bcn_decode.cpp``, PIL's LANCZOS and BICUBIC resampler ``csrc/resample.cpp``,
   the WebP decoder ``csrc/webp_decode.cpp`` and encoder ``csrc/webp_encode.cpp`` (with
@@ -54,7 +55,8 @@ HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
                 _CSRC / "gif_encode.cpp", _CSRC / "webp_encode.cpp",
                 _CSRC / "fax_decode.cpp", _CSRC / "qoi.cpp",
                 _CSRC / "bcn_decode.cpp", _CSRC / "resample.cpp",
-                _CSRC / "j2k_encode.cpp", _CSRC / "j2k_decode.cpp")
+                _CSRC / "j2k_encode.cpp", _CSRC / "j2k_decode.cpp",
+                _CSRC / "zstd_decode.cpp")
 HOST_HEADERS = (_CSRC / "jpeg_std_tables.h", _CSRC / "vp8_common.h",
                 _CSRC / "j2k_common.h")
 BUILD_DIR = _HERE / "build"
@@ -119,6 +121,7 @@ _HOST_SIGNATURES = {
     "pts_fax_run_slots": ([_I32, _I32, _I32], _I64),
     "pts_fax_decode": ([_V, _I64, _I32, _I32, _I32, _I32, _I64] + [_V] * 4,
                        _I32),
+    "pts_tiff_zstd_decode": ([_V, _I64, _V, _I64], _I32),
     "pts_qoi_decode": ([_V, _I64, _I32, _I64, _V], _I32),
     "pts_qoi_encode": ([_V, _I64, _V], _I64),
     "pts_bcn_decode": ([_V, _I64] + [_I32] * 4 + [_V], _I32),
@@ -247,7 +250,7 @@ def load_host() -> ctypes.CDLL:
     """Build (when the hashed library is missing) and load the host
     library: the BVH builder, the OBJ parser, the spectral writer, the
     JPEG decoder and encoder, the LZW, PackBits, SGI RLE, PCX RLE, BMP RLE,
-    ICNS RLE and CCITT decoders, the QOI decoder and encoder, the DDS block decoder,
+    ICNS RLE, CCITT and Zstandard decoders, the QOI decoder and encoder, the DDS block decoder,
     the resampler, the WebP decoder and encoder, the GIF encoder and the
     JPEG 2000 decoder and encoder. Raises with the
     compiler's output when it cannot be built: none of them has a

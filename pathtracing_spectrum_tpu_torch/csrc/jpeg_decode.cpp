@@ -882,7 +882,9 @@ struct Decoder {
       max_h = std::max(max_h, c.h);
       max_v = std::max(max_v, c.v);
     }
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4) {  // (PIL's walk refused it)
+    // (PIL's walk refuses other counts; libtiff hands two components, grey
+    // and alpha, through as stored under JCS_UNKNOWN)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4 && !(tiff && ncomp == 2)) {
       if (tiff) refuse(std::to_string(ncomp) + "-component JPEG in TIFF");
       broken(std::to_string(ncomp) + "-component JPEG");
     }

@@ -1,6 +1,7 @@
 """The binding of the host library's LZW, PackBits, SGI RLE, PCX RLE, BMP
 RLE and ICNS RLE decoders (``csrc/lzw_decode.cpp``), its CCITT decoder
-(``csrc/fax_decode.cpp``), its QOI decoder and encoder (``csrc/qoi.cpp``)
+(``csrc/fax_decode.cpp``), its Zstandard decoder (``csrc/zstd_decode.cpp``),
+its QOI decoder and encoder (``csrc/qoi.cpp``)
 and its DDS and BLP block decoders (``csrc/bcn_decode.cpp``), which the
 GIF, TIFF, PSD, SGI, PCX, BMP, DIB, ICO, CUR, ICNS, QOI, DDS, BLP and FTEX
 readers and the QOI writer of ``utils/image.py`` run. They are serial
@@ -53,6 +54,18 @@ def tiff_lzw(data: bytes, nbytes: int) -> np.ndarray:
     out = np.zeros(max(nbytes, 1), np.uint8)
     if lib.pts_tiff_lzw_decode(ptr, buf.size, out.ctypes.data, nbytes):
         raise BrokenData("broken LZW data")
+    return out[:nbytes]
+
+
+def tiff_zstd(data: bytes, nbytes: int) -> np.ndarray:
+    """``nbytes`` bytes of a TIFF ZSTD strip or tile, as libtiff reads them
+    through libzstd: the first frame only, a frame longer than the strip
+    cut (``csrc/zstd_decode.cpp`` lists libzstd's rules it copies)."""
+    lib = _build.load_host()
+    buf, ptr = _source(data)
+    out = np.zeros(max(nbytes, 1), np.uint8)
+    if lib.pts_tiff_zstd_decode(ptr, buf.size, out.ctypes.data, nbytes):
+        raise BrokenData("broken ZSTD data")
     return out[:nbytes]
 
 

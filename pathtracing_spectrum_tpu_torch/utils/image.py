@@ -70,9 +70,14 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   alone), a one-value tag with more values read by PIL as its first and
   failing libtiff's reading where libtiff fetches it without recovery;
   no compression, LZW
-  (host library), Deflate (``zlib``), PackBits (host library); predictor
-  2 at 8 and 16 bits for LZW and Deflate, the codecs libtiff runs it in
-  (a ``cumsum`` in the sample's unsigned dtype); CCITT Modified Huffman,
+  (host library), Deflate (``zlib``), PackBits (host library), LZMA
+  (Python's ``lzma`` over the xz stream, read until the strip is full as
+  libtiff's LZMADecode reads it: what liblzma finds wrong after that byte
+  is not seen) and ZSTD (the host library's ``csrc/zstd_decode.cpp``,
+  libzstd's streaming decoder as libtiff drives it: the first frame, cut
+  at the strip's end); predictor 2 at 8, 16 and 32 bits for LZW,
+  Deflate, LZMA and ZSTD, the codecs libtiff runs it in (a ``cumsum`` in
+  the sample's unsigned dtype); CCITT Modified Huffman,
   Group 3 (1-D, or 2-D by T4Options bit 0, EOLs aligned or not) and
   Group 4 (host library, ``codecs.Fax``: libtiff 4.7's decoder, its
   recovery from bad code words, rows too long or too short and data that
@@ -83,7 +88,8 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   tables of the streams before it, libtiff's checks of each stream,
   YCbCr converted to RGB by libjpeg at the stream's sampling (the
   YCbCrSubsampling tag, or without it the first strip's), other
-  photometrics' samples as stored, CMYK not inverted); the image turned
+  photometrics' samples as stored, CMYK not inverted, grey + alpha as
+  two components); the image turned
   by its Orientation tag as PIL's ``load_end`` turns it
   (``ImageOps.exif_transpose``);
   strips or tiles, contiguous or separate planes; photometric 0, 1, 2 and
@@ -242,7 +248,16 @@ and ``tests/test_torch_formats.py`` hold the rest):
   of a packet are copied as far as its code-block segments (one past the
   tile's end is broken, header bits past it read as zeros); a zero
   bit-plane count over 64 is broken here, and a JP2 header whose size or
-  component count is not the codestream's is refused.
+  component count is not the codestream's is refused;
+- a compressed YCbCr TIFF (JPEG apart) whose strip fails to decode is
+  None here; PIL reads it through libtiff's RGBA reader, which it starts
+  with ``stoponerr`` 0, so libtiff goes on past the failed strip with
+  whatever its strip buffer holds;
+- a ZSTD strip whose damaged match reaches past the window into
+  libzstd's ring buffer after it has wrapped (a frame longer than the
+  window and two blocks) reads the frame's own bytes here, whatever the
+  ring buffer holds in libzstd; a legacy (pre-1.0) zstd frame is broken
+  here; ``tools/zstd_sweep.py`` holds every other cut and flip.
 
 Writing: :func:`write_image` is what the viewer, the CLI and the shell
 save through. As the JAX package's ``PIL.Image.save(path)``, it picks the
@@ -313,6 +328,7 @@ the host ``tex2D`` for tests and tools.
 
 from __future__ import annotations
 
+import lzma
 import math
 import os
 import re
@@ -1442,15 +1458,84 @@ def _tiff_mode(order, photo, sample_format, fill, bps, extra):
 
 _TIFF_COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3",
                       4: "CCITT Group 4", 5: "LZW", 7: "JPEG", 8: "Deflate",
-                      32946: "Deflate", 32773: "PackBits"}
+                      32946: "Deflate", 32773: "PackBits", 34925: "LZMA",
+                      50000: "ZSTD"}
 _TIFF_REFUSED = {6: "old-style JPEG",
                  32771: "CCITT RLEW (PIL's own files do not read back)",
                  32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
-                 34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
+                 50001: "WebP"}
 _TIFF_FAX = (2, 3, 4)
-# the codecs libtiff runs its predictor in (tif_predict.c): LZW and
-# Deflate; PackBits, CCITT and JPEG ignore the tag
-_TIFF_PREDICTED = (5, 8, 32946)
+# the codecs libtiff runs its predictor in (tif_predict.c): LZW, Deflate,
+# LZMA and ZSTD; PackBits, CCITT and JPEG ignore the tag
+_TIFF_PREDICTED = (5, 8, 32946, 34925, 50000)
+
+
+def _lzma_open_ended(raw: bytes, nbytes: int) -> bytes:
+    """The xz stream of an LZMA strip with the LZMA2 chunk that holds the
+    strip's last byte made to run on past it (its compressed size the
+    largest, its uncompressed size one more where it ends there), or cut
+    after that byte where the chunk is stored: libtiff stops liblzma once
+    the strip is full, and what liblzma finds wrong after that (the
+    chunk's end, the control byte after it, the block's padding, the
+    index, the footer) is never seen, but Python's ``lzma`` drops all its
+    output with the error. Unchanged where the chunks do not reach the
+    strip's end as they are walked."""
+    if len(raw) < 13 or raw[12] == 0:
+        return raw
+    pos, total = 12 + (raw[12] + 1) * 4, 0
+    while pos < len(raw) and raw[pos] != 0:
+        control = raw[pos]
+        if control in (1, 2):                 # stored
+            if pos + 3 > len(raw):
+                break
+            size = (raw[pos + 1] << 8 | raw[pos + 2]) + 1
+            if total + size >= nbytes:
+                return raw[:pos + 3 + nbytes - total]
+            total, pos = total + size, pos + 3 + size
+            continue
+        if control < 0x80 or pos + 5 > len(raw):
+            break                             # liblzma fails on it
+        size = ((control & 0x1F) << 16 | raw[pos + 1] << 8 | raw[pos + 2]) + 1
+        if total + size >= nbytes:
+            if total + size == nbytes and size < 1 << 21:
+                size += 1
+            out = bytearray(raw)
+            out[pos:pos + 5] = bytes((control & 0xE0 | (size - 1) >> 16,
+                                      (size - 1) >> 8 & 0xFF,
+                                      (size - 1) & 0xFF, 0xFF, 0xFF))
+            return bytes(out)
+        total += size
+        pos += (6 if control >> 5 & 3 >= 2 else 5) + (
+            raw[pos + 3] << 8 | raw[pos + 4]) + 1
+    return raw
+
+
+def _tiff_lzma(raw: bytes, nbytes: int) -> np.ndarray:
+    """``nbytes`` bytes of an LZMA strip or tile as libtiff's LZMADecode
+    reads them through liblzma (an xz stream, never the ``.lzma`` format):
+    whole where Python's ``lzma`` decodes the strip without an error, else
+    fed a byte at a time, so that an error liblzma finds past the strip's
+    last byte in the same call (reading ahead) does not hide it."""
+    data = _lzma_open_ended(raw, nbytes)
+    try:
+        out = lzma.LZMADecompressor(format=lzma.FORMAT_XZ).decompress(
+            data, nbytes)
+        if len(out) == nbytes:
+            return np.frombuffer(out, np.uint8)
+    except lzma.LZMAError:
+        pass
+    dec, parts, got = lzma.LZMADecompressor(format=lzma.FORMAT_XZ), [], 0
+    for k in range(len(data)):
+        try:
+            parts.append(dec.decompress(data[k:k + 1], nbytes - got))
+        except lzma.LZMAError as e:
+            raise _Unreadable(f"broken LZMA data ({e})") from None
+        got += len(parts[-1])
+        if got == nbytes:
+            return np.frombuffer(b"".join(parts), np.uint8)
+        if dec.eof:                           # the stream ends short
+            break
+    raise _Unreadable("LZMA data ends early")
 
 
 def _tiff_chunk(raw: bytes, compression: int, nbytes: int) -> np.ndarray:
@@ -1471,6 +1556,13 @@ def _tiff_chunk(raw: bytes, compression: int, nbytes: int) -> np.ndarray:
     if compression == 32773:
         try:
             return codecs.packbits(raw, nbytes)
+        except codecs.BrokenData as e:
+            raise _Unreadable(str(e)) from None
+    if compression == 34925:
+        return _tiff_lzma(raw, nbytes)
+    if compression == 50000:
+        try:
+            return codecs.tiff_zstd(raw, nbytes)
         except codecs.BrokenData as e:
             raise _Unreadable(str(e)) from None
     if len(raw) < nbytes:
@@ -1664,7 +1756,8 @@ def _decode_tiff(data: bytes) -> np.ndarray:
             raise _Unreadable(f"JPEG data at {bits} bits")
         if photo == 6 and spp != 3:
             raise _Unreadable(f"YCbCr JPEG with {spp} samples a pixel")
-    if predictor not in (1, 2) or (predictor == 2 and bits not in (8, 16)):
+    if predictor not in (1, 2) or (predictor == 2 and bits not in (8, 16,
+                                                                  32)):
         raise _Refused(f"predictor {predictor} at {bits} bits")
     if planar == 2 and compression == 1 and bits != 8 and spp > 1:
         raise _Refused(f"uncompressed separate planes at {bits} bits")
@@ -1746,9 +1839,10 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                 chunk = np.cumsum(chunk.reshape(r, -1, per), axis=1,
                                   dtype=np.uint8).reshape(r, row_bytes)
             else:
-                dt = np.dtype(order + "u2")
-                s = chunk.view(dt).astype(np.uint16).reshape(r, -1, per)
-                chunk = np.cumsum(s, axis=1, dtype=np.uint16).astype(
+                dt = np.dtype(f"{order}u{bits // 8}")
+                s = chunk.view(dt).astype(dt.newbyteorder("=")).reshape(
+                    r, -1, per)
+                chunk = np.cumsum(s, axis=1, dtype=s.dtype).astype(
                     dt).view(np.uint8).reshape(r, row_bytes)
         out[plane, y0:y0 + rows, tx * row_bytes:(tx + 1) * row_bytes] = \
             chunk[:rows]

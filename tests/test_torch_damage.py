@@ -18,7 +18,13 @@ Deviations named here and in ``utils/image.py``'s docstring:
 - a TIFF damaged inside its directory (the entries and the values they
   point to): PIL's and libtiff's checks of each entry are copied only in
   part (``_tiff_ifd``), so these flips are not held; cuts, and flips of
-  the header and of the strips and tiles, are.
+  the header and of the strips and tiles, are (LZMA and ZSTD strips too:
+  liblzma's errors past the strip's last byte unseen as libtiff leaves
+  them; libzstd's stops and checks as ``csrc/zstd_decode.cpp`` lists
+  them);
+- a compressed YCbCr TIFF whose strip fails (libtiff's RGBA reader goes
+  on past it for PIL) and a ZSTD match past the window into libzstd's
+  wrapped ring buffer: no fixture has either.
 
 Cases whose damaged header gives a picture of more than 16 megapixels are
 skipped: both packages read the size from the same fields, and the decode

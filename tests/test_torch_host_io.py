@@ -215,7 +215,7 @@ def test_host_library_is_built_from_the_port_sources_with_jax_flags():
                        "jpeg_encode.cpp", "lzw_decode.cpp", "webp_decode.cpp",
                        "gif_encode.cpp", "webp_encode.cpp", "fax_decode.cpp",
                        "qoi.cpp", "bcn_decode.cpp", "resample.cpp",
-                       "j2k_encode.cpp", "j2k_decode.cpp"}
+                       "j2k_encode.cpp", "j2k_decode.cpp", "zstd_decode.cpp"}
     assert {p.name for p in _build.HOST_HEADERS} == {"jpeg_std_tables.h",
                                                      "vp8_common.h",
                                                      "j2k_common.h"}

@@ -126,7 +126,14 @@ Fixtures (all content procedural, from fixed seeds):
   (``roughness_2048_97_layers.jp2``: grey, 9/7, three rate layers;
   ``normal_1024_97_ict_tiles.j2k``: RGB, 9/7 and ICT, 256x256 tiles at
   odd offsets, RPCL, 128x128 precincts, two layers) and
-  ``icon_512_jp2_97.icns``, whose ``ic09`` entry is a 9/7 JP2.
+  ``icon_512_jp2_97.icns``, whose ``ic09`` entry is a 9/7 JP2;
+- PIL's LZMA, ZSTD and two-channel JPEG TIFFs
+  (:func:`tiff_compression_files`): the ``tiff-lzma-zstd`` session's maps
+  (``roughness_2048_zstd.tif``: grey, ZSTD, predictor 2;
+  ``normal_1024_lzma.tif``: RGB, LZMA), ``zstd_blocks_256.tif`` (a 192
+  KiB strip in two ZSTD blocks) and 13x9 files: ``small_lzma_rgba.tif``,
+  ``small_lzma_i.tif`` (32-bit predictor), ``small_zstd_la.tif``,
+  ``small_zstd_f.tif`` and ``small_jpeg_la.tif``.
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -1177,6 +1184,51 @@ def j2k_option_file(name: str) -> bytes:
     return out.getvalue()
 
 
+def mixed_rgb(n: int = 256, noisy: int = 64) -> np.ndarray:
+    """[n, n, 3] uint8: :func:`normal_map`'s bumps above ``noisy`` rows of
+    hashed bytes (smooth rows and noise, for blocks of both kinds)."""
+    px = normal_map(n, 4).copy()
+    px[n - noisy:] = hashed_bytes(noisy * n * 3, 62).reshape(noisy, n, 3)
+    return px
+
+
+def tiff_compression_files(small: np.ndarray, alpha: np.ndarray) -> dict:
+    """{name: PIL's TIFF file}: the ``tiff-lzma-zstd`` session's maps
+    (``roughness_map``'s first channel as grey ZSTD with predictor 2,
+    ``normal_map`` as RGB LZMA), a 256x256 ZSTD strip of two compressed
+    blocks (:func:`mixed_rgb`, one 192 KiB strip), and 13x9 files (the
+    top-left corner of ``small`` with ``alpha``: few bytes, as every byte
+    of them is damaged in ``tests/test_torch_damage.py``) of RGBA
+    (predictor 2) and I (32-bit, predictor 2) as LZMA, of LA (predictor 2)
+    and F (predictor 2) as ZSTD, and of LA as JPEG."""
+    from PIL import Image
+
+    def tif(px, mode=None, **save):
+        out = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(px), mode).save(out, "TIFF",
+                                                             **save)
+        return out.getvalue()
+
+    rgba = np.concatenate([small, alpha], -1)[:9, :13]
+    la = rgba[..., [1, 3]]
+    pred = {"tiffinfo": {317: 2}}
+    ints = np.random.default_rng(63).integers(-300, 900, (9, 13))
+    return {
+        "roughness_2048_zstd.tif": tif(roughness_map()[..., 0],
+                                       compression="zstd", **pred),
+        "normal_1024_lzma.tif": tif(normal_map(), compression="lzma"),
+        "zstd_blocks_256.tif": tif(mixed_rgb(), compression="zstd",
+                                   strip_size=1 << 18),
+        "small_lzma_rgba.tif": tif(rgba, "RGBA", compression="lzma", **pred),
+        "small_lzma_i.tif": tif(ints.astype(np.int32), compression="lzma",
+                                **pred),
+        "small_zstd_la.tif": tif(la, "LA", compression="zstd", **pred),
+        "small_zstd_f.tif": tif(rgba[..., 0].astype(np.float32) * 1.5 - 40,
+                                compression="zstd", **pred),
+        "small_jpeg_la.tif": tif(la, "LA", compression="jpeg"),
+    }
+
+
 def fixtures():
     """{name: (file bytes, RGBA8 the port must decode, how it was got)}."""
     from PIL import Image
@@ -1342,6 +1394,9 @@ def fixtures():
     files["small_dxt1.blp"] = blp2_bytes(
         w, h, hashed_bytes(8 * blocks, 42).tobytes(), alpha=0)
     for name, data in files.items():
+        out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
+    # PIL's LZMA, ZSTD and two-channel JPEG TIFFs
+    for name, data in tiff_compression_files(small, alpha).items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     # PIL's JPEG 2000 files under its save options
     for name in J2K_OPTION_FILES:
