@@ -92,16 +92,20 @@ through its kernels and made a healthy image:
   with PIL's committed 2048x2048 grey ZSTD roughness map and 1024x1024
   RGB LZMA normal map (``tiff-lzma-zstd``; Python's ``lzma`` checked
   first), then with a 2048x2048 BITPIX 8 FITS roughness map and a
-  1024x1024 PIXAR normal map made on the machine (``fits-pixar``), 16
-  samples each through ``"hier"`` (K3, K2, threefry), each
-  texture table on the card bitwise the host decode, timed in turns
-  against the checker session (``tiff-lzma-zstd`` and ``fits-pixar`` by
-  their drives alone); the raw-decoder maps made there (2048x2048 FITS
-  at BITPIX 8, 16 and -32 and as GZIP_1 tiles, a 2-byte McIDAS and a
-  SPIDER file, a 1024x1024 PIXAR and a DCX of a 1024x1024 PCX page), each
-  file and its decode held to the digests recorded with PIL (the 16-bit
-  ones to the high-byte image of the named deviation), the decodes
-  timed;
+  1024x1024 PIXAR normal map made on the machine (``fits-pixar``), then
+  with a 2048x2048 8-bit run-length Sun raster roughness map and a
+  1024x1024 RGB XPM normal map of 2-character keys made on the machine
+  (``sun-xpm``), 16 samples each through ``"hier"`` (K3, K2, threefry),
+  each texture table on the card bitwise the host decode, timed in turns
+  against the checker session (``tiff-lzma-zstd``, ``fits-pixar`` and
+  ``sun-xpm`` by their drives alone); the raw-decoder maps made there
+  (2048x2048 FITS at BITPIX 8, 16 and -32 and as GZIP_1 tiles, a 2-byte
+  McIDAS and a SPIDER file, a 1024x1024 PIXAR and a DCX of a 1024x1024
+  PCX page) and the X11 and Sun bitmaps (2048x2048 Sun rasters at 8 bits
+  run-length and 24 bits raw and a LinS MSP file, 1024x1024 a GIMP brush
+  at depth 4, an XBM and P and RGB XPMs), each file and its decode held
+  to the digests recorded with PIL (the 16-bit ones to the high-byte
+  image of the named deviation), the decodes timed;
   ``write_image``'s JPEG,
   BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, DDS, EPS, MPO
   and PDF files of a 37x29 and a 3840x2160 image held to the digests of
@@ -1307,12 +1311,14 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       ``small_jpeg_la.tif``; Python's ``lzma`` checked first), then with
       the 2048x2048 BITPIX 8 FITS and the 1024x1024 PIXAR of
       ``make_torch_fixtures.RASTER_MAPS`` made here (``fits-pixar``),
-      through ``"hier"``: the texture table on the
+      then with the 2048x2048 8-bit run-length Sun raster and the
+      1024x1024 RGB XPM of ``make_torch_fixtures.BITMAP_MAPS`` made here
+      (``sun-xpm``), through ``"hier"``: the texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry (each drive's ms a sample on the host's clock), then ms
       per sample in turns against the checker-map session (all but
-      ``tiff-lzma-zstd`` and ``fits-pixar``, which only their drives
-      time);
+      ``tiff-lzma-zstd``, ``fits-pixar`` and ``sun-xpm``, which only their
+      drives time);
     - the raw-decoder maps of ``make_torch_fixtures.RASTER_MAPS`` made
       here (2048x2048 FITS at BITPIX 8, 16 and -32 and as GZIP_1 tiles,
       a 2-byte McIDAS and a SPIDER file, a 1024x1024 PIXAR and a DCX whose
@@ -1320,6 +1326,12 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       held to ``tests/torch_data/raster_map_digests.json`` (PIL's decode,
       or for the 16-bit maps the high-byte image of the named deviation),
       the decodes timed (median of ``decodes``);
+    - the X11 and Sun bitmaps of ``make_torch_fixtures.BITMAP_MAPS`` made
+      here (2048x2048 Sun rasters at 8 bits run-length and 24 bits raw
+      and a LinS MSP file, 1024x1024 a GIMP brush at depth 4, an XBM, an
+      XPM in P mode and one in RGB mode of 2-character keys), each file
+      and its decode held to ``tests/torch_data/bitmap_map_digests.json``
+      (PIL's decode), the decodes timed (median of ``decodes``);
     - ``write_image`` of the 37x29 fixture image and a procedural
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
@@ -1470,6 +1482,29 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         check(file_same, f"{name}: the file is not the one PIL decoded")
         check(same, f"{name}: the decode is not its recorded digest")
 
+    # the X11 and Sun bitmaps (SUN, GBR, MSP, XBM, XPM), made here and held
+    # to the digests recorded with PIL, their decodes timed
+    with open(os.path.join(FILES_DIR, "bitmap_map_digests.json")) as f:
+        bitmap_digests = json.load(f)
+    check(sorted(bitmap_digests) == sorted(fixtures.BITMAP_MAPS),
+          "bitmap_map_digests.json names other maps than BITMAP_MAPS")
+    for name, want in sorted(bitmap_digests.items()):
+        data = fixtures.bitmap_map(name)
+        path = os.path.join(maps_dir.name, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        file_same = hashlib.sha256(data).hexdigest() == want["file_sha256"]
+        rgba = image.load_rgba8(path)
+        same = (list(rgba.shape) == want["shape"] and hashlib.sha256(
+            rgba.tobytes()).hexdigest() == want["rgba_sha256"])
+        ms, med = median_ms(lambda: image.load_rgba8(path))
+        say("files", bitmap_map=name, bytes=len(data),
+            file_digest_equal=file_same, shape=list(rgba.shape),
+            digest_of=want["of"], digest_equal=same, runs=decodes, ms=ms,
+            median_ms=med, clock="host", card=repr(card))
+        check(file_same, f"{name}: the file is not the one PIL decoded")
+        check(same, f"{name}: the decode is not its recorded digest")
+
     maps = {"jpeg": ("roughness_2048_prog420.jpg", "normal_1024_444.jpg"),
             "jpeg-flavours": ("roughness_2048_ycck_arith_prog.jpg",
                               "normal_1024_cmyk_arith.jpg"),
@@ -1503,7 +1538,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                "normal_1024_lzma.tif"),
             "fits-pixar": tuple(os.path.join(maps_dir.name, name)
                                 for name in ("roughness_2048.fits",
-                                             "normal_1024.pxr"))}
+                                             "normal_1024.pxr")),
+            "sun-xpm": tuple(os.path.join(maps_dir.name, name)
+                             for name in ("roughness_2048_rle.ras",
+                                          "normal_1024.xpm"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
@@ -1553,7 +1591,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # JPEG 2000 codestream maps, the RLE8 BMP and DIB-framed ICO maps and
     # the BC6H and BC7 DDS maps and the FTEX and BLP maps and the lossy
     # JPEG 2000 maps and the ZSTD and LZMA TIFF maps and the FITS and PIXAR
-    # maps, each counted through K3, K2 and threefry
+    # maps and the run-length SUN and RGB XPM maps, each counted through
+    # K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1594,7 +1633,7 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         healthy(img_m, f"textured-{kind}")
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
-        if kind not in ("tiff-lzma-zstd", "fits-pixar"):
+        if kind not in ("tiff-lzma-zstd", "fits-pixar", "sun-xpm"):
             sessions[kind] = sess_m   # (the others timed by their drives)
         del img_m, sess_m
     sessions["checker"] = pt.RenderSession(textured_sphere_scene(pt, res),
@@ -3047,8 +3086,8 @@ def main() -> int:
         # CMYK and YCbCr TIFF, the Group 4 and JPEG-in-TIFF, the QOI and
         # DXT1, the ICNS and ICO, the JP2 and J2K, the RLE8 BMP and DIB
         # ICO, the BC6H and BC7 DDS, the FTEX and BLP, the lossy JPEG
-        # 2000, the ZSTD and LZMA TIFF, and the FITS and PIXAR maps, the
-        # natively parsed 52k
+        # 2000, the ZSTD and LZMA TIFF, the FITS and PIXAR, and the SUN
+        # and XPM maps, the natively parsed 52k
         # terrain)
         k["launches_files"] = files_launches[k["name"]]
     finish(torch)

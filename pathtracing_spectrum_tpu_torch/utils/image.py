@@ -184,7 +184,14 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   IMT, XV thumbnails (PIL's 3-3-2 palette) and DCX (the first page, a
   PCX read as above), each laid out as PIL's ``ImageFile.load`` lays a
   raw tile out for a file opened by its path (memory-mapped where it
-  maps the mode).
+  maps the mode);
+- the X11 and Sun workstation bitmaps (``utils/bitmaps.py``, host
+  numpy): Sun rasters (depth 1, 4, 8, 24 and 32, raw rows or PIL's
+  ``sun_rle``, planar colour maps), GIMP brushes (versions 1 and 2,
+  depth 1 and 4), MSP (``DanM`` raw and ``LinS`` run-length), XBM (PIL's
+  decoder, which reads the two bytes after each ``x``) and XPM (``P``
+  and ``RGB``, hex colours, the transparency key as PIL's palette
+  alphas), each as its plugin and PIL's C decoders read it.
 
 Four named deviations from PIL, one rule: a 16-bit grey PNG (colour type
 0), a 16-bit grey TIFF, a 16-bit grey IM file (``L 16``, ``L 16L``,
@@ -207,9 +214,8 @@ black (image.cpp:48-49). So do BUFR, GRIB, HDF5 and MPEG files, which
 PIL opens and never decodes on any host (stubs whose loader only an
 application's handler fills, and MPEG with no tile). A format PIL opens
 and the port does not (AVIF, EPS (PIL reads it only through
-Ghostscript), WMF (only on Windows), ... : the other 11 plugins) or a
-flavour of one decoded
-here that it does not take (lossless and block-smoothed progressive
+Ghostscript), WMF (only on Windows), FLI, IPTC and PCD: the other 6
+plugins) or a flavour of one decoded here that it does not take (lossless and block-smoothed progressive
 JPEG, an uncompressed BMP or DIB whose grey palette PIL reads at
 another sample size than the pixels' (1 or 4 bits as ``L``, 8 bits under
 two entries as ``1``), plain-text PNM (P1-P3) and PIL's test extensions
@@ -234,7 +240,7 @@ and ``tests/test_torch_formats.py`` hold the rest):
   classic file;
 - where a plugin's prefix test passes and its ``_open`` then fails, PIL
   goes on to the next plugin; the port follows it only for the first
-  checks of ICO, PCX, GBR and WMF, for all of CUR's (its pick of
+  checks of ICO, PCX and WMF, for all of CUR's (its pick of
   a cursor, the reads of its bitmap header, a size of no pixels:
   ``_OPEN_CHECKS``; a TGA starts with CUR's bytes), BLP's and MPEG's
   (their header reads, a size of no pixels), FTEX's (its reads up to the
@@ -242,7 +248,9 @@ and ``tests/test_torch_formats.py`` hold the rest):
   IPTC and PCD, plugins without a prefix test; it follows the whole
   ``_open`` of DCX (its directory and the page's PCX header), FITS,
   MCIDAS, PIXAR and XVTHUMB, and of IMT and SPIDER, which have no prefix
-  test (``utils/rasters.py``);
+  test (``utils/rasters.py``), and of GBR, MSP, SUN, XBM and XPM
+  (``utils/bitmaps.py``: a C header that starts ``#define`` is None, as
+  in PIL);
 - a McIDAS file whose line stride is shorter than a line, which PIL
   memory-maps for ``L`` and ``I;16B``: the last lines' bytes past the
   file's end read as zeros, as the map's last page holds them; where they
@@ -357,7 +365,7 @@ import zlib
 
 import numpy as np
 
-from . import codecs, gif, jpeg, jpeg2000, rasters, resample, webp
+from . import bitmaps, codecs, gif, jpeg, jpeg2000, rasters, resample, webp
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples per pixel, allowed bit depths)
@@ -410,8 +418,9 @@ def load_rgba8(path: str) -> "np.ndarray | None":
             f"{path}: {kind} is not decoded by the PyTorch port (PNG, JPEG, "
             "BMP, DIB, TGA, binary PNM and PFM, GIF, TIFF, PSD, WebP, SGI, "
             "PCX, DCX, IM, QOI, DDS, ICO, CUR, ICNS, JPEG 2000, BLP, FTEX, "
-            "FITS, McIDAS, SPIDER, PIXAR, IMT and XV thumbnails are; "
-            "convert it; ROADMAP Queue 1 item 11)")
+            "FITS, McIDAS, SPIDER, PIXAR, IMT, XV thumbnails, Sun raster, "
+            "GBR, MSP, XBM and XPM are; convert it; ROADMAP Queue 1 item "
+            "11)")
     try:
         return _DECODERS[kind](data)
     except (_Refused, NotImplementedError) as e:
@@ -548,10 +557,6 @@ _OPEN_CHECKS = {
     # PcxImagePlugin: a bounding box with area
     "PCX": lambda d: len(d) >= 12 and _u16(d, 8) + 1 > _u16(d, 4)
     and _u16(d, 10) + 1 > _u16(d, 6),
-    # GbrImagePlugin: a size, a colour depth of 1 or 4, version 2's magic
-    "GBR": lambda d: len(d) >= 20 and _i32(d[8:], ">") > 0
-    and _i32(d[12:], ">") > 0 and _i32(d[16:], ">") in (1, 4)
-    and (_i32(d[4:], ">") == 1 or d[20:24] == b"GIMP"),
     # WmfImagePlugin: an EMF signature after the 01 00 00 00 prefix
     "WMF": lambda d: d.startswith(b"\xd7\xcd\xc6\x9a") or d[40:44] == b" EMF",
     # BlpImagePlugin: the header's reads (a BLP1 file's to its encoding, a
@@ -566,6 +571,8 @@ _OPEN_CHECKS = {
     # DCX, FITS, MCIDAS, PIXAR and XVTHUMB: their whole _open
     # (``utils/rasters.py``)
     **rasters.OPEN_CHECKS,
+    # GBR, MSP, SUN, XBM and XPM: their whole _open (``utils/bitmaps.py``)
+    **bitmaps.OPEN_CHECKS,
 }
 
 
@@ -2907,7 +2914,8 @@ _DECODERS = {"PNG": _decode_png, "JPEG": jpeg.decode_rgba,
              "PCX": _decode_pcx, "IM": _decode_im, "QOI": _decode_qoi,
              "DDS": _decode_dds, "ICO": _decode_ico, "CUR": _decode_cur,
              "ICNS": _decode_icns, "JPEG2000": _decode_jpeg2000,
-             "BLP": _decode_blp, "FTEX": _decode_ftex, **rasters.DECODERS}
+             "BLP": _decode_blp, "FTEX": _decode_ftex, **rasters.DECODERS,
+             **bitmaps.DECODERS}
 # the formats PIL opens and never decodes, on any host: the stubs of BUFR,
 # GRIB and HDF5, which load only through a handler an application
 # registers (the JAX package registers none), and MPEG, whose plugin sets

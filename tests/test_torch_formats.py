@@ -700,7 +700,7 @@ def _refused():
                        "L*12")},
         "ASCII PNM": b"P3 1 1 255\n1 2 3\n",
         "ASCII PBM": b"P1 3 1\n0 1 0\n",
-        # the 11 formats PIL opens and the port does not decode
+        # the 6 formats PIL opens and the port does not decode
         **{f"{fmt} file": data for fmt, data in STILL_REFUSED.items()},
     }
 
@@ -710,24 +710,41 @@ STILL_REFUSED = {
     "AVIF": b"\0\0\0\x1cftypavif" + bytes(60),
     "EPS": b"%!PS-Adobe-3.0 EPSF-3.0\n" + bytes(40),
     "FLI": bytes(4) + b"\x11\xaf" + bytes(122),
-    "GBR": struct.pack(">5I", 28, 2, 4, 4, 1) + b"GIMP" + bytes(80),
     "IPTC": b"\x1c\x02\x00\x00\x02ab" + bytes(20),
-    "MSP": b"DanM" + bytes(60),
     "PCD": bytes(2048) + b"PCD_" + bytes(100),
-    "SUN": struct.pack(">8I", 0x59A66A95, 4, 4, 8, 16, 1, 0, 0) + bytes(16),
     "WMF": b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(60),
-    "XBM": b"#define x_width 8\n#define x_height 1\n"
-           b"static char x_bits[] = {0x00};\n",
-    "XPM": b'/* XPM */\nstatic char *x[] = {\n"1 1 1 1",\n"a c #000000",\n'
-           b'"a"};\n',
 }
 
 
 @pytest.mark.parametrize("fmt", sorted(STILL_REFUSED))
 def test_refused_formats_are_named_as_pil_names_them(fmt):
-    """Each of the 11 formats still refused is the format PIL's plugin
+    """Each of the 6 formats still refused is the format PIL's plugin
     tests name (so its file raises naming it, not None)."""
     assert image._sniff(STILL_REFUSED[fmt]) == fmt
+
+
+# {format: a file of it, once refused, that the port now decodes
+# (``utils/bitmaps.py``; ``tests/test_torch_bitmap_formats.py`` holds the
+# rest)}
+NOW_DECODED = {
+    "GBR": struct.pack(">5I", 28, 2, 4, 4, 1) + b"GIMP" + bytes(80),
+    "MSP": fx.msp_bytes(np.eye(8, dtype=np.uint8)),
+    "SUN": struct.pack(">8I", 0x59A66A95, 4, 4, 8, 16, 1, 0, 0)
+    + bytes(range(16)),
+    "XBM": b"#define x_width 8\n#define x_height 1\n"
+           b"static char x_bits[] = {0x5a};\n",
+    "XPM": b'/* XPM */\nstatic char *x[] = {\n"1 1 1 1",\n"a c #000000",\n'
+           b'"a"};\n',
+}
+
+
+@pytest.mark.parametrize("fmt", sorted(NOW_DECODED))
+def test_formats_once_refused_are_named_and_decoded_as_jax(fmt, tmp_path):
+    """GBR, MSP, SUN, XBM and XPM, refused before ``utils/bitmaps.py``:
+    named as PIL's plugin tests name them and decoded as the JAX package
+    decodes them."""
+    assert image._sniff(NOW_DECODED[fmt]) == fmt
+    held(tmp_path, "x.bin", NOW_DECODED[fmt])
 
 
 @pytest.mark.parametrize("bits", [12, 16])
@@ -991,7 +1008,7 @@ def test_formats_pil_opens_and_the_port_does_not_raise(tmp_path):
     NotImplementedError naming the file (never None)."""
     decoded = {"PNG", "JPEG", "BMP", "DIB", "TGA", "PPM", "GIF", "TIFF",
                "PSD", "WEBP", "SGI", "PCX", "IM", "QOI", "DDS", "ICO",
-               "CUR", "ICNS", "JPEG2000", "SPIDER"}
+               "CUR", "ICNS", "JPEG2000", "SPIDER", "MSP", "XBM"}
     for fmt, data in PIL_WRITTEN.items():
         if Image.open(__import__("io").BytesIO(data)).format in decoded:
             continue

@@ -127,18 +127,18 @@ def test_scene_data_from_numpy_carries_bvh_ordered_scene():
 
 
 def test_texture_binding_raises(tmp_path):
-    """A texture the port does not decode (a 1x1 XBM, which PIL reads)
-    fails the compile, naming the file, instead of rendering without it.
+    """A texture of a format the port does not decode (an FLI header,
+    which PIL's plugin tests name FLI) fails the compile, naming the
+    file, instead of rendering without it.
     A broken BMP and a
     broken GIF (the 64-byte ``BM`` and ``GIF89a`` files, once refused as
     formats not decoded) and a missing file bind nothing, as in the
     reference and the JAX package."""
     jsc, sc = port_cornell()
-    rough = tmp_path / "rough.xbm"
-    rough.write_bytes(b"#define x_width 1\n#define x_height 1\n"
-                      b"static char x_bits[] = {\n0x01,\n};\n")
+    rough = tmp_path / "rough.fli"
+    rough.write_bytes(bytes(4) + b"\x11\xaf" + bytes(122))
     sc.objects[0].elements[0].material.roughness_tex_file = str(rough)
-    with pytest.raises(NotImplementedError, match="rough.xbm"):
+    with pytest.raises(NotImplementedError, match="rough.fli"):
         sc.compile("cpu")
     broken = tmp_path / "rough.bmp"
     broken.write_bytes(b"BM" + bytes(64))

@@ -152,8 +152,8 @@ def test_unsupported_png_flavours_raise_naming_the_file(what, tmp_path):
     """The two PNG flavours the decoder once refused now decode: Adam7 as
     PIL does; 16-bit grey keeps each sample's high byte, the named
     deviation from PIL (which clips at 255; ``tests/test_torch_formats.py``
-    holds both). A format still not decoded (XBM) raises naming the
-    file."""
+    holds both). An XBM, once refused, decodes as PIL does; a format
+    still not decoded (an FLI header) raises naming the file."""
     rng = np.random.default_rng(3)
     path = str(tmp_path / f"{what}.png")
     if what == "16-bit":
@@ -170,14 +170,17 @@ def test_unsupported_png_flavours_raise_naming_the_file(what, tmp_path):
         assert_bitwise(image.load_rgba(path), pil_rgba(path))
     xbm = str(tmp_path / f"{what}.xbm")
     Image.fromarray(np.zeros((16, 16), bool)).save(xbm)
-    with pytest.raises(NotImplementedError, match=f"{what}.xbm"):
-        image.load_rgba(xbm)
+    assert_bitwise(image.load_rgba(xbm), jimage.load_rgba(xbm))
+    fli = tmp_path / f"{what}.fli"
+    fli.write_bytes(bytes(4) + b"\x11\xaf" + bytes(122))
+    with pytest.raises(NotImplementedError, match=f"{what}.fli"):
+        image.load_rgba(str(fli))
 
 
 def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
-    """A JPEG, a GIF, a WebP, a QOI and an ICO with BMP frames, once
-    refused, decode as PIL does; an XBM still raises naming the file; a
-    missing or broken file is None in both packages."""
+    """A JPEG, a GIF, a WebP, a QOI, an ICO with BMP frames and an XBM,
+    once refused, decode as PIL does; an FLI header still raises naming
+    the file; a missing or broken file is None in both packages."""
     jpg = str(tmp_path / "tex.jpg")
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(jpg)
     assert_bitwise(image.load_rgba(jpg), jimage.load_rgba(jpg))
@@ -196,8 +199,11 @@ def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
     assert_bitwise(image.load_rgba(ico), jimage.load_rgba(ico))
     xbm = str(tmp_path / "tex.xbm")
     Image.fromarray(np.zeros((16, 16), bool)).save(xbm)
-    with pytest.raises(NotImplementedError, match="tex.xbm"):
-        image.load_rgba(xbm)
+    assert_bitwise(image.load_rgba(xbm), jimage.load_rgba(xbm))
+    fli = tmp_path / "tex.fli"
+    fli.write_bytes(bytes(4) + b"\x11\xaf" + bytes(122))
+    with pytest.raises(NotImplementedError, match="tex.fli"):
+        image.load_rgba(str(fli))
     assert image.load_rgba(str(tmp_path / "missing.png")) is None
     assert image.load_rgba("") is None
     broken = tmp_path / "broken.png"

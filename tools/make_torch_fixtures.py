@@ -39,7 +39,10 @@ them to these. So it does, in ``tests/torch_data/raster_map_digests.json``,
 with ``RASTER_MAPS`` (FITS at BITPIX 8, 16 and -32 and as GZIP_1 tiles,
 a 2-byte McIDAS, a SPIDER, a PIXAR and a DCX file, made by
 :func:`raster_map`; the 16-bit maps' digests are of the high-byte image
-of the port's named deviation).
+of the port's named deviation), and in
+``tests/torch_data/bitmap_map_digests.json`` with ``BITMAP_MAPS`` (Sun
+rasters at 8 bits run-length and 24 bits, a ``LinS`` MSP file, a GIMP
+brush, an XBM and P and RGB XPMs, made by :func:`bitmap_map`).
 
 Fixtures (all content procedural, from fixed seeds):
 
@@ -142,7 +145,12 @@ Fixtures (all content procedural, from fixed seeds):
   ``small_8.fits``, ``grey16.fits`` (its digest the high-byte image),
   ``small_f32.fits``, ``small_gzip.fits`` (GZIP_1), ``small.mcidas``,
   ``small.spider`` (PIL's), ``small.pxr``, ``small.imt``,
-  ``small.xvthumb`` and ``small_two_pages.dcx``.
+  ``small.xvthumb`` and ``small_two_pages.dcx``;
+- the X11 and Sun bitmaps at 13x9 (:func:`bitmap_files`):
+  ``small_rle.ras``, ``small_pal.ras``, ``small_24.ras``,
+  ``small_32_rle.ras``, ``small_1.ras``, ``small_v1.gbr``,
+  ``small_v2.gbr``, ``small.msp`` (PIL's), ``small_rle.msp``,
+  ``small.xbm`` (PIL's) and ``small.xpm``.
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -1514,6 +1522,297 @@ def raster_map_digests() -> dict:
     return out
 
 
+# ---- the X11 and Sun bitmaps: SUN, GBR, MSP, XBM, XPM -----------------------
+
+def sun_rows(px: np.ndarray, depth: int, kind: int = 1) -> np.ndarray:
+    """[h, row bytes] of ``px`` as a Sun raster stores it, unpadded: at
+    depth 1 the bits of [h, w] (a set bit black), at 4 the nibbles, at 8
+    the bytes; at 24 and 32 [h, w, 3] RGB as BGR, or RGB where ``kind``
+    is 3, with a fourth byte 0xA5 at 32 (which readers ignore)."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape[:2]
+    if depth == 1:
+        return np.packbits(px, axis=1)
+    if depth == 4:
+        even = np.zeros((h, w + w % 2), np.uint8)
+        even[:, :w] = px
+        return even[:, 0::2] << 4 | even[:, 1::2]
+    if depth == 8:
+        return px
+    rgb = px if kind == 3 else px[..., ::-1]
+    if depth == 32:
+        rgb = np.concatenate([rgb, np.full((h, w, 1), 0xA5, np.uint8)], 2)
+    return rgb.reshape(h, -1)
+
+
+def sun_rle_bytes(raw: bytes) -> bytes:
+    """``raw`` as the run-length records of a Sun raster of type 2: each run
+    of a byte in records of up to 256 (``80 n-1 v``; a single 0x80 as
+    ``80 00``, runs of one or two other bytes as themselves)."""
+    a = np.frombuffer(raw, np.uint8)
+    if not a.size:
+        return b""
+    starts = np.r_[0, np.flatnonzero(np.diff(a)) + 1]
+    lengths = np.diff(np.r_[starts, a.size])
+    chunks = -(-lengths // 256)
+    value = np.repeat(a[starts], chunks)
+    count = np.full(value.size, 256)
+    count[np.cumsum(chunks) - 1] = lengths - 256 * (chunks - 1)
+    literal = (value != 0x80) & (count <= 2)
+    single = (value == 0x80) & (count == 1)
+    size = np.where(literal, count, np.where(single, 2, 3))
+    at = np.cumsum(size) - size
+    out = np.zeros(int(size.sum()), np.uint8)
+    out[at] = np.where(literal, value, 0x80)
+    two = size >= 2
+    out[at[two] + 1] = np.where(literal, value, np.where(single, 0, count - 1)
+                                )[two]
+    run = size == 3
+    out[at[run] + 2] = value[run]
+    return out.tobytes()
+
+
+def sun_bytes(px: np.ndarray, depth: int, kind: int = 1, colours: bytes = b"",
+              map_type: int = 1, length=None) -> bytes:
+    """A Sun raster file of ``px`` (:func:`sun_rows`): the 32-byte header
+    (``length`` the data's length unless given), the colour map
+    ``colours`` (planar: the reds, greens, blues), then raw rows padded
+    to 16 bits, or for ``kind`` 2 :func:`sun_rle_bytes` of the unpadded
+    rows."""
+    rows = sun_rows(px, depth, kind)
+    h, w = np.asarray(px).shape[:2]
+    if kind == 2:
+        data = sun_rle_bytes(rows.tobytes())
+    else:
+        padded = np.zeros((h, (w * depth + 15) // 16 * 2), np.uint8)
+        padded[:, :rows.shape[1]] = rows
+        data = padded.tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth,
+                       len(data) if length is None else length, kind,
+                       map_type if colours else 0, len(colours)) + (
+                           colours + data)
+
+
+def gbr_bytes(px: np.ndarray, version: int = 2, header_size=None,
+              comment: bytes = b"procedural\0", spacing: int = 25) -> bytes:
+    """A GIMP brush of ``px`` ([h, w] grey, depth 1, or [h, w, 4] RGBA,
+    depth 4): the header (``header_size`` 20 or 28 bytes and the comment's
+    unless given; version 2 adds ``GIMP`` and the spacing), the comment,
+    the pixels."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape[:2]
+    depth = 1 if px.ndim == 2 else 4
+    tail = b"GIMP" + struct.pack(">I", spacing) if version == 2 else b""
+    size = 20 + len(tail) + len(comment)
+    return (struct.pack(">5I", size if header_size is None else header_size,
+                        version, w, h, depth) + tail + comment + px.tobytes())
+
+
+def msp_header(magic: bytes, w: int, h: int) -> bytes:
+    """The 32-byte header PIL's MSP writer makes, under ``magic`` (``DanM``
+    or ``LinS``): the size twice, the aspect words 1, the checksum that
+    makes the 16 words XOR to 0 in word 12."""
+    words = [0] * 16
+    words[0], words[1] = struct.unpack("<2H", magic)
+    words[2], words[3], words[8], words[9] = w, h, w, h
+    words[4:8] = [1, 1, 1, 1]
+    for v in words[:12]:
+        words[12] ^= v
+    return struct.pack("<16H", *words)
+
+
+def msp_rle_row(row: bytes) -> bytes:
+    """One row of a ``LinS`` file: each run of three or more equal bytes
+    as ``00 n v`` (n up to 255), the bytes between as literal runs of up
+    to 255 after their count."""
+    a = np.frombuffer(row, np.uint8)
+    starts = np.r_[0, np.flatnonzero(np.diff(a)) + 1] if a.size else []
+    out, literal = bytearray(), bytearray()
+
+    def flush():
+        for i in range(0, len(literal), 255):
+            out.append(len(literal[i:i + 255]))
+            out.extend(literal[i:i + 255])
+        literal.clear()
+
+    for s, e in zip(list(starts), list(starts[1:]) + [a.size]):
+        if e - s >= 3:
+            flush()
+            for i in range(s, e, 255):
+                out.extend((0, min(255, e - i), a[s]))
+        else:
+            literal.extend(row[s:e])
+    flush()
+    return bytes(out)
+
+
+def msp_bytes(bits: np.ndarray, rle: bool = False) -> bytes:
+    """A Windows Paint file of ``bits`` ([h, w] 0 or 1, a set bit white):
+    ``DanM`` and the packed rows (PIL's writer's file), or ``LinS``, its
+    row map and each row by :func:`msp_rle_row`."""
+    h, w = bits.shape
+    rows = np.packbits(np.asarray(bits, np.uint8), axis=1)
+    if not rle:
+        return msp_header(b"DanM", w, h) + rows.tobytes()
+    coded = [msp_rle_row(r.tobytes()) for r in rows]
+    return (msp_header(b"LinS", w, h)
+            + struct.pack(f"<{h}H", *(len(c) for c in coded))
+            + b"".join(coded))
+
+
+def xbm_bytes(bits: np.ndarray, hotspot=None) -> bytes:
+    """An X11 bitmap of ``bits`` ([h, w] 0 or 1, a set bit white, the rows
+    bit-reversed) as PIL's XBM writer writes it: ``0x%02x`` values, 15 a
+    line."""
+    h, w = bits.shape
+    vals = np.packbits(np.asarray(bits, np.uint8), axis=1,
+                       bitorder="little").reshape(-1)
+    digits = np.frombuffer(b"0123456789abcdef", np.uint8)
+    text = np.empty((vals.size, 5), np.uint8)
+    text[:, :2] = np.frombuffer(b"0x", np.uint8)
+    text[:, 2], text[:, 3] = digits[vals >> 4], digits[vals & 15]
+    text[:, 4] = 44
+    text = text.tobytes()
+    head = b"#define im_width %d\n#define im_height %d\n" % (w, h)
+    if hotspot:
+        head += b"#define im_x_hot %d\n#define im_y_hot %d\n" % hotspot
+    body = b"\n".join(text[i:i + 75] for i in range(0, len(text), 75))[:-1]
+    return head + b"static char im_bits[] = {\n" + body + b"\n};\n"
+
+
+# the characters of XPM keys here (no quote, no backslash)
+XPM_CHARS = (b"0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+             b".#")
+
+
+def xpm_bytes(index: np.ndarray, keys, colours) -> bytes:
+    """An X11 pixmap: ``"w h n cpp"``, one ``"key c spec"`` line for each of
+    ``keys`` and ``colours`` (``#`` and hex digits, or ``None``), then the
+    rows of ``index`` ([h, w] into them) as quoted lines of keys."""
+    h, w = index.shape
+    cpp = len(keys[0])
+    table = np.frombuffer(b"".join(keys), np.uint8).reshape(-1, cpp)
+    rows = np.empty((h, w * cpp + 4), np.uint8)
+    rows[:, 0], rows[:, -3:] = 34, np.frombuffer(b'",\n', np.uint8)
+    rows[:, 1:-3] = table[index].reshape(h, -1)
+    body = rows.tobytes()
+    return (b"/* XPM */\nstatic char *procedural[] = {\n"
+            b"/* columns rows colors chars-per-pixel */\n"
+            + b'"%d %d %d %d ",\n' % (w, h, len(keys), cpp)
+            + b"".join(b'"%s c %s",\n' % (k, c) for k, c in zip(keys, colours))
+            + b"/* pixels */\n" + body[:-2] + b"\n};\n")
+
+
+def xpm_of(rgb: np.ndarray, shift: int, cpp: int):
+    """(index, keys, colours) of ``rgb`` quantised by ``shift`` bits a
+    channel: the colours used, in order of their value, keys of ``cpp``
+    characters of :data:`XPM_CHARS`."""
+    q = (np.asarray(rgb, np.int64) >> shift) << shift
+    code = q[..., 0] << 16 | q[..., 1] << 8 | q[..., 2]
+    used, index = np.unique(code, return_inverse=True)
+    chars = np.frombuffer(XPM_CHARS, np.uint8)
+    digits = [(np.arange(used.size) // len(chars) ** i) % len(chars)
+              for i in range(cpp)][::-1]
+    keys = [bytes(chars[list(k)]) for k in zip(*digits)]
+    return (index.reshape(code.shape), keys,
+            [b"#%06X" % int(v) for v in used])
+
+
+def bitmap_files(small: np.ndarray) -> dict:
+    """{name: file}: 13x9 files (the top-left corner of ``small``; few
+    bytes, as every byte of them is damaged in
+    ``tests/test_torch_damage.py``) of the X11 and Sun bitmaps: Sun
+    rasters at 8 bits run-length (runs across rows, single and run 0x80
+    bytes), 8 bits under a 16-entry colour map (indices past it), 24 bits
+    of type 3, 32 bits run-length and 1 bit; GIMP brushes of version 1 at
+    depth 1 and version 2 at depth 4; PIL's MSP file and a ``LinS`` one; PIL's
+    XBM with a hotspot; an XPM of 1-character keys, ``#RGB`` and 48-bit
+    colours and an unused ``None``."""
+    from PIL import Image
+    px = np.ascontiguousarray(small[:9, :13])
+    grey = np.repeat(px[:, ::3, 1], 3, 1)[:, :13]
+    grey[2, 4:] = 0x80
+    grey[5, 6] = 0x80
+    bits = (px[..., 0] > px[..., 2]).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(bits.astype(bool)).save(buf, "MSP")
+    xbm = io.BytesIO()
+    Image.fromarray(bits.astype(bool)).save(xbm, "XBM", hotspot=(3, 4))
+    index = (px[..., 1] // 64).astype(np.int64) + 2 * (px[..., 0] > 128)
+    return {
+        "small_rle.ras": sun_bytes(grey, 8, 2),
+        "small_pal.ras": sun_bytes(px[..., 2] // 13, 8,
+                                   colours=hashed_bytes(48, 61).tobytes()),
+        "small_24.ras": sun_bytes(px, 24, 3),
+        "small_32_rle.ras": sun_bytes(px // 32 * 32, 32, 2),
+        "small_1.ras": sun_bytes(bits, 1),
+        "small_v1.gbr": gbr_bytes(px[..., 1], 1, comment=b"v1\0"),
+        "small_v2.gbr": gbr_bytes(np.concatenate([px, grey[..., None]], 2)),
+        "small.msp": buf.getvalue(),
+        "small_rle.msp": msp_bytes(bits, rle=True),
+        "small.xbm": xbm.getvalue(),
+        "small.xpm": xpm_bytes(
+            index, [b".", b"#", b"a", b"b", b"c", b"d", b" "],
+            [b"#F00", b"#123456789ABC", b"#00FF00", b"#0000FF", b"#808080",
+             b"#FFFFFF", b"None"]),
+    }
+
+
+# the X11 and Sun bitmaps chip_smoke.py makes and times: 2048x2048 Sun
+# rasters at 8 bits run-length (the sun-xpm session's roughness map) and
+# 24 bits raw and a LinS MSP file, 1024x1024 a GIMP brush at depth 4, an
+# XBM, an XPM of P mode and one of RGB mode with 2-character keys (the
+# sun-xpm session's normal map); (side, seed of procedural_rgb)
+BITMAP_MAPS = {"roughness_2048_rle.ras": (2048, 51),
+               "roughness_2048_24.ras": (2048, 52),
+               "roughness_2048.msp": (2048, 53),
+               "normal_1024.gbr": (1024, 54),
+               "normal_1024.xbm": (1024, 55),
+               "normal_1024_p.xpm": (1024, 56),
+               "normal_1024.xpm": (1024, 57)}
+
+
+def bitmap_map(name: str) -> bytes:
+    """The file of one of ``BITMAP_MAPS``, its content
+    :func:`procedural_rgb`'s: the Sun rasters of its green channel (runs
+    of 17 pixels) and of its RGB, the MSP and XBM files of green over 127
+    and of red's bit 6, the brush of RGB and blue as alpha, the P XPM of 2
+    bits a channel in 1-character keys, the RGB XPM of 4 bits a channel in
+    2-character keys."""
+    n, seed = BITMAP_MAPS[name]
+    px = procedural_rgb(n, n, seed)
+    if name.endswith("_rle.ras"):
+        return sun_bytes(px[..., 1], 8, 2)
+    if name.endswith(".ras"):
+        return sun_bytes(px, 24)
+    if name.endswith(".msp"):
+        return msp_bytes((px[..., 1] > 127).astype(np.uint8), rle=True)
+    if name.endswith(".gbr"):
+        return gbr_bytes(np.concatenate([px, px[..., 2:]], 2))
+    if name.endswith(".xbm"):
+        return xbm_bytes(px[..., 0] >> 6 & 1)
+    if name.endswith("_p.xpm"):
+        return xpm_bytes(*xpm_of(px, 6, 1))
+    return xpm_bytes(*xpm_of(px, 4, 2))
+
+
+def bitmap_map_digests() -> dict:
+    """{map: {"file_sha256", "rgba_sha256", "shape", "of"}} of each of
+    ``BITMAP_MAPS``: the sha256 of its file and of PIL's
+    ``convert("RGBA")`` of it."""
+    ti = _images_module()
+    out = {}
+    for name in BITMAP_MAPS:
+        data = bitmap_map(name)
+        rgba = ti.pil_rgba8(data)
+        out[name] = {"file_sha256": hashlib.sha256(data).hexdigest(),
+                     "rgba_sha256": hashlib.sha256(
+                         rgba.tobytes()).hexdigest(),
+                     "shape": list(rgba.shape),
+                     "of": 'PIL 12.1 convert("RGBA")'}
+    return out
+
+
 def mixed_rgb(n: int = 256, noisy: int = 64) -> np.ndarray:
     """[n, n, 3] uint8: :func:`normal_map`'s bumps above ``noisy`` rows of
     hashed bytes (smooth rows and noise, for blocks of both kinds)."""
@@ -1730,6 +2029,9 @@ def fixtures():
         out[name] = (data, ti.pil_rgba8(data) if high is None else high,
                      'PIL 12.1 convert("RGBA")' if high is None else
                      HIGH_BYTE)
+    # the X11 and Sun bitmaps: SUN, GBR, MSP, XBM, XPM
+    for name, data in bitmap_files(small).items():
+        out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     # PIL's JPEG 2000 files under its save options
     for name in J2K_OPTION_FILES:
         data = j2k_option_file(name)
@@ -1758,6 +2060,9 @@ def main() -> int:
         f.write("\n")
     with open(os.path.join(OUT, "raster_map_digests.json"), "w") as f:
         json.dump(raster_map_digests(), f, indent=1, sort_keys=True)
+        f.write("\n")
+    with open(os.path.join(OUT, "bitmap_map_digests.json"), "w") as f:
+        json.dump(bitmap_map_digests(), f, indent=1, sort_keys=True)
         f.write("\n")
     return 0
 
