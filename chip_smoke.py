@@ -95,15 +95,21 @@ through its kernels and made a healthy image:
   1024x1024 PIXAR normal map made on the machine (``fits-pixar``), then
   with a 2048x2048 8-bit run-length Sun raster roughness map and a
   1024x1024 RGB XPM normal map of 2-character keys made on the machine
-  (``sun-xpm``), 16 samples each through ``"hier"`` (K3, K2, threefry),
+  (``sun-xpm``), then with a 2048x2048 FLC roughness map whose first
+  frame is BRUN and a 768x512 PhotoCD normal map made on the machine
+  (``fli-pcd``), 16 samples each through ``"hier"`` (K3, K2, threefry),
   each texture table on the card bitwise the host decode, timed in turns
-  against the checker session (``tiff-lzma-zstd``, ``fits-pixar`` and
-  ``sun-xpm`` by their drives alone); the raw-decoder maps made there
+  against the checker session (``tiff-lzma-zstd``, ``fits-pixar``,
+  ``sun-xpm`` and ``fli-pcd`` by their drives alone); the raw-decoder maps made there
   (2048x2048 FITS at BITPIX 8, 16 and -32 and as GZIP_1 tiles, a 2-byte
   McIDAS and a SPIDER file, a 1024x1024 PIXAR and a DCX of a 1024x1024
   PCX page) and the X11 and Sun bitmaps (2048x2048 Sun rasters at 8 bits
   run-length and 24 bits raw and a LinS MSP file, 1024x1024 a GIMP brush
-  at depth 4, an XBM and P and RGB XPMs), each file and its decode held
+  at depth 4, an XBM and P and RGB XPMs) and the FLI/FLC, PhotoCD and
+  IPTC files (a 2048x2048 BRUN FLC, a 2048x2048 FLI of LC and SS2
+  chunks, 768x512 PhotoCDs at orientations 0 and 1, a 2048x2048 raw IPTC
+  band of an RGB record and a 1024x1024 IPTC record of the port's
+  baseline JPEG), each file and its decode held
   to the digests recorded with PIL (the 16-bit ones to the high-byte
   image of the named deviation), the decodes timed;
   ``write_image``'s JPEG,
@@ -1313,12 +1319,14 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       ``make_torch_fixtures.RASTER_MAPS`` made here (``fits-pixar``),
       then with the 2048x2048 8-bit run-length Sun raster and the
       1024x1024 RGB XPM of ``make_torch_fixtures.BITMAP_MAPS`` made here
-      (``sun-xpm``), through ``"hier"``: the texture table on the
+      (``sun-xpm``), then with the 2048x2048 BRUN FLC and the 768x512
+      PhotoCD of ``make_torch_fixtures.FLI_PCD_IPTC_MAPS`` made here
+      (``fli-pcd``), through ``"hier"``: the texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry (each drive's ms a sample on the host's clock), then ms
       per sample in turns against the checker-map session (all but
-      ``tiff-lzma-zstd``, ``fits-pixar`` and ``sun-xpm``, which only their
-      drives time);
+      ``tiff-lzma-zstd``, ``fits-pixar``, ``sun-xpm`` and ``fli-pcd``,
+      which only their drives time);
     - the raw-decoder maps of ``make_torch_fixtures.RASTER_MAPS`` made
       here (2048x2048 FITS at BITPIX 8, 16 and -32 and as GZIP_1 tiles,
       a 2-byte McIDAS and a SPIDER file, a 1024x1024 PIXAR and a DCX whose
@@ -1332,6 +1340,14 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       XPM in P mode and one in RGB mode of 2-character keys), each file
       and its decode held to ``tests/torch_data/bitmap_map_digests.json``
       (PIL's decode), the decodes timed (median of ``decodes``);
+    - the FLI/FLC, PhotoCD and IPTC files of
+      ``make_torch_fixtures.FLI_PCD_IPTC_MAPS`` made here (a 2048x2048
+      FLC whose first frame is BRUN under a 256-entry colour chunk, a
+      2048x2048 FLI of LC and SS2 chunks, 768x512 PhotoCDs at orientations
+      0 and 1, a 2048x2048 raw IPTC band of an RGB record, a 1024x1024 IPTC
+      record of the port's baseline JPEG), each file and its decode held
+      to ``tests/torch_data/fli_pcd_iptc_map_digests.json`` (PIL's
+      decode), the decodes timed (median of ``decodes``);
     - ``write_image`` of the 37x29 fixture image and a procedural
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
@@ -1482,28 +1498,35 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         check(file_same, f"{name}: the file is not the one PIL decoded")
         check(same, f"{name}: the decode is not its recorded digest")
 
-    # the X11 and Sun bitmaps (SUN, GBR, MSP, XBM, XPM), made here and held
-    # to the digests recorded with PIL, their decodes timed
-    with open(os.path.join(FILES_DIR, "bitmap_map_digests.json")) as f:
-        bitmap_digests = json.load(f)
-    check(sorted(bitmap_digests) == sorted(fixtures.BITMAP_MAPS),
-          "bitmap_map_digests.json names other maps than BITMAP_MAPS")
-    for name, want in sorted(bitmap_digests.items()):
-        data = fixtures.bitmap_map(name)
-        path = os.path.join(maps_dir.name, name)
-        with open(path, "wb") as f:
-            f.write(data)
-        file_same = hashlib.sha256(data).hexdigest() == want["file_sha256"]
-        rgba = image.load_rgba8(path)
-        same = (list(rgba.shape) == want["shape"] and hashlib.sha256(
-            rgba.tobytes()).hexdigest() == want["rgba_sha256"])
-        ms, med = median_ms(lambda: image.load_rgba8(path))
-        say("files", bitmap_map=name, bytes=len(data),
-            file_digest_equal=file_same, shape=list(rgba.shape),
-            digest_of=want["of"], digest_equal=same, runs=decodes, ms=ms,
-            median_ms=med, clock="host", card=repr(card))
-        check(file_same, f"{name}: the file is not the one PIL decoded")
-        check(same, f"{name}: the decode is not its recorded digest")
+    # the X11 and Sun bitmaps (SUN, GBR, MSP, XBM, XPM) and the FLI/FLC,
+    # PhotoCD and IPTC files (the IPTC JPEG by the port's encoder, PIL's
+    # file byte for byte), made here and held to the digests recorded with
+    # PIL, their decodes timed
+    for kind, names, make in (
+            ("bitmap_map", fixtures.BITMAP_MAPS, fixtures.bitmap_map),
+            ("fli_pcd_iptc_map", fixtures.FLI_PCD_IPTC_MAPS,
+             lambda name: fixtures.fli_pcd_iptc_map(name, jpg=jpeg.encode))):
+        with open(os.path.join(FILES_DIR, f"{kind}_digests.json")) as f:
+            map_digests = json.load(f)
+        check(sorted(map_digests) == sorted(names),
+              f"{kind}_digests.json names other maps than its builder's")
+        for name, want in sorted(map_digests.items()):
+            data = make(name)
+            path = os.path.join(maps_dir.name, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            file_same = (hashlib.sha256(data).hexdigest()
+                         == want["file_sha256"])
+            rgba = image.load_rgba8(path)
+            same = (list(rgba.shape) == want["shape"] and hashlib.sha256(
+                rgba.tobytes()).hexdigest() == want["rgba_sha256"])
+            ms, med = median_ms(lambda: image.load_rgba8(path))
+            say("files", **{kind: name}, bytes=len(data),
+                file_digest_equal=file_same, shape=list(rgba.shape),
+                digest_of=want["of"], digest_equal=same, runs=decodes,
+                ms=ms, median_ms=med, clock="host", card=repr(card))
+            check(file_same, f"{name}: the file is not the one PIL decoded")
+            check(same, f"{name}: the decode is not its recorded digest")
 
     maps = {"jpeg": ("roughness_2048_prog420.jpg", "normal_1024_444.jpg"),
             "jpeg-flavours": ("roughness_2048_ycck_arith_prog.jpg",
@@ -1541,7 +1564,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                              "normal_1024.pxr")),
             "sun-xpm": tuple(os.path.join(maps_dir.name, name)
                              for name in ("roughness_2048_rle.ras",
-                                          "normal_1024.xpm"))}
+                                          "normal_1024.xpm")),
+            "fli-pcd": tuple(os.path.join(maps_dir.name, name)
+                             for name in ("roughness_2048_brun.flc",
+                                          "normal_768x512.pcd"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
@@ -1591,8 +1617,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # JPEG 2000 codestream maps, the RLE8 BMP and DIB-framed ICO maps and
     # the BC6H and BC7 DDS maps and the FTEX and BLP maps and the lossy
     # JPEG 2000 maps and the ZSTD and LZMA TIFF maps and the FITS and PIXAR
-    # maps and the run-length SUN and RGB XPM maps, each counted through
-    # K3, K2 and threefry
+    # maps and the run-length SUN and RGB XPM maps and the BRUN FLC and
+    # PhotoCD maps, each counted through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1633,7 +1659,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         healthy(img_m, f"textured-{kind}")
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
-        if kind not in ("tiff-lzma-zstd", "fits-pixar", "sun-xpm"):
+        if kind not in ("tiff-lzma-zstd", "fits-pixar", "sun-xpm",
+                        "fli-pcd"):
             sessions[kind] = sess_m   # (the others timed by their drives)
         del img_m, sess_m
     sessions["checker"] = pt.RenderSession(textured_sphere_scene(pt, res),
@@ -3086,8 +3113,8 @@ def main() -> int:
         # CMYK and YCbCr TIFF, the Group 4 and JPEG-in-TIFF, the QOI and
         # DXT1, the ICNS and ICO, the JP2 and J2K, the RLE8 BMP and DIB
         # ICO, the BC6H and BC7 DDS, the FTEX and BLP, the lossy JPEG
-        # 2000, the ZSTD and LZMA TIFF, the FITS and PIXAR, and the SUN
-        # and XPM maps, the natively parsed 52k
+        # 2000, the ZSTD and LZMA TIFF, the FITS and PIXAR, the SUN and
+        # XPM, and the FLC and PhotoCD maps, the natively parsed 52k
         # terrain)
         k["launches_files"] = files_launches[k["name"]]
     finish(torch)

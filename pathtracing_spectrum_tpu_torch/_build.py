@@ -6,8 +6,9 @@ Two shared libraries, each built into ``build/`` next to this file
 - the CUDA kernels under ``csrc/*.cu`` (with the shared header
   ``csrc/tri_hit.cuh``), by nvcc, one object per source compiled in
   parallel, then linked; only the machine with the card builds it;
-- the host library, by the host C++ compiler, on any machine that uses
-  it (the CPU tests too): the BVH builder ``csrc/bvh_build.cpp``, the OBJ
+- the host library, by the host C++ compiler, one object per source
+  compiled in parallel, then linked, on any machine that uses it (the CPU
+  tests too): the BVH builder ``csrc/bvh_build.cpp``, the OBJ
   parser and spectral writer ``csrc/host_io.cpp``, the JPEG decoder
   ``csrc/jpeg_decode.cpp`` (which also reads JPEG-compressed TIFF strips
   as libtiff does) and encoder ``csrc/jpeg_encode.cpp``, the
@@ -22,11 +23,15 @@ Two shared libraries, each built into ``build/`` next to this file
   GIF quantiser and LZW encoder ``csrc/gif_encode.cpp`` and the JPEG
   2000 decoder ``csrc/j2k_decode.cpp`` and encoder ``csrc/j2k_encode.cpp``
   (with their shared tables and forward 5/3 transform
-  ``csrc/j2k_common.h``).
+  ``csrc/j2k_common.h``) and the FLI/FLC frame decoder
+  ``csrc/fli_decode.cpp``.
 
 Each file name carries a hash of its sources and flags, so a changed source
-is always rebuilt and a stale library is never loaded. Nothing here runs at
-import: the CPU tests import every module on machines without nvcc.
+is always rebuilt and a stale library is never loaded. Processes that need
+a missing library at once (test workers, the ranks of one job) take a
+``flock`` on a lock file beside it: one builds, the others wait and load
+what it built. Nothing here runs at import: the CPU tests import every
+module on machines without nvcc.
 
 Each CUDA entry point takes device pointers and the stream as ``void*``,
 launches on that stream, and returns ``cudaGetLastError()``; the wrappers
@@ -35,7 +40,9 @@ raise when it is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -56,7 +63,7 @@ HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
                 _CSRC / "fax_decode.cpp", _CSRC / "qoi.cpp",
                 _CSRC / "bcn_decode.cpp", _CSRC / "resample.cpp",
                 _CSRC / "j2k_encode.cpp", _CSRC / "j2k_decode.cpp",
-                _CSRC / "zstd_decode.cpp")
+                _CSRC / "zstd_decode.cpp", _CSRC / "fli_decode.cpp")
 HOST_HEADERS = (_CSRC / "jpeg_std_tables.h", _CSRC / "vp8_common.h",
                 _CSRC / "j2k_common.h")
 BUILD_DIR = _HERE / "build"
@@ -138,6 +145,7 @@ _HOST_SIGNATURES = {
     "pts_j2k_size": ([_V, _V, _V, _V], None),
     "pts_j2k_copy": ([_V, _V], None),
     "pts_j2k_free": ([_V], None),
+    "pts_fli_decode": ([_V, _I64, _I32, _I32, _V], _I32),
 }
 
 
@@ -198,34 +206,56 @@ def _run_all(cmds) -> None:
         raise RuntimeError(f"build failed ({rc}):\n{' '.join(cmd)}\n{out}")
 
 
-def _build(path: Path, make) -> None:
-    """Build ``path`` through a temporary name (``make(tmp_stem)`` runs the
-    compilers) and move it in place atomically: a concurrent loader sees
-    all or none."""
+@contextlib.contextmanager
+def _build_lock(path: Path):
+    """Hold an exclusive ``flock`` on ``path``'s lock file in ``BUILD_DIR``
+    (the kernel and host libraries have their own, so they build side by
+    side); the kernel drops it if the holder dies."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = path.with_suffix(f".{os.getpid()}")
-    tmp = make(stem)
-    os.replace(tmp, path)
+    with open(path.with_suffix(".lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def _make_kernels(stem: Path) -> Path:
-    nvcc = nvcc_path()
-    objs = [Path(f"{stem}.{src.stem}.o") for src in SOURCES]
-    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
-              for o, s in zip(objs, SOURCES)])
+def _build(path: Path, make) -> bool:
+    """Build ``path`` unless another process has, under its lock:
+    ``make(tmp_stem)`` runs the compilers, and the result is moved in place
+    atomically. True where this process built it."""
+    with _build_lock(path):
+        if path.exists():
+            return False
+        stem = path.with_suffix(f".{os.getpid()}")
+        tmp = make(stem)
+        os.replace(tmp, path)
+        return True
+
+
+def _objects_then_link(stem: Path, compiler: str, flags, sources) -> Path:
+    """Compile each of ``sources`` to an object, side by side, then link
+    the objects into ``stem.tmp`` (``flags`` without ``-shared`` compile,
+    with it they link)."""
+    compile_flags = [f for f in flags if f != "-shared"]
+    objs = [Path(f"{stem}.{src.stem}.o") for src in sources]
+    _run_all([[compiler, *compile_flags, "-c", "-o", str(o), str(s)]
+              for o, s in zip(objs, sources)])
     tmp = Path(f"{stem}.tmp")
-    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+    _run_all([[compiler, *compile_flags, "-shared", "-o", str(tmp),
                *(str(o) for o in objs)]])
     for o in objs:
         o.unlink()
     return tmp
 
 
+def _make_kernels(stem: Path) -> Path:
+    return _objects_then_link(stem, nvcc_path(), NVCC_FLAGS, SOURCES)
+
+
 def _make_host(stem: Path) -> Path:
-    tmp = Path(f"{stem}.tmp")
-    _run_all([[host_compiler(), *HOST_FLAGS, "-o", str(tmp),
-               *(str(s) for s in HOST_SOURCES)]])
-    return tmp
+    return _objects_then_link(stem, host_compiler(), HOST_FLAGS,
+                              HOST_SOURCES)
 
 
 def load() -> ctypes.CDLL:
@@ -235,8 +265,8 @@ def load() -> ctypes.CDLL:
     path = library_path()
     if not path.exists():
         t0 = time.perf_counter()
-        _build(path, _make_kernels)
-        _Library.build_seconds = time.perf_counter() - t0
+        if _build(path, _make_kernels):
+            _Library.build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -252,7 +282,7 @@ def load_host() -> ctypes.CDLL:
     JPEG decoder and encoder, the LZW, PackBits, SGI RLE, PCX RLE, BMP RLE,
     ICNS RLE, CCITT and Zstandard decoders, the QOI decoder and encoder, the DDS block decoder,
     the resampler, the WebP decoder and encoder, the GIF encoder and the
-    JPEG 2000 decoder and encoder. Raises with the
+    JPEG 2000 decoder and encoder and the FLI/FLC decoder. Raises with the
     compiler's output when it cannot be built: none of them has a
     fallback."""
     if _Library.host is not None:

@@ -191,7 +191,14 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   depth 1 and 4), MSP (``DanM`` raw and ``LinS`` run-length), XBM (PIL's
   decoder, which reads the two bytes after each ``x``) and XPM (``P``
   and ``RGB``, hex colours, the transparency key as PIL's palette
-  alphas), each as its plugin and PIL's C decoders read it.
+  alphas), each as its plugin and PIL's C decoders read it;
+- FLI/FLC, Kodak PhotoCD and IPTC/NAA (``utils/fli_pcd_iptc.py``): an
+  animation's first frame (SS2, LC, BLACK, BRUN and COPY chunks, the host
+  library's ``csrc/fli_decode.cpp``) through its first colour chunk's
+  palette, PhotoCD's 768x512 base image (PhotoYCC by PIL's tables, turned
+  by its orientation), and an IPTC record's raw or "jpeg" image (the
+  latter any file decoded here), in one band of ``RGB`` or ``CMYK`` where
+  the record names one.
 
 Four named deviations from PIL, one rule: a 16-bit grey PNG (colour type
 0), a 16-bit grey TIFF, a 16-bit grey IM file (``L 16``, ``L 16L``,
@@ -214,8 +221,8 @@ black (image.cpp:48-49). So do BUFR, GRIB, HDF5 and MPEG files, which
 PIL opens and never decodes on any host (stubs whose loader only an
 application's handler fills, and MPEG with no tile). A format PIL opens
 and the port does not (AVIF, EPS (PIL reads it only through
-Ghostscript), WMF (only on Windows), FLI, IPTC and PCD: the other 6
-plugins) or a flavour of one decoded here that it does not take (lossless and block-smoothed progressive
+Ghostscript) and WMF (only on Windows): the other 3 plugins) or a
+flavour of one decoded here that it does not take (lossless and block-smoothed progressive
 JPEG, an uncompressed BMP or DIB whose grey palette PIL reads at
 another sample size than the pixels' (1 or 4 bits as ``L``, 8 bits under
 two entries as ``1``), plain-text PNM (P1-P3) and PIL's test extensions
@@ -244,13 +251,14 @@ and ``tests/test_torch_formats.py`` hold the rest):
   a cursor, the reads of its bitmap header, a size of no pixels:
   ``_OPEN_CHECKS``; a TGA starts with CUR's bytes), BLP's and MPEG's
   (their header reads, a size of no pixels), FTEX's (its reads up to the
-  mipmap's length) and for those of IM,
-  IPTC and PCD, plugins without a prefix test; it follows the whole
+  mipmap's length) and IM's (a plugin without a prefix test); it follows
+  the whole
   ``_open`` of DCX (its directory and the page's PCX header), FITS,
   MCIDAS, PIXAR and XVTHUMB, and of IMT and SPIDER, which have no prefix
-  test (``utils/rasters.py``), and of GBR, MSP, SUN, XBM and XPM
+  test (``utils/rasters.py``), of GBR, MSP, SUN, XBM and XPM
   (``utils/bitmaps.py``: a C header that starts ``#define`` is None, as
-  in PIL);
+  in PIL), and of FLI, and of IPTC and PCD, which have no prefix test
+  (``utils/fli_pcd_iptc.py``);
 - a McIDAS file whose line stride is shorter than a line, which PIL
   memory-maps for ``L`` and ``I;16B``: the last lines' bytes past the
   file's end read as zeros, as the map's last page holds them; where they
@@ -365,7 +373,8 @@ import zlib
 
 import numpy as np
 
-from . import bitmaps, codecs, gif, jpeg, jpeg2000, rasters, resample, webp
+from . import (bitmaps, codecs, fli_pcd_iptc, gif, jpeg, jpeg2000, rasters,
+               resample, webp)
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples per pixel, allowed bit depths)
@@ -419,8 +428,8 @@ def load_rgba8(path: str) -> "np.ndarray | None":
             "BMP, DIB, TGA, binary PNM and PFM, GIF, TIFF, PSD, WebP, SGI, "
             "PCX, DCX, IM, QOI, DDS, ICO, CUR, ICNS, JPEG 2000, BLP, FTEX, "
             "FITS, McIDAS, SPIDER, PIXAR, IMT, XV thumbnails, Sun raster, "
-            "GBR, MSP, XBM and XPM are; convert it; ROADMAP Queue 1 item "
-            "11)")
+            "GBR, MSP, XBM, XPM, FLI/FLC, PhotoCD and IPTC are; convert it; "
+            "ROADMAP Queue 1 item 11)")
     try:
         return _DECODERS[kind](data)
     except (_Refused, NotImplementedError) as e:
@@ -539,10 +548,8 @@ _PIL_OPENS = (
 )
 _HEADER_CHECKS = {
     "IM": _im_header, "TGA": _tga_header, **rasters.HEADER_CHECKS,
-    # IptcImagePlugin.field: a 0x1C marker and a known record number
-    "IPTC": lambda d: len(d) >= 5 and d[0] == 0x1C and d[1] in (
-        1, 2, 3, 4, 5, 6, 7, 8, 9, 240),
-    "PCD": lambda d: d[2048:2052] == b"PCD_",
+    # IPTC and PCD: their whole _open (``utils/fli_pcd_iptc.py``)
+    **fli_pcd_iptc.HEADER_CHECKS,
 }
 
 
@@ -573,6 +580,8 @@ _OPEN_CHECKS = {
     **rasters.OPEN_CHECKS,
     # GBR, MSP, SUN, XBM and XPM: their whole _open (``utils/bitmaps.py``)
     **bitmaps.OPEN_CHECKS,
+    # FLI: its whole _open (``utils/fli_pcd_iptc.py``)
+    **fli_pcd_iptc.OPEN_CHECKS,
 }
 
 
@@ -2915,7 +2924,7 @@ _DECODERS = {"PNG": _decode_png, "JPEG": jpeg.decode_rgba,
              "DDS": _decode_dds, "ICO": _decode_ico, "CUR": _decode_cur,
              "ICNS": _decode_icns, "JPEG2000": _decode_jpeg2000,
              "BLP": _decode_blp, "FTEX": _decode_ftex, **rasters.DECODERS,
-             **bitmaps.DECODERS}
+             **bitmaps.DECODERS, **fli_pcd_iptc.DECODERS}
 # the formats PIL opens and never decodes, on any host: the stubs of BUFR,
 # GRIB and HDF5, which load only through a handler an application
 # registers (the JAX package registers none), and MPEG, whose plugin sets

@@ -2,8 +2,9 @@
 12.1), on every committed fixture (QOI, DXT5 and uncompressed DDS, ICO
 and ICNS among them; FITS, GZIP_1 FITS, McIDAS, SPIDER, PIXAR, IMT, XV
 thumbnail and DCX files, and Sun rasters (raw, palette, run-length),
-GIMP brushes, MSP (``DanM``, ``LinS``), XBM and XPM files, each of them
-small enough for a case at nearly every byte) and
+GIMP brushes, MSP (``DanM``, ``LinS``), XBM and XPM files, and FLI and
+FLC animations and IPTC records (raw, a band, a JPEG inside), each of
+them small enough for a case at nearly every byte) and
 ``assets/checker.png`` cut short and with single
 bits flipped. Both must give None (PIL raises), or the same
 image bit for bit. One test per fixture and kind of damage, looping over

@@ -700,7 +700,7 @@ def _refused():
                        "L*12")},
         "ASCII PNM": b"P3 1 1 255\n1 2 3\n",
         "ASCII PBM": b"P1 3 1\n0 1 0\n",
-        # the 6 formats PIL opens and the port does not decode
+        # the 3 formats PIL opens and the port does not decode
         **{f"{fmt} file": data for fmt, data in STILL_REFUSED.items()},
     }
 
@@ -709,24 +709,52 @@ def _refused():
 STILL_REFUSED = {
     "AVIF": b"\0\0\0\x1cftypavif" + bytes(60),
     "EPS": b"%!PS-Adobe-3.0 EPSF-3.0\n" + bytes(40),
-    "FLI": bytes(4) + b"\x11\xaf" + bytes(122),
-    "IPTC": b"\x1c\x02\x00\x00\x02ab" + bytes(20),
-    "PCD": bytes(2048) + b"PCD_" + bytes(100),
     "WMF": b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(60),
 }
 
 
 @pytest.mark.parametrize("fmt", sorted(STILL_REFUSED))
 def test_refused_formats_are_named_as_pil_names_them(fmt):
-    """Each of the 6 formats still refused is the format PIL's plugin
+    """Each of the 3 formats still refused is the format PIL's plugin
     tests name (so its file raises naming it, not None)."""
     assert image._sniff(STILL_REFUSED[fmt]) == fmt
 
 
+# {format: a file the port once refused as that format, which PIL cannot
+# identify: an FLI header with no frame header after it (PIL's read of
+# the frame's type is a struct.error), an IPTC record without a (3, 60)
+# field, a PCD marker in a file shorter than PIL's 1,539-byte read}
+ONCE_REFUSED_UNIDENTIFIED = {
+    "FLI": bytes(4) + b"\x11\xaf" + bytes(122),
+    "IPTC": b"\x1c\x02\x00\x00\x02ab" + bytes(20),
+    "PCD": bytes(2048) + b"PCD_" + bytes(100),
+}
+
+
+@pytest.mark.parametrize("fmt", sorted(ONCE_REFUSED_UNIDENTIFIED))
+def test_files_once_refused_as_fli_iptc_pcd_are_none_as_in_jax(fmt,
+                                                                tmp_path):
+    """The three files the port refused by a prefix test: each plugin's
+    whole ``_open`` fails as PIL's does, no other plugin opens the file,
+    and both packages give None (``utils/fli_pcd_iptc.py``)."""
+    data = ONCE_REFUSED_UNIDENTIFIED[fmt]
+    assert image._sniff(data) is None
+    path = tmp_path / "x.bin"
+    path.write_bytes(data)
+    assert jimage.load_rgba(str(path)) is None
+    assert image.load_rgba(str(path)) is None
+
+
 # {format: a file of it, once refused, that the port now decodes
-# (``utils/bitmaps.py``; ``tests/test_torch_bitmap_formats.py`` holds the
-# rest)}
+# (``utils/bitmaps.py`` and ``utils/fli_pcd_iptc.py``;
+# ``tests/test_torch_bitmap_formats.py`` and
+# ``tests/test_torch_fli_pcd_iptc.py`` hold the rest)}
 NOW_DECODED = {
+    "FLI": fx.fli_bytes(5, 3, [fx.fli_frame([fx.fli_chunk(
+        15, fx.fli_brun(np.arange(15, dtype=np.uint8).reshape(3, 5)))])]),
+    "IPTC": fx.iptc_bytes(5, 3, bytes(range(40, 55))),
+    "PCD": fx.pcd_bytes(*fx.pcd_of(fx.procedural_rgb(768, 512, 29), 29),
+                        orientation=1),
     "GBR": struct.pack(">5I", 28, 2, 4, 4, 1) + b"GIMP" + bytes(80),
     "MSP": fx.msp_bytes(np.eye(8, dtype=np.uint8)),
     "SUN": struct.pack(">8I", 0x59A66A95, 4, 4, 8, 16, 1, 0, 0)
@@ -740,9 +768,10 @@ NOW_DECODED = {
 
 @pytest.mark.parametrize("fmt", sorted(NOW_DECODED))
 def test_formats_once_refused_are_named_and_decoded_as_jax(fmt, tmp_path):
-    """GBR, MSP, SUN, XBM and XPM, refused before ``utils/bitmaps.py``:
-    named as PIL's plugin tests name them and decoded as the JAX package
-    decodes them."""
+    """FLI, GBR, IPTC, MSP, PCD, SUN, XBM and XPM, refused before
+    ``utils/bitmaps.py`` and ``utils/fli_pcd_iptc.py``: named as PIL's
+    plugin tests name them and decoded as the JAX package decodes
+    them."""
     assert image._sniff(NOW_DECODED[fmt]) == fmt
     held(tmp_path, "x.bin", NOW_DECODED[fmt])
 

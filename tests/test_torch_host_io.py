@@ -215,7 +215,8 @@ def test_host_library_is_built_from_the_port_sources_with_jax_flags():
                        "jpeg_encode.cpp", "lzw_decode.cpp", "webp_decode.cpp",
                        "gif_encode.cpp", "webp_encode.cpp", "fax_decode.cpp",
                        "qoi.cpp", "bcn_decode.cpp", "resample.cpp",
-                       "j2k_encode.cpp", "j2k_decode.cpp", "zstd_decode.cpp"}
+                       "j2k_encode.cpp", "j2k_decode.cpp", "zstd_decode.cpp",
+                       "fli_decode.cpp"}
     assert {p.name for p in _build.HOST_HEADERS} == {"jpeg_std_tables.h",
                                                      "vp8_common.h",
                                                      "j2k_common.h"}
@@ -239,7 +240,7 @@ RLE_FILES = {
 @pytest.mark.parametrize("call", ["load_obj", "export_spectrum", "jpeg",
                                   "jpeg_encode", "tiff_lzw", "webp",
                                   "gif_encode", "webp_encode", "sgi_rle",
-                                  "pcx_rle", "tiff_g4", "tiff_jpeg"])
+                                  "pcx_rle", "tiff_g4", "tiff_jpeg", "fli"])
 def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
                                                               monkeypatch):
     def no_library():
@@ -267,5 +268,37 @@ def test_no_python_fallback_when_the_library_cannot_be_built(call, tmp_path,
                 {"jpeg": "normal_1024_444.jpg", "tiff_lzw":
                  "normal_512_lzw16.tif", "webp": "normal_1024_lossless.webp",
                  "tiff_g4": "small_g4_miniswhite.tif",
-                 "tiff_jpeg": "small_jpeg_ycbcr.tif"}[call]))
+                 "tiff_jpeg": "small_jpeg_ycbcr.tif",
+                 "fli": "small.fli"}[call]))
     assert jpeg.BrokenJpeg is not RuntimeError
+
+
+def test_processes_that_need_a_missing_library_build_it_once(tmp_path,
+                                                             monkeypatch):
+    """``_build`` holds a lock beside the library around its check and its
+    build: of two callers at once, one runs the compilers and the other
+    waits and finds the library (no caller compiles a library another has
+    built or is building)."""
+    import threading
+    import time
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    path = tmp_path / "libx_0123.so"
+    made = []
+
+    def make(stem):
+        made.append(stem)
+        time.sleep(0.3)
+        tmp = tmp_path / f"{stem.name}.tmp"
+        tmp.write_bytes(b"library")
+        return tmp
+
+    built = []
+    threads = [threading.Thread(target=lambda: built.append(
+        _build._build(path, make))) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(made) == 1 and sorted(built) == [False, False, True]
+    assert path.read_bytes() == b"library"
+    assert (tmp_path / "libx_0123.lock").exists()

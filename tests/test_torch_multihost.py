@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import pathtracing_spectrum_tpu_torch as pt  # noqa: E402
+from pathtracing_spectrum_tpu_torch import _build  # noqa: E402
 from pathtracing_spectrum_tpu_torch.ops import rng  # noqa: E402
 from pathtracing_spectrum_tpu_torch.parallel import (  # noqa: E402
     SppAllreduce, TileSharding, make_mesh)
@@ -88,6 +89,10 @@ def free_port() -> str:
 
 
 def test_two_process_spp_allreduce_and_tiles(tmp_path):
+    # the workers parse the box's OBJ through the host library: build it
+    # here (or wait for another process that builds it), so that the 120 s
+    # below cover the workers' render, not a compile
+    _build.load_host()
     out = str(tmp_path / "mh")
     code = WORKER.format(root=ROOT, here=os.path.dirname(__file__))
     port = free_port()
@@ -97,6 +102,12 @@ def test_two_process_spp_allreduce_and_tiles(tmp_path):
              for i in range(2)]
     try:
         logs = [p.communicate(timeout=120)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        logs = [p.communicate()[0] for p in procs]
+        pytest.fail("the workers did not finish in 120 s:\n" + "\n".join(
+            f"rank {i}: {log[-2000:]}" for i, log in enumerate(logs)))
     finally:
         for p in procs:
             p.kill()

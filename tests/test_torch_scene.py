@@ -127,18 +127,18 @@ def test_scene_data_from_numpy_carries_bvh_ordered_scene():
 
 
 def test_texture_binding_raises(tmp_path):
-    """A texture of a format the port does not decode (an FLI header,
-    which PIL's plugin tests name FLI) fails the compile, naming the
+    """A texture of a format the port does not decode (a WMF header,
+    which PIL's plugin tests name WMF) fails the compile, naming the
     file, instead of rendering without it.
     A broken BMP and a
     broken GIF (the 64-byte ``BM`` and ``GIF89a`` files, once refused as
     formats not decoded) and a missing file bind nothing, as in the
     reference and the JAX package."""
     jsc, sc = port_cornell()
-    rough = tmp_path / "rough.fli"
-    rough.write_bytes(bytes(4) + b"\x11\xaf" + bytes(122))
+    rough = tmp_path / "rough.wmf"
+    rough.write_bytes(b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(60))
     sc.objects[0].elements[0].material.roughness_tex_file = str(rough)
-    with pytest.raises(NotImplementedError, match="rough.fli"):
+    with pytest.raises(NotImplementedError, match="rough.wmf"):
         sc.compile("cpu")
     broken = tmp_path / "rough.bmp"
     broken.write_bytes(b"BM" + bytes(64))

@@ -153,7 +153,7 @@ def test_unsupported_png_flavours_raise_naming_the_file(what, tmp_path):
     PIL does; 16-bit grey keeps each sample's high byte, the named
     deviation from PIL (which clips at 255; ``tests/test_torch_formats.py``
     holds both). An XBM, once refused, decodes as PIL does; a format
-    still not decoded (an FLI header) raises naming the file."""
+    still not decoded (a WMF header) raises naming the file."""
     rng = np.random.default_rng(3)
     path = str(tmp_path / f"{what}.png")
     if what == "16-bit":
@@ -171,15 +171,15 @@ def test_unsupported_png_flavours_raise_naming_the_file(what, tmp_path):
     xbm = str(tmp_path / f"{what}.xbm")
     Image.fromarray(np.zeros((16, 16), bool)).save(xbm)
     assert_bitwise(image.load_rgba(xbm), jimage.load_rgba(xbm))
-    fli = tmp_path / f"{what}.fli"
-    fli.write_bytes(bytes(4) + b"\x11\xaf" + bytes(122))
-    with pytest.raises(NotImplementedError, match=f"{what}.fli"):
-        image.load_rgba(str(fli))
+    wmf = tmp_path / f"{what}.wmf"
+    wmf.write_bytes(b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(60))
+    with pytest.raises(NotImplementedError, match=f"{what}.wmf"):
+        image.load_rgba(str(wmf))
 
 
 def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
     """A JPEG, a GIF, a WebP, a QOI, an ICO with BMP frames and an XBM,
-    once refused, decode as PIL does; an FLI header still raises naming
+    once refused, decode as PIL does; a WMF header still raises naming
     the file; a missing or broken file is None in both packages."""
     jpg = str(tmp_path / "tex.jpg")
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(jpg)
@@ -200,10 +200,10 @@ def test_non_png_raises_and_missing_or_broken_is_none(tmp_path):
     xbm = str(tmp_path / "tex.xbm")
     Image.fromarray(np.zeros((16, 16), bool)).save(xbm)
     assert_bitwise(image.load_rgba(xbm), jimage.load_rgba(xbm))
-    fli = tmp_path / "tex.fli"
-    fli.write_bytes(bytes(4) + b"\x11\xaf" + bytes(122))
-    with pytest.raises(NotImplementedError, match="tex.fli"):
-        image.load_rgba(str(fli))
+    wmf = tmp_path / "tex.wmf"
+    wmf.write_bytes(b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(60))
+    with pytest.raises(NotImplementedError, match="tex.wmf"):
+        image.load_rgba(str(wmf))
     assert image.load_rgba(str(tmp_path / "missing.png")) is None
     assert image.load_rgba("") is None
     broken = tmp_path / "broken.png"

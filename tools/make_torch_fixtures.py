@@ -1796,14 +1796,14 @@ def bitmap_map(name: str) -> bytes:
     return xpm_bytes(*xpm_of(px, 4, 2))
 
 
-def bitmap_map_digests() -> dict:
+def pil_map_digests(names, make) -> dict:
     """{map: {"file_sha256", "rgba_sha256", "shape", "of"}} of each of
-    ``BITMAP_MAPS``: the sha256 of its file and of PIL's
+    ``names``: the sha256 of its file ``make(name)`` and of PIL's
     ``convert("RGBA")`` of it."""
     ti = _images_module()
     out = {}
-    for name in BITMAP_MAPS:
-        data = bitmap_map(name)
+    for name in names:
+        data = make(name)
         rgba = ti.pil_rgba8(data)
         out[name] = {"file_sha256": hashlib.sha256(data).hexdigest(),
                      "rgba_sha256": hashlib.sha256(
@@ -1811,6 +1811,289 @@ def bitmap_map_digests() -> dict:
                      "shape": list(rgba.shape),
                      "of": 'PIL 12.1 convert("RGBA")'}
     return out
+
+
+def bitmap_map_digests() -> dict:
+    """:func:`pil_map_digests` of ``BITMAP_MAPS``."""
+    return pil_map_digests(BITMAP_MAPS, bitmap_map)
+
+
+# ---- FLI/FLC, PhotoCD and IPTC ---------------------------------------------
+
+def fli_chunk(kind: int, body: bytes, size=None) -> bytes:
+    """A subchunk: its 32-bit size (the 6-byte header included, unless
+    ``size`` is given), its type, its body."""
+    return struct.pack("<IH", 6 + len(body) if size is None else size,
+                       kind) + body
+
+
+def fli_frame(chunks, size=None) -> bytes:
+    """A frame chunk (type 0xF1FA) of the subchunks, 16-byte header."""
+    body = b"".join(chunks)
+    return struct.pack("<IHH", 16 + len(body) if size is None else size,
+                       0xF1FA, len(chunks)) + bytes(8) + body
+
+
+def fli_bytes(w: int, h: int, frames, magic: int = 0xAF12, flags: int = 3,
+              n_frames=None, prefix: bytes = b"") -> bytes:
+    """An FLI (``magic`` 0xAF11) or FLC (0xAF12) file: the 128-byte header
+    (8-bit depth, speed 5, the reserved fields zero), ``prefix`` (an FLC
+    prefix chunk, 0xF100), the frames."""
+    head = bytearray(128)
+    frames = b"".join(frames)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(prefix) + len(frames),
+                     magic, len(frames and [1]) if n_frames is None
+                     else n_frames, w, h, 8, flags, 5)
+    struct.pack_into("<HH", head, 38, 1, 1)
+    return bytes(head) + prefix + frames
+
+
+def fli_colour(palette: np.ndarray, skips=None) -> bytes:
+    """A colour chunk's body: one packet per row of ``palette`` blocks
+    (``skips``: [(skip, count)] splitting it, a count of 256 written as
+    0), the triplets as given (6 bits for chunk 11)."""
+    pal = np.asarray(palette, np.uint8).reshape(-1, 3)
+    skips = skips or [(0, len(pal))]
+    out, at = bytearray(struct.pack("<H", len(skips))), 0
+    for skip, count in skips:
+        out += bytes([skip, count & 255]) + pal[at:at + count].tobytes()
+        at += count
+    return bytes(out)
+
+
+def _runs(row: np.ndarray):
+    """(start, length, value) of the runs of equal bytes of ``row``."""
+    starts = np.r_[0, np.flatnonzero(np.diff(row)) + 1]
+    lengths = np.diff(np.r_[starts, row.size])
+    return zip(starts.tolist(), lengths.tolist(), row[starts].tolist())
+
+
+def fli_brun(index: np.ndarray) -> bytes:
+    """A BRUN (15) body: per line an (unused) packet count byte, then a
+    run of 2 or more equal bytes as a count up to 127 and the byte, the
+    bytes between as literals of up to 128 after 256 - their count."""
+    out = bytearray()
+    for row in np.asarray(index, np.uint8):
+        out.append(0)
+        literal = bytearray()
+
+        def flush():
+            for i in range(0, len(literal), 128):
+                part = literal[i:i + 128]
+                out.append(256 - len(part))
+                out.extend(part)
+            literal.clear()
+
+        for start, length, value in _runs(row):
+            if length == 1:
+                literal.append(value)
+                continue
+            flush()
+            while length:
+                n = min(length, 127)
+                out += bytes([n, value])
+                length -= n
+        flush()
+    return bytes(out)
+
+
+def fli_lc(index: np.ndarray, y0: int = 0, step: int = 200) -> bytes:
+    """An LC (12) body writing ``index``'s rows from line ``y0``: per line
+    packets of a skip of 0 and, per ``step`` bytes, a run (as 256 - n: a
+    segment of one value) or a copy of up to 127 bytes, split further."""
+    index = np.asarray(index, np.uint8)
+    out = bytearray(struct.pack("<HH", y0, index.shape[0]))
+    for row in index:
+        packets = bytearray()
+        count = 0
+        for at in range(0, row.size, step):
+            seg = row[at:at + step]
+            for i in range(0, seg.size, 127):
+                part = seg[i:i + 127]
+                if (part == part[0]).all():
+                    packets += bytes([0, 256 - part.size, part[0]])
+                else:
+                    packets += bytes([0, part.size]) + part.tobytes()
+                count += 1
+        out.append(count)
+        out += packets
+    return bytes(out)
+
+
+def fli_ss2(index: np.ndarray, every: int = 1) -> bytes:
+    """An SS2 (7) body writing every ``every``-th line of ``index`` (the
+    lines between skipped by a 0xC000 word), each as packets of a skip of
+    0 and runs (pairs of equal words) or copies of up to 127 words; an odd
+    width's last byte by a 0x80nn word."""
+    index = np.asarray(index, np.uint8)
+    h, w = index.shape
+    lines = list(range(0, h, every))
+    out = bytearray(struct.pack("<H", len(lines)))
+    for k, y in enumerate(lines):
+        row = index[y]
+        words = bytearray()
+        if k and every > 1:
+            words += struct.pack("<H", 65536 - (every - 1))
+        if w % 2:
+            words += struct.pack("<H", 0x8000 | int(row[-1]))
+        pairs = row[:w - w % 2].reshape(-1, 2)
+        packets = bytearray()
+        count = 0
+        for i in range(0, len(pairs), 127):
+            part = pairs[i:i + 127]
+            if (part == part[0]).all():
+                packets += bytes([0, 256 - len(part)]) + part[0].tobytes()
+            else:
+                packets += bytes([0, len(part)]) + part.tobytes()
+            count += 1
+        out += words + struct.pack("<H", count) + packets
+    return bytes(out)
+
+
+PCD_OFFSET = 96 * 2048
+
+
+def pcd_bytes(luma: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+              orientation: int = 0) -> bytes:
+    """A PhotoCD file of its 768x512 base image: ``PCD_IPI`` at byte 2,048,
+    the orientation in byte 3,586, then from byte 196,608 256 chunks of two
+    luma lines ([512, 768] ``luma``) and their 384 Cb and 384 Cr samples
+    ([256, 384] ``cb`` and ``cr``); 786,432 bytes."""
+    head = bytearray(PCD_OFFSET)
+    head[2048:2055] = b"PCD_IPI"
+    head[2048 + 1538] = orientation
+    body = np.concatenate([np.asarray(luma, np.uint8).reshape(256, 1536),
+                           np.asarray(cb, np.uint8),
+                           np.asarray(cr, np.uint8)], 1)
+    return bytes(head) + body.tobytes()
+
+
+def pcd_of(rgb: np.ndarray, seed: int):
+    """(luma, cb, cr) of a PhotoCD image: ``rgb``'s green channel as the
+    luma ([512, 768]) and hashed chroma about the neutral (156, 137)."""
+    cb = 156 + (hashed_bytes(256 * 384, seed).reshape(256, 384) >> 3) - 16
+    cr = 137 + (hashed_bytes(256 * 384, seed + 1).reshape(256, 384) >> 3) - 16
+    return rgb[..., 1], cb.astype(np.uint8), cr.astype(np.uint8)
+
+
+def iptc_field(record: int, dataset: int, data: bytes,
+               length_bytes: int = 0) -> bytes:
+    """An IPTC field as PIL reads one: 0x1C, the record and dataset
+    numbers, then the length in two bytes or, for ``length_bytes`` 1-4,
+    the byte 128 + that count, a byte PIL reads with it and ignores, and
+    the length in as many bytes (big-endian)."""
+    if length_bytes:
+        return (bytes([0x1C, record, dataset, 0x80 + length_bytes, 0])
+                + len(data).to_bytes(length_bytes, "big") + data)
+    return bytes([0x1C, record, dataset]) + struct.pack(">H", len(data)) + data
+
+
+def iptc_bytes(w: int, h: int, data: bytes, layers: int = 1,
+               component: int = 0, compression: int = 1, band=None,
+               chunk: int = 32000, extra=b"") -> bytes:
+    """An IPTC/NAA file: an envelope field, (3, 20) and (3, 30) the size,
+    (3, 60) layers and component, (3, 65) ``band`` (1-based) where given,
+    (3, 120) the compression, ``extra`` fields, then the image data in
+    (8, 10) fields of ``chunk`` bytes (a field of 32,768 or more in the
+    4-byte length form)."""
+    out = [iptc_field(1, 90, b"\x1b%G"), iptc_field(3, 20, struct.pack(
+        ">I", w)), iptc_field(3, 30, struct.pack(">I", h)),
+           iptc_field(3, 60, bytes([layers, component]))]
+    if band is not None:
+        out.append(iptc_field(3, 65, bytes([band])))
+    out += [iptc_field(3, 120, bytes([compression])), extra]
+    for at in range(0, len(data), chunk):
+        part = data[at:at + chunk]
+        out.append(iptc_field(8, 10, part, 4 if len(part) >= 32768 else 0))
+    return b"".join(out)
+
+
+def fli_pcd_iptc_files(small: np.ndarray) -> dict:
+    """{name: file}: 13x9 files (the top-left corner of ``small``; few
+    bytes, as every byte of them is damaged in
+    ``tests/test_torch_damage.py``) of FLI/FLC and IPTC: an FLI of a
+    6-bit colour chunk in two packets, a BRUN frame and a postage stamp;
+    an FLI without a colour chunk (the grey ramp) of LC lines from line
+    2; an FLC of a 256-entry colour chunk (count 0), BLACK and SS2 lines
+    with skips and the odd width's last byte, and a second frame; a raw
+    ``L`` IPTC record in two image fields (the second in the long length
+    form, of 2 bytes), a raw band 3 of a ``CMYK`` record, and PIL's JPEG in an
+    ``L`` record (compression 5)."""
+    px = np.ascontiguousarray(small[:9, :13])
+    index = (px[..., 0] // 8 + px[..., 1] // 64 * 32).astype(np.uint8)
+    index[3, 2:9] = 77
+    pal = hashed_bytes(768, 63).reshape(256, 3)
+    grey = np.ascontiguousarray(px[..., 1])
+    return {
+        "small.fli": fli_bytes(13, 9, [fli_frame([
+            fli_chunk(11, fli_colour(pal[:60] >> 2, [(2, 40), (7, 20)])),
+            fli_chunk(15, fli_brun(index)), fli_chunk(18, bytes(6))])],
+            magic=0xAF11, flags=0),
+        "small_lc.fli": fli_bytes(13, 9, [fli_frame([
+            fli_chunk(12, fli_lc(index[2:], 2, 5))])], magic=0xAF11),
+        "small.flc": fli_bytes(13, 9, [fli_frame([
+            fli_chunk(4, fli_colour(pal, [(0, 256)])), fli_chunk(13, b""),
+            fli_chunk(7, fli_ss2(index, 2))]),
+            fli_frame([fli_chunk(16, bytes(13 * 9))])]),
+        "small.iim": iptc_bytes(13, 9, b"") + iptc_field(
+            8, 10, grey[:5].tobytes()) + iptc_field(8, 10, grey[5:].tobytes(),
+                                                    2),
+        "small_band.iim": iptc_bytes(13, 9, grey.tobytes(), 4, 1, band=3),
+        "small_jpeg.iim": iptc_bytes(13, 9, pil_jpeg(px), compression=5),
+    }
+
+
+# the FLI/FLC, PhotoCD and IPTC files chip_smoke.py makes and times: a
+# 2048x2048 FLC whose first frame is BRUN under a 256-entry colour chunk
+# (the fli-pcd session's roughness map), a 2048x2048 FLI of LC and SS2
+# chunks under a 6-bit one, 768x512 PhotoCDs at orientation 0 (the
+# fli-pcd session's normal map) and 1, a 2048x2048 raw IPTC band of an
+# RGB record and a 1024x1024 IPTC record of a baseline JPEG; (side, seed
+# of procedural_rgb)
+FLI_PCD_IPTC_MAPS = {"roughness_2048_brun.flc": (2048, 71),
+                     "roughness_2048_lc_ss2.fli": (2048, 72),
+                     "normal_768x512.pcd": (768, 73),
+                     "normal_768x512_turned.pcd": (768, 74),
+                     "roughness_2048_band.iim": (2048, 75),
+                     "normal_1024_jpeg.iim": (1024, 76)}
+
+
+def fli_pcd_iptc_map(name: str, jpg=None) -> bytes:
+    """The file of one of ``FLI_PCD_IPTC_MAPS``, its content
+    :func:`procedural_rgb`'s: the FLC of its green channel (the first 64
+    columns its blue: literals among the runs) under a palette of another
+    seed's pixels, the FLI of LC lines of its red channel and SS2 lines of
+    its green every third line, the PhotoCDs of :func:`pcd_of` (the second
+    turned), the IPTC band of its red channel in 1 MiB fields, the IPTC
+    JPEG of :func:`normal_map` written by ``jpg`` (by default
+    :func:`pil_jpeg`; the port's ``jpeg.encode`` is the same file)."""
+    n, seed = FLI_PCD_IPTC_MAPS[name]
+    if name.endswith("_jpeg.iim"):
+        return iptc_bytes(n, n, (jpg or pil_jpeg)(normal_map(n)),
+                          compression=5)
+    if name.endswith(".pcd"):
+        return pcd_bytes(*pcd_of(procedural_rgb(768, 512, seed), seed),
+                         orientation=int(name.endswith("_turned.pcd")))
+    px = procedural_rgb(n, n, seed)
+    pal = procedural_rgb(256, 1, seed + 1)[0]
+    if name.endswith(".flc"):
+        index = px[..., 1].copy()
+        index[:, :64] = px[:, :64, 2]
+        return fli_bytes(n, n, [fli_frame([
+            fli_chunk(4, fli_colour(pal, [(0, 256)])),
+            fli_chunk(15, fli_brun(index))])])
+    if name.endswith(".fli"):
+        return fli_bytes(n, n, [fli_frame([
+            fli_chunk(11, fli_colour(pal >> 2, [(0, 256)])),
+            fli_chunk(12, fli_lc(px[..., 0])),
+            fli_chunk(7, fli_ss2(px[..., 1], 3))])], magic=0xAF11)
+    return iptc_bytes(n, n, px[..., 0].tobytes(), 3, 1, band=2,
+                      chunk=1 << 20)
+
+
+def fli_pcd_iptc_map_digests() -> dict:
+    """:func:`pil_map_digests` of ``FLI_PCD_IPTC_MAPS``."""
+    return pil_map_digests(FLI_PCD_IPTC_MAPS, fli_pcd_iptc_map)
 
 
 def mixed_rgb(n: int = 256, noisy: int = 64) -> np.ndarray:
@@ -2032,6 +2315,9 @@ def fixtures():
     # the X11 and Sun bitmaps: SUN, GBR, MSP, XBM, XPM
     for name, data in bitmap_files(small).items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
+    # FLI/FLC and IPTC
+    for name, data in fli_pcd_iptc_files(small).items():
+        out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     # PIL's JPEG 2000 files under its save options
     for name in J2K_OPTION_FILES:
         data = j2k_option_file(name)
@@ -2063,6 +2349,9 @@ def main() -> int:
         f.write("\n")
     with open(os.path.join(OUT, "bitmap_map_digests.json"), "w") as f:
         json.dump(bitmap_map_digests(), f, indent=1, sort_keys=True)
+        f.write("\n")
+    with open(os.path.join(OUT, "fli_pcd_iptc_map_digests.json"), "w") as f:
+        json.dump(fli_pcd_iptc_map_digests(), f, indent=1, sort_keys=True)
         f.write("\n")
     return 0
 
