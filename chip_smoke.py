@@ -97,10 +97,14 @@ through its kernels and made a healthy image:
   1024x1024 RGB XPM normal map of 2-character keys made on the machine
   (``sun-xpm``), then with a 2048x2048 FLC roughness map whose first
   frame is BRUN and a 768x512 PhotoCD normal map made on the machine
-  (``fli-pcd``), 16 samples each through ``"hier"`` (K3, K2, threefry),
+  (``fli-pcd``), then with a 2048x2048 float roughness map under Adobe
+  Deflate and the floating-point predictor and a 1024x1024 RGB BigTIFF
+  normal map under Deflate made on the machine (``tiff-float-big``), 16
+  samples each through ``"hier"`` (K3, K2, threefry),
   each texture table on the card bitwise the host decode, timed in turns
   against the checker session (``tiff-lzma-zstd``, ``fits-pixar``,
-  ``sun-xpm`` and ``fli-pcd`` by their drives alone); the raw-decoder maps made there
+  ``sun-xpm``, ``fli-pcd`` and ``tiff-float-big`` by their drives
+  alone); the raw-decoder maps made there
   (2048x2048 FITS at BITPIX 8, 16 and -32 and as GZIP_1 tiles, a 2-byte
   McIDAS and a SPIDER file, a 1024x1024 PIXAR and a DCX of a 1024x1024
   PCX page) and the X11 and Sun bitmaps (2048x2048 Sun rasters at 8 bits
@@ -109,9 +113,15 @@ through its kernels and made a healthy image:
   IPTC files (a 2048x2048 BRUN FLC, a 2048x2048 FLI of LC and SS2
   chunks, 768x512 PhotoCDs at orientations 0 and 1, a 2048x2048 raw IPTC
   band of an RGB record and a 1024x1024 IPTC record of the port's
-  baseline JPEG), each file and its decode held
+  baseline JPEG) and the TIFFs of scientific and GIS tools (2048x2048
+  float maps under the floating-point predictor with Adobe Deflate and
+  with ZSTD and as an uncompressed BigTIFF, a 1024x1024 RGB BigTIFF under
+  Deflate, 2048x2048 12-bit grey maps uncompressed and under LZW, a
+  1024x1024 uncompressed map of separate 16-bit RGB planes), each file
+  and its decode held
   to the digests recorded with PIL (the 16-bit ones to the high-byte
-  image of the named deviation), the decodes timed;
+  image of the named deviation, the 12-bit ones to their top 8 bits),
+  the decodes timed;
   ``write_image``'s JPEG,
   BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, DDS, EPS, MPO
   and PDF files of a 37x29 and a 3840x2160 image held to the digests of
@@ -1321,12 +1331,15 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       1024x1024 RGB XPM of ``make_torch_fixtures.BITMAP_MAPS`` made here
       (``sun-xpm``), then with the 2048x2048 BRUN FLC and the 768x512
       PhotoCD of ``make_torch_fixtures.FLI_PCD_IPTC_MAPS`` made here
-      (``fli-pcd``), through ``"hier"``: the texture table on the
+      (``fli-pcd``), then with the 2048x2048 predictor-3 float map and
+      the 1024x1024 RGB BigTIFF of
+      ``make_torch_fixtures.TIFF_FLOAT_BIG_MAPS`` made here
+      (``tiff-float-big``), through ``"hier"``: the texture table on the
       card bitwise the host decode, ``spp`` samples counted through K3, K2
       and threefry (each drive's ms a sample on the host's clock), then ms
       per sample in turns against the checker-map session (all but
-      ``tiff-lzma-zstd``, ``fits-pixar``, ``sun-xpm`` and ``fli-pcd``,
-      which only their drives time);
+      ``tiff-lzma-zstd``, ``fits-pixar``, ``sun-xpm``, ``fli-pcd`` and
+      ``tiff-float-big``, which only their drives time);
     - the raw-decoder maps of ``make_torch_fixtures.RASTER_MAPS`` made
       here (2048x2048 FITS at BITPIX 8, 16 and -32 and as GZIP_1 tiles,
       a 2-byte McIDAS and a SPIDER file, a 1024x1024 PIXAR and a DCX whose
@@ -1348,6 +1361,16 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       record of the port's baseline JPEG), each file and its decode held
       to ``tests/torch_data/fli_pcd_iptc_map_digests.json`` (PIL's
       decode), the decodes timed (median of ``decodes``);
+    - the TIFFs of ``make_torch_fixtures.TIFF_FLOAT_BIG_MAPS`` made here
+      (2048x2048 float maps under the floating-point predictor with Adobe
+      Deflate in 64-row strips and with ZSTD stored blocks, and as an
+      uncompressed BigTIFF; a 1024x1024 RGB BigTIFF under Deflate with
+      LONG8 offsets; 2048x2048 12-bit grey maps, uncompressed and under
+      LZW; a 1024x1024 uncompressed map of separate 16-bit RGB planes),
+      each file and its decode held to
+      ``tests/torch_data/tiff_float_big_map_digests.json`` (PIL's decode,
+      or for the 12-bit maps the top-8-bit image of the named deviation),
+      the decodes timed (median of ``decodes``);
     - ``write_image`` of the 37x29 fixture image and a procedural
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
@@ -1505,7 +1528,9 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     for kind, names, make in (
             ("bitmap_map", fixtures.BITMAP_MAPS, fixtures.bitmap_map),
             ("fli_pcd_iptc_map", fixtures.FLI_PCD_IPTC_MAPS,
-             lambda name: fixtures.fli_pcd_iptc_map(name, jpg=jpeg.encode))):
+             lambda name: fixtures.fli_pcd_iptc_map(name, jpg=jpeg.encode)),
+            ("tiff_float_big_map", fixtures.TIFF_FLOAT_BIG_MAPS,
+             lambda name: fixtures.tiff_float_big_map(name)[0])):
         with open(os.path.join(FILES_DIR, f"{kind}_digests.json")) as f:
             map_digests = json.load(f)
         check(sorted(map_digests) == sorted(names),
@@ -1567,7 +1592,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                           "normal_1024.xpm")),
             "fli-pcd": tuple(os.path.join(maps_dir.name, name)
                              for name in ("roughness_2048_brun.flc",
-                                          "normal_768x512.pcd"))}
+                                          "normal_768x512.pcd")),
+            "tiff-float-big": tuple(os.path.join(maps_dir.name, name)
+                                    for name in ("roughness_2048_pred3.tif",
+                                                 "normal_1024_big.tif"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
@@ -1660,7 +1688,7 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         if kind not in ("tiff-lzma-zstd", "fits-pixar", "sun-xpm",
-                        "fli-pcd"):
+                        "fli-pcd", "tiff-float-big"):
             sessions[kind] = sess_m   # (the others timed by their drives)
         del img_m, sess_m
     sessions["checker"] = pt.RenderSession(textured_sphere_scene(pt, res),

@@ -63,12 +63,24 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   colour table (entries past it black) or none (grey), the graphic
   control extension's transparency, interlaced rows, a frame inside or
   past the logical screen (the rest index 0, or the transparent one);
-- TIFF, the first IFD of a classic file in either byte order, as PIL
-  (with libtiff for compressed data, which lays it out by its own reading
+- TIFF, the first IFD of a classic file in either byte order or of a
+  little-endian BigTIFF (its 16-byte header, 8-byte entry counts and
+  offsets, values of up to 8 bytes inline, LONG8 strip and tile
+  offsets; PIL takes a BigTIFF by the header's third byte, so it reads a
+  big-endian one as a classic file), as PIL
+  (with libtiff for compressed data, which opens the file itself, BigTIFF
+  or classic by its version, and lays the data out by its own reading
   of the IFD) reads it: the entries that fit in the file, up to a tag
   whose values lie past its end (PIL stops there; libtiff skips the tag
-  alone), a one-value tag with more values read by PIL as its first and
-  failing libtiff's reading where libtiff fetches it without recovery;
+  alone, or fails where it fetches the tag without recovery), a one-value
+  tag with more values read by PIL as its first and failing libtiff's
+  reading where libtiff fetches it without recovery, as do no values, a
+  planar configuration other than 1 or 2, 0 rows a strip and an extra
+  sample kind past 2; libtiff's row of a strip or tile held to the row
+  PIL's unpacker reads (where a damaged IFD makes the two read it apart);
+  PIL's raw decoder's tiles for uncompressed data (the last offset of a
+  strip or tile that covers the image, every other offset a tile of the
+  next cell, in the offsets' order);
   no compression, LZW
   (host library), Deflate (``zlib``), PackBits (host library), LZMA
   (Python's ``lzma`` over the xz stream, read until the strip is full as
@@ -77,7 +89,12 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   libzstd's streaming decoder as libtiff drives it: the first frame, cut
   at the strip's end); predictor 2 at 8, 16 and 32 bits for LZW,
   Deflate, LZMA and ZSTD, the codecs libtiff runs it in (a ``cumsum`` in
-  the sample's unsigned dtype); CCITT Modified Huffman,
+  the sample's unsigned dtype), and predictor 3 there on 32-bit floats
+  (libtiff's ``fpAcc``: each row's bytes summed a pixel apart, then its
+  byte planes gathered, the most significant first); predictor 3 on
+  integers, predictor 2 at other than 8, 16, 32 or 64 bits and predictor
+  values other than 1-3 fail libtiff's ``PredictorSetup``, so the file is
+  None; CCITT Modified Huffman,
   Group 3 (1-D, or 2-D by T4Options bit 0, EOLs aligned or not) and
   Group 4 (host library, ``codecs.Fax``: libtiff 4.7's decoder, its
   recovery from bad code words, rows too long or too short and data that
@@ -92,8 +109,11 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   two components); the image turned
   by its Orientation tag as PIL's ``load_end`` turns it
   (``ImageOps.exif_transpose``);
-  strips or tiles, contiguous or separate planes; photometric 0, 1, 2 and
-  3 at 1, 2, 4, 8 and 16 bits, grey + alpha, RGB with extra samples 0, 1
+  strips or tiles, contiguous or separate planes (uncompressed 16-bit
+  ones as PIL reads them: see below); photometric 0, 1, 2 and
+  3 at 1, 2, 4, 8 and 16 bits, 12-bit grey (PIL's ``I;12``, min-is-black
+  and little-endian only: the samples' bits most significant first, each
+  row ending on a byte), grey + alpha, RGB with extra samples 0, 1
   (associated alpha, unpremultiplied as PIL's ``RGBa`` with its
   truncation) and 2, palette + alpha; 32-bit floats (mode ``F``,
   truncated and clipped to 0..255 as PIL converts them); mode ``I``
@@ -207,10 +227,21 @@ each sample (the P5's scaled to 65535 as PIL scales it), as stb_image
 (the reference's loader) and PIL's own 16-bit RGB paths do (the PNG's
 ``tRNS`` key is compared with the 16-bit sample); so do the samples PIL
 reads as ``I;16`` or ``I;16B`` from a FITS file (BITPIX 16, ZBITPIX 16)
-and a 2-byte McIDAS file, the high byte of the sample as PIL unpacks it.
-PIL opens the first three as mode ``I;16`` (``I;16L``, ``I;16B``) and the
+and a 2-byte McIDAS file, the high byte of the sample as PIL unpacks it;
+and a 12-bit grey TIFF keeps the top 8 bits of each sample (``v >> 4``,
+a 12-bit map's high byte).
+PIL opens the first three and the 12-bit TIFF as mode ``I;16``
+(``I;16L``, ``I;16B``) and the
 P5 as mode ``I``, and ``convert("RGBA")`` clips at 255 instead, so in the
 JAX package a 16-bit roughness map comes out almost all 1.0.
+
+Copied, not fixed: an uncompressed TIFF of separate 16-bit planes (RGB,
+RGBA, CMYK) reads as PIL reads it, each strip or tile through PIL's raw
+decoder under one letter of the raw mode (``RGB;16L``'s ``R``, ``G``,
+``B``) as its plane's raw mode: each plane's bytes as 8-bit samples, a
+row's second half in the row below, rows a tile's width apart (past the
+image's right edge, PIL's stride); under a letter that is no band
+(``RGBX;16L``'s ``X``, ``RGBa;16L``'s ``a``) the file is None.
 
 A missing file, a file no PIL plugin opens (an HTML page saved as
 ``.png``, zeros, noise), and a broken file of a format decoded here (a
@@ -230,7 +261,7 @@ two entries as ``1``), plain-text PNM (P1-P3) and PIL's test extensions
 (compression 6), JPEG-in-TIFF in separate planes, CCITT RLEW (32771),
 YCbCr TIFF at other subsampling than (1, 1) or turned by its orientation
 (JPEG-compressed YCbCr apart), uncompressed YCbCr TIFF tiles, CIELab
-TIFF, old-style LZW, BigTIFF, CIELab PSD, the IM image types PIL's
+TIFF, old-style LZW, 12-bit JPEG-in-TIFF, CIELab PSD, the IM image types PIL's
 writer does not make, JPEG 2000 (in an ICNS entry too)
 with tile-parts, code-block styles, SOP or EPH markers, COC, QCC, RGN,
 POC, PPM or PPT markers, samples of other than 8 bits, subsampled
@@ -243,8 +274,7 @@ Named deviations on damaged or odd files (``tests/test_torch_damage.py``
 and ``tests/test_torch_formats.py`` hold the rest):
 
 - a refused flavour raises first, also where PIL would then fail on the
-  file: a lossless frame made by a damaged marker, BigTIFF magic on a
-  classic file;
+  file: a lossless frame made by a damaged marker;
 - where a plugin's prefix test passes and its ``_open`` then fails, PIL
   goes on to the next plugin; the port follows it only for the first
   checks of ICO, PCX and WMF, for all of CUR's (its pick of
@@ -268,10 +298,10 @@ and ``tests/test_torch_formats.py`` hold the rest):
 - a TIFF damaged inside its IFD (an entry's tag, type, count or value):
   PIL's and libtiff's checks of each entry are copied only as far as the
   paragraph on TIFF above says;
-- an uncompressed TIFF in one strip at orientation 5-8 whose mode PIL
-  memory-maps (L, P, RGBA, CMYK, I;16) is refused: PIL maps its samples
-  at the size it has already swapped, so its pixels are the rows read at
-  the wrong width;
+- an uncompressed TIFF in one strip at orientation 5-8 that PIL
+  memory-maps (its raw mode its mode: L, P, RGBA and CMYK at 8 bits,
+  I;16 and I;16B) is refused: PIL maps its samples at the size it has
+  already swapped, so its pixels are the rows read at the wrong width;
 - CCITT data that ends before the last row of a strip or tile (Group 4
   stops there without an error) leaves the rows after it as PIL's strip
   buffer held them: the strip's before, which is read, or, in the first
@@ -1346,38 +1376,55 @@ _TIFF_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
                11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
 
 
-def _tiff_ifd(data: bytes, pos: int, order: str, pil: bool = True) -> dict:
+def _tiff_ifd(data: bytes, pos: int, order: str, pil: bool = True,
+              big: bool = False) -> dict:
     """{tag: tuple of integers} of the integer tags of the IFD at ``pos``:
     a tag of an unknown type or with no values is skipped, and PIL's
     ImageFileDirectory (``pil``) stops the entries at the end of the file
     (an entry count that runs past it is clipped), where libtiff, which
-    reads the IFD again for compressed data, fails. A tag whose values lie
-    past the end stops PIL's reading there; libtiff skips it alone."""
-    if pos + 2 > len(data):
+    reads the IFD again for compressed data, fails, as it does on more
+    than 4,096 entries. A tag whose values lie past the end stops PIL's
+    reading there; libtiff skips it alone, or fails where it reads the tag
+    without recovery (``_TIFF_ONE_VALUE``, BitsPerSample, SampleFormat),
+    as it does where such a tag has no values. A BigTIFF's IFD (``big``)
+    counts its entries in 8 bytes, each entry 20 bytes long with its
+    values inline up to 8 bytes, else at an 8-byte offset (at 2**63 or
+    more PIL's seek raises)."""
+    head, entry, fmt = (8, 20, "HHQ8s") if big else (2, 12, "HHI4s")
+    if pos + head > len(data):
         raise _Unreadable("truncated IFD")
-    (count,) = struct.unpack_from(order + "H", data, pos)
-    if not pil and pos + 2 + 12 * count > len(data):
+    (count,) = struct.unpack_from(order + ("Q" if big else "H"), data, pos)
+    if not pil and count > 4096:          # libtiff's sanity check
+        raise _Unreadable(f"{count} IFD entries")
+    if not pil and pos + head + entry * count > len(data):
         raise _Unreadable("truncated IFD (libtiff reads all its entries)")
-    count = min(count, (len(data) - pos - 2) // 12)
+    count = min(count, (len(data) - pos - head) // entry)
     tags = {}
     for i in range(count):
-        tag, kind, n, value = struct.unpack_from(order + "HHI4s", data,
-                                                 pos + 2 + 12 * i)
+        tag, kind, n, value = struct.unpack_from(order + fmt, data,
+                                                 pos + head + entry * i)
+        if not pil and n == 0 and _TIFF_ONE_VALUE.get(tag, tag in (258,
+                                                                  339)):
+            raise _Unreadable(f"tag {tag} without values")
         if kind not in _TIFF_SIZES or n == 0:
             continue
         size = n * _TIFF_SIZES[kind]
-        if size > 4:
-            (at,) = struct.unpack(order + "I", value)
+        if not pil and tag in _TIFF_ONE_VALUE and (
+                n != 1 and tag != 259 or kind not in _TIFF_TYPES):
+            if _TIFF_ONE_VALUE[tag]:      # libtiff: the directory fails
+                raise _Unreadable(f"tag {tag}: {n} values of type {kind}")
+            continue                      # libtiff: the tag is ignored
+        if size > len(value):
+            (at,) = struct.unpack(order + ("Q" if big else "I"), value)
+            if pil and at >= 1 << 63:
+                raise _Unreadable("a tag's values past 2**63")
             value = data[at:at + size]
             if len(value) != size:
                 if pil:
                     break
+                if _TIFF_ONE_VALUE.get(tag, tag in (258, 339)):
+                    raise _Unreadable(f"tag {tag}: values past the end")
                 continue
-        if not pil and tag in _TIFF_ONE_VALUE and (
-                n != 1 or kind not in _TIFF_TYPES):
-            if _TIFF_ONE_VALUE[tag]:      # libtiff: the directory fails
-                raise _Unreadable(f"tag {tag}: {n} values of type {kind}")
-            continue                      # libtiff: the tag is ignored
         if kind in _TIFF_TYPES:           # (PIL takes the first value)
             tags[tag] = struct.unpack_from(f"{order}{n}{_TIFF_TYPES[kind]}",
                                            value)
@@ -1387,6 +1434,13 @@ def _tiff_ifd(data: bytes, pos: int, order: str, pil: bool = True) -> dict:
                               np.float32(0) for a, b in zip(v[::2], v[1::2]))
         else:
             tags[tag] = None
+    # libtiff's TIFFSetField refuses these values, failing the directory:
+    # a planar configuration other than 1 or 2, 0 rows a strip, an extra
+    # sample kind past 2 (but Corel's 999)
+    if not pil and (tags.get(284, (1,))[0] not in (1, 2)
+                    or tags.get(278, (1,))[0] == 0
+                    or any(v > 2 and v != 999 for v in tags.get(338) or ())):
+        raise _Unreadable("a value libtiff refuses")
     return tags
 
 
@@ -1397,10 +1451,12 @@ _TIFF_RATIONALS = (529, 532)
 
 # libtiff's one-value integer tags, and whether another count or a type
 # that is no integer fails its reading of the directory (TIFFReadDirectory
-# fetches these without recovery) or only drops the tag, with a warning
-_TIFF_ONE_VALUE = {256: True, 257: True, 259: True, 262: True, 277: True,
-                   278: True, 284: True, 322: True, 323: True,
-                   266: False, 317: False}
+# fetches these without recovery) or only drops the tag, with a warning;
+# Compression may also hold a value a sample (checked against the samples
+# in _decode_tiff), and no values fail BitsPerSample and SampleFormat too
+_TIFF_ONE_VALUE = {256: True, 257: True, 259: True, 277: True, 278: True,
+                   284: True, 322: True, 323: True,
+                   262: False, 266: False, 317: False}
 
 
 def _tiff_mode(order, photo, sample_format, fill, bps, extra):
@@ -1464,10 +1520,10 @@ _TIFF_COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3",
                       4: "CCITT Group 4", 5: "LZW", 7: "JPEG", 8: "Deflate",
                       32946: "Deflate", 32773: "PackBits", 34925: "LZMA",
                       50000: "ZSTD"}
+# (WebP, 50001, is no codec of PIL's libtiff: None, as any unknown one)
 _TIFF_REFUSED = {6: "old-style JPEG",
                  32771: "CCITT RLEW (PIL's own files do not read back)",
-                 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
-                 50001: "WebP"}
+                 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24"}
 _TIFF_FAX = (2, 3, 4)
 # the codecs libtiff runs its predictor in (tif_predict.c): LZW, Deflate,
 # LZMA and ZSTD; PackBits, CCITT and JPEG ignore the tag
@@ -1624,21 +1680,24 @@ class _JpegChunks:
         return s[:n, :self.width].reshape(n, -1)
 
 
-def _tiff_tag_bytes(data: bytes, at: int, order: str, tag: int):
-    """The values of a BYTE or UNDEFINED tag of the IFD at ``at`` as
-    libtiff reads them (JPEGTables), None where it is missing, of another
-    type or past the end of the file (libtiff skips it)."""
-    (count,) = struct.unpack_from(order + "H", data, at)
-    for i in range(min(count, (len(data) - at - 2) // 12)):
-        t, kind, n, value = struct.unpack_from(order + "HHI4s", data,
-                                               at + 2 + 12 * i)
+def _tiff_tag_bytes(data: bytes, at: int, order: str, tag: int,
+                    big: bool = False):
+    """The values of a BYTE or UNDEFINED tag of the IFD at ``at`` (of a
+    BigTIFF where ``big``) as libtiff reads them (JPEGTables), None where
+    it is missing, of another type or past the end of the file (libtiff
+    skips it)."""
+    head, entry = (8, 20) if big else (2, 12)
+    (count,) = struct.unpack_from(order + ("Q" if big else "H"), data, at)
+    for i in range(min(count, (len(data) - at - head) // entry)):
+        t, kind, n, value = struct.unpack_from(
+            order + ("HHQ8s" if big else "HHI4s"), data, at + head + entry * i)
         if t != tag:
             continue
         if kind not in (1, 6, 7) or n == 0:
             return None
-        if n <= 4:
+        if n <= len(value):
             return value[:n]
-        (pos,) = struct.unpack(order + "I", value)
+        (pos,) = struct.unpack(order + ("Q" if big else "I"), value)
         v = data[pos:pos + n]
         return v if len(v) == n else None
     return None
@@ -1689,15 +1748,61 @@ def _jpeg_first_sampling(s: bytes, spp: int):
         return (2, 2)
 
 
+def _libtiff_big(data: bytes, order: str) -> bool:
+    """Whether libtiff (TIFFClientOpen) reads the file as a BigTIFF: the
+    version 43 in the file's byte order with offset size 8 and 0 after
+    it; a version other than 42 or 43, or another BigTIFF header, fails
+    its open."""
+    (version,) = struct.unpack_from(order + "H", data, 2)
+    if version == 42:
+        return False
+    if version == 43 and struct.unpack_from(order + "HH", data, 4) == (8, 0):
+        return True
+    raise _Unreadable(f"TIFF version {version} (libtiff fails to open it)")
+
+
+_MODE_BANDS = {"LA": 2, "PA": 2, "RGB": 3, "LAB": 3, "RGBA": 4, "CMYK": 4}
+
+
+def _libtiff_rows_fit(tags: dict, width: int, pixel_bits: int, mode: str,
+                      planar: int) -> None:
+    """PIL's libtiff decoder (TiffDecode.c): the row libtiff lays a strip
+    or tile out in (``TIFFScanlineSize``, ``TIFFTileRowSize``, by its own
+    reading of the IFD in ``tags``) must be the one PIL's unpacker reads,
+    ``(width * bits / planes + 7) / 8`` at the raw mode's ``pixel_bits``,
+    a plane of each band where libtiff's planes are separate (of 8 or
+    16-bit samples only); a damaged IFD PIL and libtiff read apart fails
+    here."""
+    def g(tag, default):
+        return tags.get(tag) or default
+
+    tiled = 324 in tags
+    lib_width = g(322 if tiled else 256, (0,))[0]
+    lib_bits = g(258, (1,))[0]
+    bands = _MODE_BANDS.get(mode, 1)
+    planes = bands if planar == 2 and bands > 1 else 1
+    if planes > 1 and lib_bits not in (8, 16):
+        raise _Unreadable(f"separate planes of {lib_bits}-bit samples")
+    rows = ((lib_width if tiled else width) * pixel_bits // planes + 7) // 8
+    lib_rows = (lib_width * (g(277, (1,))[0] if planar == 1 else 1)
+                * lib_bits + 7) // 8
+    if rows != lib_rows:
+        raise _Unreadable(f"libtiff's rows of {lib_rows} bytes, PIL's of "
+                          f"{rows}")
+
+
 def _decode_tiff(data: bytes) -> np.ndarray:
-    """[H, W, 4] uint8 RGBA of a classic TIFF's first IFD, as PIL's
+    """[H, W, 4] uint8 RGBA of a TIFF's or BigTIFF's first IFD, as PIL's
     ``convert("RGBA")`` gives it (see the module docstring)."""
     order = "<" if data[:2] == b"II" else ">"
-    (magic,) = struct.unpack_from(order + "H", data, 2)
-    if magic == 43:
-        raise _Refused("BigTIFF")
-    (at,) = struct.unpack_from(order + "I", data, 4)
-    tags = _tiff_ifd(data, at, order)
+    # PIL takes a BigTIFF by the header's third byte, so only one in
+    # little-endian order (II 2B 00): its first IFD's offset at 8, 8 bytes
+    big = data[2] == 43
+    (at,) = struct.unpack_from(order + ("Q" if big else "I"), data,
+                               8 if big else 4)
+    if at == 0 or at >= 1 << 63:      # PIL: EOFError, ValueError
+        raise _Unreadable(f"first IFD at {at}")
+    tags = _tiff_ifd(data, at, order, big=big)
     if 0xBC01 in tags:
         raise _Unreadable("Windows Media Photo")
 
@@ -1733,16 +1838,21 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                        f"({_TIFF_REFUSED[compression]})")
     if compression not in _TIFF_COMPRESSIONS:
         raise _Unreadable(f"compression {compression}")
-    if mode == "LAB" or bps[0] == 12:
-        raise _Refused("CIELab" if mode == "LAB" else f"mode {mode} "
-                       f"({bps[0]}-bit samples, sample format "
-                       f"{sample_format[0]})")
+    if mode == "LAB":
+        raise _Refused("CIELab")
     orientation = g(274, (1,))[0]     # PIL's exif_transpose, at the end
-    ycbcr = None
+    ycbcr, lib_big = None, big
     if compression != 1:
-        # PIL hands compressed data to libtiff, which lays it out by its
-        # own reading of the IFD
-        tags = _tiff_ifd(data, at, order, pil=False)
+        # PIL hands compressed data to libtiff, which opens the file
+        # itself and lays the data out by its own reading of the IFD
+        lib_big = _libtiff_big(data, order)
+        lib_at = struct.unpack_from(order + ("Q" if lib_big else "I"), data,
+                                    8 if lib_big else 4)[0]
+        if lib_at != at:              # the IFD it reads when it opens
+            _tiff_ifd(data, lib_at, order, pil=False, big=lib_big)
+        tags = _tiff_ifd(data, at, order, pil=False, big=lib_big)
+        if 1 < len(g(259, (1,))) < spp:   # fewer than a value a sample
+            raise _Unreadable("a Compression tag of too few values")
         fill = g(266, (1,))[0]
         if len(g(338, ())) > spp:         # setExtraSamples refuses it
             raise _Unreadable("more extra samples than samples")
@@ -1756,15 +1866,21 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     if compression == 7:
         if planar == 2:
             raise _Refused("JPEG with separate planes")
+        if bits == 12:
+            raise _Refused("12-bit JPEG")
         if bits != 8:                     # JPEGPreDecode: data precision
             raise _Unreadable(f"JPEG data at {bits} bits")
         if photo == 6 and spp != 3:
             raise _Unreadable(f"YCbCr JPEG with {spp} samples a pixel")
-    if predictor not in (1, 2) or (predictor == 2 and bits not in (8, 16,
-                                                                  32)):
-        raise _Refused(f"predictor {predictor} at {bits} bits")
-    if planar == 2 and compression == 1 and bits != 8 and spp > 1:
-        raise _Refused(f"uncompressed separate planes at {bits} bits")
+    # libtiff's PredictorSetup: horizontal differencing of 8, 16, 32 or
+    # 64-bit samples, the floating-point predictor of IEEE floats of 16,
+    # 24, 32 or 64 bits; anything else fails the first strip
+    if predictor == 2 and bits not in (8, 16, 32, 64) or predictor == 3 and (
+            g(339, (1,))[0] != 3 or bits not in (16, 24, 32, 64)) \
+            or predictor not in (1, 2, 3):
+        raise _Unreadable(f"predictor {predictor} at {bits} bits")
+    if compression != 1 and ycbcr is None:
+        _libtiff_rows_fit(tags, width, spp * bits, mode, planar)
     if width == 0 or height == 0:
         raise _Unreadable("empty image")
     _check_size(width, height)
@@ -1780,21 +1896,34 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         cw, ch = tags[322][0], tags[323][0]
         offsets, counts = tags[324], g(325, ())
     elif 273 in tags:
-        cw, ch = width, g(278, (height,))[0] or height
-        ch = min(ch, height)
+        cw, ch = width, g(278, (height,))[0]
+        if ch == 0 and compression == 1:  # PIL's tiles of no rows
+            raise _Unreadable("0 rows a strip")
         offsets, counts = tags[273], g(279, ())
     else:
         raise _Unreadable("unknown data organization")
+    # PIL's raw decoder takes the last offset of a strip or tile that
+    # covers the image
+    whole = (cw, ch) == (width, height) and planar != 2
+    if 324 not in tags:
+        ch = min(ch or height, height)
     if cw == 0 or ch == 0:
         raise _Unreadable("empty strips or tiles")
     _check_size(cw, ch)
     tiled = 324 in tags
     row_bytes = (cw * per * bits + 7) // 8
     nx, ny = -(-width // cw), -(-height // ch)
+    if planar == 2 and compression == 1 and bits > 8 and spp > 1:
+        rgba = _tiff_rgba(_pil_raw_planes(
+            data, offsets, (width, height), (cw, ch), mode, photo, extra,
+            bps), mode, photo, 8, extra, None)
+        return np.ascontiguousarray(
+            _EXIF_TRANSPOSE.get(orientation, lambda a: a)(rgba))
     if len(offsets) < planes * nx * ny:
         raise _Unreadable("too few strips or tiles")
     if orientation in (5, 6, 7, 8) and compression == 1 and \
-            planes * nx * ny == 1 and mode in _PIL_MAPPED:
+            planes * nx * ny == 1 and _pil_maps(mode, photo, bits, extra,
+                                                fill):
         raise _Refused(f"an uncompressed single-strip {mode} TIFF at "
                        f"orientation {orientation} (PIL maps its samples "
                        "with the width and height swapped)")
@@ -1812,22 +1941,37 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         else:           # JPEGFixupTagsSubsampling: the first strip's frame
             sampling = _jpeg_first_sampling(data[offsets[0]:offsets[0] + (
                 counts[0] if counts else 0)], spp) if offsets[0] else (2, 2)
-        reader = _JpegChunks(_tiff_tag_bytes(data, at, order, 347), cw, spp,
-                             sampling, photo == 6)
+        reader = _JpegChunks(_tiff_tag_bytes(data, at, order, 347, lib_big),
+                             cw, spp, sampling, photo == 6)
     else:
         reader = None
-    for k in range(planes * nx * ny):
+    cells = planes * nx * ny
+    jobs = list(enumerate(offsets[:cells]))
+    if compression == 1 and planes == 1:
+        # PIL's raw decoder reads a tile for every offset, its cell counted
+        # on past the last, in the offsets' order: a later one over an
+        # earlier one of its cell (of two in a row, only the later)
+        jobs = [(0, offsets[-1])] if whole else sorted(
+            ((k % cells, off) for k, off in enumerate(offsets)),
+            key=lambda job: job[1])
+        jobs = [job for i, job in enumerate(jobs)
+                if i + 1 == len(jobs) or jobs[i + 1][0] != job[0]]
+    for k, offset in jobs:
         plane, rest = divmod(k, nx * ny)
         ty, tx = divmod(rest, nx)
         y0 = ty * ch
         rows = min(ch, height - y0)
-        if compression == 1:          # PIL's raw decoder: the rows it needs
-            n = rows * row_bytes
+        if compression == 1:          # PIL's raw decoder: the rows it needs,
+            n = rows * row_bytes      # the last one of an edge tile only
+            if planes == 1 and (tx + 1) * cw > width:   # to the image's edge
+                n -= row_bytes - ((width - tx * cw) * per * bits + 7) // 8
         else:                         # libtiff: a whole tile, or the strip
             n = counts[k] if k < len(counts) else 0
-        raw = data[offsets[k]:offsets[k] + n]
+        raw = data[offset:offset + n]
         if compression != 1 and len(raw) < n:   # libtiff: "Read error on
             raise _Unreadable("truncated strip or tile")   # strip/tile"
+        if compression == 1 and len(raw) == n:
+            raw = raw.ljust(rows * row_bytes, b"\0")
         if fill == 2:                 # libtiff reverses the stored bits
             raw = _REVERSED_BITS[np.frombuffer(raw, np.uint8)].tobytes()
         if reader is not None:        # a whole tile, or the strip's rows
@@ -1848,6 +1992,8 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                     r, -1, per)
                 chunk = np.cumsum(s, axis=1, dtype=s.dtype).astype(
                     dt).view(np.uint8).reshape(r, row_bytes)
+        elif predictor == 3:
+            chunk = _fp_acc(chunk, per, bits // 8, order)
         out[plane, y0:y0 + rows, tx * row_bytes:(tx + 1) * row_bytes] = \
             chunk[:rows]
     if compression != 1 and order == ">" and mode in ("I", "F"):
@@ -1866,11 +2012,7 @@ def _decode_tiff(data: bytes) -> np.ndarray:
 
 
 # PIL's TIFF load_end runs ImageOps.exif_transpose: the Orientation tag's
-# Image.Transpose method, as numpy views of [H, W, 4]. Of an uncompressed
-# file in one strip whose mode PIL can memory-map (Image._MAPMODES), PIL
-# maps the samples at the size it has already swapped for orientations
-# 5-8; the port refuses those (_PIL_MAPPED)
-_PIL_MAPPED = ("L", "P", "RGBA", "CMYK", "I;16", "I;16B")
+# Image.Transpose method, as numpy views of [H, W, 4]
 _EXIF_TRANSPOSE = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
                    4: lambda a: a[::-1], 5: lambda a: a.swapaxes(0, 1),
                    6: lambda a: np.rot90(a, -1),
@@ -1878,11 +2020,88 @@ _EXIF_TRANSPOSE = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
                    8: lambda a: np.rot90(a, 1)}
 
 
+def _pil_maps(mode: str, photo: int, bits: int, extra, fill: int) -> bool:
+    """Whether PIL memory-maps an uncompressed one-strip file of this key
+    (its OPEN_INFO raw mode is its mode and one of Image._MAPMODES: L, P,
+    RGBA and CMYK at 8 bits, L not inverted, P, RGBA and CMYK with no
+    extra samples but RGBA's alpha; I;16 and I;16B at 16), and so, at
+    orientations 5-8, maps the samples at the size it has already swapped
+    (the port refuses those)."""
+    if fill != 1:
+        return False
+    if mode in ("I;16", "I;16B"):
+        return bits == 16
+    return bits == 8 and (mode == "L" and photo != 0 or mode in (
+        "P", "CMYK") and not extra or mode == "RGBA" and extra in (
+            (), (2,), (999,)))
+
+
+def _fp_acc(chunk: np.ndarray, stride: int, size: int,
+            order: str) -> np.ndarray:
+    """libtiff's ``fpAcc`` (the floating-point predictor) on [rows, row
+    bytes]: each row's bytes summed ``stride`` (the samples a pixel)
+    apart, then its ``size`` byte planes, the most significant first,
+    gathered into samples, which are given in the file's byte order (as
+    the port keeps every decoded strip; libtiff gives them in the host's,
+    without its swap of a big-endian file's samples)."""
+    r, n = chunk.shape
+    acc = np.cumsum(chunk.reshape(r, -1, stride), axis=1, dtype=np.uint8)
+    big = acc.reshape(r, size, n // size).transpose(0, 2, 1)
+    return np.ascontiguousarray(big if order == ">" else big[..., ::-1]
+                                ).reshape(r, n)
+
+
+def _pil_raw_planes(data: bytes, offsets, size, cell, mode: str, photo: int,
+                    extra, bps) -> np.ndarray:
+    """[H, W, bands] uint8 of an uncompressed TIFF of separate 16-bit
+    planes as PIL reads it: each strip or tile through PIL's raw decoder
+    under one letter of the raw mode (``RGB;16L``'s ``R``, ``G``, ``B``)
+    as its plane's raw mode, so 8-bit samples: a row's bytes read as
+    pixels, the row's second half in the row below (a quirk of the
+    reference copied, not fixed). Rows lie a tile's width apart, or, in a
+    tile past the image's right edge, PIL's ``int(w * sum(bits) / 8 /
+    bands)`` bytes; a strip or tile past the last plane, or under a letter
+    that is no band of the mode (``X``, ``a``), fails; the bands of
+    strips or tiles the file does not have are zeros."""
+    (width, height), (cw, ch) = size, cell
+    letters = ("CMYK" if photo == 5 else "RGB" if len(bps) == 3 else
+               {(0,): "RGBX", (1,): "RGBa"}.get(extra, "RGBA"))
+    bands = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK"}[mode]
+    out = np.zeros((height, width, len(bands)), np.uint8)
+    x = y = layer = 0
+    for off in offsets:
+        if layer >= len(letters) or letters[layer] not in bands:
+            raise _Unreadable(f"separate plane {layer} of raw mode {letters}")
+        x1, y1 = min(x + cw, width), min(y + ch, height)
+        line = x1 - x
+        stride = 0
+        if x + cw > width:
+            stride = int(cw * sum(bps) / 8 / (len(extra) + (
+                4 if photo == 5 else 3)))
+            if stride < line:
+                raise _Unreadable("a raw stride shorter than its line")
+        step = stride or line
+        need = (y1 - y - 1) * step + line
+        raw = data[off:off + need]
+        if len(raw) < need:
+            raise _Unreadable("truncated strip or tile")
+        rows = np.frombuffer(raw.ljust((y1 - y) * step, b"\0"), np.uint8)
+        out[y:y1, x:x1, bands.index(letters[layer])] = rows.reshape(
+            y1 - y, step)[:, :line]
+        x += cw
+        if x >= width:
+            x, y = 0, y + ch
+            if y >= height:
+                y, layer = 0, layer + 1
+    return out
+
+
 def _tiff_samples(rows: np.ndarray, bits: int, width: int, per: int,
                   order: str, kind: str = "u") -> np.ndarray:
     """[planes, H, W, per] samples of [planes, H, row bytes] data: uint8
-    for 1 to 8 bits, at 16 and 32 bits unsigned (``kind`` "u"), signed
-    ("i": mode ``I``) or float32 ("f")."""
+    for 1 to 8 bits, uint16 at 12 bits (most significant first, PIL's
+    ``I;12``), at 16 and 32 bits unsigned (``kind`` "u"), signed ("i":
+    mode ``I``) or float32 ("f")."""
     planes, height = rows.shape[:2]
     n = width * per
     if bits in (16, 32):
@@ -1891,6 +2110,14 @@ def _tiff_samples(rows: np.ndarray, bits: int, width: int, per: int,
             "="))
     elif bits == 8:
         s = rows[..., :n]
+    elif bits == 12:
+        b = rows[..., :(n * 3 + 1) // 2].astype(np.uint16)
+        b = np.concatenate([b, np.zeros((planes, height, -b.shape[-1] % 3),
+                                        np.uint16)], -1)
+        b = b.reshape(planes, height, -1, 3)
+        s = np.stack([b[..., 0] << 4 | b[..., 1] >> 4,
+                      (b[..., 1] & 15) << 8 | b[..., 2]], -1).reshape(
+            planes, height, -1)[..., :n]
     else:
         flat = rows.reshape(planes * height, -1)
         s = _unpack(flat, bits, n).reshape(planes, height, n)
@@ -1996,8 +2223,8 @@ def _tiff_rgba(s: np.ndarray, mode: str, photo: int, bits: int, extra,
         return out
     if mode == "I":                   # signed, or 32-bit: clipped
         return _grey_rgba(np.clip(s[..., 0], 0, 255).astype(np.uint8))
-    if bits == 16:                    # the high byte (see the docstring)
-        s = (s >> 8).astype(np.uint8)
+    if bits in (12, 16):              # the high byte (see the docstring)
+        s = (s >> bits - 8).astype(np.uint8)
     if mode == "CMYK":                # not inverted: PIL's cmyk2rgb
         return jpeg.inverted_cmyk_rgba(255 - s[..., :4])
     if mode in ("P", "PA"):

@@ -3,8 +3,9 @@
 and ICNS among them; FITS, GZIP_1 FITS, McIDAS, SPIDER, PIXAR, IMT, XV
 thumbnail and DCX files, and Sun rasters (raw, palette, run-length),
 GIMP brushes, MSP (``DanM``, ``LinS``), XBM and XPM files, and FLI and
-FLC animations and IPTC records (raw, a band, a JPEG inside), each of
-them small enough for a case at nearly every byte) and
+FLC animations and IPTC records (raw, a band, a JPEG inside), and
+BigTIFFs, predictor-3 float, 12-bit grey and separate 16-bit plane
+TIFFs, each of them small enough for a case at nearly every byte) and
 ``assets/checker.png`` cut short and with single
 bits flipped. Both must give None (PIL raises), or the same
 image bit for bit. One test per fixture and kind of damage, looping over
@@ -17,10 +18,10 @@ Deviations named here and in ``utils/image.py``'s docstring:
 - a flavour the port refuses raises ``NotImplementedError`` first, so it
   raises where PIL would go on to fail on the damaged file too (a
   lossless JPEG frame made by a damaged marker, a progressive JPEG whose
-  damage leaves coefficients incomplete, BigTIFF magic);
-- 16-bit grey PNG, TIFF, P5 and FITS keep the high byte (the fixtures
-  ``grey16.*``): there both must decode or both fail, with no pixel
-  compared;
+  damage leaves coefficients incomplete);
+- 16-bit grey PNG, TIFF, P5 and FITS keep the high byte and 12-bit grey
+  TIFF its top 8 bits (the fixtures ``grey16.*`` and ``grey12.tif``):
+  there both must decode or both fail, with no pixel compared;
 - a TIFF damaged inside its directory (the entries and the values they
   point to): PIL's and libtiff's checks of each entry are copied only in
   part (``_tiff_ifd``), so these flips are not held; cuts, and flips of
@@ -65,20 +66,23 @@ MAX_PIXELS = 16 << 20
 
 
 def _tiff_directory(data: bytes):
-    """The [start, end) ranges of a TIFF's first IFD and of the values its
-    entries point to (the strips or tiles may lie before or after it:
-    libtiff writes them first)."""
+    """The [start, end) ranges of a TIFF's or BigTIFF's first IFD and of
+    the values its entries point to (the strips or tiles may lie before
+    or after it: libtiff writes them first)."""
     order = "<" if data[:2] == b"II" else ">"
-    at = struct.unpack_from(order + "I", data, 4)[0]
-    n = struct.unpack_from(order + "H", data, at)[0]
-    ranges = [(at, at + 2 + 12 * n + 4)]
+    big = data[2] == 43
+    head, entry, fmt = (8, 20, "HHQ8s") if big else (2, 12, "HHI4s")
+    at = struct.unpack_from(order + ("Q" if big else "I"), data,
+                            8 if big else 4)[0]
+    n = struct.unpack_from(order + ("Q" if big else "H"), data, at)[0]
+    ranges = [(at, at + head + entry * n + head)]
     for i in range(n):
-        tag, kind, count, value = struct.unpack_from(order + "HHI4s", data,
-                                                     at + 2 + 12 * i)
+        tag, kind, count, value = struct.unpack_from(order + fmt, data,
+                                                     at + head + entry * i)
         size = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
                 11: 4, 12: 8, 16: 8, 17: 8, 18: 8}.get(kind, 1) * count
-        if size > 4:
-            off = struct.unpack(order + "I", value)[0]
+        if size > len(value):
+            off = struct.unpack(order + ("Q" if big else "I"), value)[0]
             ranges.append((off, off + size))
     return ranges
 
@@ -138,7 +142,7 @@ def held(path: str, kind: str, tmp_path):
     """Run the cases; return the number checked."""
     name = os.path.basename(path)
     ext = os.path.splitext(name)[1]
-    grey16 = name.startswith("grey16")
+    grey16 = name.startswith(("grey16", "grey12"))
     exempt = None
     if ext == ".tif" and kind == "flip":
         exempt = _tiff_directory(open(path, "rb").read())

@@ -567,20 +567,62 @@ def predict(rows: np.ndarray, spp: int) -> np.ndarray:
     return out.reshape(rows.shape)
 
 
+def fp_predict(rows: np.ndarray, spp: int) -> bytes:
+    """The floating-point predictor (3) of [rows, w * spp] float32 samples,
+    as libtiff's ``fpDiff`` writes it: each row's samples split into byte
+    planes, the most significant first, then the row's bytes differenced
+    ``spp`` apart."""
+    r, n = rows.shape
+    planes = rows.astype(">f4").view(np.uint8).reshape(r, n, 4).transpose(
+        0, 2, 1).reshape(r, -1, spp)
+    out = planes.copy()
+    out[:, 1:] = planes[:, 1:] - planes[:, :-1]
+    return out.tobytes()
+
+
+def pack12(rows: np.ndarray) -> bytes:
+    """[rows, n] samples below 4096 as 12-bit samples, most significant
+    bit first, each row ending on a byte."""
+    r, n = rows.shape
+    v = np.concatenate([rows.astype(np.uint16), np.zeros((r, n % 2),
+                                                         np.uint16)], 1)
+    a, b = v[:, 0::2], v[:, 1::2]
+    out = np.stack([a >> 4, (a & 15) << 4 | b >> 8, b & 255], -1).astype(
+        np.uint8).reshape(r, -1)
+    return out[:, :(n * 12 + 7) // 8].tobytes()
+
+
+def zstd_raw_frame(data: bytes, block: int = 1 << 17) -> bytes:
+    """A ZSTD frame of ``data`` in raw (stored) blocks: one segment, its
+    content size in 4 bytes, no checksum."""
+    out = [struct.pack("<IBI", 0xFD2FB528, 0xA0, len(data))]
+    for i in range(0, max(len(data), 1), block):
+        part = data[i:i + block]
+        last = int(i + block >= len(data))
+        out.append((len(part) << 3 | last).to_bytes(3, "little") + part)
+    return b"".join(out)
+
+
 def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = None,
                compression: int = 1, predictor: int = 1, order: str = "<",
                planar: int = 1, rows_per_strip: int = None, tile=None,
                extra=None, sample_format: int = None, colormap=None,
                extra_tags=(), fill_order: int = None,
-               chunks=None) -> bytes:
+               chunks=None, big: bool = False, offset_type: int = 4,
+               zstd=None) -> bytes:
     """A one-IFD TIFF of ``samples`` [h, w, spp] (integers below
-    ``2**bits``, or float32 with ``sample_format`` 3), in byte order
-    ``order`` ('<' II, '>' MM), strips of ``rows_per_strip`` rows or
-    tiles of ``tile`` (w, h), compression 1, 5, 8, 32946 or 32773; or,
-    where ``chunks`` is given, those bytes as the strips or tiles of a
-    file of ``samples``' shape under any ``compression`` (``samples``
-    then gives the size only). ``extra_tags`` are (tag, type, values),
-    type 7 (UNDEFINED) taking bytes."""
+    ``2**bits``, 12 bits packed most significant first, or float32 with
+    ``sample_format`` 3, under predictor 3 as libtiff writes it), in byte
+    order ``order`` ('<' II, '>' MM), strips of ``rows_per_strip`` rows or
+    tiles of ``tile`` (w, h), compression 1, 5, 8, 32946, 32773, 34925
+    (xz) or 50000 (``zstd``: bytes -> a ZSTD frame, by default
+    :func:`zstd_raw_frame`); or, where ``chunks`` is given, those bytes as
+    the strips or tiles of a file of ``samples``' shape under any
+    ``compression`` (``samples`` then gives the size only). A BigTIFF
+    where ``big`` (its header 16 bytes, 8-byte counts and offsets, values
+    of up to 8 bytes inline), its strip or tile offsets of
+    ``offset_type`` (4 LONG, 16 LONG8). ``extra_tags`` are (tag, type,
+    values), type 7 (UNDEFINED) taking bytes."""
     h, w, spp = samples.shape
     if photometric is None:
         photometric = 1 if spp in (1, 2) else 2
@@ -590,7 +632,11 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = None,
     def pack(block: np.ndarray) -> bytes:
         """[rows, cols, n] samples -> stored bytes, rows byte-aligned."""
         r, c, n = block.shape
+        if bits == 12:
+            return pack12(block.reshape(r, c * n))
         if bits >= 8:
+            if predictor == 3 and sample_format == 3:
+                return fp_predict(block.reshape(r, c * n), n)
             b = block.astype(dtype[bits])
             if predictor == 2:
                 b = predict(b.reshape(r, c * n).astype(
@@ -610,6 +656,11 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = None,
             return zlib.compress(raw, 6)
         if compression == 32773:
             return packbits(raw)
+        if compression == 34925:
+            import lzma
+            return lzma.compress(raw, lzma.FORMAT_XZ)
+        if compression == 50000:
+            return (zstd or zstd_raw_frame)(raw)
         return raw
 
     if fill_order == 2:               # the stored bits of each byte reversed
@@ -659,11 +710,12 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = None,
     for tag, kind, values in extra_tags:
         tags[tag] = (kind, values)
     off_tag, cnt_tag = (273, 279) if tile is None else (324, 325)
-    tags[off_tag] = (L, [0] * len(chunks))
+    tags[off_tag] = (offset_type, [0] * len(chunks))
     tags[cnt_tag] = (L, [len(c) for c in chunks])
-    fmt = {S: "H", L: "I", R: "I", 7: "B"}
-    ifd_at = 8
-    aux_at = ifd_at + 2 + 12 * len(tags) + 4
+    fmt = {S: "H", L: "I", R: "I", 7: "B", 16: "Q"}
+    head, entry, word = (8, 20, "Q") if big else (2, 12, "I")
+    ifd_at = 16 if big else 8
+    aux_at = ifd_at + head + entry * len(tags) + (8 if big else 4)
 
     def layout(data_at):
         entries, aux = b"", b""
@@ -676,20 +728,71 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = None,
                     pos += len(c)
             data = struct.pack(order + fmt[kind] * len(values), *values)
             count = len(values) // (2 if kind == R else 1)
-            if len(data) <= 4:
-                value = data.ljust(4, b"\0")
+            if len(data) <= (8 if big else 4):
+                value = data.ljust(8 if big else 4, b"\0")
             else:
-                value = struct.pack(order + "I", aux_at + len(aux))
+                value = struct.pack(order + word, aux_at + len(aux))
                 aux += data + b"\0" * (len(data) & 1)
-            entries += struct.pack(order + "HHI", tag, kind, count) + value
+            entries += struct.pack(order + "HH" + word, tag, kind,
+                                   count) + value
         return entries, aux
 
     entries, aux = layout(0)
     entries, aux = layout(aux_at + len(aux))
-    head = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(
-        order + "I", ifd_at)
-    return (head + struct.pack(order + "H", len(tags)) + entries
-            + b"\0" * 4 + aux + b"".join(chunks))
+    magic = (b"II" if order == "<" else b"MM") + struct.pack(
+        order + "H", 43 if big else 42)
+    head_bytes = magic + (struct.pack(order + "HHQ", 8, 0, ifd_at) if big
+                          else struct.pack(order + "I", ifd_at))
+    return (head_bytes + struct.pack(order + ("Q" if big else "H"),
+                                     len(tags)) + entries
+            + b"\0" * (8 if big else 4) + aux + b"".join(chunks))
+
+
+_TIFF_UNIT = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
+              11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
+
+
+def bigtiff_of(data: bytes, offset_type: int = 16) -> bytes:
+    """The BigTIFF of a classic TIFF's first IFD (either byte order): the
+    classic file moved 8 bytes on behind a 16-byte BigTIFF header, then a
+    BigTIFF IFD of the same entries, each value of up to 8 bytes inline
+    and the others after the IFD, the strip or tile offsets moved with
+    the data and written as ``offset_type`` (16 LONG8, 4 LONG)."""
+    order = "<" if data[:2] == b"II" else ">"
+    (at,) = struct.unpack_from(order + "I", data, 4)
+    (n,) = struct.unpack_from(order + "H", data, at)
+    entries = []
+    for i in range(n):
+        tag, kind, count, value = struct.unpack_from(order + "HHI4s", data,
+                                                     at + 2 + 12 * i)
+        size = count * _TIFF_UNIT.get(kind, 1)
+        if size > 4:
+            (off,) = struct.unpack(order + "I", value)
+            value = data[off:off + size]
+        raw = value[:size]
+        if tag in (273, 324):
+            fmt = "H" if kind == 3 else "I"
+            moved = [v + 8 for v in struct.unpack(f"{order}{count}{fmt}",
+                                                  raw)]
+            kind = offset_type
+            raw = struct.pack(f"{order}{count}{'Q' if kind == 16 else 'I'}",
+                              *moved)
+        entries.append((tag, kind, count, raw))
+    body = (data[:2] + struct.pack(order + "HHHQ", 43, 8, 0, 0)
+            + data[8:])
+    body += b"\0" * (len(body) & 1)
+    ifd_at = len(body)
+    aux_at = ifd_at + 8 + 20 * len(entries) + 8
+    ifd, aux = struct.pack(order + "Q", len(entries)), b""
+    for tag, kind, count, raw in entries:
+        if len(raw) <= 8:
+            value = raw.ljust(8, b"\0")
+        else:
+            value = struct.pack(order + "Q", aux_at + len(aux))
+            aux += raw + b"\0" * (len(raw) & 1)
+        ifd += struct.pack(order + "HHQ", tag, kind, count) + value
+    body = body[:8] + struct.pack(order + "Q", ifd_at) + body[16:]
+    return body + ifd + bytes(8) + aux
 
 
 # ---- PSD ------------------------------------------------------------------

@@ -2096,6 +2096,119 @@ def fli_pcd_iptc_map_digests() -> dict:
     return pil_map_digests(FLI_PCD_IPTC_MAPS, fli_pcd_iptc_map)
 
 
+# ---- the TIFFs of scientific and GIS tools ----------------------------------
+
+TIFF_FLOAT_BIG_MAPS = {"roughness_2048_pred3.tif": (2048, 81),
+                       "normal_1024_big.tif": (1024, 82),
+                       "float_2048_big.tif": (2048, 83),
+                       "grey12_2048.tif": (2048, 84),
+                       "grey12_2048_lzw.tif": (2048, 85),
+                       "rgb16_1024_planar.tif": (1024, 86),
+                       "float_2048_pred3_zstd.tif": (2048, 87)}
+TOP_12_BITS = ("the top 8 bits of each 12-bit sample (the port's named "
+               "deviation: PIL clips mode I;16 at 255)")
+
+
+def tiff_float_big_map(name: str) -> "tuple[bytes, np.ndarray | None]":
+    """(file bytes, the RGBA8 of the port's named deviation or None) of
+    one of ``TIFF_FLOAT_BIG_MAPS``, its content :func:`procedural_rgb`'s
+    (integers, and floats exact in float32): the float maps its green
+    channel times 1.25 less 30.5 (Adobe Deflate with the floating-point
+    predictor in 64-row strips, an uncompressed BigTIFF, ZSTD stored
+    blocks with the predictor in 256-row strips), the BigTIFF normal map
+    its RGB under Deflate in 128-row strips (LONG8 offsets), the 12-bit
+    grey maps its green channel as 12 bits (``g * 16 + g // 16``;
+    uncompressed, LZW in 64-row strips), the planar map its channels times 257 as separate
+    16-bit planes, uncompressed, in 256-row strips. Made with numpy,
+    ``zlib`` and ``tests/torch_images.tiff_bytes`` only, so the card's
+    machine makes the same bytes."""
+    ti = _images_module()
+    n, seed = TIFF_FLOAT_BIG_MAPS[name]
+    px = procedural_rgb(n, n, seed)
+    flt = (px[..., 1:2].astype(np.float32) * np.float32(1.25)
+           - np.float32(30.5))
+    grey12 = px[..., 1:2].astype(np.int64) * 16 + (px[..., 1:2] >> 4)
+    if name == "roughness_2048_pred3.tif":
+        return ti.tiff_bytes(flt, 32, sample_format=3, compression=32946,
+                             predictor=3, rows_per_strip=64), None
+    if name == "float_2048_big.tif":
+        return ti.tiff_bytes(flt, 32, sample_format=3, big=True,
+                             offset_type=16), None
+    if name == "float_2048_pred3_zstd.tif":
+        return ti.tiff_bytes(flt, 32, sample_format=3, compression=50000,
+                             predictor=3, rows_per_strip=256), None
+    if name == "normal_1024_big.tif":
+        return ti.tiff_bytes(px, 8, compression=8, rows_per_strip=128,
+                             big=True, offset_type=16), None
+    if name == "rgb16_1024_planar.tif":
+        return ti.tiff_bytes(px.astype(np.int64) * 257, 16, planar=2,
+                             rows_per_strip=256), None
+    data = ti.tiff_bytes(grey12, 12, compression=5 if name.endswith(
+        "_lzw.tif") else 1, rows_per_strip=64)
+    return data, grey_rgba(grey12[..., 0] >> 4)
+
+
+def tiff_float_big_map_digests() -> dict:
+    """{map: {"file_sha256", "rgba_sha256", "shape", "of"}} of each of
+    ``TIFF_FLOAT_BIG_MAPS``: the sha256 of its file and of PIL's
+    ``convert("RGBA")`` of it (of the top-8-bit image for the 12-bit
+    maps)."""
+    ti = _images_module()
+    out = {}
+    for name in TIFF_FLOAT_BIG_MAPS:
+        data, high = tiff_float_big_map(name)
+        rgba = ti.pil_rgba8(data) if high is None else high
+        out[name] = {"file_sha256": hashlib.sha256(data).hexdigest(),
+                     "rgba_sha256": hashlib.sha256(
+                         rgba.tobytes()).hexdigest(),
+                     "shape": list(rgba.shape),
+                     "of": 'PIL 12.1 convert("RGBA")' if high is None
+                     else TOP_12_BITS}
+    return out
+
+
+def tiff_float_big_files(small: np.ndarray) -> dict:
+    """{name: (file, the RGBA8 of the port's named deviation or None)}:
+    13x9 files (the top-left corner of ``small``) of the TIFFs
+    scientific and GIS tools write: PIL's mode F file under Adobe Deflate
+    with the floating-point predictor, a big-endian one under LZW in
+    16x16 tiles, PIL's uncompressed RGB BigTIFF, an RGB BigTIFF under
+    Deflate in 16x16 tiles with LONG8 offsets, uncompressed 12-bit grey
+    (its digest the top-8-bit image) and uncompressed separate 16-bit RGB
+    planes in two strips each."""
+    from PIL import Image
+    ti = _images_module()
+    px = np.ascontiguousarray(small[:9, :13])
+    flt = px[..., 1:2].astype(np.float32) * np.float32(1.25) - np.float32(
+        30.5)
+    flt[2, 3] = np.nan
+    grey12 = px[..., :1].astype(np.int64) << 4 | px[..., 1:2] >> 4
+
+    def pil_file(img, **save):
+        out = io.BytesIO()
+        img.save(out, "TIFF", **save)
+        return out.getvalue()
+
+    return {
+        "small_pred3.tif": (pil_file(Image.fromarray(flt[..., 0]),
+                                     compression="tiff_adobe_deflate",
+                                     tiffinfo={317: 3}), None),
+        "small_pred3_be_tiles.tif": (ti.tiff_bytes(
+            flt, 32, sample_format=3, compression=5, predictor=3,
+            order=">", tile=(16, 16)), None),
+        "small_big.tif": (pil_file(Image.fromarray(px), big_tiff=True),
+                          None),
+        "small_big_deflate_tiles.tif": (ti.tiff_bytes(
+            px, 8, compression=8, tile=(16, 16), big=True, offset_type=16),
+            None),
+        "grey12.tif": (ti.tiff_bytes(grey12, 12),
+                       grey_rgba(grey12[..., 0] >> 4)),
+        "small_planar16.tif": (ti.tiff_bytes(
+            px.astype(np.int64) * 257 + 3, 16, planar=2, rows_per_strip=5),
+            None),
+    }
+
+
 def mixed_rgb(n: int = 256, noisy: int = 64) -> np.ndarray:
     """[n, n, 3] uint8: :func:`normal_map`'s bumps above ``noisy`` rows of
     hashed bytes (smooth rows and noise, for blocks of both kinds)."""
@@ -2318,6 +2431,11 @@ def fixtures():
     # FLI/FLC and IPTC
     for name, data in fli_pcd_iptc_files(small).items():
         out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
+    # BigTIFF, the floating-point predictor, 12-bit grey, 16-bit planes
+    for name, (data, high) in tiff_float_big_files(small).items():
+        out[name] = (data, ti.pil_rgba8(data) if high is None else high,
+                     'PIL 12.1 convert("RGBA")' if high is None else
+                     TOP_12_BITS)
     # PIL's JPEG 2000 files under its save options
     for name in J2K_OPTION_FILES:
         data = j2k_option_file(name)
@@ -2352,6 +2470,10 @@ def main() -> int:
         f.write("\n")
     with open(os.path.join(OUT, "fli_pcd_iptc_map_digests.json"), "w") as f:
         json.dump(fli_pcd_iptc_map_digests(), f, indent=1, sort_keys=True)
+        f.write("\n")
+    with open(os.path.join(OUT, "tiff_float_big_map_digests.json"),
+              "w") as f:
+        json.dump(tiff_float_big_map_digests(), f, indent=1, sort_keys=True)
         f.write("\n")
     return 0
 
