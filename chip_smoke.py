@@ -99,12 +99,14 @@ through its kernels and made a healthy image:
   frame is BRUN and a 768x512 PhotoCD normal map made on the machine
   (``fli-pcd``), then with a 2048x2048 float roughness map under Adobe
   Deflate and the floating-point predictor and a 1024x1024 RGB BigTIFF
-  normal map under Deflate made on the machine (``tiff-float-big``), 16
-  samples each through ``"hier"`` (K3, K2, threefry),
+  normal map under Deflate made on the machine (``tiff-float-big``),
+  then with a 2048x2048 CIELab TIFF roughness map under LZW and a
+  1024x1024 RLE CIELab PSD normal map made on the machine (``cielab``),
+  16 samples each through ``"hier"`` (K3, K2, threefry),
   each texture table on the card bitwise the host decode, timed in turns
   against the checker session (``tiff-lzma-zstd``, ``fits-pixar``,
-  ``sun-xpm``, ``fli-pcd`` and ``tiff-float-big`` by their drives
-  alone); the raw-decoder maps made there
+  ``sun-xpm``, ``fli-pcd``, ``tiff-float-big`` and ``cielab`` by their
+  drives alone); the raw-decoder maps made there
   (2048x2048 FITS at BITPIX 8, 16 and -32 and as GZIP_1 tiles, a 2-byte
   McIDAS and a SPIDER file, a 1024x1024 PIXAR and a DCX of a 1024x1024
   PCX page) and the X11 and Sun bitmaps (2048x2048 Sun rasters at 8 bits
@@ -117,11 +119,14 @@ through its kernels and made a healthy image:
   float maps under the floating-point predictor with Adobe Deflate and
   with ZSTD and as an uncompressed BigTIFF, a 1024x1024 RGB BigTIFF under
   Deflate, 2048x2048 12-bit grey maps uncompressed and under LZW, a
-  1024x1024 uncompressed map of separate 16-bit RGB planes), each file
+  1024x1024 uncompressed map of separate 16-bit RGB planes) and the
+  CIELab maps (the two above, a 2048x2048 uncompressed BigTIFF in tiles
+  made there and PIL's committed 2048x2048 JPEG TIFF), each file
   and its decode held
   to the digests recorded with PIL (the 16-bit ones to the high-byte
   image of the named deviation, the 12-bit ones to their top 8 bits),
-  the decodes timed;
+  the decodes timed, and LittleCMS's Lab to sRGB table built there and
+  held to the digest of lcms's own, the conversion alone timed;
   ``write_image``'s JPEG,
   BMP, DIB, TIFF, PPM, TGA, GIF, IM, SGI, PCX, WebP, QOI, DDS, EPS, MPO
   and PDF files of a 37x29 and a 3840x2160 image held to the digests of
@@ -1334,12 +1339,15 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       (``fli-pcd``), then with the 2048x2048 predictor-3 float map and
       the 1024x1024 RGB BigTIFF of
       ``make_torch_fixtures.TIFF_FLOAT_BIG_MAPS`` made here
-      (``tiff-float-big``), through ``"hier"``: the texture table on the
-      card bitwise the host decode, ``spp`` samples counted through K3, K2
+      (``tiff-float-big``), then with the 2048x2048 LZW CIELab TIFF and
+      the 1024x1024 RLE CIELab PSD of ``make_torch_fixtures.CIELAB_MAPS``
+      made here (``cielab``), through ``"hier"``: the texture table on the
+      card bitwise the host decode (alpha included: 0 for the PSD, as
+      PIL gives it), ``spp`` samples counted through K3, K2
       and threefry (each drive's ms a sample on the host's clock), then ms
       per sample in turns against the checker-map session (all but
-      ``tiff-lzma-zstd``, ``fits-pixar``, ``sun-xpm``, ``fli-pcd`` and
-      ``tiff-float-big``, which only their drives time);
+      ``tiff-lzma-zstd``, ``fits-pixar``, ``sun-xpm``, ``fli-pcd``,
+      ``tiff-float-big`` and ``cielab``, which only their drives time);
     - the raw-decoder maps of ``make_torch_fixtures.RASTER_MAPS`` made
       here (2048x2048 FITS at BITPIX 8, 16 and -32 and as GZIP_1 tiles,
       a 2-byte McIDAS and a SPIDER file, a 1024x1024 PIXAR and a DCX whose
@@ -1371,6 +1379,15 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       ``tests/torch_data/tiff_float_big_map_digests.json`` (PIL's decode,
       or for the 12-bit maps the top-8-bit image of the named deviation),
       the decodes timed (median of ``decodes``);
+    - LittleCMS's Lab to sRGB table built here (timed) and held to the
+      digest of lcms's own table, and the CIELab maps of
+      ``make_torch_fixtures.CIELAB_MAPS`` (a 2048x2048 TIFF under LZW with
+      predictor 2 in 64-row strips, a 1024x1024 RLE PSD, a 2048x2048
+      uncompressed BigTIFF in 256x256 tiles, all made here, and PIL's
+      committed 2048x2048 JPEG TIFF), each file and its decode held to
+      ``tests/torch_data/cielab_map_digests.json`` (PIL's decode), the
+      decodes and the conversion alone of a 2048x2048 map's samples timed
+      (median of ``decodes``);
     - ``write_image`` of the 37x29 fixture image and a procedural
       3840x2160 one, as L and RGB, under every extension written byte for
       byte, each file held to the digest of PIL's
@@ -1401,10 +1418,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
       rate rather than run.
 
     Returns the launches of each kernel over the driven sessions."""
-    from pathtracing_spectrum_tpu_torch.utils import (gif, image, jpeg,
-                                                      jpeg2000, obj_loader,
-                                                      scene_io, spectral_io,
-                                                      webp)
+    from pathtracing_spectrum_tpu_torch.utils import (cielab, gif, image,
+                                                      jpeg, jpeg2000,
+                                                      obj_loader, scene_io,
+                                                      spectral_io, webp)
     from pathtracing_spectrum_tpu_torch.preview import preview_render
     # TIFF compression 34925 reads through Python's lzma (liblzma): a
     # Python built without it fails here
@@ -1553,6 +1570,43 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
             check(file_same, f"{name}: the file is not the one PIL decoded")
             check(same, f"{name}: the decode is not its recorded digest")
 
+    # CIELab: LittleCMS's table built here and held to the digest of
+    # lcms's own (recorded with PIL's library), the maps made here (the
+    # JPEG one committed) held to PIL's digests and their decodes timed,
+    # then the conversion alone on the 2048x2048 map's samples
+    with open(os.path.join(FILES_DIR, "cielab_map_digests.json")) as f:
+        lab_digests = json.load(f)
+    cielab.table.cache_clear()
+    t0 = time.perf_counter()
+    table_same = cielab.table_digest() == lab_digests["table"]["sha256"]
+    say("files", cielab_table=lab_digests["table"]["shape"],
+        digest_of=lab_digests["table"]["of"], digest_equal=table_same,
+        build_ms=1e3 * (time.perf_counter() - t0), clock="host",
+        card=repr(card))
+    check(table_same, "the Lab to sRGB table is not LittleCMS's")
+    check(sorted(lab_digests["maps"]) == sorted(fixtures.CIELAB_MAPS),
+          "cielab_map_digests.json names other maps than CIELAB_MAPS")
+    for name, want in sorted(lab_digests["maps"].items()):
+        data = fixtures.cielab_map(name)
+        path = os.path.join(maps_dir.name, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        file_same = hashlib.sha256(data).hexdigest() == want["file_sha256"]
+        rgba = image.load_rgba8(path)
+        same = (list(rgba.shape) == want["shape"] and hashlib.sha256(
+            rgba.tobytes()).hexdigest() == want["rgba_sha256"])
+        ms, med = median_ms(lambda: image.load_rgba8(path))
+        say("files", cielab_map=name, bytes=len(data),
+            file_digest_equal=file_same, shape=list(rgba.shape),
+            digest_of=want["of"], digest_equal=same, runs=decodes, ms=ms,
+            median_ms=med, clock="host", card=repr(card))
+        check(file_same, f"{name}: the file is not the one PIL decoded")
+        check(same, f"{name}: the decode is not its recorded digest")
+    lab = fixtures.roughness_map(2048) ^ np.array([0, 128, 128], np.uint8)
+    ms, med = median_ms(lambda: cielab.lab_rgba(lab, 255))
+    say("files", cielab_conversion=list(lab.shape), route="host C++",
+        runs=decodes, ms=ms, median_ms=med, clock="host", card=repr(card))
+
     maps = {"jpeg": ("roughness_2048_prog420.jpg", "normal_1024_444.jpg"),
             "jpeg-flavours": ("roughness_2048_ycck_arith_prog.jpg",
                               "normal_1024_cmyk_arith.jpg"),
@@ -1595,7 +1649,10 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
                                           "normal_768x512.pcd")),
             "tiff-float-big": tuple(os.path.join(maps_dir.name, name)
                                     for name in ("roughness_2048_pred3.tif",
-                                                 "normal_1024_big.tif"))}
+                                                 "normal_1024_big.tif")),
+            "cielab": tuple(os.path.join(maps_dir.name, name)
+                            for name in ("roughness_2048_lab_lzw.tif",
+                                         "normal_1024_lab_rle.psd"))}
     for name in [rough for rough, _ in maps.values()] + [
             maps["jpeg-flavours"][1], maps["webp"][1], maps["sgi-pcx"][1],
             maps["tiff-cmyk-ycbcr"][1], maps["tiff-jpeg-ccitt"][1],
@@ -1646,7 +1703,8 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
     # the BC6H and BC7 DDS maps and the FTEX and BLP maps and the lossy
     # JPEG 2000 maps and the ZSTD and LZMA TIFF maps and the FITS and PIXAR
     # maps and the run-length SUN and RGB XPM maps and the BRUN FLC and
-    # PhotoCD maps, each counted through K3, K2 and threefry
+    # PhotoCD maps and the predictor-3 and BigTIFF maps and the CIELab
+    # TIFF and PSD maps, each counted through K3, K2 and threefry
     launches = {}
     sessions = {}
     for kind, (rough, normal) in maps.items():
@@ -1688,7 +1746,7 @@ def files_phase(torch, pt, dev, card, counts, zero_counts, sess_4k,
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         if kind not in ("tiff-lzma-zstd", "fits-pixar", "sun-xpm",
-                        "fli-pcd", "tiff-float-big"):
+                        "fli-pcd", "tiff-float-big", "cielab"):
             sessions[kind] = sess_m   # (the others timed by their drives)
         del img_m, sess_m
     sessions["checker"] = pt.RenderSession(textured_sphere_scene(pt, res),

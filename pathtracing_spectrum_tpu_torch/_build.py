@@ -23,8 +23,9 @@ Two shared libraries, each built into ``build/`` next to this file
   GIF quantiser and LZW encoder ``csrc/gif_encode.cpp`` and the JPEG
   2000 decoder ``csrc/j2k_decode.cpp`` and encoder ``csrc/j2k_encode.cpp``
   (with their shared tables and forward 5/3 transform
-  ``csrc/j2k_common.h``) and the FLI/FLC frame decoder
-  ``csrc/fli_decode.cpp``.
+  ``csrc/j2k_common.h``), the FLI/FLC frame decoder
+  ``csrc/fli_decode.cpp`` and LittleCMS's Lab to sRGB interpolation
+  ``csrc/lab_srgb.cpp``.
 
 Each file name carries a hash of its sources and flags, so a changed source
 is always rebuilt and a stale library is never loaded. Processes that need
@@ -63,7 +64,8 @@ HOST_SOURCES = (_CSRC / "bvh_build.cpp", _CSRC / "host_io.cpp",
                 _CSRC / "fax_decode.cpp", _CSRC / "qoi.cpp",
                 _CSRC / "bcn_decode.cpp", _CSRC / "resample.cpp",
                 _CSRC / "j2k_encode.cpp", _CSRC / "j2k_decode.cpp",
-                _CSRC / "zstd_decode.cpp", _CSRC / "fli_decode.cpp")
+                _CSRC / "zstd_decode.cpp", _CSRC / "fli_decode.cpp",
+                _CSRC / "lab_srgb.cpp")
 HOST_HEADERS = (_CSRC / "jpeg_std_tables.h", _CSRC / "vp8_common.h",
                 _CSRC / "j2k_common.h")
 BUILD_DIR = _HERE / "build"
@@ -146,6 +148,7 @@ _HOST_SIGNATURES = {
     "pts_j2k_copy": ([_V, _V], None),
     "pts_j2k_free": ([_V], None),
     "pts_fli_decode": ([_V, _I64, _I32, _I32, _V], _I32),
+    "pts_lab_srgb": ([_V, _V, _I64, _I32, _V], None),
 }
 
 
@@ -282,7 +285,8 @@ def load_host() -> ctypes.CDLL:
     JPEG decoder and encoder, the LZW, PackBits, SGI RLE, PCX RLE, BMP RLE,
     ICNS RLE, CCITT and Zstandard decoders, the QOI decoder and encoder, the DDS block decoder,
     the resampler, the WebP decoder and encoder, the GIF encoder and the
-    JPEG 2000 decoder and encoder and the FLI/FLC decoder. Raises with the
+    JPEG 2000 decoder and encoder, the FLI/FLC decoder and the Lab to
+    sRGB interpolation. Raises with the
     compiler's output when it cannot be built: none of them has a
     fallback."""
     if _Library.host is not None:

@@ -124,12 +124,19 @@ output equals PIL's ``convert("RGBA")`` divided by 255, bit for bit:
   at subsampling (1, 1) through libtiff 4.7's RGBA reader (its
   ``TIFFYCbCrToRGBInit`` tables under the file's YCbCrCoefficients and
   ReferenceBlackWhite), uncompressed raw as PIL reads it (4 bytes a pixel
-  as RGB, or the planes as R, G and B); fill order 2;
+  as RGB, or the planes as R, G and B); CIELab (photometric 8, three
+  8-bit samples, no extra samples) under every compression above, JPEG's
+  samples as stored (libtiff's JCS_UNKNOWN), a* and b* read signed as
+  PIL's ``LAB`` unpacker reads them (as stored in separate planes,
+  through its band unpackers), then converted as LittleCMS 2.17 converts
+  them for PIL (``utils/cielab.py``: its 33x33x33 table and tetrahedral
+  interpolation, the host library's ``csrc/lab_srgb.cpp``); fill order 2;
 - PSD, the merged image PIL shows before any ``seek``: raw or RLE
   (PackBits rows, as PIL's decoder drops what a packet holds past a row),
   bitmap (a set bit white, as PIL reads it), grey, multichannel and
-  duotone (the first channel), indexed, RGB (a 4th channel is alpha) and
-  CMYK (stored inverted, PIL's ``cmyk2rgb``) at 8 bits;
+  duotone (the first channel), indexed, RGB (a 4th channel is alpha),
+  CMYK (stored inverted, PIL's ``cmyk2rgb``) and CIELab (a* and b* as
+  stored, converted as for TIFF) at 8 bits;
 - SGI: the 8 modes of PIL's table (L, RGB and RGBA at 1 or 2 bytes a
   sample, the high byte kept as PIL keeps it), verbatim or RLE (the host
   library's expansion, ``utils/codecs.py``, as PIL's SgiRleDecode.c
@@ -243,6 +250,14 @@ row's second half in the row below, rows a tile's width apart (past the
 image's right edge, PIL's stride); under a letter that is no band
 (``RGBX;16L``'s ``X``, ``RGBa;16L``'s ``a``) the file is None.
 
+Copied, not fixed: a CIELab file's alpha is the fourth byte of PIL's
+``LAB`` pixel, which LittleCMS passes through: 255 for a TIFF, whose
+``LAB`` unpacker writes it, and 0 for a PSD and for a TIFF of separate
+planes, whose band unpackers ``L``, ``A`` and ``B`` leave PIL's zeroed
+image memory; a fourth PSD channel does not change it (PIL reads three
+channels for ``LAB``). White (L* 100, a* = b* = 0) is (254, 255, 254)
+and black (1, 0, 1), as lcms gives them.
+
 A missing file, a file no PIL plugin opens (an HTML page saved as
 ``.png``, zeros, noise), and a broken file of a format decoded here (a
 bad checksum, truncated data, a header or mode PIL refuses, more pixels
@@ -260,9 +275,9 @@ two entries as ``1``), plain-text PNM (P1-P3) and PIL's test extensions
 (``P0CMYK``, ``PyP``, ``PyRGBA``, ``PyCMYK``), old-style JPEG-in-TIFF
 (compression 6), JPEG-in-TIFF in separate planes, CCITT RLEW (32771),
 YCbCr TIFF at other subsampling than (1, 1) or turned by its orientation
-(JPEG-compressed YCbCr apart), uncompressed YCbCr TIFF tiles, CIELab
-TIFF, old-style LZW, 12-bit JPEG-in-TIFF, CIELab PSD, the IM image types PIL's
-writer does not make, JPEG 2000 (in an ICNS entry too)
+(JPEG-compressed YCbCr apart), uncompressed YCbCr TIFF tiles, TIFF
+tiles that end inside a byte, old-style LZW, 12-bit JPEG-in-TIFF, the IM
+image types PIL's writer does not make, JPEG 2000 (in an ICNS entry too)
 with tile-parts, code-block styles, SOP or EPH markers, COC, QCC, RGN,
 POC, PPM or PPT markers, samples of other than 8 bits, subsampled
 components, a colour space other than grey or sRGB, a palette or
@@ -403,8 +418,8 @@ import zlib
 
 import numpy as np
 
-from . import (bitmaps, codecs, fli_pcd_iptc, gif, jpeg, jpeg2000, rasters,
-               resample, webp)
+from . import (bitmaps, cielab, codecs, fli_pcd_iptc, gif, jpeg, jpeg2000,
+               rasters, resample, webp)
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples per pixel, allowed bit depths)
@@ -1838,8 +1853,6 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                        f"({_TIFF_REFUSED[compression]})")
     if compression not in _TIFF_COMPRESSIONS:
         raise _Unreadable(f"compression {compression}")
-    if mode == "LAB":
-        raise _Refused("CIELab")
     orientation = g(274, (1,))[0]     # PIL's exif_transpose, at the end
     ycbcr, lib_big = None, big
     if compression != 1:
@@ -2006,10 +2019,20 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                else samples[0])
     if ycbcr is not None:             # (at orientation 1 only)
         return _libtiff_ycbcr_rgba(samples, *ycbcr)
-    rgba = _tiff_rgba(samples, mode, photo, bits, extra, tags.get(320))
+    if mode == "LAB":
+        # PIL's LAB unpacker reads a* and b* as signed and sets the fourth
+        # byte (alpha) to 255; for separate planes its band unpackers L, A
+        # and B copy the bytes as stored and leave the fourth byte zero
+        rgba = (cielab.lab_rgba(samples, 0) if planar == 2 else
+                cielab.lab_rgba(samples ^ _LAB_SIGNED, 255))
+    else:
+        rgba = _tiff_rgba(samples, mode, photo, bits, extra, tags.get(320))
     return np.ascontiguousarray(
         _EXIF_TRANSPOSE.get(orientation, lambda a: a)(rgba))
 
+
+# PIL's LAB unpacker's XOR of a TIFF CIELab pixel: a* and b* signed
+_LAB_SIGNED = np.array([0, 128, 128], np.uint8)
 
 # PIL's TIFF load_end runs ImageOps.exif_transpose: the Orientation tag's
 # Image.Transpose method, as numpy views of [H, W, 4]
@@ -2275,9 +2298,9 @@ def _decode_psd(data: bytes) -> np.ndarray:
     before any ``seek``: raw or RLE (PackBits rows) channels, the colour
     modes PIL reads at 8 bits (bitmap and grey, multichannel and duotone
     as their first channel, indexed, RGB with a 4th channel as alpha, CMYK
-    stored inverted) and bitmap at 1 bit, read as PIL reads it (a set bit
-    is white); colour mode data, resources and layers skipped by their
-    lengths."""
+    stored inverted, CIELab) and bitmap at 1 bit, read as PIL reads it (a
+    set bit is white); colour mode data, resources and layers skipped by
+    their lengths."""
     if len(data) < 26:
         raise _Unreadable("truncated PSD header")
     version, channels, height, width, bits, cmode = struct.unpack_from(
@@ -2289,8 +2312,6 @@ def _decode_psd(data: bytes) -> np.ndarray:
     mode, n = _PSD_MODES[(cmode, bits)]
     if n > channels:
         raise _Unreadable("not enough channels")
-    if mode == "LAB":
-        raise _Refused("CIELab")
     if mode == "RGB" and channels == 4:
         mode, n = "RGBA", 4
     pos = 26
@@ -2347,6 +2368,8 @@ def _decode_psd(data: bytes) -> np.ndarray:
         out = lut[px[..., 0]]
     elif mode == "CMYK":          # stored inverted, as JPEG's
         out = jpeg.inverted_cmyk_rgba(px)
+    elif mode == "LAB":           # PIL's band unpackers: a*, b* as stored,
+        out = cielab.lab_rgba(px, 0)    # the fourth byte left zero
     else:
         out[..., :n] = px[..., :n]
     return out

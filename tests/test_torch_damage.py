@@ -5,7 +5,8 @@ thumbnail and DCX files, and Sun rasters (raw, palette, run-length),
 GIMP brushes, MSP (``DanM``, ``LinS``), XBM and XPM files, and FLI and
 FLC animations and IPTC records (raw, a band, a JPEG inside), and
 BigTIFFs, predictor-3 float, 12-bit grey and separate 16-bit plane
-TIFFs, each of them small enough for a case at nearly every byte) and
+TIFFs, and a CIELab LZW TIFF and RLE PSD, each of them small enough for
+a case at nearly every byte) and
 ``assets/checker.png`` cut short and with single
 bits flipped. Both must give None (PIL raises), or the same
 image bit for bit. One test per fixture and kind of damage, looping over

@@ -676,7 +676,8 @@ def _refused():
         "CCITT RLEW TIFF": pil("TIFF", "1", compression="tiff_raw_16"),
         "YCbCr LZW TIFF subsampled 2x2": ti.tiff_bytes(
             x, photometric=6, compression=5, extra_tags=((530, 3, [2, 2]),)),
-        "CIELab PSD": ti.psd_bytes(np.moveaxis(x, -1, 0), 9),
+        "TIFF of 1-bit tiles that end inside a byte": ti.tiff_bytes(
+            x[..., :1] >> 7, 1, tile=(4, 16)),
         "AVIF writer": ".avif",
         # JPEG 2000 files PIL reads and the decoder refuses (every save
         # option of PIL's but the cinema profiles is decoded)

@@ -216,7 +216,7 @@ def test_host_library_is_built_from_the_port_sources_with_jax_flags():
                        "gif_encode.cpp", "webp_encode.cpp", "fax_decode.cpp",
                        "qoi.cpp", "bcn_decode.cpp", "resample.cpp",
                        "j2k_encode.cpp", "j2k_decode.cpp", "zstd_decode.cpp",
-                       "fli_decode.cpp"}
+                       "fli_decode.cpp", "lab_srgb.cpp"}
     assert {p.name for p in _build.HOST_HEADERS} == {"jpeg_std_tables.h",
                                                      "vp8_common.h",
                                                      "j2k_common.h"}

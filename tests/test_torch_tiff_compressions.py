@@ -10,8 +10,8 @@ states it.
 - PIL's LZMA and ZSTD files in every mode it saves (1, L, LA, P, PA, RGB,
   RGBA, CMYK, YCbCr, I, F) at 53x37 and 190x150 (several strips), with
   and without predictor 2 (libtiff takes no predictor at 1 bit); 16-bit
-  grey is the named high-byte deviation, CIELab refused by name; LA as
-  JPEG at two sizes and qualities.
+  grey is the named high-byte deviation, CIELab read as JAX; LA as JPEG
+  at two sizes and qualities.
 - ZSTD strips made by ``zstandard`` (libzstd 1.5.7, the library PIL's
   libtiff uses) and wrapped by ``torch_images.tiff_bytes``: levels -5 to
   22 in one- and two-block strips, long mode, content sizes and
@@ -103,12 +103,12 @@ def test_16bit_grey_is_the_named_deviation(codec, predictor, tmp_path):
 
 @pytest.mark.parametrize("codec", CODECS)
 def test_cielab_is_refused_by_name(codec, tmp_path):
-    path = tmp_path / "lab.tif"
-    path.write_bytes(tiff(Image.fromarray(ti.smooth_rgb(3, 9, 7)).convert(
-        "LAB"), codec))
-    assert jimage.load_rgba(str(path)) is not None
-    with pytest.raises(NotImplementedError, match="CIELab"):
-        image.load_rgba(str(path))
+    """PIL's CIELab TIFF under each codec reads as the JAX package reads it
+    (named for the refusal it held until ``utils/cielab.py``;
+    ``tests/test_torch_cielab.py`` holds the rest)."""
+    got = held(tmp_path, "lab.tif", tiff(Image.fromarray(
+        ti.smooth_rgb(3, 9, 7)).convert("LAB"), codec))
+    assert (got[..., 3] == 255).all()
 
 
 @pytest.mark.parametrize("quality", [40, 95])

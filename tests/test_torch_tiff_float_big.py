@@ -582,11 +582,12 @@ def test_planar_16bit_with_a_strip_past_the_last_plane_is_none(tmp_path):
 # ---- still refused -------------------------------------------------------------
 
 def _still_refused():
-    lab = pil_tiff(Image.fromarray(RGB).convert("LAB"))
     return {
-        "CIELab": (lab, "CIELab"),
-        "CIELab BigTIFF, LZW": (ti.bigtiff_of(pil_tiff(Image.fromarray(
-            RGB).convert("LAB"), compression="tiff_lzw")), "CIELab"),
+        "1-bit tiles that end inside a byte": (ti.tiff_bytes(
+            RGB[..., :1] >> 7, 1, tile=(4, 16)), "inside a byte"),
+        "4-bit tiles that end inside a byte, BigTIFF, Deflate": (
+            ti.tiff_bytes(RGB[..., :1] >> 4, 4, compression=8, tile=(3, 16),
+                          big=True), "inside a byte"),
         "old-style LZW": (ti.tiff_bytes(RGB, compression=5, chunks=[
             b"\x00\x01" + bytes(30)]), "old-style LZW"),
         "old-style JPEG BigTIFF": (ti.tiff_bytes(

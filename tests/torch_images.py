@@ -12,7 +12,9 @@ and RLE, every 8-bit colour mode PIL reads; PIL writes no PSD) and WebP
 ALPH chunks rewritten by hand), and JPEG files from PIL's own libjpeg for
 what PIL's encoder does not write (CMYK and YCCK, arithmetic coding,
 sampling per component, DAC values, lossless: ``libjpeg_bytes``, its C
-source ``tests/libjpeg_write.c``). Shared by
+source ``tests/libjpeg_write.c``), and PIL's own LittleCMS's Lab to sRGB
+table and PIL's conversion of Lab samples (``lcms_table``,
+``pil_lab_rgba8``). Shared by
 ``tests/test_torch_formats.py``, ``tests/test_torch_textures.py``,
 ``tests/test_torch_scene.py``, ``tests/test_torch_image_write.py`` and
 ``tools/make_torch_fixtures.py``; jax-free, and PIL is imported only by the
@@ -1101,3 +1103,69 @@ def libjpeg_bytes(pixels: np.ndarray, colorspace: str = "ycbcr",
     data = C.string_at(out, size)
     lib.pts_free(out)
     return data
+
+
+# ---- CIELab -------------------------------------------------------------------
+
+# lcms's pixel formats: COLORSPACE_SH(PT_Lab / PT_RGB) | CHANNELS_SH(3) |
+# BYTES_SH(2), and cmsFLAGS_NOOPTIMIZE
+_TYPE_LAB_16 = 10 << 16 | 3 << 3 | 2
+_TYPE_RGB_16 = 4 << 16 | 3 << 3 | 2
+_NOOPTIMIZE = 0x0100
+
+
+def lcms_table() -> np.ndarray:
+    """[33, 33, 33, 3] uint16: PIL's bundled LittleCMS (2.17) through
+    ctypes, Lab to sRGB as PIL's profiles make it
+    (``cmsCreateLab2Profile(NULL)``, ``cmsCreate_sRGBProfile()``,
+    perceptual intent) with no optimisation, ``TYPE_Lab_16`` to
+    ``TYPE_RGB_16``, at the grid nodes lcms samples its optimised
+    transform at (``floor(i * 65535 / 32 + 0.5)``), indexed (L, a, b)."""
+    import ctypes as C
+    import glob
+    import os
+
+    import PIL
+    from PIL import ImageCms  # noqa: F401  (loads lcms's dependencies)
+    found = glob.glob(os.path.join(os.path.dirname(PIL.__file__), "..",
+                                   "pillow.libs", "liblcms2-*.so*"))
+    lib = C.CDLL(found[0])
+    v = C.c_void_p
+    lib.cmsCreateLab2Profile.restype = v
+    lib.cmsCreateLab2Profile.argtypes = [v]
+    lib.cmsCreate_sRGBProfile.restype = v
+    lib.cmsCreateTransform.restype = v
+    lib.cmsCreateTransform.argtypes = [v, C.c_uint32, v, C.c_uint32,
+                                       C.c_uint32, C.c_uint32]
+    lib.cmsDoTransform.argtypes = [v, v, v, C.c_uint32]
+    lib.cmsDeleteTransform.argtypes = [v]
+    lib.cmsCloseProfile.argtypes = [v]
+    nodes = np.floor(np.arange(33) * 65535 / 32 + 0.5).astype(np.uint16)
+    grid = np.ascontiguousarray(np.stack(np.meshgrid(
+        nodes, nodes, nodes, indexing="ij"), -1).reshape(-1, 3))
+    out = np.empty_like(grid)
+    lab, srgb = lib.cmsCreateLab2Profile(None), lib.cmsCreate_sRGBProfile()
+    xform = lib.cmsCreateTransform(lab, _TYPE_LAB_16, srgb, _TYPE_RGB_16, 0,
+                                   _NOOPTIMIZE)
+    try:
+        lib.cmsDoTransform(xform, grid.ctypes.data, out.ctypes.data,
+                           grid.shape[0])
+    finally:
+        lib.cmsDeleteTransform(xform)
+        lib.cmsCloseProfile(lab)
+        lib.cmsCloseProfile(srgb)
+    return out.reshape(33, 33, 33, 3)
+
+
+def pil_lab_rgba8(lab: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("RGBA")`` of [..., 3] uint8 L*, a*, b* samples (a*
+    and b* with 128 as zero, as lcms takes them), as [..., 4] uint8: an
+    image of mode ``LAB`` through its ``LAB`` raw mode (a* and b* given
+    signed), so alpha is 255."""
+    from PIL import Image
+    flat = np.ascontiguousarray(lab, np.uint8).reshape(-1, 3)
+    n = flat.shape[0]
+    raw = flat ^ np.array([0, 128, 128], np.uint8)
+    rgba = np.asarray(Image.frombytes("LAB", (n, 1), raw.tobytes()).convert(
+        "RGBA"))
+    return rgba.reshape(lab.shape[:-1] + (4,))

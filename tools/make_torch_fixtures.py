@@ -150,7 +150,13 @@ Fixtures (all content procedural, from fixed seeds):
   ``small_rle.ras``, ``small_pal.ras``, ``small_24.ras``,
   ``small_32_rle.ras``, ``small_1.ras``, ``small_v1.gbr``,
   ``small_v2.gbr``, ``small.msp`` (PIL's), ``small_rle.msp``,
-  ``small.xbm`` (PIL's) and ``small.xpm``.
+  ``small.xbm`` (PIL's) and ``small.xpm``;
+- CIELab at 13x9 (:func:`cielab_files`): ``small_lab_lzw.tif`` (PIL's
+  LZW TIFF of mode LAB) and ``small_lab_rle.psd`` (colour mode 9, RLE);
+  and ``lab_2048_jpeg.tif`` (:func:`cielab_jpeg_map`, PIL's JPEG TIFF of
+  mode LAB, one of ``CIELAB_MAPS``), whose digests, with the other
+  ``CIELAB_MAPS`` and LittleCMS's own table, are
+  ``cielab_map_digests.json``.
 
 Run from the repository root: ``python3 tools/make_torch_fixtures.py``.
 """
@@ -2209,6 +2215,90 @@ def tiff_float_big_files(small: np.ndarray) -> dict:
     }
 
 
+# ---- CIELab TIFF and PSD ------------------------------------------------------
+
+CIELAB_MAPS = {"roughness_2048_lab_lzw.tif": (2048, 91),
+               "normal_1024_lab_rle.psd": (1024, 92),
+               "lab_2048_big_tiles.tif": (2048, 93),
+               "lab_2048_jpeg.tif": (2048, 94)}
+# committed under tests/torch_data (PIL's libtiff writes its JPEG stream
+# in libjpeg's JCS_UNKNOWN colour space, which the port's encoder does not)
+CIELAB_COMMITTED = ("lab_2048_jpeg.tif",)
+
+
+def psd_rle_bytes(channels: np.ndarray, mode: int) -> bytes:
+    """A PSD of uint8 ``channels`` [n, h, w] (the merged image) in colour
+    mode ``mode``, its rows RLE (:func:`packbits_rows`, each row coded
+    apart) after the table of their byte counts; no colour mode data,
+    resources or layers."""
+    n, h, w = channels.shape
+    body, row_bytes = packbits_rows(np.ascontiguousarray(channels).reshape(
+        n * h, w))
+    return (b"8BPS" + struct.pack(">H6xHIIHH", 1, n, h, w, 8, mode)
+            + struct.pack(">IIIH", 0, 0, 0, 1)
+            + row_bytes.astype(">u2").tobytes() + body)
+
+
+def cielab_jpeg_map() -> bytes:
+    """PIL's JPEG-compressed CIELab TIFF of :func:`roughness_map`'s bytes
+    as L*, a*, b* (its defaults: quality 75, JPEGTables, 1x1 sampling):
+    ``lab_2048_jpeg.tif``. Needs PIL."""
+    from PIL import Image
+    out = io.BytesIO()
+    Image.frombytes("LAB", (2048, 2048), roughness_map().tobytes()).save(
+        out, "TIFF", compression="jpeg")
+    return out.getvalue()
+
+
+def cielab_map(name: str) -> bytes:
+    """The file of one of ``CIELAB_MAPS``, its bytes stored as L*, a*, b*
+    samples: :func:`roughness_map`'s in a TIFF under LZW with predictor 2
+    in 64-row strips; :func:`procedural_rgb`'s uncompressed in a BigTIFF
+    of 256x256 tiles with LONG8 offsets; :func:`normal_map`'s as the
+    channels of an RLE PSD; the committed JPEG TIFF read from
+    ``tests/torch_data``. Made with numpy and
+    ``tests/torch_images.tiff_bytes`` only, so the card's machine makes
+    the same bytes."""
+    if name in CIELAB_COMMITTED:
+        with open(os.path.join(OUT, name), "rb") as f:
+            return f.read()
+    ti = _images_module()
+    n, seed = CIELAB_MAPS[name]
+    if name.endswith(".psd"):
+        return psd_rle_bytes(np.moveaxis(normal_map(n), -1, 0), 9)
+    if name == "lab_2048_big_tiles.tif":
+        return ti.tiff_bytes(procedural_rgb(n, n, seed), photometric=8,
+                             tile=(256, 256), big=True, offset_type=16)
+    return ti.tiff_bytes(roughness_map(n), photometric=8, compression=5,
+                         predictor=2, rows_per_strip=64)
+
+
+def cielab_map_digests() -> dict:
+    """{"table": the sha256 of LittleCMS's own Lab to sRGB table at the 33
+    grid nodes (``torch_images.lcms_table``, PIL's bundled lcms 2.17),
+    "maps": :func:`pil_map_digests` of ``CIELAB_MAPS``}."""
+    ti = _images_module()
+    table = ti.lcms_table()
+    return {"table": {"sha256": hashlib.sha256(
+                table.astype("<u2").tobytes()).hexdigest(),
+                      "shape": list(table.shape),
+                      "of": "LittleCMS 2.17 (PIL 12.1's), no optimisation, "
+                            "TYPE_Lab_16 to TYPE_RGB_16 at lcms's nodes"},
+            "maps": pil_map_digests(CIELAB_MAPS, cielab_map)}
+
+
+def cielab_files(small: np.ndarray) -> dict:
+    """{name: file}: 13x9 CIELab files of the top-left corner of ``small``
+    (its bytes as L*, a*, b*): PIL's TIFF under LZW, and an RLE PSD."""
+    from PIL import Image
+    px = np.ascontiguousarray(small[:9, :13])
+    out = io.BytesIO()
+    Image.frombytes("LAB", (13, 9), px.tobytes()).save(
+        out, "TIFF", compression="tiff_lzw")
+    return {"small_lab_lzw.tif": out.getvalue(),
+            "small_lab_rle.psd": psd_rle_bytes(np.moveaxis(px, -1, 0), 9)}
+
+
 def mixed_rgb(n: int = 256, noisy: int = 64) -> np.ndarray:
     """[n, n, 3] uint8: :func:`normal_map`'s bumps above ``noisy`` rows of
     hashed bytes (smooth rows and noise, for blocks of both kinds)."""
@@ -2436,6 +2526,9 @@ def fixtures():
         out[name] = (data, ti.pil_rgba8(data) if high is None else high,
                      'PIL 12.1 convert("RGBA")' if high is None else
                      TOP_12_BITS)
+    # CIELab: PIL's LZW TIFF and an RLE PSD
+    for name, data in cielab_files(small).items():
+        out[name] = (data, ti.pil_rgba8(data), 'PIL 12.1 convert("RGBA")')
     # PIL's JPEG 2000 files under its save options
     for name in J2K_OPTION_FILES:
         data = j2k_option_file(name)
@@ -2474,6 +2567,12 @@ def main() -> int:
     with open(os.path.join(OUT, "tiff_float_big_map_digests.json"),
               "w") as f:
         json.dump(tiff_float_big_map_digests(), f, indent=1, sort_keys=True)
+        f.write("\n")
+    for name in CIELAB_COMMITTED:
+        with open(os.path.join(OUT, name), "wb") as f:
+            f.write(cielab_jpeg_map())
+    with open(os.path.join(OUT, "cielab_map_digests.json"), "w") as f:
+        json.dump(cielab_map_digests(), f, indent=1, sort_keys=True)
         f.write("\n")
     return 0
 
